@@ -7,7 +7,10 @@ Mirrors the reference's ``fdbserver/ConflictSet.h:27-60``
   ground truth for differential tests;
 - ``torch`` — the bucket-grid conflict index resident on the CUDA card
   (conflict/torch_backend.py), or its plain PyTorch version on the CPU
-  when built with ``device="cpu"``.
+  when built with ``device="cpu"``;
+- ``torch_mesh`` — the same index split into ``n_parts`` key-range
+  partitions (conflict/mesh_backend.py), a leading axis of one stacked
+  grid on one card; verdicts equal the ``torch`` backend's.
 
 Transaction semantics (reference ``ConflictBatch::addTransaction``
 SkipList.cpp:979 and ``detectConflicts`` SkipList.cpp:1163):
@@ -79,8 +82,9 @@ class ConflictBatch:
 def new_conflict_set(backend: str = "oracle", device=None, **kwargs) -> ConflictSet:
     """The ``newConflictSet()`` factory seam (ConflictSet.h:28).
 
-    ``device`` selects where the ``torch`` backend runs: ``None`` means the
-    CUDA card (and raises without one); ``"cpu"`` runs the plain versions.
+    ``device`` selects where the ``torch`` and ``torch_mesh`` backends run:
+    ``None`` means the CUDA card (and raises without one); ``"cpu"`` runs
+    the plain versions. ``torch_mesh`` takes ``n_parts`` (default 4).
     """
     if backend == "oracle":
         from .oracle import OracleConflictSet
@@ -90,4 +94,8 @@ def new_conflict_set(backend: str = "oracle", device=None, **kwargs) -> Conflict
         from .torch_backend import TorchConflictSet
 
         return TorchConflictSet(device=device, **kwargs)
+    if backend == "torch_mesh":
+        from .mesh_backend import TorchMeshConflictSet
+
+        return TorchMeshConflictSet(device=device, **kwargs)
     raise ValueError(f"unknown conflict-set backend {backend!r}")

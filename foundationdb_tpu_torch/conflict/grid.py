@@ -16,7 +16,10 @@ The MVCC write history is the step function V(key) = version of the gap
 containing key. Per batch: the history check (K1, ``history_conflicts``),
 the intra-batch greedy commit (K2, ``intra_batch_commits``) and the merge
 of committed writes with GC (K3, ``merge_writes``); maintenance is
-``reshard_device`` (K4a) and ``rebase`` (K4b).
+``reshard_device`` (K4a) and ``rebase`` (K4b). ``search_both`` (K5) is the
+storage range index's binary search over a sorted code array. The
+partitioned resolver (``sharded.py``) reuses the staging and merge steps
+over the flat view of a stacked grid.
 
 Every public device function dispatches on the device of its tensors: a
 CUDA tensor launches the hand-written kernel (``conflict/kernels``) and
@@ -99,6 +102,41 @@ def lex_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ~lex_lt(b, a)
 
 
+# ---------------------------------------------------------------------------
+# K5: batched lexicographic binary search (the storage range index)
+
+
+def search_both(codes: torch.Tensor, q: torch.Tensor):
+    """(lo, hi) int32[Q]: ``searchsorted_lex`` of the query rows ``q``
+    [Q, L] over the lex-sorted ``codes`` [P, L], side "left" and side
+    "right" — one kernel launch on the card for both."""
+    if codes.is_cuda:
+        return kernels.search(codes, q)
+    return searchsorted_lex(codes, q, "left"), searchsorted_lex(codes, q, "right")
+
+
+def searchsorted_lex(sorted_arr: torch.Tensor, q: torch.Tensor, side: str) -> torch.Tensor:
+    """Plain version (JAX grid.py:125): the fixed-step binary search.
+
+    side='right': first index with sorted_arr[i] >  q  (#elements <= q)
+    side='left' : first index with sorted_arr[i] >= q  (#elements <  q)
+
+    Like the reference it runs ceil(log2 P) + 1 steps and probes row
+    min(mid, P - 1), so a query above every row of a full power-of-two
+    array ends at P + 1, not P; callers clamp."""
+    P = sorted_arr.shape[0]
+    arr, qo = ordered(sorted_arr), ordered(q)
+    lo = torch.zeros(q.shape[:-1], dtype=_I32, device=q.device)
+    hi = torch.full(q.shape[:-1], P, dtype=_I32, device=q.device)
+    for _ in range(kernels.search_steps(P)):
+        mid = (lo + hi) >> 1
+        row = arr[mid.clamp(max=P - 1).long()]
+        go_right = lex_le(row, qo) if side == "right" else lex_lt(row, qo)
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    return lo
+
+
 def _split_factors(n: int) -> tuple[int, int]:
     """n = B1 * B2 with both powers of two, B1 >= B2."""
     lg = n.bit_length() - 1
@@ -113,16 +151,22 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
 def _rank(points: torch.Tensor, pivots: torch.Tensor, strict: bool) -> torch.Tensor:
     """#(pivots <= point) - 1 (``strict``: #(pivots < point) - 1) per point,
     over ordered lanes; two-level like the JAX ``_rank_le``/``_rank_lt``:
-    rank against every B2-th pivot, then within the landing block."""
+    rank against every B2-th pivot, then within the landing block. Points
+    [N, L] over pivots [B, L], or [P, N, L] over [P, B, L] (each partition
+    against its own pivots)."""
     cmp = lex_lt if strict else lex_le
-    B = pivots.shape[0]
+    B, L = pivots.shape[-2:]
     B1, B2 = _split_factors(B)
     if B2 == 1:
-        return _count(cmp(pivots[None], points[:, None])) - 1
-    pb = pivots.reshape(B1, B2, pivots.shape[-1])
-    s1 = _count(cmp(pb[:, 0][None], points[:, None])) - 1
-    blk = pb[s1.clamp(min=0).long()]
-    s2 = _count(cmp(blk, points[:, None])) - 1
+        return _count(cmp(pivots.unsqueeze(-3), points.unsqueeze(-2))) - 1
+    pb = pivots.reshape(*pivots.shape[:-2], B1, B2, L)
+    s1 = _count(cmp(pb[..., 0, :].unsqueeze(-3), points.unsqueeze(-2))) - 1
+    idx = s1.clamp(min=0).long()
+    if pivots.dim() == 3:
+        blk = pb[torch.arange(pb.shape[0], device=pb.device)[:, None], idx]
+    else:
+        blk = pb[idx]
+    s2 = _count(cmp(blk, points.unsqueeze(-2))) - 1
     return s1 * B2 + s2
 
 
@@ -326,33 +370,44 @@ class Staged(NamedTuple):
     st_code: torch.Tensor  # int32[U, S2, L]; SENTINEL = empty staging slot
     st_ev: torch.Tensor  # int32[U, S2]; aggregated +1/-1 events per code
     tid: torch.Tensor  # int32[U]; touched bucket ids, B = unused slot
-    carry: torch.Tensor  # int32[B]; Σ ev in buckets < b
-    max_staged: torch.Tensor  # int32 scalar
+    carry: torch.Tensor  # int32[B]; Σ ev in buckets < b of b's partition
+    max_staged: torch.Tensor  # int32[P]; most staged rows in a bucket
+
+
+def _write_events(wb: torch.Tensor, we: torch.Tensor, commit: torch.Tensor):
+    """(codes [..., 2W, L], events [..., 2W], ok [..., 2W]) of the committed
+    write ranges' endpoints, begins (+1) then ends (-1); an inactive range's
+    rows are SENTINEL with event 0. ``wb``/``we`` are [..., T, KW, L]."""
+    *lead, T, KW, L = wb.shape
+    W = T * KW
+    ok = (lex_lt(ordered(wb), ordered(we)) & commit[:, None]).reshape(*lead, W)
+    okok = torch.cat([ok, ok], dim=-1)
+    cd = torch.cat([wb.reshape(*lead, W, L), we.reshape(*lead, W, L)], dim=-2)
+    codes = torch.where(okok[..., None], cd, torch.full_like(cd, SENTINEL))
+    evs = torch.cat([ok.to(_I32), -ok.to(_I32)], dim=-1)
+    return codes, evs, okok
 
 
 def _stage_writes(state: GridState, batch: Batch, commit: torch.Tensor) -> Staged:
-    """Torch glue on both paths (JAX grid.py:430-524): rank the write
-    endpoints, sort them by (bucket, code), aggregate equal-code runs into
-    one event each, scatter the run-last rows into [U, S2] staging planes,
-    and carry per-bucket event sums across buckets. Scatters keep the JAX
+    """Torch glue on both paths (JAX grid.py:430-524) for one grid: rank
+    the write endpoints against the pivots, then ``_stage`` them."""
+    B, S, _ = state.grid.shape
+    codes, evs, okok = _write_events(batch.wb, batch.we, commit)
+    bkt = _rank(ordered(codes), ordered(state.pivots), strict=False)
+    bkt = torch.where(okok, bkt, torch.full_like(bkt, B))
+    return _stage(codes, evs, bkt, B, 1, S, min(codes.shape[0], B))
+
+
+def _stage(codes, evs, bkt, B: int, n_parts: int, S: int, U: int) -> Staged:
+    """Sort the endpoint rows by (bucket, code), aggregate equal-code runs
+    into one event each, scatter the run-last rows into [U, S2] staging
+    planes, and carry per-bucket event sums across each partition's
+    buckets. ``bkt`` holds bucket ids over all ``B`` buckets of the
+    ``n_parts`` partitions (B = invalid row). Scatters keep the JAX
     ``mode="drop"`` meaning through a spare last row that is sliced off."""
-    B, S, Lp1 = state.grid.shape
-    L = Lp1 - 1
-    T, KW, _ = batch.wb.shape
-    dev = batch.wb.device
-    W = T * KW
+    L = codes.shape[-1]
+    dev = codes.device
     S2 = staging_slots(S)
-    U = min(2 * W, B)
-
-    w_ok = lex_lt(ordered(batch.wb), ordered(batch.we)) & commit[:, None]
-    ok = w_ok.reshape(W)
-    okok = torch.cat([ok, ok])
-    cd = torch.cat([batch.wb.reshape(W, L), batch.we.reshape(W, L)])
-    bcd = _rank(ordered(cd), ordered(state.pivots), strict=False)
-
-    codes = torch.where(okok[:, None], cd, torch.full_like(cd, SENTINEL))
-    evs = torch.cat([ok.to(_I32), -ok.to(_I32)])
-    bkt = torch.where(okok, bcd, torch.full_like(bcd, B))
 
     # bucket leads the keys: a valid endpoint at the all-0xFF code (a clear
     # to the end of the keyspace) must not interleave with padding rows
@@ -383,7 +438,7 @@ def _stage_writes(state: GridState, batch: Batch, commit: torch.Tensor) -> Stage
     slot = ccum - 1 - ccum_at_bkt
 
     run_end = code_last & valid
-    max_staged = torch.where(run_end, slot + 1, zero).amax()
+    max_staged = _max_per_part(torch.where(run_end, slot + 1, zero), sb, B, n_parts)
 
     flat = torch.where(
         run_end & (slot < S2), ucum * S2 + slot, torch.full_like(slot, U * S2)
@@ -404,7 +459,8 @@ def _stage_writes(state: GridState, batch: Batch, commit: torch.Tensor) -> Stage
         torch.where(last, sb, torch.full_like(sb, B)).long(),
         torch.where(last, bkt_ev, zero),
     )
-    carry = torch.cat([zero[None], torch.cumsum(evsum[:B], 0, dtype=_I32)[:-1]])
+    ev = evsum[:B].reshape(n_parts, B // n_parts)
+    carry = (torch.cumsum(ev, 1, dtype=_I32) - ev).reshape(B)
     return Staged(
         st_code[: U * S2].reshape(U, S2, L),
         st_ev[: U * S2].reshape(U, S2),
@@ -412,6 +468,17 @@ def _stage_writes(state: GridState, batch: Batch, commit: torch.Tensor) -> Stage
         carry,
         max_staged,
     )
+
+
+def _max_per_part(val, bkt, B: int, n_parts: int) -> torch.Tensor:
+    """int32[n_parts]: max of the nonnegative ``val`` over the rows whose
+    bucket id (over all ``B`` buckets; B = none) lies in each partition,
+    0 where a partition has none."""
+    part = torch.where(
+        bkt < B, torch.div(bkt, B // n_parts, rounding_mode="floor"), n_parts
+    ).long()
+    out = torch.zeros(n_parts + 1, dtype=_I32, device=val.device)
+    return out.scatter_reduce_(0, part, val.to(_I32), "amax")[:n_parts]
 
 
 def merge_writes(
@@ -426,18 +493,30 @@ def merge_writes(
     returns it with ``pressure`` = int32[2]: [max staged rows in any bucket
     (overflow if > staging_slots(S)), max kept rows in any bucket (overflow
     if > S)]."""
-    B = state.grid.shape[0]
     st = _stage_writes(state, batch, commit)
+    max_kept = merge_staged(state, st, now, oldest, 1)
+    return state, torch.stack([st.max_staged, max_kept], dim=-1).reshape(2)
+
+
+def merge_staged(state: GridState, st: Staged, now: int, oldest: int, n_parts: int):
+    """Merge staged rows into ``state`` IN PLACE — the per-bucket merge
+    (kernel on the card, plain version on the CPU) and the floor raise of
+    buckets a committed write spans. ``state`` may be the flat [P·B] view
+    of ``n_parts`` stacked partitions. Returns int32[n_parts]: the most
+    rows any bucket of each partition kept."""
+    B = state.grid.shape[0]
     live = st.tid < B
     tid_c = st.tid.clamp(max=B - 1).long()
     carry_in = torch.where(live, st.carry[tid_c], torch.zeros_like(st.tid))
     if state.grid.is_cuda:
-        max_kept = kernels.merge(
-            state.grid, state.count, state.bmax, state.floor,
-            st.st_code, st.st_ev, st.tid, carry_in, now, oldest,
-        )
+        args = (state.grid, state.count, state.bmax, state.floor,
+                st.st_code, st.st_ev, st.tid, carry_in, now, oldest)
+        if n_parts == 1:
+            max_kept = kernels.merge(*args)
+        else:
+            max_kept = kernels.merge_parts(*args, n_parts)
     else:
-        max_kept = _merge_buckets_plain(state, st, carry_in, now, oldest)
+        max_kept = _merge_buckets_plain(state, st, carry_in, now, oldest, n_parts)
 
     # buckets a committed write spans without an endpoint inside: every
     # gap's effective version becomes max(base, now) = now — a floor raise
@@ -446,19 +525,20 @@ def merge_writes(
     covered = (st.carry > 0) & ~is_touched[:B]
     state.floor.copy_(torch.where(covered, state.floor.clamp(min=now), state.floor))
     state.bmax.copy_(torch.where(covered, state.bmax.clamp(min=now), state.bmax))
-    pressure = torch.stack([st.max_staged, max_kept.reshape(())]).to(_I32)
-    return state, pressure
+    return max_kept
 
 
 def _merge_buckets_plain(
-    state: GridState, st: Staged, carry_in: torch.Tensor, now: int, oldest: int
+    state: GridState, st: Staged, carry_in: torch.Tensor, now: int, oldest: int,
+    n_parts: int = 1,
 ) -> torch.Tensor:
     """Plain version of the per-bucket merge kernel (JAX grid.py:526-633):
     for each touched bucket, sort its S old rows and S2 staged rows by
     code, forward-fill gap bases, apply the coverage prefix, raise to
     ``now``, GC below ``oldest``, keep the last row of each equal-code run
     unless its value equals the previous run's, and compact stably to S
-    rows. Writes the buckets back in place; returns max kept rows."""
+    rows. Writes the buckets back in place; returns int32[n_parts], the
+    most rows a bucket of each partition kept."""
     B, S, Lp1 = state.grid.shape
     L = Lp1 - 1
     U, S2 = st.st_ev.shape
@@ -509,7 +589,7 @@ def _merge_buckets_plain(
     keep = keep & (nv != pval)
 
     kept_cnt = _count(keep)
-    max_kept = torch.where(live, kept_cnt, zero).amax()
+    max_kept = _max_per_part(kept_cnt, st.tid, B, n_parts)
 
     # compact: stable sort by !keep, take the first S rows
     corder = torch.sort((~keep).to(_I32), dim=1, stable=True).indices[:, :S]

@@ -17,6 +17,7 @@ import torch
 from . import build
 
 _I32 = torch.int32
+MAX_LANES = 16  # FDB_MAX_LANES of csrc/common.cuh
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -80,6 +81,42 @@ def history(pivots, grid, count, bmax, floor, rb, re, t_snap) -> torch.Tensor:
 
 
 @_counted
+def history_parts(pivots, grid, count, bmax, floor, plo, phi, rb, re, t_snap) -> torch.Tensor:
+    """K6 history: bool[T] history-conflict flags of one batch against P
+    stacked partitions, each read range clipped to its partition's
+    [plo, phi), OR-ed over the partitions."""
+    from ..grid import _split_factors
+
+    P, B, S, Lp1 = grid.shape
+    L = Lp1 - 1
+    T, KR, _ = rb.shape
+    if B & (B - 1):
+        raise ValueError(f"bucket count must be a power of two, got {B}")
+    if L > MAX_LANES:
+        raise ValueError(f"{L} lanes exceed the kernel's {MAX_LANES}")
+    _check(pivots, "pivots", _I32, (P, B, L))
+    _check(grid, "grid", _I32)
+    for name, t in (("count", count), ("bmax", bmax), ("floor", floor)):
+        _check(t, name, _I32, (P, B))
+    _check(plo, "plo", _I32, (P, L))
+    _check(phi, "phi", _I32, (P, L))
+    _check(rb, "rb", _I32, (T, KR, L))
+    _check(re, "re", _I32, (T, KR, L))
+    _check(t_snap, "t_snap", _I32, (T,))
+    B1, B2 = _split_factors(B)
+    sup = torch.empty(P * B1, dtype=_I32, device=grid.device)
+    hit = torch.zeros(T, dtype=torch.bool, device=grid.device)
+    _run(
+        "fdb_history_parts",
+        _ptr(pivots), _ptr(grid), _ptr(count), _ptr(bmax), _ptr(floor),
+        _ptr(plo), _ptr(phi), _ptr(rb), _ptr(re), _ptr(t_snap), _ptr(sup),
+        _ptr(hit), P, B, S, L, T, KR, B1, B2, _stream(),
+    )
+    history_parts.launches += 1
+    return hit
+
+
+@_counted
 def intra_batch(rb_r, re_r, wb_r, we_r, H) -> torch.Tensor:
     """K2: bool[T] in-order greedy commit from int32 endpoint ranks."""
     T, KR = rb_r.shape
@@ -103,15 +140,14 @@ def intra_batch(rb_r, re_r, wb_r, we_r, H) -> torch.Tensor:
     return commit
 
 
-@_counted
-def merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now: int, oldest: int):
-    """K3: merge the staged rows into their buckets IN PLACE (grid, count,
-    bmax, floor). Returns int32[1]: the most rows any bucket kept."""
+def _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest, n_parts):
     B, S, Lp1 = grid.shape
     L = Lp1 - 1
     U, S2, _ = st_code.shape
     if S + S2 > 1024:
         raise ValueError(f"S + S2 = {S + S2} rows exceed one block")
+    if B % n_parts:
+        raise ValueError(f"{B} buckets do not split into {n_parts} partitions")
     _check(grid, "grid", _I32)
     for name, t in (("count", count), ("bmax", bmax), ("floor", floor)):
         _check(t, name, _I32, (B,))
@@ -119,15 +155,59 @@ def merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now: int, old
     _check(st_ev, "st_ev", _I32, (U, S2))
     _check(tid, "tid", _I32, (U,))
     _check(carry_in, "carry_in", _I32, (U,))
-    max_kept = torch.zeros(1, dtype=_I32, device=grid.device)
+    max_kept = torch.zeros(n_parts, dtype=_I32, device=grid.device)
     _run(
         "fdb_merge",
         _ptr(grid), _ptr(count), _ptr(bmax), _ptr(floor), _ptr(st_code),
         _ptr(st_ev), _ptr(tid), _ptr(carry_in), int(now), int(oldest),
-        _ptr(max_kept), B, S, S2, L, U, _stream(),
+        _ptr(max_kept), B, B // n_parts, S, S2, L, U, _stream(),
     )
-    merge.launches += 1
     return max_kept
+
+
+@_counted
+def merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now: int, oldest: int):
+    """K3: merge the staged rows into their buckets IN PLACE (grid, count,
+    bmax, floor). Returns int32[1]: the most rows any bucket kept."""
+    out = _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest, 1)
+    merge.launches += 1
+    return out
+
+
+@_counted
+def merge_parts(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now: int, oldest: int,
+                n_parts: int):
+    """K6 merge: K3 over the flat [P·B] view of P stacked partitions (tid
+    holds flat bucket ids). Returns int32[P]: the most rows any bucket of
+    each partition kept."""
+    out = _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest, n_parts)
+    merge_parts.launches += 1
+    return out
+
+
+def _reshard(grid, floor, used, dest, n_buckets, n_slots):
+    P, B, S, Lp1 = grid.shape
+    L = Lp1 - 1
+    N = B * S
+    _check(grid, "grid", _I32)
+    _check(floor, "floor", _I32, (P, B))
+    _check(used, "used", torch.bool, (P, N))
+    _check(dest, "dest", _I32, (P, N))
+    dev = grid.device
+    lrows = torch.empty((P, N, Lp1), dtype=_I32, device=dev)
+    pivots = torch.empty((P, n_buckets, L), dtype=_I32, device=dev)
+    out = torch.empty((P, n_buckets, n_slots, Lp1), dtype=_I32, device=dev)
+    count = torch.empty((P, n_buckets), dtype=_I32, device=dev)
+    bmax = torch.empty((P, n_buckets), dtype=_I32, device=dev)
+    floor_out = torch.empty((P, n_buckets), dtype=_I32, device=dev)
+    pressure = torch.empty(P, dtype=_I32, device=dev)
+    _run(
+        "fdb_reshard",
+        _ptr(grid), _ptr(floor), _ptr(used), _ptr(dest), _ptr(lrows),
+        _ptr(pivots), _ptr(out), _ptr(count), _ptr(bmax), _ptr(floor_out),
+        _ptr(pressure), P, N, S, L, int(n_buckets), int(n_slots), _stream(),
+    )
+    return pivots, out, count, bmax, floor_out, pressure
 
 
 @_counted
@@ -135,35 +215,23 @@ def maint_reshard(grid, floor, used, dest, n_buckets: int, n_slots: int):
     """K4a: rebalance the live rows into ``n_buckets`` × ``n_slots``.
     ``dest`` = cumsum(used) - 1 over the B·S rows. Returns (pivots, grid,
     count, bmax, floor, pressure int32 scalar)."""
-    B, S, Lp1 = grid.shape
-    L = Lp1 - 1
-    N = B * S
-    _check(grid, "grid", _I32)
-    _check(floor, "floor", _I32, (B,))
-    _check(used, "used", torch.bool, (N,))
-    _check(dest, "dest", _I32, (N,))
-    dev = grid.device
-    lrows = torch.empty((N, Lp1), dtype=_I32, device=dev)
-    pivots = torch.empty((n_buckets, L), dtype=_I32, device=dev)
-    out = torch.empty((n_buckets, n_slots, Lp1), dtype=_I32, device=dev)
-    count = torch.empty(n_buckets, dtype=_I32, device=dev)
-    bmax = torch.empty(n_buckets, dtype=_I32, device=dev)
-    floor_out = torch.empty(n_buckets, dtype=_I32, device=dev)
-    pressure = torch.empty((), dtype=_I32, device=dev)
-    _run(
-        "fdb_reshard",
-        _ptr(grid), _ptr(floor), _ptr(used), _ptr(dest), _ptr(lrows),
-        _ptr(pivots), _ptr(out), _ptr(count), _ptr(bmax), _ptr(floor_out),
-        _ptr(pressure), N, S, L, int(n_buckets), int(n_slots), _stream(),
-    )
+    out = _reshard(grid[None], floor[None], used[None], dest[None], n_buckets, n_slots)
     maint_reshard.launches += 1
-    return pivots, out, count, bmax, floor_out, pressure
+    return tuple(x[0] for x in out)
 
 
 @_counted
-def maint_rebase(grid, count, floor, delta: int):
-    """K4b: shift the version origin by ``delta``. Returns (grid, bmax,
-    floor) as new tensors; the inputs are left intact."""
+def maint_reshard_parts(grid, floor, used, dest, n_buckets: int, n_slots: int):
+    """K7a: K4a on each of P stacked partitions in one launch. ``used`` and
+    ``dest`` are [P, B·S], ``dest`` the prefix sum within each partition.
+    Returns the stacked (pivots, grid, count, bmax, floor) and int32[P]
+    pressures."""
+    out = _reshard(grid, floor, used, dest, n_buckets, n_slots)
+    maint_reshard_parts.launches += 1
+    return out
+
+
+def _rebase(grid, count, floor, delta):
     B, S, Lp1 = grid.shape
     _check(grid, "grid", _I32)
     _check(count, "count", _I32, (B,))
@@ -176,8 +244,60 @@ def maint_rebase(grid, count, floor, delta: int):
         _ptr(grid), _ptr(count), _ptr(floor), _ptr(out), _ptr(bmax),
         _ptr(floor_out), int(delta), B, S, Lp1 - 1, _stream(),
     )
-    maint_rebase.launches += 1
     return out, bmax, floor_out
+
+
+@_counted
+def maint_rebase(grid, count, floor, delta: int):
+    """K4b: shift the version origin by ``delta``. Returns (grid, bmax,
+    floor) as new tensors; the inputs are left intact."""
+    out = _rebase(grid, count, floor, delta)
+    maint_rebase.launches += 1
+    return out
+
+
+@_counted
+def maint_rebase_parts(grid, count, floor, delta: int):
+    """K7b: K4b over P stacked partitions as one flat grid of P·B buckets
+    (rebase is independent per bucket). Returns stacked (grid, bmax,
+    floor)."""
+    P, B, S, Lp1 = grid.shape
+    _check(grid, "grid", _I32)
+    _check(count, "count", _I32, (P, B))
+    _check(floor, "floor", _I32, (P, B))
+    out, bmax, floor_out = _rebase(
+        grid.view(P * B, S, Lp1), count.view(P * B), floor.view(P * B), delta
+    )
+    maint_rebase_parts.launches += 1
+    return out.view(P, B, S, Lp1), bmax.view(P, B), floor_out.view(P, B)
+
+
+@_counted
+def search(codes, q):
+    """K5: (lo, hi) int32[Q] — for each query row, the count of sorted
+    code rows < q (side "left") and <= q (side "right"), by the
+    reference's fixed-step binary search."""
+    P, L = codes.shape
+    Q = q.shape[0]
+    if L > MAX_LANES:
+        raise ValueError(f"{L} lanes exceed the kernel's {MAX_LANES}")
+    _check(codes, "codes", _I32)
+    _check(q, "q", _I32, (Q, L))
+    lo = torch.empty(Q, dtype=_I32, device=codes.device)
+    hi = torch.empty(Q, dtype=_I32, device=codes.device)
+    if Q:
+        _run(
+            "fdb_search",
+            _ptr(codes), _ptr(q), _ptr(lo), _ptr(hi), P, Q, L,
+            search_steps(P), _stream(),
+        )
+        search.launches += 1
+    return lo, hi
+
+
+def search_steps(n: int) -> int:
+    """The reference's step count: max(1, ceil(log2 n) + 1)."""
+    return max(1, (n - 1).bit_length() + 1)
 
 
 WRAPPERS = {
@@ -186,6 +306,11 @@ WRAPPERS = {
     "merge": merge,
     "maint_reshard": maint_reshard,
     "maint_rebase": maint_rebase,
+    "search": search,
+    "history_parts": history_parts,
+    "merge_parts": merge_parts,
+    "maint_reshard_parts": maint_reshard_parts,
+    "maint_rebase_parts": maint_rebase_parts,
 }
 
 

@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 
 #define FDB_SENTINEL 0xFFFFFFFFu
+// most lanes a kernel copies into registers (key width 64 bytes)
+#define FDB_MAX_LANES 16
 
 // -1 / 0 / +1: lexicographic compare of two L-lane codes
 __device__ __forceinline__ int lex_cmp(const uint32_t* a, const uint32_t* b, int L) {

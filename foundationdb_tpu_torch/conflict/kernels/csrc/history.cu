@@ -20,6 +20,18 @@
 // first warp-per-superblock pass) plus the two partial edge superblocks,
 // so a long range reads at most B1 + 2·B2 words instead of walking B
 // buckets, and apply the floors last.
+//
+// K6 history (fdb_history_parts) is the same kernel over a stacked grid of
+// P key-range partitions, replacing the history half of
+// foundationdb_tpu/conflict/sharded.py:125 _local_resolve (its _clip :114
+// of the reads and the pmax of H over the mesh). blockIdx.y is the
+// partition: a thread clips its read range to [plo[p], phi[p]) in
+// registers (an empty intersection fails the lex a < e activity check,
+// as it does in the reference) and searches partition p's pivots and
+// windows only. The OR over partitions is a store of 1 into a zeroed H[T]
+// by any thread that hits. Bound: the single-device bound times the
+// partitions a range touches; the superblock maxima are one pass over the
+// flat [P·B] bmax, whose superblocks never straddle a partition.
 #include "common.cuh"
 
 namespace {
@@ -52,16 +64,39 @@ __global__ void history_kernel(
     const int* __restrict__ count, const int* __restrict__ bmax,
     const int* __restrict__ floor_, const int* __restrict__ bmax_sup,
     const uint32_t* __restrict__ rb, const uint32_t* __restrict__ re,
-    const int* __restrict__ t_snap, uint8_t* __restrict__ hit,
+    const int* __restrict__ t_snap, const uint32_t* __restrict__ plo,
+    const uint32_t* __restrict__ phi, uint8_t* __restrict__ hit,
     int B, int S, int L, int T, int KR, int B1, int B2) {
     int t = blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= T) return;
+    // partition p's slice of the stacked state (p = 0 on a single grid)
+    const int p = blockIdx.y;
+    pivots += (size_t)p * B * L;
+    grid += (size_t)p * B * S * (L + 1);
+    count += (size_t)p * B;
+    bmax += (size_t)p * B;
+    floor_ += (size_t)p * B;
+    bmax_sup += (size_t)p * B1;
     const int Lp1 = L + 1;
     const int snap = t_snap[t];
     uint8_t any = 0;
+    uint32_t a_clip[FDB_MAX_LANES], e_clip[FDB_MAX_LANES];
     for (int r = 0; r < KR && !any; ++r) {
         const uint32_t* a = rb + ((size_t)t * KR + r) * L;
         const uint32_t* e = re + ((size_t)t * KR + r) * L;
+        if (plo != nullptr) {
+            // clip [a, e) to the partition [plo, phi)
+            const uint32_t* lo = plo + (size_t)p * L;
+            const uint32_t* hi = phi + (size_t)p * L;
+            const uint32_t* a2 = lex_cmp(a, lo, L) < 0 ? lo : a;
+            const uint32_t* e2 = lex_cmp(hi, e, L) < 0 ? hi : e;
+            for (int i = 0; i < L; ++i) {
+                a_clip[i] = a2[i];
+                e_clip[i] = e2[i];
+            }
+            a = a_clip;
+            e = e_clip;
+        }
         if (lex_cmp(a, e, L) >= 0) continue;  // inactive (or empty) range
 
         int ba = count_pivots(pivots, B, L, a, false) - 1;  // bucket of a
@@ -112,24 +147,49 @@ __global__ void history_kernel(
         if (diff) vmax = max(vmax, floor_[bec]);
         if (vmax > snap) any = 1;
     }
-    hit[t] = any;
+    if (plo == nullptr) hit[t] = any;
+    else if (any) hit[t] = 1;  // OR over partitions into a zeroed H
 }
 
 }  // namespace
+
+static int launch_history(
+    const void* pivots, const void* grid, const void* count, const void* bmax,
+    const void* floor_, const void* plo, const void* phi, const void* rb,
+    const void* re, const void* t_snap, void* bmax_sup, void* hit,
+    int P, int B, int S, int L, int T, int KR, int B1, int B2, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    const int threads = 256;
+    superblock_max<<<(P * B1 * 32 + threads - 1) / threads, threads, 0, st>>>(
+        (const int*)bmax, (int*)bmax_sup, P * B1, B2);
+    dim3 blocks((T + threads - 1) / threads, P);
+    history_kernel<<<blocks, threads, 0, st>>>(
+        (const uint32_t*)pivots, (const uint32_t*)grid, (const int*)count,
+        (const int*)bmax, (const int*)floor_, (const int*)bmax_sup,
+        (const uint32_t*)rb, (const uint32_t*)re, (const int*)t_snap,
+        (const uint32_t*)plo, (const uint32_t*)phi, (uint8_t*)hit,
+        B, S, L, T, KR, B1, B2);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int fdb_history(
     const void* pivots, const void* grid, const void* count, const void* bmax,
     const void* floor_, const void* rb, const void* re, const void* t_snap,
     void* bmax_sup, void* hit,
     int B, int S, int L, int T, int KR, int B1, int B2, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    const int threads = 256;
-    superblock_max<<<(B1 * 32 + threads - 1) / threads, threads, 0, st>>>(
-        (const int*)bmax, (int*)bmax_sup, B1, B2);
-    history_kernel<<<(T + threads - 1) / threads, threads, 0, st>>>(
-        (const uint32_t*)pivots, (const uint32_t*)grid, (const int*)count,
-        (const int*)bmax, (const int*)floor_, (const int*)bmax_sup,
-        (const uint32_t*)rb, (const uint32_t*)re, (const int*)t_snap,
-        (uint8_t*)hit, B, S, L, T, KR, B1, B2);
-    return (int)cudaGetLastError();
+    return launch_history(pivots, grid, count, bmax, floor_, nullptr, nullptr,
+                          rb, re, t_snap, bmax_sup, hit, 1, B, S, L, T, KR,
+                          B1, B2, stream);
+}
+
+// K6 history: P stacked partitions, reads clipped to [plo[p], phi[p]);
+// hit must be zeroed by the caller
+extern "C" int fdb_history_parts(
+    const void* pivots, const void* grid, const void* count, const void* bmax,
+    const void* floor_, const void* plo, const void* phi, const void* rb,
+    const void* re, const void* t_snap, void* bmax_sup, void* hit,
+    int P, int B, int S, int L, int T, int KR, int B1, int B2, void* stream) {
+    return launch_history(pivots, grid, count, bmax, floor_, plo, phi, rb, re,
+                          t_snap, bmax_sup, hit, P, B, S, L, T, KR, B1, B2,
+                          stream);
 }

@@ -20,19 +20,30 @@
 // recomputes count with a ballot and bmax with a shuffle max. Rebase is
 // one warp per bucket, a lane per slot, writing a fresh grid (the old one
 // may still be the backend's snapshot).
+//
+// K7 replaces the vmaps over partitions in
+// foundationdb_tpu/conflict/mesh_backend.py:477 (_grow, vmap of
+// reshard_device) and :499 (_maybe_rebase, vmap of rebase), and
+// sharded.py:291 reshard_partition. Reshard gains a partition axis: the
+// wrapper's prefix sum restarts at each partition (dest is [P, N]), the
+// compaction writes partition p's live rows into its own [N] slice of the
+// scratch, and one warp builds bucket b of partition p from that slice,
+// with one pressure word per partition. Rebase is independent per bucket,
+// so a stack of P grids is rebased as one flat grid of P·B buckets.
 #include "common.cuh"
 
 namespace {
 
+// rows r of all P partitions (N rows each); dest[r] is partition-local
 __global__ void compact_live(
     const uint32_t* __restrict__ grid, const int* __restrict__ floor_,
     const uint8_t* __restrict__ used, const int* __restrict__ dest,
-    uint32_t* __restrict__ lrows, int N, int S, int L) {
-    int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= N || !used[r]) return;
+    uint32_t* __restrict__ lrows, long long PN, int N, int S, int L) {
+    long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= PN || !used[r]) return;
     const int Lp1 = L + 1;
     const uint32_t* src = grid + (size_t)r * Lp1;
-    uint32_t* dst = lrows + (size_t)dest[r] * Lp1;
+    uint32_t* dst = lrows + ((size_t)(r / N) * N + dest[r]) * Lp1;
     for (int i = 0; i < L; ++i) dst[i] = src[i];
     dst[L] = (uint32_t)max((int)src[L], floor_[r / S]);  // fold the floor
 }
@@ -41,12 +52,22 @@ __global__ void build_buckets(
     const uint32_t* __restrict__ lrows, const int* __restrict__ dest,
     uint32_t* __restrict__ pivots, uint32_t* __restrict__ out,
     int* __restrict__ count, int* __restrict__ bmax, int* __restrict__ floor_,
-    int* __restrict__ pressure, int N, int L, int nb, int ns) {
-    int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    int* __restrict__ pressure, int P, int N, int L, int nb, int ns) {
+    long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     int lane = threadIdx.x & 31;
-    if (b >= nb) return;
+    if (w >= (long long)P * nb) return;
+    const int p = (int)(w / nb), b = (int)(w % nb);
     const int Lp1 = L + 1;
-    const long long n_live = (long long)dest[N - 1] + 1;  // dest = cumsum(used) - 1
+    // partition p's slices; the outputs are [P, nb, ...]
+    lrows += (size_t)p * N * Lp1;
+    pivots += (size_t)p * nb * L;
+    out += (size_t)p * nb * ns * Lp1;
+    count += (size_t)p * nb;
+    bmax += (size_t)p * nb;
+    floor_ += (size_t)p * nb;
+    pressure += p;
+    // dest = cumsum(used) - 1 within the partition
+    const long long n_live = (long long)dest[(size_t)p * N + N - 1] + 1;
     const long long q = max((n_live + nb - 1) / nb, 1LL);
     const long long start = (long long)b * q;
     if (lane == 0) {
@@ -106,21 +127,23 @@ __global__ void rebase_kernel(
 
 }  // namespace
 
+// P stacked grids of N = B·S rows each (P = 1: a single grid)
 extern "C" int fdb_reshard(
     const void* grid, const void* floor_, const void* used, const void* dest,
     void* lrows, void* pivots, void* out, void* count, void* bmax,
-    void* floor_out, void* pressure, int N, int S, int L, int nb, int ns,
-    void* stream) {
+    void* floor_out, void* pressure, int P, int N, int S, int L, int nb,
+    int ns, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int threads = 256;
-    compact_live<<<(N + threads - 1) / threads, threads, 0, st>>>(
+    long long PN = (long long)P * N;
+    compact_live<<<(unsigned)((PN + threads - 1) / threads), threads, 0, st>>>(
         (const uint32_t*)grid, (const int*)floor_, (const uint8_t*)used,
-        (const int*)dest, (uint32_t*)lrows, N, S, L);
-    long long warps = (long long)nb * 32;
+        (const int*)dest, (uint32_t*)lrows, PN, N, S, L);
+    long long warps = (long long)P * nb * 32;
     build_buckets<<<(unsigned)((warps + threads - 1) / threads), threads, 0, st>>>(
         (const uint32_t*)lrows, (const int*)dest, (uint32_t*)pivots,
         (uint32_t*)out, (int*)count, (int*)bmax, (int*)floor_out,
-        (int*)pressure, N, L, nb, ns);
+        (int*)pressure, P, N, L, nb, ns);
     return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,14 @@
 // (ev + _EV_OFF) << 1 for a staged event) kept as it was. All threads
 // write the compacted rows back; the block folds the floor (floor := 0)
 // and max-reduces the kept-row count into the pressure word.
+//
+// K6 merge (the merge half of foundationdb_tpu/conflict/sharded.py:125
+// _local_resolve, merge_writes on each partition's clipped writes) is the
+// same launch over the flat [P·B] view of a stacked grid: the staging glue
+// ranks each clipped write endpoint against its own partition's pivots
+// and offsets its bucket id by p·B, so a block never mixes partitions, and
+// the pressure word becomes one per partition (max_kept[b / B_part]). The
+// single-grid call is P = 1, B_part = B.
 #include "common.cuh"
 
 #define EV_OFF (1 << 20)
@@ -35,7 +43,7 @@ __global__ void merge_buckets(
     int* __restrict__ floor_, const uint32_t* __restrict__ st_code,
     const int* __restrict__ st_ev, const int* __restrict__ tid,
     const int* __restrict__ carry_in, int now, int oldest,
-    int* __restrict__ max_kept, int B, int S, int S2, int L) {
+    int* __restrict__ max_kept, int B, int B_part, int S, int S2, int L) {
     extern __shared__ uint32_t sm[];
     const int M = S + S2;
     const int Lp1 = L + 1;
@@ -125,7 +133,7 @@ __global__ void merge_buckets(
         count[b] = n;
         bmax[b] = bm;
         floor_[b] = 0;
-        atomicMax(max_kept, k);
+        atomicMax(max_kept + b / B_part, k);
     }
 }
 
@@ -135,7 +143,7 @@ extern "C" int fdb_merge(
     void* grid, void* count, void* bmax, void* floor_,
     const void* st_code, const void* st_ev, const void* tid, const void* carry_in,
     int now, int oldest, void* max_kept,
-    int B, int S, int S2, int L, int U, void* stream) {
+    int B, int B_part, int S, int S2, int L, int U, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int M = S + S2;
     int threads = ((M + 31) / 32) * 32;
@@ -143,6 +151,6 @@ extern "C" int fdb_merge(
     merge_buckets<<<U, threads, smem, st>>>(
         (uint32_t*)grid, (int*)count, (int*)bmax, (int*)floor_,
         (const uint32_t*)st_code, (const int*)st_ev, (const int*)tid,
-        (const int*)carry_in, now, oldest, (int*)max_kept, B, S, S2, L);
+        (const int*)carry_in, now, oldest, (int*)max_kept, B, B_part, S, S2, L);
     return (int)cudaGetLastError();
 }

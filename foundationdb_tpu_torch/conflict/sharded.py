@@ -1,0 +1,285 @@
+"""Key-range partitioned resolver on one CUDA card — port of
+``foundationdb_tpu/conflict/sharded.py``.
+
+The JAX package shards the bucket grid over a device mesh: each device
+owns one key-range partition as its own ``GridState``, clips every
+transaction's conflict ranges to its partition, resolves against its grid,
+and a ``pmax`` over the mesh makes the history verdict H and the
+intra-batch overlap matrix global before the greedy commit, so verdicts
+equal a single grid's bit for bit. Here the P partitions are a leading
+axis of ONE stacked ``GridState`` on one card (fields [P, B, ...],
+contiguous, so ``grid.view(P * B, S, L + 1)`` is the flat view):
+
+- history (K6): one launch over all partitions, each read clipped to its
+  partition in registers, H OR-ed over the partitions;
+- intra-batch commit: the existing K2 once, on the UNCLIPPED ranks. For
+  ranges with begin <= end the OR over partitions of the clipped overlap
+  matrices equals the unclipped matrix: two overlapping ranges share an
+  [x, y) with x below the all-0xFF code, and the partition holding x sees
+  the clipped pair overlap; a clipped overlap is always an overlap;
+- merge (K6): K3 once over the flat [P·B] view; the staging glue ranks
+  each clipped write endpoint against its own partition's pivots and
+  offsets its bucket id by p·B, the carry restarts at each partition, and
+  the pressure is per partition;
+- maintenance (K7): ``rebase_parts`` (one launch over the flat view),
+  ``reshard_parts`` (a partition axis in the reshard kernel) and
+  ``reshard_partition`` (the same kernel on one partition's slice).
+
+Every function takes CUDA tensors (kernels) or CPU tensors (the plain
+versions, which the CPU tests hold to the JAX package exactly).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import lanes_to_torch, ordered
+from . import grid as G
+from . import kernels
+
+_I32 = torch.int32
+
+# a stacked state crosses the numpy boundary like a single one
+states_from_numpy = G.state_from_numpy
+states_to_numpy = G.state_to_numpy
+
+
+def make_sharded_states(
+    n_parts: int, n_buckets: int, n_slots: int, lanes: int, device
+) -> G.GridState:
+    """Stacked per-partition GridStates, leading axis [n_parts]. Each
+    partition's buckets pre-split its key range uniformly on the first
+    uint32 lane; pivot rows carry version 0 (the empty history)."""
+    step = (1 << 32) // n_parts
+    sub = max(step // n_buckets, 1)
+    n_sub = min(n_buckets, step // sub)
+    pivots = np.full((n_parts, n_buckets, lanes), 0xFFFFFFFF, dtype=np.uint32)
+    grid = np.full(
+        (n_parts, n_buckets, n_slots, lanes + 1), 0xFFFFFFFF, dtype=np.uint32
+    )
+    grid[..., lanes] = 0
+    count = np.zeros((n_parts, n_buckets), np.int32)
+    pivots[:, :n_sub] = 0
+    pivots[:, :n_sub, 0] = (
+        np.arange(n_parts, dtype=np.uint64)[:, None] * step
+        + np.arange(n_sub, dtype=np.uint64)[None, :] * sub
+    )
+    grid[:, :n_sub, 0, :lanes] = pivots[:, :n_sub]
+    count[:, :n_sub] = 1
+    zeros = np.zeros((n_parts, n_buckets), np.int32)
+    return states_from_numpy(pivots, grid, count, zeros, zeros, device)
+
+
+def partition_bounds(lanes: int, n_parts: int, device):
+    """(plo, phi) int32 lanes [P, L]: partition p owns [plo[p], phi[p]);
+    the last partition's phi is the all-0xFF code."""
+    step = (1 << 32) // n_parts
+    plo = np.zeros((n_parts, lanes), np.uint32)
+    plo[:, 0] = np.arange(n_parts, dtype=np.uint64) * step
+    phi = np.zeros((n_parts, lanes), np.uint32)
+    phi[:, 0] = plo[:, 0].astype(np.uint64) + step
+    phi[-1] = 0xFFFFFFFF
+    return lanes_to_torch(plo, device), lanes_to_torch(phi, device)
+
+
+def clip(b: torch.Tensor, e: torch.Tensor, plo: torch.Tensor, phi: torch.Tensor):
+    """Intersect ranges [b, e) with [plo, phi) (lanes broadcast along the
+    last axis); an empty intersection leaves b >= e, which the kernels'
+    lex b < e activity checks treat as inactive."""
+    b2 = torch.where(G.lex_lt(ordered(b), ordered(plo))[..., None], plo, b)
+    e2 = torch.where(G.lex_lt(ordered(phi), ordered(e))[..., None], phi, e)
+    return b2, e2
+
+
+def partition(states: G.GridState, p: int) -> G.GridState:
+    """Partition p's GridState: views into the stacked tensors."""
+    return G.GridState(*(x[p] for x in states))
+
+
+def flat_view(states: G.GridState) -> G.GridState:
+    """The stacked state as one grid of P·B buckets (views)."""
+    P, B, S, Lp1 = states.grid.shape
+    return G.GridState(
+        states.pivots.view(P * B, Lp1 - 1),
+        states.grid.view(P * B, S, Lp1),
+        states.count.view(P * B),
+        states.bmax.view(P * B),
+        states.floor.view(P * B),
+    )
+
+
+def set_partition(states: G.GridState, p: int, shard: G.GridState) -> G.GridState:
+    """A new stacked state equal to ``states`` with partition p replaced
+    (the JAX ``.at[p].set``): ``states`` itself is left intact, since a
+    group's snapshot may share its tensors."""
+    out = G.GridState(*(x.clone() for x in states))
+    for full, part in zip(out, shard):
+        full[p] = part
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: one batch over all partitions
+
+
+def history_conflicts_sharded(states, batch: G.Batch, plo, phi) -> torch.Tensor:
+    """bool[T]: some read range, clipped to a partition, overlaps a gap of
+    that partition with version > the txn snapshot (H OR-ed over the
+    partitions — the reference's pmax)."""
+    if batch.rb.is_cuda:
+        return kernels.history_parts(
+            *states, plo, phi, batch.rb, batch.re, batch.t_snap
+        )
+    return history_conflicts_sharded_plain(states, batch, plo, phi)
+
+
+def history_conflicts_sharded_plain(states, batch: G.Batch, plo, phi) -> torch.Tensor:
+    H = torch.zeros(batch.rb.shape[0], dtype=torch.bool, device=batch.rb.device)
+    for p in range(states.grid.shape[0]):
+        rb, re = clip(batch.rb, batch.re, plo[p], phi[p])
+        H |= G.history_conflicts_plain(partition(states, p), batch._replace(rb=rb, re=re))
+    return H
+
+
+def stage_writes_sharded(states, batch: G.Batch, commit, plo, phi) -> G.Staged:
+    """Stage the committed writes of every partition at once (torch glue,
+    vectorised over P): clip each write to each partition, rank its
+    endpoints against that partition's pivots, offset the bucket ids by
+    p·B and stage them over the flat [P·B] view."""
+    P, B, S, Lp1 = states.grid.shape
+    L = Lp1 - 1
+    wb, we = clip(batch.wb, batch.we, plo[:, None, None, :], phi[:, None, None, :])
+    codes, evs, okok = G._write_events(wb, we, commit)  # [P, 2W, ...]
+    bkt = G._rank(ordered(codes), ordered(states.pivots), strict=False)
+    offs = torch.arange(P, dtype=_I32, device=bkt.device)[:, None] * B
+    bkt = torch.where(okok, bkt + offs, torch.full_like(bkt, P * B))
+    n2w = codes.shape[1]
+    return G._stage(
+        codes.reshape(P * n2w, L), evs.reshape(-1), bkt.reshape(-1),
+        P * B, P, S, P * min(n2w, B),
+    )
+
+
+def merge_writes_sharded(states, batch: G.Batch, commit, now: int, oldest: int, plo, phi):
+    """Merge the committed writes, clipped to each partition, into the
+    stacked state IN PLACE. Returns int32[P, 2] pressures (per partition:
+    max staged rows in a bucket, max kept rows in a bucket)."""
+    st = stage_writes_sharded(states, batch, commit, plo, phi)
+    max_kept = G.merge_staged(flat_view(states), st, now, oldest, states.grid.shape[0])
+    return torch.stack([st.max_staged, max_kept], dim=-1)
+
+
+def resolve_one_sharded(states, batch: G.Batch, now: int, oldest_pre: int,
+                        oldest_post: int, bounds=None):
+    """One batch through all P partitions. Updates ``states`` IN PLACE;
+    returns (states, verdicts int8[T], pressure int32[P, 2])."""
+    P, _B, _S, Lp1 = states.grid.shape
+    plo, phi = bounds if bounds is not None else partition_bounds(Lp1 - 1, P, states.grid.device)
+    too_old = batch.t_has_reads & (batch.t_snap < oldest_pre)
+    H = history_conflicts_sharded(states, batch, plo, phi) | too_old
+    commit = G.intra_batch_commits(batch, H)
+    pressure = merge_writes_sharded(states, batch, commit, now, oldest_post, plo, phi)
+    verdicts = (~commit).to(torch.int8).masked_fill(too_old, G.TOO_OLD)
+    return states, verdicts, pressure
+
+
+def resolve_many_sharded(states, batches: G.Batch, nows, oldests_pre,
+                         oldests_post, bounds=None):
+    """G batches in order (the reference's on-device scan; a host loop
+    here, as in ``grid.resolve_many``). Updates ``states`` IN PLACE.
+    Returns (states, verdicts int8[G, T], pressures int32[G, P, 2]) — the
+    per-batch pressures, not a group max."""
+    if bounds is None:
+        P, _B, _S, Lp1 = states.grid.shape
+        bounds = partition_bounds(Lp1 - 1, P, states.grid.device)
+    verdicts, pressures = [], []
+    for g in range(batches.rb.shape[0]):
+        batch = G.Batch(*(x[g] for x in batches))
+        states, v, p = resolve_one_sharded(
+            states, batch, int(nows[g]), int(oldests_pre[g]), int(oldests_post[g]), bounds
+        )
+        verdicts.append(v)
+        pressures.append(p)
+    return states, torch.stack(verdicts), torch.stack(pressures)
+
+
+# ---------------------------------------------------------------------------
+# K7: maintenance over partitions
+
+
+def reshard_parts(states, n_buckets: int, n_slots: int):
+    """``grid.reshard_device`` on every partition (the reference's vmap in
+    ``MeshConflictSet._grow``). Returns (new stacked states, int32[P]
+    pressures)."""
+    P, B, S, _ = states.grid.shape
+    used = torch.arange(S, device=states.grid.device) < states.count[..., None]
+    used = used.reshape(P, B * S)
+    if states.grid.is_cuda:
+        dest = torch.cumsum(used, 1, dtype=_I32) - 1
+        out = kernels.maint_reshard_parts(
+            states.grid, states.floor, used, dest, n_buckets, n_slots
+        )
+        return G.GridState(*out[:5]), out[5]
+    return reshard_parts_plain(states, used, n_buckets, n_slots)
+
+
+def reshard_parts_plain(states, used, n_buckets: int, n_slots: int):
+    P = states.grid.shape[0]
+    outs = [
+        G.reshard_device_plain(partition(states, p), used[p], n_buckets, n_slots)
+        for p in range(P)
+    ]
+    new = G.GridState(*(torch.stack(xs) for xs in zip(*(o[0] for o in outs))))
+    return new, torch.stack([o[1] for o in outs])
+
+
+def reshard_partition(states, p: int, n_buckets: int, n_slots: int):
+    """Rebalance partition p's grid on the device (host-driven, between
+    batches). Returns (new stacked states, pressure int): pressure >
+    n_slots means the partition needs a larger grid."""
+    one = G.GridState(*(x[p : p + 1] for x in states))
+    new, pressure = reshard_parts(one, n_buckets, n_slots)
+    return set_partition(states, p, partition(new, 0)), int(pressure[0])
+
+
+def rebase_parts(states, delta: int) -> G.GridState:
+    """``grid.rebase`` on every partition (the reference's vmap in
+    ``MeshConflictSet._maybe_rebase``): rebase is per bucket, so the
+    stack is rebased as its flat [P·B] view. Returns a new state."""
+    if states.grid.is_cuda:
+        grid, bmax, floor = kernels.maint_rebase_parts(
+            states.grid, states.count, states.floor, delta
+        )
+        return G.GridState(states.pivots, grid, states.count, bmax, floor)
+    return rebase_parts_plain(states, delta)
+
+
+def rebase_parts_plain(states, delta: int) -> G.GridState:
+    P, B, S, Lp1 = states.grid.shape
+    flat = G.rebase_plain(flat_view(states), delta)
+    return G.GridState(
+        states.pivots, flat.grid.view(P, B, S, Lp1), states.count,
+        flat.bmax.view(P, B), flat.floor.view(P, B),
+    )
+
+
+def stacked_occupancy_stats(states: G.GridState) -> dict:
+    """Per-partition occupancy gauges over a stacked state. Reads only the
+    small count array."""
+    counts = states.count.cpu().numpy()  # [n_parts, B]
+    n_parts, B = counts.shape
+    S = states.grid.shape[2]
+    per_part = counts.sum(axis=1)
+    worst = int(counts.max(initial=0))
+    return {
+        "partitions": int(n_parts),
+        "liveRows": int(per_part.sum()),
+        "liveRowsPerPartition": [int(x) for x in per_part],
+        "usedBuckets": int((counts > 0).sum()),
+        "bucketCount": int(n_parts * B),
+        "slotCapacity": int(S),
+        "maxBucketRows": worst,
+        "slotHeadroom": int(S - worst),
+        "fillFraction": round(float(per_part.sum()) / float(n_parts * B * S), 6),
+    }

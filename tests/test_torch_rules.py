@@ -50,6 +50,22 @@ def test_default_device_is_cuda_and_raises_without_it():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_mesh_backend_and_range_index_default_to_cuda():
+    from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
+
+    if torch.cuda.is_available():
+        assert new_conflict_set("torch_mesh", capacity=1 << 10)._device.type == "cuda"
+        assert TorchRangeIndex([b"k"])._codes.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        new_conflict_set("torch_mesh")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        new_conflict_set("torch_mesh", n_parts=2, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchRangeIndex([b"a", b"b"])
+    assert TorchRangeIndex([b"a"], device="cpu").n == 1
+
+
 def test_unknown_backend_raises():
     with pytest.raises(ValueError):
         new_conflict_set("tpu")
@@ -68,4 +84,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.intra_batch(r, r, r, r, torch.zeros(8, dtype=torch.bool))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.maint_rebase(grid, b, b, 1)
+    # the partitioned (K6, K7) and range-index (K5) wrappers
+    g4 = torch.zeros((2, 8, 32, 4), dtype=torch.int32)
+    b2 = torch.zeros((2, 8), dtype=torch.int32)
+    bounds = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.history_parts(torch.zeros((2, 8, 3), dtype=torch.int32), g4, b2, b2, b2,
+                              bounds, bounds, x, x, b)
+    st = torch.zeros((4, 16, 3), dtype=torch.int32)
+    u = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.merge_parts(grid.repeat(2, 1, 1), b.repeat(2), b.repeat(2), b.repeat(2),
+                            st, st[..., 0], u, u, 1, 0, 2)
+    used = torch.zeros((2, 8 * 32), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.maint_reshard_parts(g4, b2, used, used.int(), 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.maint_rebase_parts(g4, b2, b2, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.search(torch.zeros((8, 3), dtype=torch.int32), torch.zeros((4, 3), dtype=torch.int32))
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
