@@ -17,10 +17,17 @@ card). Phases, each of which raises on failure:
    just before it; versions start just below 2^30, so the run crosses the
    int32 rebase threshold as a long-running cluster does (K4b), and one
    device reshard is forced between groups (K4a). Every verdict must equal
-   the CPU path's and the oracle's, and every kernel must have launched;
+   the CPU path's and the oracle's, and every kernel must have launched.
+   Then 10 more batches under ``torch.profiler``: one line of CUDA kernels
+   launched per batch and the encode / glue dispatch / kernel time split;
 5. hold each kernel against its plain version on the card at the main
-   path's shapes (exact equality: outputs are integers and bools) and time
-   both with CUDA events;
+   path's shapes (exact equality: outputs are integers and bools), time
+   both with CUDA events (the table's ``ms`` and ``plain_ms``) and the
+   kernel's device time too (``device_ms``: the calls queued behind a
+   sleeping kernel, so the host's launch gaps drop out): K1, K2
+   from the codes, the K3 staging launch, the K3 merge launch with the
+   floor raise, K4a, K4b; then the merge launch once more when a single
+   committed clear spans the whole keyspace;
 6. after phases 7 and 8: print the kernel table (every kernel of the three
    paths), the card line and the result line;
 7. the partitioned resolver, ``new_conflict_set("torch_mesh", key_width=12,
@@ -30,8 +37,9 @@ card). Phases, each of which raises on failure:
    keys would all land in partition 0): every verdict must equal the
    oracle's from phase 3; versions cross the int32 rebase; one partition
    reshard is forced between groups; every partition must hold live rows;
-   then its kernels (K6 history and merge over partitions, K7 reshard and
-   rebase over partitions) are held against their plain versions;
+   then its kernels (K6 history, staging and merge over partitions, K7
+   reshard and rebase over partitions) are held against their plain
+   versions, and its profile line is printed;
 8. the storage range index at ``bench.py``'s shape: 1M random 12-byte
    keys at width 32 (2^20 × 8 lanes = 32 MiB of codes on the card), 50
    rounds of 4096 lookups (70 % hits) and 4096 range queries, every answer
@@ -42,14 +50,18 @@ Each path runs with every kernel launch count set to 0 just before it and
 read just after, and every kernel of the path must have launched.
 
 Exits non-zero, without a result line, when no CUDA card is visible.
-Usage: ``python3 chip_smoke.py``.
+Usage: ``python3 chip_smoke.py``; ``python3 chip_smoke.py --profile-only``
+prints only the two resolver paths' profile lines (each path warmed by one
+group first) and no result line, and runs from any checkout of the port.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import random
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +79,7 @@ CAPACITY = 1 << 19
 INDEX_KEYS = 1_000_000  # bench.py bench_range_index
 INDEX_BATCH = 4096
 INDEX_ROUNDS = 50
+PROFILE_BATCHES = 10  # the steady window of the per-batch launch and time split
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SCALAR_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core rate (used for int ops)
 
@@ -144,6 +157,122 @@ def drive(cs, batches, offset: int, force_at: int | None = None, force=None):
     return verdicts, encode_s
 
 
+# the port's kernels by their names in csrc/*.cu (greedy_commit: K2 before
+# its redesign, for profiles of older checkouts); every other kernel on
+# the card is a torch op of the glue
+PORT_KERNELS = re.compile(
+    r"\b(superblock_max|history_kernel|build_overlap|greedy_chain|greedy_commit|stage_records"
+    r"|stage_sort|stage_merge|stage_aggregate|merge_buckets|compact_live|build_buckets"
+    r"|rebase_kernel|search_both)\b"
+)
+
+
+def profile_path(cs, batches, first: int, label: str, card: str) -> dict:
+    """Launches and time per batch over a steady window: ``batches`` (read
+    snapshots first, first + 1, ...) as one group through the warm
+    resolver's encoded async path, under ``torch.profiler``. Host encode and
+    the group's dispatch (torch glue and launches, enqueued without waiting)
+    are timed on the host clock; kernel launches and kernel time are the
+    profiler's CUDA kernel events, split into the port's kernels and
+    torch's. The profiler's own overhead is inside the dispatch time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(batches)
+    cs.prepare(first + n - 1 + WINDOW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    work = [(cs.encode(b), first + i + WINDOW, first + i) for i, b in enumerate(batches)]
+    encode_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handle = cs.detect_many_encoded_async(work)
+        dispatch_s = time.perf_counter() - t0
+        handle()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError(f"{label}: the profiler recorded no device time")
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    kern = [e for e in dev if e not in copies]
+    ours = [e for e in kern if PORT_KERNELS.search(e.name)]
+
+    def busy_s(es):
+        return sum(e.time_range.elapsed_us() for e in es) * 1e-6
+
+    out = {
+        "path": label, "batches": n,
+        "kernels_per_batch": len(kern) / n,
+        "port_kernels_per_batch": len(ours) / n,
+        "torch_kernels_per_batch": (len(kern) - len(ours)) / n,
+        "copies_per_batch": len(copies) / n,
+        "encode_ms": encode_s / n * 1e3,
+        "dispatch_ms": dispatch_s / n * 1e3,
+        "kernel_ms": busy_s(kern) / n * 1e3,
+        "port_kernel_ms": busy_s(ours) / n * 1e3,
+        "window_ms": window_s / n * 1e3,
+        "device_idle": 1.0 - busy_s(kern + copies) / window_s,
+    }
+    log(f"{label}, per batch over a steady window of {n} [{card}]: "
+        f"{out['kernels_per_batch']:.1f} CUDA kernels launched ({out['port_kernels_per_batch']:.1f} "
+        f"of the port's kernels, {out['torch_kernels_per_batch']:.1f} of torch's glue) and "
+        f"{out['copies_per_batch']:.1f} copies; encode {out['encode_ms']:.3f} ms, glue dispatch "
+        f"{out['dispatch_ms']:.3f} ms, kernel time {out['kernel_ms']:.4f} ms (the port's kernels "
+        f"{out['port_kernel_ms']:.4f} ms); device idle {out['device_idle']:.4f} of the "
+        f"{out['window_ms']:.3f} ms dispatch-to-verdicts window")
+    log(f"{label} profile: " + json.dumps(out))
+    return out
+
+
+def kernel_ms(fn, reps: int) -> tuple[float | None, float, dict]:
+    """A kernel wrapper's time per call, twice: between CUDA events around
+    ``reps`` calls (the timer of every row; it also counts the stream's
+    idle gaps while the host runs the wrapper, as the plain versions'
+    times do), and its device time (``queued_ms``); and, for the log only,
+    the ``torch.profiler`` device time of each kernel it launches by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    events_ms = cuda_ms(fn, reps)
+    device_ms = queued_ms(fn, reps, events_ms)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy"):
+            key = PORT_KERNELS.search(e.name)
+            key = key.group(1) if key else e.name.split("(")[0][:40]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    return device_ms, events_ms, by_name
+
+
+def queued_ms(fn, reps: int, host_ms: float) -> float | None:
+    """Device time per call: CUDA events around ``reps`` calls that the
+    host enqueues while a sleeping kernel holds the stream, so the calls
+    run back to back and the host's time between launches drops out. None
+    if the sleep ended before the host had enqueued every call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sleep_ms = 2 * host_ms * reps + 1
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(sleep_ms * 2e6))  # cycles, at <= 2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        queued = not start.query()
+        end.record()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        sleep_ms *= 4
+    return None
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -156,6 +285,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def max_abs_err(a, b) -> int:
@@ -202,11 +335,16 @@ def history_work(state, rb, re) -> tuple[int, int]:
 
 
 def merge_work(state, after, st, n_parts: int) -> tuple[int, int]:
-    """(bytes, int ops) of the per-bucket merge: per touched bucket its live
-    rows read, max(old, new count) rows written, S2 staged rows,
-    tid/carry/count/floor read, count/bmax/floor written; one pressure
-    word per partition. ``state``/``after`` are the grid before and after
-    (the flat view of a stacked grid)."""
+    """(bytes, int ops) of the per-bucket merge and the floor raise: per
+    touched bucket its live rows read, max(old, new count) rows written,
+    S2 staged rows, tid/carry/count/floor read, count/bmax/floor written;
+    floor and bmax read and written in each spanned bucket; one pressure
+    word per partition; a comparison sort of S + S2 rows (M log2 M
+    compares of L lanes) and a few scans per bucket. ``state``/``after``
+    are the grid before and after (the flat view of a stacked grid), ``st``
+    the staging."""
+    from foundationdb_tpu_torch.conflict import grid as G
+
     B, S, Lp1 = state.grid.shape
     L = Lp1 - 1
     live = st.tid < B
@@ -216,15 +354,63 @@ def merge_work(state, after, st, n_parts: int) -> tuple[int, int]:
     touched = st.tid[live].long()
     old_n, new_n = state.count[touched], after.count[touched]
     row_io = int(old_n.sum()) + int(torch.maximum(old_n, new_n).sum())
-    nbytes = (row_io * Lp1 + U * (S2 * (L + 1) + 7) + n_parts) * CELL
-    return nbytes, U * (M * M * L + M * 8)
+    spanned = int(G.spanned_buckets(st, B, n_parts).sum())
+    nbytes = (row_io * Lp1 + U * (S2 * (L + 1) + 7) + 4 * spanned + n_parts) * CELL
+    return nbytes, U * (M * math.ceil(math.log2(M)) * L + M * 8) + 2 * spanned
+
+
+def intra_batch_work(T: int, KR: int, KW: int, L: int) -> tuple[int, int]:
+    """(bytes, int ops) of K2 from codes: the four code planes and H in,
+    the commit flags out; one lane compare per lane of the two lex
+    compares of every (read, earlier write) pair."""
+    nbytes = 2 * T * (KR + KW) * L * CELL + 2 * T
+    return nbytes, T * (T - 1) // 2 * KR * KW * 2 * L
+
+
+def stage_work(sk, T: int, KW: int, L: int, B: int, P: int) -> tuple[int, int]:
+    """(bytes, int ops) of the staging: the write codes and commit flags
+    in, the pivot rows the binary searches probe (at most all), the staging
+    planes, touched ids, carries and pressure out; a comparison sort of
+    the rows (n log2 n compares of L + 1 words) and the searches."""
+    U, S2, _ = sk.st_code.shape
+    n = P * 2 * T * KW
+    n_valid = int((sk.tid < P * B).sum())  # touched buckets: a floor on valid rows
+    probes = n * max(1, math.ceil(math.log2(B)))
+    nbytes = (n * L + T // 4 + min(P * B * L, probes * L) + U * S2 * (L + 1) + 2 * U + P) * CELL
+    ops = n * max(1, math.ceil(math.log2(max(n, 2)))) * (L + 1) + probes * L + n_valid
+    return nbytes, ops
+
+
+def merge_case(state, st, vers, n_parts: int, reps: int = 20):
+    """The merge launch (with its floor raise) against its plain version,
+    each on fresh clones of ``state`` since both update it in place:
+    (max abs err, kernel_ms's timing, plain ms, the kernel's state after)."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import kernels
+
+    now, _, old_post = vers
+
+    def launch(s):
+        args = (s.grid, s.count, s.bmax, s.floor, *st[:4], now, old_post)
+        return kernels.merge(*args) if n_parts == 1 else kernels.merge_parts(*args, n_parts)
+
+    ks, ps = G.clone_state(state), G.clone_state(state)
+    mk = launch(ks)
+    mp = G.merge_staged_plain(ps, st, now, old_post, n_parts)
+    err = max_abs_err((*ks[1:], mk), (*ps[1:], mp))
+    it = iter([G.clone_state(state) for _ in range(5 * reps + 2)])  # as many as kernel_ms may call
+    timed = kernel_ms(lambda: launch(next(it)), reps)
+    pit = iter([G.clone_state(state) for _ in range(5)])
+    plain_ms = cuda_ms(lambda: G.merge_staged_plain(next(pit), st, now, old_post, n_parts), 3)
+    return err, timed, plain_ms, ks
 
 
 def row_maker(rows: list, launches: dict):
     """A function that checks one kernel's result, appends its row of the
     kernel table and logs it."""
 
-    def row(name, source, replaces, err, ms, plain_ms, nbytes, ops):
+    def row(name, source, replaces, err, timed, plain_ms, nbytes, ops):
+        device_ms, ms, by_name = timed
         b_ms, b_by = bound(nbytes, ops)
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version (max abs err {err})")
@@ -232,11 +418,13 @@ def row_maker(rows: list, launches: dict):
             "name": name, "route": "cuda",
             "source": "foundationdb_tpu_torch/conflict/kernels/csrc/" + source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-        log(f"  {name:19s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"bound {b_ms:.5f} ms ({b_by})  max_abs_err {err}")
+        parts = ", ".join(f"{k} {v:.4f}" for k, v in by_name.items())
+        log(f"  {name:19s} kernel {ms:.4f} ms (CUDA events; on the device {fmt_ms(device_ms)}; "
+            f"profiler {parts})  plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  "
+            f"max_abs_err {err}")
 
     return row
 
@@ -269,44 +457,50 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     nbytes, ops = history_work(state, batch.rb, batch.re)
     nbytes += (2 * T * KR * L + T) * cell + T
     row("history", "history.cu", "foundationdb_tpu/conflict/grid.py:210", max_abs_err(hk, hp),
-        cuda_ms(lambda: kernels.history(*hargs), 50),
+        kernel_ms(lambda: kernels.history(*hargs), 50),
         cuda_ms(lambda: G.history_conflicts_plain(state, batch), 5),
         nbytes, ops)
 
-    # K2 intra-batch greedy commit (ranks are torch glue on both sides)
+    # K2 intra-batch greedy commit: the kernel from the codes, the plain
+    # version from dense endpoint ranks (which it computes)
     H = hk | (batch.t_has_reads & (batch.t_snap < old_pre))
-    ranks = G._endpoint_ranks(batch)
-    ck = kernels.intra_batch(*ranks, H)
-    cp = G.intra_batch_commits_plain(*ranks, H)
-    nbytes = 2 * T * (KR + KW) * cell + 2 * T
-    ops = T * (T - 1) // 2 * KR * KW * 2 + T * ((T + 31) // 32)
-    row("intra_batch", "intra_batch.cu", "foundationdb_tpu/conflict/grid.py:337", max_abs_err(ck, cp),
-        cuda_ms(lambda: kernels.intra_batch(*ranks, H), 20),
-        cuda_ms(lambda: G.intra_batch_commits_plain(*ranks, H), 3),
+    kargs = (batch.rb, batch.re, batch.wb, batch.we, H)
+    ck = kernels.intra_batch(*kargs)
+    cp = G.intra_batch_commits_plain(*G._endpoint_ranks(batch), H)
+    nbytes, ops = intra_batch_work(T, KR, KW, L)
+    row("intra_batch", "intra_batch.cu", "foundationdb_tpu/conflict/grid.py:297,337", max_abs_err(ck, cp),
+        kernel_ms(lambda: kernels.intra_batch(*kargs), 20),
+        cuda_ms(lambda: G.intra_batch_commits_plain(*G._endpoint_ranks(batch), H), 3),
         nbytes, ops)
 
-    # K3 per-bucket merge, on fresh clones (it updates the state in place)
+    # K3 staging: the kernel against _stage_writes
+    S2 = G.staging_slots(S)
+    sargs = (batch.wb[None], batch.we[None], ck, state.pivots[None], S2)
+    sk = G.Staged(*kernels.stage(*sargs))
     st = G._stage_writes(state, batch, ck)
-    live = st.tid < B
-    carry_in = torch.where(live, st.carry[st.tid.clamp(max=B - 1).long()], torch.zeros_like(st.tid))
-    ks, ps = G.clone_state(state), G.clone_state(state)
-    mk = kernels.merge(ks.grid, ks.count, ks.bmax, ks.floor, st.st_code, st.st_ev, st.tid, carry_in, now, old_post)
-    mp = G._merge_buckets_plain(ps, st, carry_in, now, old_post)
-    err = max_abs_err((ks.grid, ks.count, ks.bmax, ks.floor, mk.reshape(())),
-                      (ps.grid, ps.count, ps.bmax, ps.floor, mp.reshape(())))
-    reps = 20
-    pool = [G.clone_state(state) for _ in range(reps + 2)]
-    it = iter(pool)
+    row("stage", "stage.cu", "foundationdb_tpu/conflict/grid.py:430", max_abs_err(tuple(sk), tuple(st)),
+        kernel_ms(lambda: kernels.stage(*sargs), 20),
+        cuda_ms(lambda: G._stage_writes(state, batch, ck), 3),
+        *stage_work(sk, T, KW, L, B, 1))
 
-    def merge_once():
-        s = next(it)
-        kernels.merge(s.grid, s.count, s.bmax, s.floor, st.st_code, st.st_ev, st.tid, carry_in, now, old_post)
+    # K3 merge with the floor raise
+    err, timed, plain_ms, ks = merge_case(state, st, vers, 1)
+    row("merge", "merge.cu", "foundationdb_tpu/conflict/grid.py:526", err, timed, plain_ms,
+        *merge_work(state, ks, st, 1))
 
-    ms = cuda_ms(merge_once, reps)
-    ppool = iter([G.clone_state(state) for _ in range(5)])
-    plain_ms = cuda_ms(lambda: G._merge_buckets_plain(next(ppool), st, carry_in, now, old_post), 3)
-    nbytes, ops = merge_work(state, ks, st, 1)
-    row("merge", "merge.cu", "foundationdb_tpu/conflict/grid.py:402", err, ms, plain_ms, nbytes, ops)
+    # the same launch when one committed clear spans the whole keyspace and
+    # nothing else commits: two touched buckets, all others floor-raised
+    wb, we = batch.wb.clone(), batch.we.clone()
+    wb[0], we[0] = 0, -1  # [the all-zero code, the all-0xFF code)
+    wide = torch.zeros_like(ck)
+    wide[0] = True
+    sw = G._stage_writes(state, batch._replace(wb=wb, we=we), wide)
+    err, timed, plain_ms, _ = merge_case(state, sw, vers, 1)
+    if err != 0:
+        raise AssertionError(f"merge of a keyspace-wide clear differs from its plain version ({err})")
+    log(f"  merge, one keyspace-wide clear ({int(G.spanned_buckets(sw, B).sum())} spanned buckets): "
+        f"kernel {timed[1]:.4f} ms (CUDA events; on the device {fmt_ms(timed[0])})  plain {plain_ms:.4f} ms  "
+        f"max_abs_err {err}")
 
     # K4a device reshard at the same grid shape
     N = B * S
@@ -321,7 +515,7 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     nbytes = (n_live * Lp1 + 2 * B + B * S * Lp1 + B * (L + 3) + 1) * cell
     row("maint_reshard", "maint.cu", "foundationdb_tpu/conflict/grid.py:718",
         max_abs_err(tuple(rk), tuple(rp_state) + (rp_press,)),
-        cuda_ms(lambda: kernels.maint_reshard(state.grid, state.floor, used, dest, B, S), 20),
+        kernel_ms(lambda: kernels.maint_reshard(state.grid, state.floor, used, dest, B, S), 20),
         cuda_ms(lambda: G.reshard_device_plain(state, used, B, S), 3),
         nbytes, n_live * Lp1 + B * S)
 
@@ -332,7 +526,7 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     nbytes = n_live * cell + 2 * B * cell + B * S * Lp1 * cell + 2 * B * cell
     row("maint_rebase", "maint.cu", "foundationdb_tpu/conflict/grid.py:704",
         max_abs_err(bk, (bp.grid, bp.bmax, bp.floor)),
-        cuda_ms(lambda: kernels.maint_rebase(state.grid, state.count, state.floor, delta), 20),
+        kernel_ms(lambda: kernels.maint_rebase(state.grid, state.count, state.floor, delta), 20),
         cuda_ms(lambda: G.rebase_plain(state, delta), 5),
         nbytes, B * S * 3)
     torch.cuda.synchronize()
@@ -370,30 +564,26 @@ def check_partition_kernels(states, hbatch, vers, launches: dict) -> list[dict]:
         nbytes, ops = nbytes + nb, ops + no
     row("history_parts", "history.cu", "foundationdb_tpu/conflict/sharded.py:149",
         max_abs_err(hk, hp),
-        cuda_ms(lambda: kernels.history_parts(*hargs), 50),
+        kernel_ms(lambda: kernels.history_parts(*hargs), 50),
         cuda_ms(lambda: SH.history_conflicts_sharded_plain(states, batch, plo, phi), 3),
         nbytes, ops)
 
-    # K6 merge over the flat [P·B] view, on fresh clones
+    # K6 staging of every partition's clipped writes in one launch
     commit = G.intra_batch_commits(batch, hk | (batch.t_has_reads & (batch.t_snap < old_pre)))
-    st = SH.stage_writes_sharded(states, batch, commit, plo, phi)
+    wb, we = SH.clip(batch.wb, batch.we, plo[:, None, None, :], phi[:, None, None, :])
+    sargs = (wb, we, commit, states.pivots, G.staging_slots(S))
+    sk = G.Staged(*kernels.stage_parts(*sargs))
+    st = SH._stage_clipped_plain(states, wb, we, commit)
+    row("stage_parts", "stage.cu", "foundationdb_tpu/conflict/sharded.py:160", max_abs_err(tuple(sk), tuple(st)),
+        kernel_ms(lambda: kernels.stage_parts(*sargs), 20),
+        cuda_ms(lambda: SH._stage_clipped_plain(states, wb, we, commit), 3),
+        *stage_work(sk, T, wb.shape[2], L, B, P))
+
+    # K6 merge over the flat [P·B] view
     flat = SH.flat_view(states)
-    live = st.tid < P * B
-    carry_in = torch.where(live, st.carry[st.tid.clamp(max=P * B - 1).long()], torch.zeros_like(st.tid))
-
-    def margs(s):
-        return (s.grid, s.count, s.bmax, s.floor, st.st_code, st.st_ev, st.tid, carry_in, now, old_post)
-
-    ks, ps = G.clone_state(flat), G.clone_state(flat)
-    mk = kernels.merge_parts(*margs(ks), P)
-    mp = G._merge_buckets_plain(ps, st, carry_in, now, old_post, P)
-    err = max_abs_err((ks.grid, ks.count, ks.bmax, ks.floor, mk), (ps.grid, ps.count, ps.bmax, ps.floor, mp))
-    it = iter([G.clone_state(flat) for _ in range(22)])
-    ms = cuda_ms(lambda: kernels.merge_parts(*margs(next(it)), P), 20)
-    pit = iter([G.clone_state(flat) for _ in range(5)])
-    plain_ms = cuda_ms(lambda: G._merge_buckets_plain(next(pit), st, carry_in, now, old_post, P), 3)
-    nbytes, ops = merge_work(flat, ks, st, P)
-    row("merge_parts", "merge.cu", "foundationdb_tpu/conflict/sharded.py:160", err, ms, plain_ms, nbytes, ops)
+    err, timed, plain_ms, ks = merge_case(flat, st, vers, P)
+    row("merge_parts", "merge.cu", "foundationdb_tpu/conflict/sharded.py:160", err, timed, plain_ms,
+        *merge_work(flat, ks, st, P))
 
     # K7a reshard of every partition at its grid shape
     used = (torch.arange(S, device=dev) < states.count[..., None]).reshape(P, B * S)
@@ -404,7 +594,7 @@ def check_partition_kernels(states, hbatch, vers, launches: dict) -> list[dict]:
     nbytes = (n_live * Lp1 + 2 * P * B + P * B * S * Lp1 + P * B * (L + 3) + P) * CELL
     row("maint_reshard_parts", "maint.cu", "foundationdb_tpu/conflict/mesh_backend.py:477",
         max_abs_err(tuple(rk), tuple(rp_state) + (rp_press,)),
-        cuda_ms(lambda: kernels.maint_reshard_parts(states.grid, states.floor, used, dest, B, S), 20),
+        kernel_ms(lambda: kernels.maint_reshard_parts(states.grid, states.floor, used, dest, B, S), 20),
         cuda_ms(lambda: SH.reshard_parts_plain(states, used, B, S), 3),
         nbytes, n_live * Lp1 + P * B * S)
 
@@ -415,7 +605,7 @@ def check_partition_kernels(states, hbatch, vers, launches: dict) -> list[dict]:
     nbytes = (n_live + 4 * P * B + P * B * S * Lp1) * CELL
     row("maint_rebase_parts", "maint.cu", "foundationdb_tpu/conflict/mesh_backend.py:499",
         max_abs_err(bk, (bp.grid, bp.bmax, bp.floor)),
-        cuda_ms(lambda: kernels.maint_rebase_parts(states.grid, states.count, states.floor, delta), 20),
+        kernel_ms(lambda: kernels.maint_rebase_parts(states.grid, states.count, states.floor, delta), 20),
         cuda_ms(lambda: SH.rebase_parts_plain(states, delta), 5),
         nbytes, P * B * S * 3)
     torch.cuda.synchronize()
@@ -454,7 +644,7 @@ def check_search(codes, q, launches: dict) -> list[dict]:
     nbytes = (Q * L + 2 * Q + n_rows * L) * CELL
     row("search", "search.cu", "foundationdb_tpu/conflict/grid.py:125",
         max_abs_err(kernels.search(codes, q), plain()),
-        cuda_ms(lambda: kernels.search(codes, q), 50),
+        kernel_ms(lambda: kernels.search(codes, q), 50),
         cuda_ms(plain, 5),
         nbytes, Q * 2 * steps * L)
     torch.cuda.synchronize()
@@ -496,7 +686,8 @@ def run_mesh(want_oracle, offset: int, card: str) -> list[dict]:
     per_part = snap["occupancy"]["liveRowsPerPartition"]
     if not all(n > 0 for n in per_part):
         raise AssertionError(f"a partition holds no live rows: {per_part}")
-    path = ("history_parts", "intra_batch", "merge_parts", "maint_reshard_parts", "maint_rebase_parts")
+    path = ("history_parts", "intra_batch", "stage_parts", "merge_parts", "maint_reshard_parts",
+            "maint_rebase_parts")
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the partitioned path: {missing}")
@@ -513,7 +704,10 @@ def run_mesh(want_oracle, offset: int, card: str) -> list[dict]:
     now = offset + N_BATCHES + WINDOW - cs._base
     old = max(cs.oldest_version - cs._base, 0)
     log(f"partitioned kernel checks on the final state [{card}]:")
-    return check_partition_kernels(cs._states, hbatch, (now, old, old), launches)
+    rows = check_partition_kernels(cs._states, hbatch, (now, old, old), launches)
+    profile_path(cs, make_batches(PROFILE_BATCHES, N_TXNS, offset + N_BATCHES, seed=1, key=spread_key),
+                 offset + N_BATCHES, "four partitions", card)
+    return rows
 
 
 def run_range_index(card: str) -> list[dict]:
@@ -586,11 +780,37 @@ def run_range_index(card: str) -> list[dict]:
     return check_search(idx._codes, q, launches)
 
 
+def profile_only(card: str) -> None:
+    """Only the per-batch profile of both resolver paths: each warmed by
+    one group of the bench workload, then profiled over the next
+    PROFILE_BATCHES batches. Uses nothing but the resolvers' public entry
+    points, so it measures any checkout of the port it is run from."""
+    from foundationdb_tpu_torch.conflict.api import new_conflict_set
+
+    offset = 1
+    for label, key, kwargs in (("one grid", ascii_key, {}), ("four partitions", spread_key, {"n_parts": 4})):
+        backend = "torch_mesh" if kwargs else "torch"
+        cs = new_conflict_set(backend, key_width=KEY_WIDTH, capacity=CAPACITY, **kwargs)
+        cs.warm_compile()
+        batches = make_batches(GROUP + PROFILE_BATCHES, N_TXNS, offset, key=key)
+        drive(cs, batches[:GROUP], offset)
+        profile_path(cs, batches[GROUP:], offset + GROUP, label, card)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile-only", action="store_true",
+                    help="print only the per-batch profile lines of both resolver paths")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    if args.profile_only:
+        card = card_line()
+        log(f"card: {card}")
+        profile_only(card)
+        return 0
 
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict.api import new_conflict_set
@@ -663,7 +883,7 @@ def main() -> int:
         raise AssertionError(f"{bad} verdicts differ from the oracle")
     if snap["rebases"] < 1 or snap["reshardsDevice"] < 1:
         raise AssertionError(f"rebase/device reshard not exercised: {snap}")
-    path = ("history", "intra_batch", "merge", "maint_reshard", "maint_rebase")
+    path = ("history", "intra_batch", "stage", "merge", "maint_reshard", "maint_rebase")
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -675,6 +895,8 @@ def main() -> int:
     log("verdicts: all equal to the CPU plain path and to the oracle")
     log("launches on the main path: " + json.dumps(launches))
     log("kernel metrics: " + json.dumps(snap, default=str))
+    profile_path(cs, make_batches(PROFILE_BATCHES, N_TXNS, offset + N_BATCHES, seed=1),
+                 offset + N_BATCHES, "one grid", card)
 
     # 5. each kernel against its plain version, at the main path's shapes
     log(f"kernel checks on the state after the first group [{card}]:")

@@ -15,7 +15,8 @@ State (lanes are int32 tensors carrying uint32 bits, see ``device.py``):
 The MVCC write history is the step function V(key) = version of the gap
 containing key. Per batch: the history check (K1, ``history_conflicts``),
 the intra-batch greedy commit (K2, ``intra_batch_commits``) and the merge
-of committed writes with GC (K3, ``merge_writes``); maintenance is
+of committed writes with GC (K3, ``merge_writes``: a staging launch, then
+the merge launch); maintenance is
 ``reshard_device`` (K4a) and ``rebase`` (K4b). ``search_both`` (K5) is the
 storage range index's binary search over a sorted code array. The
 partitioned resolver (``sharded.py``) reuses the staging and merge steps
@@ -330,11 +331,12 @@ def _endpoint_ranks(batch: Batch):
 
 def intra_batch_commits(batch: Batch, H: torch.Tensor) -> torch.Tensor:
     """bool[T]: the in-order greedy commit — txn j commits iff not H[j] and
-    no read of j overlaps a write of an earlier COMMITTED txn i < j."""
-    ranks = _endpoint_ranks(batch)
+    no read of j overlaps a write of an earlier COMMITTED txn i < j. On the
+    card one launch from the key codes; the plain version takes dense
+    endpoint ranks."""
     if H.is_cuda:
-        return kernels.intra_batch(*ranks, H)
-    return intra_batch_commits_plain(*ranks, H)
+        return kernels.intra_batch(batch.rb, batch.re, batch.wb, batch.we, H)
+    return intra_batch_commits_plain(*_endpoint_ranks(batch), H)
 
 
 def intra_batch_commits_plain(rb_r, re_r, wb_r, we_r, H):
@@ -369,8 +371,11 @@ class Staged(NamedTuple):
 
     st_code: torch.Tensor  # int32[U, S2, L]; SENTINEL = empty staging slot
     st_ev: torch.Tensor  # int32[U, S2]; aggregated +1/-1 events per code
-    tid: torch.Tensor  # int32[U]; touched bucket ids, B = unused slot
-    carry: torch.Tensor  # int32[B]; Σ ev in buckets < b of b's partition
+    tid: torch.Tensor  # int32[U]; touched bucket ids, ascending, B = unused slot
+    # int32[U]; Σ ev in the buckets before each touched bucket, within its
+    # partition (0 at unused slots). Between two touched buckets the carry
+    # is constant, so an untouched bucket's follows from the sorted ``tid``
+    carry: torch.Tensor
     max_staged: torch.Tensor  # int32[P]; most staged rows in a bucket
 
 
@@ -388,9 +393,18 @@ def _write_events(wb: torch.Tensor, we: torch.Tensor, commit: torch.Tensor):
     return codes, evs, okok
 
 
+def stage_writes(state: GridState, batch: Batch, commit: torch.Tensor) -> Staged:
+    """Stage the committed writes of one grid (JAX grid.py:430-524): one
+    kernel launch on the card, ``_stage_writes`` on the CPU."""
+    if state.grid.is_cuda:
+        S2 = staging_slots(state.grid.shape[1])
+        return Staged(*kernels.stage(batch.wb[None], batch.we[None], commit, state.pivots[None], S2))
+    return _stage_writes(state, batch, commit)
+
+
 def _stage_writes(state: GridState, batch: Batch, commit: torch.Tensor) -> Staged:
-    """Torch glue on both paths (JAX grid.py:430-524) for one grid: rank
-    the write endpoints against the pivots, then ``_stage`` them."""
+    """Plain version for one grid: rank the write endpoints against the
+    pivots, then ``_stage`` them."""
     B, S, _ = state.grid.shape
     codes, evs, okok = _write_events(batch.wb, batch.we, commit)
     bkt = _rank(ordered(codes), ordered(state.pivots), strict=False)
@@ -461,11 +475,13 @@ def _stage(codes, evs, bkt, B: int, n_parts: int, S: int, U: int) -> Staged:
     )
     ev = evsum[:B].reshape(n_parts, B // n_parts)
     carry = (torch.cumsum(ev, 1, dtype=_I32) - ev).reshape(B)
+    tid = tid[:U]
+    carry_in = torch.where(tid < B, carry[tid.clamp(max=B - 1).long()], zero)
     return Staged(
         st_code[: U * S2].reshape(U, S2, L),
         st_ev[: U * S2].reshape(U, S2),
-        tid[:U],
-        carry,
+        tid,
+        carry_in,
         max_staged,
     )
 
@@ -493,44 +509,60 @@ def merge_writes(
     returns it with ``pressure`` = int32[2]: [max staged rows in any bucket
     (overflow if > staging_slots(S)), max kept rows in any bucket (overflow
     if > S)]."""
-    st = _stage_writes(state, batch, commit)
+    st = stage_writes(state, batch, commit)
     max_kept = merge_staged(state, st, now, oldest, 1)
     return state, torch.stack([st.max_staged, max_kept], dim=-1).reshape(2)
 
 
 def merge_staged(state: GridState, st: Staged, now: int, oldest: int, n_parts: int):
-    """Merge staged rows into ``state`` IN PLACE — the per-bucket merge
-    (kernel on the card, plain version on the CPU) and the floor raise of
-    buckets a committed write spans. ``state`` may be the flat [P·B] view
-    of ``n_parts`` stacked partitions. Returns int32[n_parts]: the most
-    rows any bucket of each partition kept."""
-    B = state.grid.shape[0]
-    live = st.tid < B
-    tid_c = st.tid.clamp(max=B - 1).long()
-    carry_in = torch.where(live, st.carry[tid_c], torch.zeros_like(st.tid))
+    """Merge staged rows into ``state`` IN PLACE — the per-bucket merge and
+    the floor raise of buckets a committed write spans: one kernel launch
+    on the card, ``merge_staged_plain`` on the CPU. ``state`` may be the flat [P·B] view of ``n_parts`` stacked
+    partitions. Returns int32[n_parts]: the most rows any bucket of each
+    partition kept."""
     if state.grid.is_cuda:
         args = (state.grid, state.count, state.bmax, state.floor,
-                st.st_code, st.st_ev, st.tid, carry_in, now, oldest)
+                st.st_code, st.st_ev, st.tid, st.carry, now, oldest)
         if n_parts == 1:
-            max_kept = kernels.merge(*args)
-        else:
-            max_kept = kernels.merge_parts(*args, n_parts)
-    else:
-        max_kept = _merge_buckets_plain(state, st, carry_in, now, oldest, n_parts)
+            return kernels.merge(*args)
+        return kernels.merge_parts(*args, n_parts)
+    return merge_staged_plain(state, st, now, oldest, n_parts)
 
-    # buckets a committed write spans without an endpoint inside: every
-    # gap's effective version becomes max(base, now) = now — a floor raise
-    is_touched = torch.zeros(B + 1, dtype=torch.bool, device=st.tid.device)
-    is_touched[st.tid.long()] = True
-    covered = (st.carry > 0) & ~is_touched[:B]
-    state.floor.copy_(torch.where(covered, state.floor.clamp(min=now), state.floor))
-    state.bmax.copy_(torch.where(covered, state.bmax.clamp(min=now), state.bmax))
+
+def merge_staged_plain(state: GridState, st: Staged, now: int, oldest: int, n_parts: int = 1):
+    """Plain version of the merge kernel: the per-bucket merge, then the
+    floor raise of the buckets a committed write spans."""
+    max_kept = _merge_buckets_plain(state, st, now, oldest, n_parts)
+    _raise_spanned_plain(state, st, now, n_parts)
     return max_kept
 
 
+def spanned_buckets(st: Staged, B: int, n_parts: int = 1) -> torch.Tensor:
+    """bool[B]: the untouched buckets that a committed write spans — those
+    whose carry, the carry of the next touched bucket of their partition,
+    is positive. Each partition's events sum to 0, so buckets after its
+    last touched bucket are never spanned."""
+    U = st.tid.shape[0]
+    x = torch.arange(B, dtype=_I32, device=st.tid.device)
+    nxt = torch.searchsorted(st.tid, x)  # first touched slot with tid >= x
+    nc = nxt.clamp(max=U - 1)
+    tb = st.tid[nc]
+    part = B // n_parts
+    same = (nxt < U) & (tb < B) & (tb != x) & (tb // part == x // part)
+    return same & (st.carry[nc] > 0)
+
+
+def _raise_spanned_plain(state: GridState, st: Staged, now: int, n_parts: int = 1) -> None:
+    """Buckets a committed write spans without an endpoint inside: every
+    gap's effective version becomes max(base, now) = now — a floor raise
+    (JAX grid.py:635-642)."""
+    covered = spanned_buckets(st, state.grid.shape[0], n_parts)
+    state.floor.copy_(torch.where(covered, state.floor.clamp(min=now), state.floor))
+    state.bmax.copy_(torch.where(covered, state.bmax.clamp(min=now), state.bmax))
+
+
 def _merge_buckets_plain(
-    state: GridState, st: Staged, carry_in: torch.Tensor, now: int, oldest: int,
-    n_parts: int = 1,
+    state: GridState, st: Staged, now: int, oldest: int, n_parts: int = 1
 ) -> torch.Tensor:
     """Plain version of the per-bucket merge kernel (JAX grid.py:526-633):
     for each touched bucket, sort its S old rows and S2 staged rows by
@@ -573,7 +605,7 @@ def _merge_buckets_plain(
     g_ev = torch.where(g_old, zero, (g_pk >> 1) - _EV_OFF)
 
     base = _ffill(g_ver, g_old)
-    cov = carry_in[:, None] + torch.cumsum(g_ev, dim=1, dtype=_I32)
+    cov = st.carry[:, None] + torch.cumsum(g_ev, dim=1, dtype=_I32)
     nv = torch.where(cov > 0, base.clamp(min=now), base)
     nv = torch.where(nv < oldest, zero, nv)
 

@@ -116,36 +116,112 @@ def history_parts(pivots, grid, count, bmax, floor, plo, phi, rb, re, t_snap) ->
     return hit
 
 
+MAX_TXNS = 65536  # intra_batch: a 32·ceil(T/32)²-word bitset (512 MiB at the limit)
+SMEM_OPTIN = 232448  # bytes of shared memory one block may opt into (H100)
+
+
 @_counted
-def intra_batch(rb_r, re_r, wb_r, we_r, H) -> torch.Tensor:
-    """K2: bool[T] in-order greedy commit from int32 endpoint ranks."""
-    T, KR = rb_r.shape
-    KW = wb_r.shape[1]
-    if T > 65536:
-        raise ValueError(f"batch of {T} transactions exceeds the kernel's 65536")
-    _check(rb_r, "rb_r", _I32, (T, KR))
-    _check(re_r, "re_r", _I32, (T, KR))
-    _check(wb_r, "wb_r", _I32, (T, KW))
-    _check(we_r, "we_r", _I32, (T, KW))
+def intra_batch(rb, re, wb, we, H) -> torch.Tensor:
+    """K2: bool[T] in-order greedy commit from the batch's int32 code
+    lanes (``rb``/``re`` [T, KR, L], ``wb``/``we`` [T, KW, L])."""
+    T, KR, L = rb.shape
+    KW = wb.shape[1]
+    if T > MAX_TXNS:
+        raise ValueError(f"batch of {T} transactions exceeds the kernel's {MAX_TXNS}")
+    _check(rb, "rb", _I32, (T, KR, L))
+    _check(re, "re", _I32, (T, KR, L))
+    _check(wb, "wb", _I32, (T, KW, L))
+    _check(we, "we", _I32, (T, KW, L))
     _check(H, "H", torch.bool, (T,))
+    # writer words per overlap CTA: 8 (256 threads) unless the staged
+    # endpoints of 32 readers and 32·WT writers outgrow shared memory
+    WT = next((wt for wt in (8, 4, 2, 1)
+               if (32 * (KR * 2 * L | 1) + 32 * wt * KW * 2 * L) * 4 <= SMEM_OPTIN), 0)
+    if not WT:
+        raise ValueError(f"KR = {KR}, KW = {KW} at {L} lanes exceed one block's shared memory")
     W = (T + 31) // 32
-    pji = torch.empty(T * W, dtype=_I32, device=H.device)
+    pt = torch.empty(W * 32 * W, dtype=_I32, device=H.device)  # the transposed bitset
     commit = torch.empty(T, dtype=torch.bool, device=H.device)
     _run(
         "fdb_intra_batch",
-        _ptr(rb_r), _ptr(re_r), _ptr(wb_r), _ptr(we_r), _ptr(H), _ptr(pji),
-        _ptr(commit), T, KR, KW, _stream(),
+        _ptr(rb), _ptr(re), _ptr(wb), _ptr(we), _ptr(H), _ptr(pt),
+        _ptr(commit), T, KR, KW, L, WT, _stream(),
     )
     intra_batch.launches += 1
     return commit
+
+
+STAGE_TILE_BYTES = SMEM_OPTIN - 2048  # shared memory of one sort tile (the scans take the rest)
+STAGE_TILE_ROWS = 8192  # rows one CTA sorts (16-bit indices); more go through merge passes
+MAX_STAGE_ROWS = 1 << 22  # endpoint rows of all partitions, padded
+
+
+def _stage(wb, we, commit, pivots, S2):
+    P, T, KW, L = wb.shape
+    B = pivots.shape[1]
+    _check(wb, "wb", _I32)
+    _check(we, "we", _I32, (P, T, KW, L))
+    _check(commit, "commit", torch.bool, (T,))
+    _check(pivots, "pivots", _I32, (P, B, L))
+    if L > MAX_LANES:
+        raise ValueError(f"{L} lanes exceed the kernel's {MAX_LANES}")
+    n2 = 2 * T * KW
+    n2pad = 1 << (n2 - 1).bit_length()
+    if P * n2pad > MAX_STAGE_ROWS:
+        raise ValueError(f"{P} × {n2pad} endpoint rows exceed the kernel's {MAX_STAGE_ROWS}")
+    rw = L + 2
+    # a tile's records of rw words and its sort keys (4-byte bucket, 2-byte index)
+    tile = min(n2pad, STAGE_TILE_ROWS, 1 << ((STAGE_TILE_BYTES // (rw * 4 + 6)).bit_length() - 1))
+    U = P * min(n2, B)
+    dev = wb.device
+    st_code = torch.empty((U, S2, L), dtype=_I32, device=dev)
+    st_ev = torch.empty((U, S2), dtype=_I32, device=dev)
+    tid = torch.empty(U, dtype=_I32, device=dev)
+    carry = torch.empty(U, dtype=_I32, device=dev)
+    counters = torch.zeros(2 * P, dtype=_I32, device=dev)  # max_staged, then valid rows, per partition
+    max_staged, n_valid = counters[:P], counters[P:]
+    # the records; the sorted tiles and merge passes need a second buffer
+    # unless one CTA sorts and aggregates everything in shared memory
+    n_rec = P * n2pad * rw
+    rec_a = torch.empty(n_rec, dtype=_I32, device=dev)
+    rec_b = torch.empty(0 if P == 1 and tile == n2pad else n_rec, dtype=_I32, device=dev)
+    _run(
+        "fdb_stage",
+        _ptr(wb), _ptr(we), _ptr(commit), _ptr(pivots), _ptr(st_code), _ptr(st_ev), _ptr(tid),
+        _ptr(carry), _ptr(max_staged), _ptr(n_valid), _ptr(rec_a), _ptr(rec_b),
+        P, T, KW, L, B, U, S2, n2pad, tile, _stream(),
+    )
+    return st_code, st_ev, tid, carry, max_staged
+
+
+@_counted
+def stage(wb, we, commit, pivots, S2: int):
+    """K3 staging on one grid: the committed write endpoints of ``wb``/
+    ``we`` [1, T, KW, L] ranked against ``pivots`` [1, B, L], sorted by
+    (bucket, code), aggregated per distinct code and staged per touched
+    bucket in planes of ``S2`` slots. Returns (st_code [U, S2, L], st_ev [U, S2], tid [U], carry
+    [U] — the event prefix at each touched bucket —, max_staged [1])."""
+    out = _stage(wb, we, commit, pivots, S2)
+    stage.launches += 1
+    return out
+
+
+@_counted
+def stage_parts(wb, we, commit, pivots, S2: int):
+    """K6 staging: ``stage`` over P partitions at once (``wb``/``we``
+    [P, T, KW, L] clipped to each partition, ``pivots`` [P, B, L]); bucket
+    ids are flat over the [P·B] view, max_staged is per partition."""
+    out = _stage(wb, we, commit, pivots, S2)
+    stage_parts.launches += 1
+    return out
 
 
 def _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest, n_parts):
     B, S, Lp1 = grid.shape
     L = Lp1 - 1
     U, S2, _ = st_code.shape
-    if S + S2 > 1024:
-        raise ValueError(f"S + S2 = {S + S2} rows exceed one block")
+    if S > 32 or S2 > 32:
+        raise ValueError(f"S = {S}, S2 = {S2}: one warp holds at most 32 rows of each")
     if B % n_parts:
         raise ValueError(f"{B} buckets do not split into {n_parts} partitions")
     _check(grid, "grid", _I32)
@@ -168,7 +244,9 @@ def _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest,
 @_counted
 def merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now: int, oldest: int):
     """K3: merge the staged rows into their buckets IN PLACE (grid, count,
-    bmax, floor). Returns int32[1]: the most rows any bucket kept."""
+    bmax, floor), and raise the floor of the untouched buckets a committed
+    write spans (``carry_in`` > 0 at the next touched bucket). Returns
+    int32[1]: the most rows any bucket kept."""
     out = _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest, 1)
     merge.launches += 1
     return out
@@ -303,11 +381,13 @@ def search_steps(n: int) -> int:
 WRAPPERS = {
     "history": history,
     "intra_batch": intra_batch,
+    "stage": stage,
     "merge": merge,
     "maint_reshard": maint_reshard,
     "maint_rebase": maint_rebase,
     "search": search,
     "history_parts": history_parts,
+    "stage_parts": stage_parts,
     "merge_parts": merge_parts,
     "maint_reshard_parts": maint_reshard_parts,
     "maint_rebase_parts": maint_rebase_parts,

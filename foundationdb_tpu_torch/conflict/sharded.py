@@ -12,15 +12,15 @@ contiguous, so ``grid.view(P * B, S, L + 1)`` is the flat view):
 
 - history (K6): one launch over all partitions, each read clipped to its
   partition in registers, H OR-ed over the partitions;
-- intra-batch commit: the existing K2 once, on the UNCLIPPED ranks. For
+- intra-batch commit: the existing K2 once, on the UNCLIPPED ranges. For
   ranges with begin <= end the OR over partitions of the clipped overlap
   matrices equals the unclipped matrix: two overlapping ranges share an
   [x, y) with x below the all-0xFF code, and the partition holding x sees
   the clipped pair overlap; a clipped overlap is always an overlap;
-- merge (K6): K3 once over the flat [P·B] view; the staging glue ranks
-  each clipped write endpoint against its own partition's pivots and
-  offsets its bucket id by p·B, the carry restarts at each partition, and
-  the pressure is per partition;
+- merge (K6): the clip, then the K3 staging and merge launches over the
+  flat [P·B] view; staging ranks each clipped write endpoint against its
+  own partition's pivots and offsets its bucket id by p·B, the carry
+  restarts at each partition, and the pressure is per partition;
 - maintenance (K7): ``rebase_parts`` (one launch over the flat view),
   ``reshard_parts`` (a partition axis in the reshard kernel) and
   ``reshard_partition`` (the same kernel on one partition's slice).
@@ -143,13 +143,24 @@ def history_conflicts_sharded_plain(states, batch: G.Batch, plo, phi) -> torch.T
 
 
 def stage_writes_sharded(states, batch: G.Batch, commit, plo, phi) -> G.Staged:
-    """Stage the committed writes of every partition at once (torch glue,
-    vectorised over P): clip each write to each partition, rank its
-    endpoints against that partition's pivots, offset the bucket ids by
-    p·B and stage them over the flat [P·B] view."""
+    """Stage the committed writes of every partition at once: clip each
+    write to each partition (torch glue), then stage the clipped endpoints
+    over the flat [P·B] view, each partition ranked against its own
+    pivots with its bucket ids offset by p·B — one kernel launch on the
+    card, vectorised torch on the CPU."""
+    S = states.grid.shape[2]
+    wb, we = clip(batch.wb, batch.we, plo[:, None, None, :], phi[:, None, None, :])
+    if wb.is_cuda:
+        return G.Staged(*kernels.stage_parts(wb, we, commit, states.pivots, G.staging_slots(S)))
+    return _stage_clipped_plain(states, wb, we, commit)
+
+
+def _stage_clipped_plain(states, wb, we, commit) -> G.Staged:
+    """Plain version of the staging launch: rank the clipped endpoints
+    ``wb``/``we`` [P, T, KW, L] against each partition's pivots (a batched
+    two-level rank), offset the bucket ids by p·B and ``_stage`` them."""
     P, B, S, Lp1 = states.grid.shape
     L = Lp1 - 1
-    wb, we = clip(batch.wb, batch.we, plo[:, None, None, :], phi[:, None, None, :])
     codes, evs, okok = G._write_events(wb, we, commit)  # [P, 2W, ...]
     bkt = G._rank(ordered(codes), ordered(states.pivots), strict=False)
     offs = torch.arange(P, dtype=_I32, device=bkt.device)[:, None] * B

@@ -8,6 +8,7 @@ Imports no JAX, so it runs on a machine that has only PyTorch:
 """
 
 import random
+import zlib
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from foundationdb_tpu_torch.conflict import sharded as SH
 from foundationdb_tpu_torch.conflict import torch_backend as TB
 from foundationdb_tpu_torch.conflict.api import CommitTransaction
 from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
+from foundationdb_tpu_torch.device import ordered
 from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
 
 pytestmark = pytest.mark.cuda
@@ -199,3 +201,200 @@ def test_range_index_on_card_matches_cpu(cuda):
         assert (a == b).all()
     for a, b in zip(on_card.batch_range(queries, queries[::-1]), on_cpu.batch_range(queries, queries[::-1])):
         assert (a == b).all()
+
+
+# ---------------------------------------------------------------------------
+# K2 and the K3 staging/merge kernels on synthetic codes, against their
+# plain versions: the shapes the backends dispatch and the hard cases
+
+SENT = 0xFFFFFFFF
+
+
+def _i32(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
+
+
+def _ranges(rnd, shape, L, span=60, width=8):
+    """uint32 (begin, end) lanes [*shape, L] over a small keyspace: empty,
+    inverted, padding (all-0xFF) slots and ranges ending at the all-0xFF
+    code among them."""
+    b = rnd.integers(0, span, (*shape, L)).astype(np.uint32)
+    b[..., 1:] = rnd.integers(0, 2, (*shape, L - 1))
+    e = b.copy()
+    e[..., 0] += rnd.integers(0, width, shape).astype(np.uint32)
+    inv = rnd.random(shape) < 0.05
+    e[inv, 0] = np.maximum(b[inv, 0], 1) - 1
+    e[rnd.random(shape) < 0.05] = SENT
+    pad = rnd.random(shape) < 0.2
+    b[pad] = SENT
+    e[pad] = SENT
+    return b, e
+
+
+def _k2_inputs(case):
+    rnd = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    name, T, KR, KW, L = case
+    rb, re = _ranges(rnd, (T, KR), L)
+    wb, we = _ranges(rnd, (T, KW), L)
+    j = np.arange(T, dtype=np.uint32)
+    if name == "chain":  # txn j reads what j - 1 wrote
+        wb[:, 0, 0], we[:, 0, 0] = j + 1, j + 2
+        rb[:, 0, 0], re[:, 0, 0] = j, j + 1
+        wb[:, 0, 1:] = we[:, 0, 1:] = rb[:, 0, 1:] = re[:, 0, 1:] = 0
+    elif name == "hot":  # every txn reads and writes one key
+        wb[:, 0], we[:, 0], rb[:, 0], re[:, 0] = 7, 7, 7, 7
+        we[:, 0, -1] = re[:, 0, -1] = 8
+    elif name == "empty_read":  # an empty read range inside an earlier write
+        rb[:, 0, 0] = re[:, 0, 0] = 30
+        rb[:, 0, 1:] = re[:, 0, 1:] = 0
+    H = rnd.random(T) < 0.1
+    return rb, re, wb, we, H
+
+
+K2_CASES = [
+    ("random", 1, 1, 1, 3), ("random", 31, 1, 1, 3), ("random", 32, 1, 1, 3),
+    ("random", 33, 3, 2, 3), ("random", 545, 3, 2, 3), ("random", 2560, 1, 1, 3),
+    ("random", 300, 2, 2, 8), ("random", 64, 1, 1, 1), ("chain", 545, 1, 1, 3),
+    ("hot", 545, 1, 1, 3), ("empty_read", 545, 3, 2, 3), ("random", 4096, 2, 8, 3),
+]
+
+
+@pytest.mark.parametrize("case", K2_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_intra_batch_kernel_matches_plain_version(cuda, case):
+    rb, re, wb, we, H = _k2_inputs(case)
+    T = rb.shape[0]
+    cpu = G.Batch(*(_i32(x) for x in (rb, re, wb, we)), torch.zeros(T, dtype=torch.int32),
+                  torch.zeros(T, dtype=torch.bool))
+    want = G.intra_batch_commits_plain(*G._endpoint_ranks(cpu), torch.from_numpy(H))
+    got = kernels.intra_batch(*(x.to(cuda) for x in cpu[:4]), torch.from_numpy(H).to(cuda))
+    _eq(got, want)
+
+
+def test_intra_batch_kernel_at_its_limit(cuda):
+    """T = 65536: 64 panels of 1024 rows, each starting with a fold of its
+    rows' words below it, and a 512 MiB bitset. A read-after-write chain
+    with random H has a known answer: commit[j] = !H[j] and not
+    commit[j - 1]."""
+    T, L = kernels.MAX_TXNS, 3
+    rb, re, wb, we, H = _k2_inputs(("chain", T, 1, 1, L))
+    want = np.zeros(T, bool)
+    for j in range(T):
+        want[j] = not H[j] and not (j and want[j - 1])
+    got = kernels.intra_batch(*(_i32(x).to(cuda) for x in (rb, re, wb, we)), torch.from_numpy(H).to(cuda))
+    assert np.array_equal(got.cpu().numpy(), want)
+    with pytest.raises(ValueError, match="exceeds"):
+        kernels.intra_batch(*(_i32(x).to(cuda) for x in (np.zeros((T + 1, 1, L)),) * 4),
+                            torch.zeros(T + 1, dtype=torch.bool, device=cuda))
+
+
+def _pivots(rnd, P, B, L, n_live, span):
+    """[P, B, L] sorted pivots: row 0 the zero code, up to n_live - 1
+    distinct random codes after it, the rest unused (all-0xFF)."""
+    piv = np.full((P, B, L), SENT, np.uint32)
+    for p in range(P):
+        codes = np.unique(rnd.integers(1, span, n_live))[: n_live - 1]
+        piv[p, 0] = 0
+        piv[p, 1 : len(codes) + 1, 0] = np.sort(codes)
+        piv[p, 1 : len(codes) + 1, 1:] = 0
+    return piv
+
+
+def _plain_stage(wb, we, commit, pivots, S):
+    P, B, L = pivots.shape
+    codes, evs, okok = G._write_events(wb, we, commit)
+    bkt = G._rank(ordered(codes), ordered(pivots), strict=False)
+    offs = torch.arange(P, dtype=torch.int32)[:, None] * B
+    bkt = torch.where(okok, bkt + offs, torch.full_like(bkt, P * B))
+    n2w = codes.shape[1]
+    return G._stage(codes.reshape(P * n2w, L), evs.reshape(-1), bkt.reshape(-1),
+                    P * B, P, S, P * min(n2w, B))
+
+
+STAGE_CASES = [  # (name, P, T, KW, L, B, live pivots, key span)
+    ("bench", 1, 2560, 1, 3, 32768, 20000, 1_000_000),
+    ("hot_key", 1, 2500, 1, 3, 64, 40, 60),
+    ("overflow", 1, 512, 2, 3, 8, 3, 60),  # > S2 distinct codes in a bucket
+    ("clear_end", 1, 300, 2, 3, 64, 30, 60),
+    ("partitions", 4, 2560, 1, 3, 8192, 5000, 1_000_000),
+    ("wide_lanes", 1, 2560, 1, 8, 4096, 3000, 100_000),  # two sort tiles on one grid
+    ("global", 1, 4096, 8, 3, 32768, 20000, 1_000_000),  # 65,536 rows: sorted through global memory
+]
+
+
+@pytest.mark.parametrize("case", STAGE_CASES, ids=lambda c: c[0])
+def test_stage_kernel_matches_plain_version(cuda, case):
+    name, P, T, KW, L, B, n_live, span = case
+    rnd = np.random.default_rng(len(name) * 1000 + T)
+    wb, we = _ranges(rnd, (P, T, KW), L, span=span)
+    if name == "hot_key":
+        wb[..., :] = 7
+        we[..., :] = 7
+        we[..., -1] = 8
+    if name == "clear_end":
+        we[:, ::3] = SENT
+    piv = _pivots(rnd, P, B, L, n_live, span)
+    commit = torch.from_numpy(rnd.random(T) < 0.8)
+    S = 32
+    args = (_i32(wb), _i32(we), commit, _i32(piv))
+    want = _plain_stage(*args, S)
+    fn = kernels.stage if P == 1 else kernels.stage_parts
+    got = G.Staged(*fn(*(a.to(cuda) for a in args), G.staging_slots(S)))
+    live = want.tid < P * B
+    for a, b in zip(got, want):
+        _eq(a, b)
+    if name == "overflow":
+        assert int(want.max_staged.max()) > G.staging_slots(S)
+    if name == "hot_key":
+        assert int(live.sum()) == 1
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_merge_kernel_matches_plain_version(cuda, seed):
+    """K3 merge with the floor raise of spanned buckets in the same launch,
+    on a mid-run state and its staged rows (wide ranges over a small
+    grid, so writes span untouched buckets)."""
+    state, hb, (now, old_pre, old_post) = _mid_run(seed)
+    pb = TB.upload(hb, CPU)
+    H = G.history_conflicts_plain(state, pb) | (pb.t_has_reads & (pb.t_snap < old_pre))
+    commit = G.intra_batch_commits_plain(*G._endpoint_ranks(pb), H)
+    st = G._stage_writes(state, pb, commit)
+    ps = G.clone_state(state)
+    want = G.merge_staged(ps, st, now, old_post, 1)
+    ks = _to(state, cuda)
+    got = kernels.merge(*ks[1:], *(x.to(cuda) for x in st[:4]), now, old_post)
+    _eq(got, want)
+    for a, b in zip(ks, ps):
+        _eq(a, b)
+    assert int(G.spanned_buckets(st, state.grid.shape[0]).sum()) > 0  # the floor raise ran
+
+
+@pytest.mark.parametrize("n_parts", [1, 4])
+def test_merge_kernel_raises_a_keyspace_wide_clear(cuda, n_parts):
+    """One committed clear over the whole keyspace of each partition, on
+    the bench grid (32768 buckets of S = 32 in all): two touched buckets
+    per partition, every bucket between them floor-raised by the same
+    launch."""
+    rnd = np.random.default_rng(n_parts)
+    B, S, L = 32768 // n_parts, 32, 3
+    piv = torch.from_numpy(_pivots(rnd, n_parts, B, L, B, 1 << 31).view(np.int32))
+    state = G.GridState(
+        piv.reshape(n_parts * B, L),
+        torch.full((n_parts * B, S, L + 1), -1, dtype=torch.int32),
+        torch.zeros(n_parts * B, dtype=torch.int32),
+        torch.from_numpy(rnd.integers(0, 50, n_parts * B).astype(np.int32)),
+        torch.from_numpy(rnd.integers(0, 50, n_parts * B).astype(np.int32)),
+    )
+    state.grid[..., L] = 0
+    wb = np.zeros((n_parts, 1, 1, L), np.uint32)
+    we = np.full((n_parts, 1, 1, L), SENT, np.uint32)
+    st = _plain_stage(_i32(wb), _i32(we), torch.ones(1, dtype=torch.bool), piv.reshape(n_parts, B, L), S)
+    now, oldest = 100, 10
+    ps = G.clone_state(state)
+    want = G.merge_staged(ps, st, now, oldest, n_parts)
+    ks = _to(state, cuda)
+    args = (*ks[1:], *(x.to(cuda) for x in st[:4]), now, oldest)
+    got = kernels.merge(*args) if n_parts == 1 else kernels.merge_parts(*args, n_parts)
+    _eq(got, want)
+    for a, b in zip(ks, ps):
+        _eq(a, b)
+    assert int(G.spanned_buckets(st, n_parts * B, n_parts).sum()) > n_parts * B // 2

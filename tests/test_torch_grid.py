@@ -9,6 +9,7 @@ state and the next encoded batches (numpy) go to both sides.
 """
 
 import random
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -280,3 +281,97 @@ def test_host_reshard_and_live_rows_match_jax():
         TG.reshard_host(_tstate(state), piv, B, S),
     )
     assert JG.occupancy_stats(_jstate(state)) == TG.occupancy_stats(_tstate(state))
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3 scenarios of the redesigned kernels' hard cases: the port's
+# CPU path against the JAX package, exactly
+
+
+def _key(i):
+    return b"k%04d" % i
+
+
+def _k2_txs(name):
+    rnd = random.Random(zlib.crc32(name.encode()))
+    if name.startswith("random_"):
+        n = int(name.split("_")[1])
+        txs = []
+        for _ in range(n):
+            tr = CommitTransaction(read_snapshot=0)
+            for _ in range(rnd.randrange(0, 3)):
+                a = rnd.randrange(60)
+                tr.read_conflict_ranges.append((_key(a), _key(a + rnd.randrange(0, 6))))
+            for _ in range(rnd.randrange(0, 3)):
+                a = rnd.randrange(60)
+                tr.write_conflict_ranges.append((_key(a), _key(a + 1 + rnd.randrange(6))))
+            txs.append(tr)
+        return txs
+    if name == "chain":  # txn j reads what txn j - 1 wrote
+        return [CommitTransaction(0, [(_key(j - 1), _key(j))], [(_key(j), _key(j + 1))])
+                for j in range(1, 100)]
+    if name == "hot_key":  # every txn reads and writes one key
+        return [CommitTransaction(0, [(b"hot", b"hot\x00")], [(b"hot", b"hot\x00")]) for _ in range(70)]
+    if name == "empty_read":  # empty reads inside an earlier write, and at its ends
+        txs = [CommitTransaction(0, [], [(_key(10), _key(20))])]
+        txs += [CommitTransaction(0, [(_key(k), _key(k))], []) for k in (5, 10, 15, 20, 25)]
+        return txs
+    if name == "kr3_kw2":
+        return [CommitTransaction(
+            0,
+            [(_key(a), _key(a + rnd.randrange(1, 4))) for a in rnd.sample(range(80), 3)],
+            [(_key(a), _key(a + rnd.randrange(1, 4))) for a in rnd.sample(range(80), 2)],
+        ) for _ in range(40)]
+    raise KeyError(name)
+
+
+K2_SCENARIOS = ["random_1", "random_31", "random_32", "random_33", "random_545",
+                "chain", "hot_key", "empty_read", "kr3_kw2"]
+
+
+@pytest.mark.parametrize("name", K2_SCENARIOS)
+def test_k2_scenarios_match_jax(name):
+    txs = _k2_txs(name)
+    b = JB.encode_transactions(txs, 12, 0)
+    T = b.t_snap.shape[0]
+    if name == "kr3_kw2":
+        assert b.rb.shape[1:] == (4, 3) and b.wb.shape[1] == 2
+    rnd = np.random.default_rng(len(name))
+    for H in (np.zeros(T, bool), rnd.random(T) < 0.2):
+        want = np.asarray(JG.intra_batch_commits(_jbatch(b), jnp.asarray(H)))
+        got = TG.intra_batch_commits(TB.upload(b, CPU), torch.from_numpy(H)).numpy()
+        np.testing.assert_array_equal(want, got)
+        if name == "chain" and not H.any():
+            assert got[: len(txs)].tolist() == [j % 2 == 0 for j in range(len(txs))]
+
+
+def _k3_case(name):
+    """(state, batch, commit, now, oldest): a fresh or mid-run grid and a
+    write batch that stresses the staging."""
+    if name == "overflow":  # 30 distinct codes land in bucket 0 of a fresh grid
+        txs = [CommitTransaction(0, [], [(_key(3 * i), _key(3 * i + 1))]) for i in range(15)]
+        state = tuple(np.asarray(x) for x in JG.make_state(64, 32, 3))
+    elif name == "clear_end":  # valid ends at the all-0xFF code
+        state = _setup("clear_end")[0]
+        txs = [CommitTransaction(0, [], [(b"m%d" % i, END)]) for i in range(6)]
+        txs += [CommitTransaction(0, [], [(b"a", b"b")])]
+    elif name == "hot_key":  # 5000 endpoint rows on one key
+        state = _setup("hot_key")[0]
+        txs = [CommitTransaction(0, [], [(b"counter", b"counter\x00")]) for _ in range(2500)]
+    else:
+        raise KeyError(name)
+    width = 12 if name == "overflow" else 32
+    b = JB.encode_transactions(txs, width, 0)
+    commit = np.random.default_rng(len(name)).random(b.t_snap.shape[0]) < 0.9
+    return state, b, commit, 150, 3
+
+
+@pytest.mark.parametrize("name", ["overflow", "clear_end", "hot_key"])
+def test_k3_staging_cases_match_jax(name):
+    state, b, commit, now, oldest = _k3_case(name)
+    js, jp = JG.merge_writes(_jstate(state), _jbatch(b), jnp.asarray(commit), jnp.int32(now), jnp.int32(oldest))
+    ts, tp = TG.merge_writes(_tstate(state), TB.upload(b, CPU), torch.from_numpy(commit), now, oldest)
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    _assert_state_equal(js, ts)
+    if name == "overflow":
+        assert int(tp[0]) > TG.staging_slots(32)

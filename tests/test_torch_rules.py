@@ -79,9 +79,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     b = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.history(torch.zeros((8, 3), dtype=torch.int32), grid, b, b, b, x, x, b)
-    r = torch.zeros((8, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.intra_batch(r, r, r, r, torch.zeros(8, dtype=torch.bool))
+        kernels.intra_batch(x, x, x, x, torch.zeros(8, dtype=torch.bool))
+    # the staging wrappers, one grid and partitions
+    w = torch.zeros((1, 8, 1, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stage(w, w, torch.zeros(8, dtype=torch.bool), torch.zeros((1, 8, 3), dtype=torch.int32), 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stage_parts(w.repeat(2, 1, 1, 1), w.repeat(2, 1, 1, 1), torch.zeros(8, dtype=torch.bool),
+                            torch.zeros((2, 8, 3), dtype=torch.int32), 16)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.maint_rebase(grid, b, b, 1)
     # the partitioned (K6, K7) and range-index (K5) wrappers

@@ -212,3 +212,29 @@ def test_reshard_parts_matches_jax_vmap(n_buckets):
     tgrown, tpr = TS.reshard_parts(TS.states_from_numpy(*host, CPU), n_buckets, 32)
     np.testing.assert_array_equal(np.asarray(jpr), tpr.numpy())
     _assert_states_equal(grown, tgrown)
+
+
+def test_staging_hard_cases_on_four_partitions_match_jax():
+    """The staging launch's hard cases over P = 4 partitions, where the
+    carry restarts at each partition: more than S2 distinct codes in one
+    bucket (the pressure word the replay ladder reads), clears to the
+    all-0xFF end spanning partitions, and a hot key (5000 endpoint rows of
+    one code)."""
+    n_parts, B, S = 4, 16, 32
+    step = JS.build_sharded_resolver_many(_mesh(n_parts), lanes=LANES)
+    init = TS.states_to_numpy(TS.make_sharded_states(n_parts, B, S, LANES, CPU))
+    jstates = _jstates(init, n_parts)
+    tstates = TS.states_from_numpy(*init, CPU)
+    overflow = [CommitTransaction(1, [], [(bytes([70, i]), bytes([70, i, 1]))]) for i in range(20)]
+    clears = [CommitTransaction(1, [(bytes([i * 50]), bytes([i * 50 + 3]))], [(bytes([i * 60 + 1]), END)])
+              for i in range(4)]
+    hot = [CommitTransaction(1, [], [(b"\xc0hot", b"\xc0hot\x00")]) for _ in range(2500)]
+    grp = [(overflow, 10, 0), (clears, 11, 0), (hot, 12, 0)]
+    hb = TB.stack_batches([TB.encode_transactions(t, WIDTH, 0) for t, _n, _o in grp], LANES)
+    cols = [np.asarray([n for _t, n, _o in grp], np.int32)] + [np.zeros(3, np.int32)] * 2
+    jstates, jv, jp = step(jstates, JG.Batch(*(jnp.asarray(x) for x in hb)), *cols)
+    tstates, tv, tp = TS.resolve_many_sharded(tstates, TB.upload(hb, CPU), *cols)
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    _assert_states_equal(jstates, tstates)
+    assert int(tp[0, 1, 0]) > JG.staging_slots(S)  # the overflow, in partition 1
