@@ -24,7 +24,8 @@ card). Phases, each of which raises on failure:
    path's shapes (exact equality: outputs are integers and bools), time
    both with CUDA events (the table's ``ms`` and ``plain_ms``) and the
    kernel's device time too (``device_ms``: the calls queued behind a
-   sleeping kernel, so the host's launch gaps drop out): K1, K2
+   sleeping kernel, so the host's launch gaps drop out): K1, then K1 once
+   more with every read of the batch keyspace-wide (the stress case), K2
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
    committed clear spans the whole keyspace;
@@ -37,9 +38,9 @@ card). Phases, each of which raises on failure:
    keys would all land in partition 0): every verdict must equal the
    oracle's from phase 3; versions cross the int32 rebase; one partition
    reshard is forced between groups; every partition must hold live rows;
-   then its kernels (K6 history, staging and merge over partitions, K7
-   reshard and rebase over partitions) are held against their plain
-   versions, and its profile line is printed;
+   then its kernels (K6 history, also on keyspace-wide reads, staging and
+   merge over partitions, K7 reshard and rebase over partitions) are held
+   against their plain versions, and its profile line is printed;
 8. the storage range index at ``bench.py``'s shape: 1M random 12-byte
    keys at width 32 (2^20 × 8 lanes = 32 MiB of codes on the card), 50
    rounds of 4096 lookups (70 % hits) and 4096 range queries, every answer
@@ -52,7 +53,10 @@ read just after, and every kernel of the path must have launched.
 Exits non-zero, without a result line, when no CUDA card is visible.
 Usage: ``python3 chip_smoke.py``; ``python3 chip_smoke.py --profile-only``
 prints only the two resolver paths' profile lines (each path warmed by one
-group first) and no result line, and runs from any checkout of the port.
+group first) and no result line, and runs from any checkout of the port;
+``--history-only`` adds the history kernels of both paths on the bench batch
+and on keyspace-wide reads (one JSON line), for comparisons of two checkouts
+in one call.
 """
 
 from __future__ import annotations
@@ -308,11 +312,33 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 CELL = 4  # bytes of one int32 lane or word
 
 
+def binary_search_rows(piv, pts, strict: bool):
+    """The pivot rows a binary search for #pivots <= point (< if
+    ``strict``) probes: ⌈log2 B⌉ steps over the counts [1, B], as pivot 0
+    (the all-zero code) lies below every active range's ends."""
+    from foundationdb_tpu_torch.conflict import grid as G
+
+    B = piv.shape[0]
+    lo = torch.ones(pts.shape[0], dtype=torch.long, device=pts.device)
+    hi = torch.full_like(lo, B)
+    cmp = G.lex_lt if strict else G.lex_le
+    probed = []
+    for _ in range(max(1, (B - 1).bit_length())):
+        mid = (lo + hi + 1) // 2
+        probed.append(mid - 1)
+        below = cmp(piv[mid - 1], pts)
+        lo = torch.where(below, mid, lo)
+        hi = torch.where(below, hi, mid - 1)
+    return torch.cat(probed)
+
+
 def history_work(state, rb, re) -> tuple[int, int]:
     """(bytes, int ops) the history check of ranges [rb, re) needs on one
-    grid beyond the batch itself: each bucket window it touches once, the
-    pivot rows its binary searches probe (at most all), the bmax words of
-    the buckets strictly between a range's ends (at most all)."""
+    grid beyond the batch itself, whatever the kernel's form: the distinct
+    pivot rows a binary search of each end probes, each bucket window it
+    touches once (with its count and floor), and the bmax words of the
+    buckets strictly between a range's ends, each once. Ops: ⌈log2 B⌉
+    L-lane compares per end, two per window row, a max per between word."""
     from foundationdb_tpu_torch.conflict import grid as G
     from foundationdb_tpu_torch.device import ordered
 
@@ -322,15 +348,21 @@ def history_work(state, rb, re) -> tuple[int, int]:
     e = ordered(re.reshape(-1, L))
     act = G.lex_lt(a, e)
     piv = ordered(state.pivots)
-    ba = G._rank(a, piv, strict=False)[act]
-    be = G._rank(e, piv, strict=True)[act]
+    a, e = a[act], e[act]
+    ba = G._rank(a, piv, strict=False)
+    be = G._rank(e, piv, strict=True)
     n_act = int(act.sum())
-    windows = torch.unique(torch.cat([ba, be[be > ba]])).numel()
-    between = int((be - ba - 1).clamp(min=0).sum())
-    probes = 2 * n_act * math.ceil(math.log2(B))
-    nbytes = windows * (S * Lp1 + 2) * CELL + min(B * L, probes * L) * CELL \
-        + min(B, between) * CELL
-    ops = probes * L + n_act * 2 * S * L * 2 + between
+    windows = torch.unique(torch.cat([ba.clamp(min=0), be[be > ba]])).numel()
+    probed = torch.cat([binary_search_rows(piv, a, False), binary_search_rows(piv, e, True)])
+    rows = torch.unique(probed).numel()
+    # distinct buckets strictly between the ends: a difference array over B
+    inner = be - ba > 1
+    marks = torch.zeros(B + 1, dtype=torch.int32, device=piv.device)
+    marks.index_add_(0, (ba[inner] + 1), torch.ones_like(ba[inner], dtype=torch.int32))
+    marks.index_add_(0, be[inner], -torch.ones_like(be[inner], dtype=torch.int32))
+    between = int((marks.cumsum(0) > 0).sum())
+    nbytes = (rows * L + windows * (S * Lp1 + 2) + between) * CELL
+    ops = probed.numel() * L + n_act * 2 * S * L * 2 + between
     return nbytes, ops
 
 
@@ -429,6 +461,74 @@ def row_maker(rows: list, launches: dict):
     return row
 
 
+def wide_reads(batch):
+    """``batch`` with every read range keyspace-wide: [the all-zero code,
+    the all-0xFF code), so each spans every bucket of the grid."""
+    return batch._replace(rb=torch.zeros_like(batch.rb), re=torch.full_like(batch.re, -1))
+
+
+def check_history(state, batch, launches: dict, bounds=None) -> tuple[list[dict], list[dict]]:
+    """K1 (``bounds`` None) or K6 history over the stacked ``state`` and its
+    partition ``bounds`` (plo, phi) against the plain version, on ``batch``
+    and on the same batch with every read keyspace-wide (the stress case):
+    exact equality, timed both ways. Returns (the kernel-table row of the
+    bench batch, both cases' numbers)."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict import sharded as SH
+
+    T, KR, L = batch.rb.shape
+    io = (2 * T * KR * L + T) * CELL + T  # the reads and snapshots in, the flags out
+    if bounds is None:
+        name, replaces = "history", "foundationdb_tpu/conflict/grid.py:210"
+
+        def launch(b):
+            return kernels.history(*state, b.rb, b.re, b.t_snap)
+
+        def plain(b):
+            return G.history_conflicts_plain(state, b)
+
+        def work(b):
+            return history_work(state, b.rb, b.re)
+    else:
+        name, replaces = "history_parts", "foundationdb_tpu/conflict/sharded.py:149"
+        P = state.grid.shape[0]
+
+        def launch(b):
+            return kernels.history_parts(*state, *bounds, b.rb, b.re, b.t_snap)
+
+        def plain(b):
+            return SH.history_conflicts_sharded_plain(state, b, *bounds)
+
+        def work(b):
+            nbytes, ops = 2 * P * L * CELL, 0
+            for p in range(P):
+                rb, re = SH.clip(b.rb, b.re, bounds[0][p], bounds[1][p])
+                nb, no = history_work(SH.partition(state, p), rb, re)
+                nbytes, ops = nbytes + nb, ops + no
+            return nbytes, ops
+
+    rows, cases = [], []
+    for case, b in (("bench", batch), ("keyspace-wide", wide_reads(batch))):
+        err = max_abs_err(launch(b), plain(b))
+        device_ms, ms, by_name = kernel_ms(lambda: launch(b), 50)
+        plain_ms = cuda_ms(lambda: plain(b), 3)
+        nbytes, ops = work(b)
+        b_ms, b_by = bound(nbytes + io, ops)
+        cases.append({"name": name, "case": case, "ms": ms, "device_ms": device_ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
+        if case == "bench":
+            row_maker(rows, launches)(name, "history.cu", replaces, err, (device_ms, ms, by_name),
+                                      plain_ms, nbytes + io, ops)
+        elif err != 0:
+            raise AssertionError(f"{name} on keyspace-wide reads differs from its plain version ({err})")
+        else:
+            log(f"  {name}, {T} keyspace-wide reads: kernel {ms:.4f} ms (CUDA events; on the device "
+                f"{fmt_ms(device_ms)})  plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  "
+                f"max_abs_err {err}")
+    return rows, cases
+
+
 def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     """Each kernel against its plain version on the card, on the state
     after the first group and the next bench batch. Exact equality; times
@@ -449,17 +549,9 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     rows = []
     row = row_maker(rows, launches)
 
-    # K1 history
-    hargs = (state.pivots, state.grid, state.count, state.bmax, state.floor,
-             batch.rb, batch.re, batch.t_snap)
-    hk = kernels.history(*hargs)
-    hp = G.history_conflicts_plain(state, batch)
-    nbytes, ops = history_work(state, batch.rb, batch.re)
-    nbytes += (2 * T * KR * L + T) * cell + T
-    row("history", "history.cu", "foundationdb_tpu/conflict/grid.py:210", max_abs_err(hk, hp),
-        kernel_ms(lambda: kernels.history(*hargs), 50),
-        cuda_ms(lambda: G.history_conflicts_plain(state, batch), 5),
-        nbytes, ops)
+    # K1 history, on the bench batch and on keyspace-wide reads
+    rows += check_history(state, batch, launches)[0]
+    hk = kernels.history(*state, batch.rb, batch.re, batch.t_snap)
 
     # K2 intra-batch greedy commit: the kernel from the codes, the plain
     # version from dense endpoint ranks (which it computes)
@@ -547,26 +639,14 @@ def check_partition_kernels(states, hbatch, vers, launches: dict) -> list[dict]:
     batch = TB.upload(hbatch, dev)
     P, B, S, Lp1 = states.grid.shape
     L = Lp1 - 1
-    T, KR, _ = batch.rb.shape
+    T = batch.rb.shape[0]
     plo, phi = SH.partition_bounds(L, P, dev)
     rows = []
     row = row_maker(rows, launches)
 
     # K6 history over the partitions, reads clipped in the kernel
-    hargs = (*states, plo, phi, batch.rb, batch.re, batch.t_snap)
-    hk = kernels.history_parts(*hargs)
-    hp = SH.history_conflicts_sharded_plain(states, batch, plo, phi)
-    nbytes = (2 * T * KR * L + T + 2 * P * L) * CELL + T
-    ops = 0
-    for p in range(P):
-        rb, re = SH.clip(batch.rb, batch.re, plo[p], phi[p])
-        nb, no = history_work(SH.partition(states, p), rb, re)
-        nbytes, ops = nbytes + nb, ops + no
-    row("history_parts", "history.cu", "foundationdb_tpu/conflict/sharded.py:149",
-        max_abs_err(hk, hp),
-        kernel_ms(lambda: kernels.history_parts(*hargs), 50),
-        cuda_ms(lambda: SH.history_conflicts_sharded_plain(states, batch, plo, phi), 3),
-        nbytes, ops)
+    rows += check_history(states, batch, launches, (plo, phi))[0]
+    hk = kernels.history_parts(*states, plo, phi, batch.rb, batch.re, batch.t_snap)
 
     # K6 staging of every partition's clipped writes in one launch
     commit = G.intra_batch_commits(batch, hk | (batch.t_has_reads & (batch.t_snap < old_pre)))
@@ -780,14 +860,23 @@ def run_range_index(card: str) -> list[dict]:
     return check_search(idx._codes, q, launches)
 
 
-def profile_only(card: str) -> None:
+def profile_only(card: str, history: bool = False) -> None:
     """Only the per-batch profile of both resolver paths: each warmed by
     one group of the bench workload, then profiled over the next
-    PROFILE_BATCHES batches. Uses nothing but the resolvers' public entry
-    points, so it measures any checkout of the port it is run from."""
+    PROFILE_BATCHES batches. With ``history``, then K1 and K6 history on
+    the path's state and its last batch, as read and with every read
+    keyspace-wide, against their plain versions: one JSON line. Uses the
+    resolvers' entry points, the kernel wrappers and, for ``history``, the
+    resolvers' device state (``_state`` of the one-grid backend, ``_states``
+    of the partitioned one), so it measures any checkout of the port that
+    keeps those names."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict import sharded as SH
+    from foundationdb_tpu_torch.conflict import torch_backend as TB
     from foundationdb_tpu_torch.conflict.api import new_conflict_set
 
     offset = 1
+    cases = []
     for label, key, kwargs in (("one grid", ascii_key, {}), ("four partitions", spread_key, {"n_parts": 4})):
         backend = "torch_mesh" if kwargs else "torch"
         cs = new_conflict_set(backend, key_width=KEY_WIDTH, capacity=CAPACITY, **kwargs)
@@ -795,21 +884,33 @@ def profile_only(card: str) -> None:
         batches = make_batches(GROUP + PROFILE_BATCHES, N_TXNS, offset, key=key)
         drive(cs, batches[:GROUP], offset)
         profile_path(cs, batches[GROUP:], offset + GROUP, label, card)
+        if history:
+            batch = TB.upload(cs.encode(batches[-1])[0], torch.device("cuda"))
+            if kwargs:
+                bounds = SH.partition_bounds(KEY_WIDTH // 4, kwargs["n_parts"], "cuda")
+                cases += check_history(cs._states, batch, kernels.launch_counts(), bounds)[1]
+            else:
+                cases += check_history(cs._state, batch, kernels.launch_counts())[1]
+    if history:
+        log(json.dumps({"history": cases, "card": card}))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-only", action="store_true",
                     help="print only the per-batch profile lines of both resolver paths")
+    ap.add_argument("--history-only", action="store_true",
+                    help="the profile lines, then the history kernels of both paths on the bench "
+                         "batch and on keyspace-wide reads, timed and held to their plain versions")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    if args.profile_only:
+    if args.profile_only or args.history_only:
         card = card_line()
         log(f"card: {card}")
-        profile_only(card)
+        profile_only(card, history=args.history_only)
         return 0
 
     from foundationdb_tpu_torch.conflict import kernels

@@ -42,6 +42,7 @@ import torch
 
 from ..device import SENTINEL, lanes_to_numpy, lanes_to_torch, ordered
 from . import kernels
+from .kernels import split_factors as _split_factors
 
 COMMITTED, CONFLICT, TOO_OLD = 0, 1, 2
 
@@ -136,13 +137,6 @@ def searchsorted_lex(sorted_arr: torch.Tensor, q: torch.Tensor, side: str) -> to
         lo = torch.where(go_right, mid + 1, lo)
         hi = torch.where(go_right, hi, mid)
     return lo
-
-
-def _split_factors(n: int) -> tuple[int, int]:
-    """n = B1 * B2 with both powers of two, B1 >= B2."""
-    lg = n.bit_length() - 1
-    b1 = 1 << ((lg + 1) // 2)
-    return b1, n // b1
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:

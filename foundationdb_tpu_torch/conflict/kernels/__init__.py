@@ -50,32 +50,50 @@ def _counted(fn):
     return fn
 
 
-@_counted
-def history(pivots, grid, count, bmax, floor, rb, re, t_snap) -> torch.Tensor:
-    """K1: bool[T] history-conflict flags of one batch."""
-    from ..grid import _split_factors  # grid imports this module
+def split_factors(n: int) -> tuple[int, int]:
+    """The bucket grid's superblock split: n = B1 * B2 with both powers of
+    two, B1 >= B2 (the plain versions in ``grid`` use it too)."""
+    lg = n.bit_length() - 1
+    b1 = 1 << ((lg + 1) // 2)
+    return b1, n // b1
 
-    B, S, Lp1 = grid.shape
+
+def _history(fn_name, pivots, grid, count, bmax, floor, bounds, rb, re, t_snap) -> torch.Tensor:
+    """Checks and launch shared by K1 (``grid`` [B, S, L+1]) and K6 history
+    (``grid`` [P, B, S, L+1], ``bounds`` = (plo, phi) [P, L])."""
+    *lead, B, S, Lp1 = grid.shape
+    P = lead[0] if lead else 1
     L = Lp1 - 1
     T, KR, _ = rb.shape
-    if B & (B - 1):
+    if B < 1 or B & (B - 1):
         raise ValueError(f"bucket count must be a power of two, got {B}")
-    _check(pivots, "pivots", _I32, (B, L))
+    if L > MAX_LANES:
+        raise ValueError(f"{L} lanes exceed the kernel's {MAX_LANES}")
+    _check(pivots, "pivots", _I32, (*lead, B, L))
     _check(grid, "grid", _I32)
     for name, t in (("count", count), ("bmax", bmax), ("floor", floor)):
-        _check(t, name, _I32, (B,))
+        _check(t, name, _I32, (*lead, B))
+    for name, t in zip(("plo", "phi"), bounds):
+        _check(t, name, _I32, (P, L))
     _check(rb, "rb", _I32, (T, KR, L))
     _check(re, "re", _I32, (T, KR, L))
     _check(t_snap, "t_snap", _I32, (T,))
-    B1, B2 = _split_factors(B)
-    sup = torch.empty(B1, dtype=_I32, device=grid.device)
+    B1, B2 = split_factors(B)
+    sup = torch.empty(P * B1, dtype=_I32, device=grid.device)
     hit = torch.empty(T, dtype=torch.bool, device=grid.device)
     _run(
-        "fdb_history",
+        fn_name,
         _ptr(pivots), _ptr(grid), _ptr(count), _ptr(bmax), _ptr(floor),
-        _ptr(rb), _ptr(re), _ptr(t_snap), _ptr(sup), _ptr(hit),
-        B, S, L, T, KR, B1, B2, _stream(),
+        *(_ptr(t) for t in bounds), _ptr(rb), _ptr(re), _ptr(t_snap), _ptr(sup),
+        _ptr(hit), *lead, B, S, L, T, KR, B1, B2, _stream(),
     )
+    return hit
+
+
+@_counted
+def history(pivots, grid, count, bmax, floor, rb, re, t_snap) -> torch.Tensor:
+    """K1: bool[T] history-conflict flags of one batch."""
+    hit = _history("fdb_history", pivots, grid, count, bmax, floor, (), rb, re, t_snap)
     history.launches += 1
     return hit
 
@@ -85,33 +103,7 @@ def history_parts(pivots, grid, count, bmax, floor, plo, phi, rb, re, t_snap) ->
     """K6 history: bool[T] history-conflict flags of one batch against P
     stacked partitions, each read range clipped to its partition's
     [plo, phi), OR-ed over the partitions."""
-    from ..grid import _split_factors
-
-    P, B, S, Lp1 = grid.shape
-    L = Lp1 - 1
-    T, KR, _ = rb.shape
-    if B & (B - 1):
-        raise ValueError(f"bucket count must be a power of two, got {B}")
-    if L > MAX_LANES:
-        raise ValueError(f"{L} lanes exceed the kernel's {MAX_LANES}")
-    _check(pivots, "pivots", _I32, (P, B, L))
-    _check(grid, "grid", _I32)
-    for name, t in (("count", count), ("bmax", bmax), ("floor", floor)):
-        _check(t, name, _I32, (P, B))
-    _check(plo, "plo", _I32, (P, L))
-    _check(phi, "phi", _I32, (P, L))
-    _check(rb, "rb", _I32, (T, KR, L))
-    _check(re, "re", _I32, (T, KR, L))
-    _check(t_snap, "t_snap", _I32, (T,))
-    B1, B2 = _split_factors(B)
-    sup = torch.empty(P * B1, dtype=_I32, device=grid.device)
-    hit = torch.zeros(T, dtype=torch.bool, device=grid.device)
-    _run(
-        "fdb_history_parts",
-        _ptr(pivots), _ptr(grid), _ptr(count), _ptr(bmax), _ptr(floor),
-        _ptr(plo), _ptr(phi), _ptr(rb), _ptr(re), _ptr(t_snap), _ptr(sup),
-        _ptr(hit), P, B, S, L, T, KR, B1, B2, _stream(),
-    )
+    hit = _history("fdb_history_parts", pivots, grid, count, bmax, floor, (plo, phi), rb, re, t_snap)
     history_parts.launches += 1
     return hit
 

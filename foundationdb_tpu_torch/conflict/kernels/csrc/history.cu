@@ -1,154 +1,278 @@
-// K1 — history check of one commit batch against the bucket grid.
+// K1 — history check of one commit batch against the bucket grid — and K6
+// history, the same check over P stacked key-range partitions.
 //
-// Replaces: foundationdb_tpu/conflict/grid.py:210 history_conflicts (with
-// _rank_le_lt :187, _rank_le :153, _rank_lt :172, lex_lt/le :110-122 and
-// _split_factors :145), a jax.jit program run for every batch.
+// Replaces: foundationdb_tpu/conflict/grid.py:208-292 history_conflicts (with
+// _rank_le_lt :187, lex_lt/le and _split_factors :145), a jax.jit program
+// run for every batch; for K6 also foundationdb_tpu/conflict/sharded.py:114
+// _clip of the reads and the history half of _local_resolve (:125-150, with
+// the pmax of H over the mesh).
 //
-// What bounds it on the H100: memory latency, not bandwidth. Per read range
-// it needs ~2·log2(B) pivot probes (15 at B = 32768), two S-slot bucket
-// windows (2 × 512 B at S = 32, L = 3) and a handful of bmax/floor words:
-// ~1.4 KB per range, ~3.6 MB per 2560-txn batch, about 1 µs at 3.35 TB/s.
-// The probes are dependent loads, so a range costs ~17 round trips to L2.
+// What bounds it on the H100: dependent round trips to L2, not bytes. The
+// batch needs ~3 MB at the bench shape (T = 2500, B = 32768, S = 32, L = 3),
+// under 1 µs at 3.35 TB/s. But every read range is a chain: rank both ends
+// among the B pivots, then read the two S-slot bucket windows those ranks
+// name, then (for a long range) the superblock maxima. A binary search per
+// thread made that 2·log2 B + 1 = 31 dependent loads at B = 32768, on 10 of
+// the 132 SMs (one thread per transaction).
 //
-// Design: the TPU version ranked by dense [Q, B1] compares and block
-// gathers because the TPU is bad at data-dependent loads; a GPU thread
-// does a binary search instead. One thread per transaction walks its KR
-// read ranges: binary-search both endpoints over the sorted pivots (count
-// of pivots <= a and < e, unused all-0xFF pivots included, exactly as
-// _rank_le/_rank_lt count), scan the two S-slot windows, take the
-// between-bucket max from a per-superblock max of bmax (computed by a
-// first warp-per-superblock pass) plus the two partial edge superblocks,
-// so a long range reads at most B1 + 2·B2 words instead of walking B
-// buckets, and apply the floors last.
-//
-// K6 history (fdb_history_parts) is the same kernel over a stacked grid of
-// P key-range partitions, replacing the history half of
-// foundationdb_tpu/conflict/sharded.py:125 _local_resolve (its _clip :114
-// of the reads and the pmax of H over the mesh). blockIdx.y is the
-// partition: a thread clips its read range to [plo[p], phi[p]) in
-// registers (an empty intersection fails the lex a < e activity check,
-// as it does in the reference) and searches partition p's pivots and
-// windows only. The OR over partitions is a store of 1 into a zeroed H[T]
-// by any thread that hits. Bound: the single-device bound times the
-// partitions a range touches; the superblock maxima are one pass over the
-// flat [P·B] bmax, whose superblocks never straddle a partition.
+// Design: a warp per transaction, ⌈T/4⌉ blocks of 4 warps (2500 warps, one
+// wave). The warp walks its KR read ranges and stops at the first hit; lane
+// 0 writes hit[t] once, on both entry points.
+// - Rank by a warp search: lanes 0-15 count the pivots <= a, lanes 16-31 the
+//   pivots < e, each lane probing one pivot row a step; a ballot and popc
+//   narrow both intervals 16-fold. ⌈log16 B⌉ = 4 dependent steps at B = 32768
+//   instead of 30. The counts are exact partition points, all-0xFF unused
+//   pivots included, as the plain version counts them. (Two 32-ary searches
+//   one after the other, 2·⌈log32 B⌉ = 6 steps, were slower on the H100.)
+// - Windows: lane s holds slot s (strides of 32 for S > 32), one 16-byte load
+//   a lane when L + 1 is a multiple of 4, so each window is one coalesced
+//   S·(L+1)·4-byte load, and both windows of a range are in flight together.
+//   n_le is a ballot and popc; the value at a a shuffle from lane n_le - 1.
+// - Buckets strictly between the two ends: the lanes stride over the two
+//   partial edge superblocks (≤ B2 bmax words each) and the whole
+//   superblocks' maxima (≤ B1 words), then warp_max with the floors.
+// - The superblock maxima need every bmax word, so they stay a pass of their
+//   own (superblock_max). history_kernel is launched behind it by Hopper's
+//   programmatic dependent launch and waits for it (griddepcontrol) only
+//   just before its first read of a superblock maximum, so the searches and
+//   windows overlap that pass; most short ranges never wait.
+// - K6: lanes 0..P-1 (chunks of 32 for P > 32) intersect the range with
+//   their partition [plo, phi); a ballot names the partitions it touches,
+//   and the warp checks only those, clipping in registers exactly as _clip
+//   does. An empty or inverted range touches none. One launch of ⌈T/4⌉
+//   blocks, not T × P threads, and no zeroed H: lane 0 stores every flag.
 #include "common.cuh"
 
 namespace {
 
-// number of pivots p with p < x (strict) or p <= x; pivots are sorted
-__device__ int count_pivots(const uint32_t* piv, int B, int L, const uint32_t* x, bool strict) {
-    int lo = 0, hi = B;
-    while (lo < hi) {
-        int mid = (lo + hi) >> 1;
-        int c = lex_cmp(piv + (size_t)mid * L, x, L);
-        bool below = strict ? c < 0 : c <= 0;
-        if (below) lo = mid + 1; else hi = mid;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 4;  // transactions (warps) per block
+
+// the code lanes of one key in registers; lanes >= L are never compared
+template <int LM>
+__device__ __forceinline__ void load_code(const uint32_t* p, int L, uint32_t (&x)[LM]) {
+#pragma unroll
+    for (int i = 0; i < LM; ++i) x[i] = i < L ? __ldg(p + i) : 0u;
+}
+
+// -1 / 0 / +1: lexicographic compare of two register codes of L <= LM lanes
+template <int LM>
+__device__ __forceinline__ int cmp_r(const uint32_t (&x)[LM], const uint32_t (&y)[LM], int L) {
+    int c = 0;
+#pragma unroll
+    for (int i = LM - 1; i >= 0; --i) {
+        if (i < L && x[i] != y[i]) c = x[i] < y[i] ? -1 : 1;
     }
-    return lo;
+    return c;
+}
+
+// one grid row: its L bound lanes and the gap version; 16-byte loads when
+// ``vec`` (L + 1 a multiple of 4 and the grid 16-byte aligned)
+template <int LM>
+__device__ __forceinline__ void load_row(const uint32_t* row, int L, bool vec, uint32_t (&x)[LM],
+                                         int& ver) {
+    if (vec) {
+#pragma unroll
+        for (int q = 0; q < (LM + 4) / 4; ++q) {
+            if (4 * q <= L) {
+                const uint4 v = __ldg(reinterpret_cast<const uint4*>(row) + q);
+                const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const int i = 4 * q + c;
+                    if (i < LM && i < L) x[i] = w[c];
+                    if (i == L) ver = (int)w[c];
+                }
+            }
+        }
+    } else {
+        load_code<LM>(row, L, x);
+        ver = (int)__ldg(row + L);
+    }
+}
+
+// [a, e) ∩ [lo, hi) in registers, as sharded._clip: a below lo starts at lo,
+// e above hi ends at hi
+template <int LM>
+__device__ __forceinline__ void clip(const uint32_t (&a)[LM], const uint32_t (&e)[LM],
+                                     const uint32_t* lo, const uint32_t* hi, int L,
+                                     uint32_t (&a2)[LM], uint32_t (&e2)[LM]) {
+    uint32_t l[LM], h[LM];
+    load_code<LM>(lo, L, l);
+    load_code<LM>(hi, L, h);
+    const bool up = cmp_r<LM>(a, l, L) < 0;
+    const bool down = cmp_r<LM>(h, e, L) < 0;
+#pragma unroll
+    for (int i = 0; i < LM; ++i) {
+        a2[i] = up ? l[i] : a[i];
+        e2[i] = down ? h[i] : e[i];
+    }
+}
+
+// one partition's slice of the (stacked) state
+struct Grid {
+    const uint32_t* pivots;  // [B, L]
+    const uint32_t* grid;    // [B, S, L+1]
+    const int* count;
+    const int* bmax;
+    const int* floor_;
+    const int* bmax_sup;  // [B1], written by superblock_max
+};
+
+// (#pivots <= a, #pivots < e) among the B sorted pivots by a paired 16-ary
+// warp search: lanes 0-15 rank a, lanes 16-31 rank e. Invariant: the count
+// lies in [base, base + 16·s]; lane i of a half probes pivot
+// base + (i+1)·s - 1 (none past B), and the c probes below the point move
+// base by c·s, so the next step searches s candidates.
+template <int LM>
+__device__ __forceinline__ void rank_ends(const uint32_t* __restrict__ piv, int B, int L,
+                                          const uint32_t (&a)[LM], const uint32_t (&e)[LM],
+                                          int lane, int& n_le, int& n_lt) {
+    const int steps = max((31 - __clz(B) + 3) / 4, 1);
+    const bool strict = lane >= 16;  // this lane ranks e
+    const int sub = lane & 15;
+    uint32_t x[LM];
+#pragma unroll
+    for (int i = 0; i < LM; ++i) x[i] = strict ? e[i] : a[i];
+    int base_a = 0, base_e = 0;
+    int s = 1 << (4 * (steps - 1));
+    for (int k = 0; k < steps; ++k, s >>= 4) {
+        const int j = (strict ? base_e : base_a) + (sub + 1) * s - 1;
+        bool below = false;
+        if (j < B) {
+            uint32_t p[LM];
+            load_code<LM>(piv + (size_t)j * L, L, p);
+            const int c = cmp_r<LM>(p, x, L);
+            below = strict ? c < 0 : c <= 0;
+        }
+        const unsigned m = __ballot_sync(FULL, below);
+        base_a += __popc(m & 0xffffu) * s;
+        base_e += __popc(m >> 16) * s;
+    }
+    n_le = base_a;
+    n_lt = base_e;
+}
+
+// does the active range [a, e) overlap a gap of ``g`` with a version above
+// ``snap``? Warp-uniform result.
+template <int LM>
+__device__ __forceinline__ bool range_hits(const Grid& g, const uint32_t (&a)[LM], const uint32_t (&e)[LM],
+                           int snap, int B, int S, int L, int B1, int lgB2, bool vec, int lane) {
+    const int Lp1 = L + 1;
+    const int B2 = 1 << lgB2;
+    int n_le, n_lt;
+    rank_ends<LM>(g.pivots, B, L, a, e, lane, n_le, n_lt);
+    const int ba = n_le - 1;  // bucket of a
+    const int be = n_lt - 1;  // bucket of e⁻
+    const int bac = max(ba, 0), bec = max(be, 0);
+    const bool diff = be > ba;
+
+    // both windows, counts and floors in flight together
+    const uint32_t* win_a = g.grid + (size_t)bac * S * Lp1;
+    const uint32_t* win_e = g.grid + (size_t)bec * S * Lp1;
+    const int cnt_a = __ldg(g.count + bac);
+    const int cnt_e = diff ? __ldg(g.count + bec) : 0;
+    // bucket floors: a's gap always overlaps; e⁻'s bucket when later
+    int v = max(max(__ldg(g.floor_ + bac), diff ? __ldg(g.floor_ + bec) : 0), 0);
+    int n_a = 0, v_at = 0;
+    for (int s0 = 0; s0 < S; s0 += 32) {
+        const int s = s0 + lane;
+        uint32_t ra[LM], re_[LM];
+        int va = 0, ve = 0;
+        if (s < S) load_row<LM>(win_a + (size_t)s * Lp1, L, vec, ra, va);
+        if (diff && s < S) load_row<LM>(win_e + (size_t)s * Lp1, L, vec, re_, ve);
+        // a's bucket: rows <= a count toward the value at a; rows strictly
+        // inside (a, e) start gaps the range overlaps
+        const bool used_a = s < S && s < cnt_a;
+        const bool le = used_a && cmp_r<LM>(ra, a, L) <= 0;
+        if (used_a && !le && cmp_r<LM>(ra, e, L) < 0) v = max(v, va);
+        // e's bucket when later: rows before e
+        if (s < S && s < cnt_e && cmp_r<LM>(re_, e, L) < 0) v = max(v, ve);
+        const int k = __popc(__ballot_sync(FULL, le));
+        if (S <= 32 && k > 0) v_at = __shfl_sync(FULL, va, k - 1);
+        n_a += k;
+    }
+    if (S > 32 && n_a > 0) v_at = (int)__ldg(win_a + (size_t)(n_a - 1) * Lp1 + L);
+    v = max(v, v_at);
+
+    // buckets strictly between ba and be: partial edge superblocks word by
+    // word, whole superblocks through their maxima
+    const int s1a = ba >> lgB2, s2a = ba & (B2 - 1);  // floor division / modulo
+    const int s1e = be >> lgB2, s2e = be & (B2 - 1);
+    const int* blk_a = g.bmax + (size_t)max(s1a, 0) * B2;
+    const int hi2 = s1e == s1a ? s2e : B2;
+    for (int j = s2a + 1 + lane; j < hi2; j += 32) v = max(v, __ldg(blk_a + j));
+    if (s1e > s1a) {
+        const int* blk_e = g.bmax + (size_t)max(s1e, 0) * B2;
+        for (int j = lane; j < s2e; j += 32) v = max(v, __ldg(blk_e + j));
+    }
+    const int k0 = max(s1a + 1, 0), k1 = min(s1e, B1);
+    if (k0 < k1) {
+        cudaGridDependencySynchronize();  // superblock_max has finished
+        for (int k = k0 + lane; k < k1; k += 32) v = max(v, __ldcg(g.bmax_sup + k));
+    }
+    return warp_max(v) > snap;
 }
 
 // bmax_sup[k] = max(bmax[k*B2 .. k*B2+B2)), one warp per superblock
-__global__ void superblock_max(const int* __restrict__ bmax, int* __restrict__ bmax_sup, int B1, int B2) {
-    int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    int lane = threadIdx.x & 31;
-    if (warp >= B1) return;
+__global__ void superblock_max(const int* __restrict__ bmax, int* __restrict__ bmax_sup, int n_sup,
+                               int B2) {
+    // history_kernel may start now: it waits for this grid's end, and its
+    // memory, only before it reads a superblock maximum
+    cudaTriggerProgrammaticLaunchCompletion();
+    const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (warp >= n_sup) return;
     int m = 0;
     for (int j = lane; j < B2; j += 32) m = max(m, bmax[(size_t)warp * B2 + j]);
     m = warp_max(m);
     if (lane == 0) bmax_sup[warp] = m;
 }
 
-__global__ void history_kernel(
+// one warp per transaction; plo == nullptr on a single grid (P = 1)
+template <int LM>
+__global__ void __launch_bounds__(WARPS * 32) history_kernel(
     const uint32_t* __restrict__ pivots, const uint32_t* __restrict__ grid,
     const int* __restrict__ count, const int* __restrict__ bmax,
-    const int* __restrict__ floor_, const int* __restrict__ bmax_sup,
+    const int* __restrict__ floor_, const int* bmax_sup,
     const uint32_t* __restrict__ rb, const uint32_t* __restrict__ re,
     const int* __restrict__ t_snap, const uint32_t* __restrict__ plo,
     const uint32_t* __restrict__ phi, uint8_t* __restrict__ hit,
-    int B, int S, int L, int T, int KR, int B1, int B2) {
-    int t = blockIdx.x * blockDim.x + threadIdx.x;
+    int P, int B, int S, int L, int T, int KR, int B1, int lgB2, bool vec) {
+    const int lane = threadIdx.x & 31;
+    const int t = blockIdx.x * WARPS + (threadIdx.x >> 5);
     if (t >= T) return;
-    // partition p's slice of the stacked state (p = 0 on a single grid)
-    const int p = blockIdx.y;
-    pivots += (size_t)p * B * L;
-    grid += (size_t)p * B * S * (L + 1);
-    count += (size_t)p * B;
-    bmax += (size_t)p * B;
-    floor_ += (size_t)p * B;
-    bmax_sup += (size_t)p * B1;
-    const int Lp1 = L + 1;
-    const int snap = t_snap[t];
-    uint8_t any = 0;
-    uint32_t a_clip[FDB_MAX_LANES], e_clip[FDB_MAX_LANES];
+    const int snap = __ldg(t_snap + t);
+    const auto part = [&](int p) {
+        return Grid{pivots + (size_t)p * B * L, grid + (size_t)p * B * S * (L + 1),
+                    count + (size_t)p * B, bmax + (size_t)p * B, floor_ + (size_t)p * B,
+                    bmax_sup + (size_t)p * B1};
+    };
+    bool any = false;
     for (int r = 0; r < KR && !any; ++r) {
-        const uint32_t* a = rb + ((size_t)t * KR + r) * L;
-        const uint32_t* e = re + ((size_t)t * KR + r) * L;
-        if (plo != nullptr) {
-            // clip [a, e) to the partition [plo, phi)
-            const uint32_t* lo = plo + (size_t)p * L;
-            const uint32_t* hi = phi + (size_t)p * L;
-            const uint32_t* a2 = lex_cmp(a, lo, L) < 0 ? lo : a;
-            const uint32_t* e2 = lex_cmp(hi, e, L) < 0 ? hi : e;
-            for (int i = 0; i < L; ++i) {
-                a_clip[i] = a2[i];
-                e_clip[i] = e2[i];
-            }
-            a = a_clip;
-            e = e_clip;
+        uint32_t a[LM], e[LM];
+        load_code<LM>(rb + ((size_t)t * KR + r) * L, L, a);
+        load_code<LM>(re + ((size_t)t * KR + r) * L, L, e);
+        if (plo == nullptr) {
+            if (cmp_r<LM>(a, e, L) < 0)  // inactive (or empty) ranges are skipped
+                any = range_hits<LM>(part(0), a, e, snap, B, S, L, B1, lgB2, vec, lane);
+            continue;
         }
-        if (lex_cmp(a, e, L) >= 0) continue;  // inactive (or empty) range
-
-        int ba = count_pivots(pivots, B, L, a, false) - 1;  // bucket of a
-        int be = count_pivots(pivots, B, L, e, true) - 1;   // bucket of e⁻
-        int bac = max(ba, 0), bec = max(be, 0);
-        bool diff = be > ba;
-
-        // a's bucket: value at a, and gaps starting strictly inside (a, e)
-        const uint32_t* win = grid + (size_t)bac * S * Lp1;
-        int cnt = count[bac];
-        int n_le = 0, v_in = 0;
-        for (int s = 0; s < S && s < cnt; ++s) {
-            const uint32_t* row = win + (size_t)s * Lp1;
-            int ver = (int)row[L];
-            if (lex_cmp(row, a, L) <= 0) {
-                ++n_le;
-            } else if (lex_cmp(row, e, L) < 0) {
-                v_in = max(v_in, ver);
+        for (int p0 = 0; p0 < P && !any; p0 += 32) {
+            uint32_t a2[LM], e2[LM];
+            bool touch = false;
+            if (p0 + lane < P) {
+                clip<LM>(a, e, plo + (size_t)(p0 + lane) * L, phi + (size_t)(p0 + lane) * L, L, a2, e2);
+                touch = cmp_r<LM>(a2, e2, L) < 0;
+            }
+            for (unsigned m = __ballot_sync(FULL, touch); m && !any; m &= m - 1) {
+                const int p = p0 + __ffs(m) - 1;
+                clip<LM>(a, e, plo + (size_t)p * L, phi + (size_t)p * L, L, a2, e2);
+                any = range_hits<LM>(part(p), a2, e2, snap, B, S, L, B1, lgB2, vec, lane);
             }
         }
-        int vmax = v_in;
-        if (n_le > 0) vmax = max(vmax, (int)win[(size_t)(n_le - 1) * Lp1 + L]);
-
-        // e's bucket when later: gaps starting before e
-        if (diff) {
-            const uint32_t* wine = grid + (size_t)bec * S * Lp1;
-            int cnte = count[bec];
-            for (int s = 0; s < S && s < cnte; ++s) {
-                const uint32_t* row = wine + (size_t)s * Lp1;
-                if (lex_cmp(row, e, L) < 0) vmax = max(vmax, (int)row[L]);
-            }
-        }
-
-        // buckets strictly between ba and be
-        int s1a = floordiv(ba, B2), s2a = floormod(ba, B2);
-        int s1e = floordiv(be, B2), s2e = floormod(be, B2);
-        for (int k = max(s1a + 1, 0); k < s1e && k < B1; ++k) vmax = max(vmax, bmax_sup[k]);
-        const int* blk_a = bmax + (size_t)max(s1a, 0) * B2;
-        int hi2 = (s1e == s1a) ? s2e : B2;
-        for (int j = s2a + 1; j < hi2; ++j) vmax = max(vmax, blk_a[j]);
-        if (s1e > s1a) {
-            const int* blk_e = bmax + (size_t)max(s1e, 0) * B2;
-            for (int j = 0; j < s2e; ++j) vmax = max(vmax, blk_e[j]);
-        }
-
-        // bucket floors: a's gap always overlaps; e⁻'s bucket when later
-        vmax = max(vmax, floor_[bac]);
-        if (diff) vmax = max(vmax, floor_[bec]);
-        if (vmax > snap) any = 1;
     }
-    if (plo == nullptr) hit[t] = any;
-    else if (any) hit[t] = 1;  // OR over partitions into a zeroed H
+    if (lane == 0) hit[t] = any;
 }
 
 }  // namespace
@@ -158,17 +282,41 @@ static int launch_history(
     const void* floor_, const void* plo, const void* phi, const void* rb,
     const void* re, const void* t_snap, void* bmax_sup, void* hit,
     int P, int B, int S, int L, int T, int KR, int B1, int B2, void* stream) {
+    if (L < 1 || L > FDB_MAX_LANES || B < 1 || B1 * B2 != B || (B2 & (B2 - 1))) {
+        return (int)cudaErrorInvalidValue;
+    }
     cudaStream_t st = (cudaStream_t)stream;
     const int threads = 256;
     superblock_max<<<(P * B1 * 32 + threads - 1) / threads, threads, 0, st>>>(
         (const int*)bmax, (int*)bmax_sup, P * B1, B2);
-    dim3 blocks((T + threads - 1) / threads, P);
-    history_kernel<<<blocks, threads, 0, st>>>(
-        (const uint32_t*)pivots, (const uint32_t*)grid, (const int*)count,
-        (const int*)bmax, (const int*)floor_, (const int*)bmax_sup,
-        (const uint32_t*)rb, (const uint32_t*)re, (const int*)t_snap,
-        (const uint32_t*)plo, (const uint32_t*)phi, (uint8_t*)hit,
-        B, S, L, T, KR, B1, B2);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || T == 0) return (int)err;
+
+    // launched behind superblock_max without waiting for its end
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((T + WARPS - 1) / WARPS);
+    cfg.blockDim = dim3(WARPS * 32);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const int lgB2 = __builtin_ctz((unsigned)B2);
+    const bool vec = (L + 1) % 4 == 0 && (uintptr_t)grid % 16 == 0;
+    const auto go = [&](auto kernel) {
+        return cudaLaunchKernelEx(
+            &cfg, kernel, (const uint32_t*)pivots, (const uint32_t*)grid, (const int*)count,
+            (const int*)bmax, (const int*)floor_, (const int*)bmax_sup, (const uint32_t*)rb,
+            (const uint32_t*)re, (const int*)t_snap, (const uint32_t*)plo, (const uint32_t*)phi,
+            (uint8_t*)hit, P, B, S, L, T, KR, B1, lgB2, vec);
+    };
+    // register arrays sized for the key width: 4 lanes at the bench's 12 bytes
+    if (L <= 4) err = go(history_kernel<4>);
+    else if (L <= 8) err = go(history_kernel<8>);
+    else err = go(history_kernel<16>);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
@@ -182,8 +330,8 @@ extern "C" int fdb_history(
                           B1, B2, stream);
 }
 
-// K6 history: P stacked partitions, reads clipped to [plo[p], phi[p]);
-// hit must be zeroed by the caller
+// K6 history: P stacked partitions, reads clipped to [plo[p], phi[p]); every
+// hit[t] is written
 extern "C" int fdb_history_parts(
     const void* pivots, const void* grid, const void* count, const void* bmax,
     const void* floor_, const void* plo, const void* phi, const void* rb,

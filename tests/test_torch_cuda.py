@@ -398,3 +398,123 @@ def test_merge_kernel_raises_a_keyspace_wide_clear(cuda, n_parts):
     for a, b in zip(ks, ps):
         _eq(a, b)
     assert int(G.spanned_buckets(st, n_parts * B, n_parts).sum()) > n_parts * B // 2
+
+
+# ---------------------------------------------------------------------------
+# K1 and K6 history on synthetic states, against their plain versions
+
+SHIFT = 6  # a key number x is the code (x >> SHIFT, 0, ..., 0, x & 63)
+
+
+def _codes(x, L):
+    """uint32 lanes [..., L] of key numbers ``x`` (int64 < 2^38), in key
+    order; the middle lanes are 0, so compares run through every lane."""
+    out = np.zeros((*x.shape, L), np.uint32)
+    out[..., 0] = x >> SHIFT if L > 1 else x
+    if L > 1:
+        out[..., -1] = x & ((1 << SHIFT) - 1)
+    return out
+
+
+def _history_state(rnd, P, B, S, L):
+    """A stacked [P, B, ...] grid with each partition's invariants: pivot 0
+    at the partition's low bound, sorted pivots, unused all-0xFF pivots in
+    the tail, each used bucket's rows sorted from its pivot, below the next
+    one. Key numbers span [0, 2^38) (the first lane over 2^32)."""
+    span = 1 << (32 + SHIFT) if L > 1 else 1 << 32
+    step = ((1 << 32) // P) * (span >> 32)  # partition p starts at its plo, code for code
+    pivots = np.full((P, B, L), SENT, np.uint32)
+    grid = np.full((P, B, S, L + 1), SENT, np.uint32)
+    grid[..., L] = 0
+    count = np.zeros((P, B), np.int32)
+    live = []
+    for p in range(P):
+        nb = B if rnd.random() < 0.5 else int(rnd.integers(max(B // 2, 1), B + 1))
+        gap = step // nb
+        px = p * step + np.arange(nb, dtype=np.int64) * gap
+        px[1:] += rnd.integers(0, max(gap // 4, 1), nb - 1)
+        cnt = rnd.integers(1, S + 1, nb)
+        offs = np.concatenate([np.zeros((nb, 1), np.int64),
+                               np.cumsum(rnd.integers(1, max(gap // (2 * S), 2), (nb, S - 1)), axis=1)], 1)
+        rx = px[:, None] + offs
+        used = np.arange(S)[None, :] < cnt[:, None]
+        pivots[p, :nb] = _codes(px, L)
+        grid[p, :nb, :, :L] = np.where(used[..., None], _codes(rx, L), SENT)
+        grid[p, :nb, :, L] = np.where(used, rnd.integers(0, 100, (nb, S)), 0)
+        count[p, :nb] = cnt
+        live.append(rx[used])
+    floor = np.where(rnd.random((P, B)) < 0.1, rnd.integers(0, 100, (P, B)), 0).astype(np.int32)
+    bmax = np.maximum(grid[..., L].astype(np.int32).max(axis=2), floor)
+    return (pivots, grid, count, bmax, floor), np.concatenate(live), span
+
+
+def _history_reads(rnd, T, KR, L, live, span, gap, wide=False):
+    """Read ranges [T, KR, L] of every kind: short, across buckets, across
+    whole superblocks, keyspace-wide, ending at the all-0xFF code, empty,
+    inverted and padding; endpoints on live rows too (<= vs < at a row)."""
+    a = rnd.integers(0, span, (T, KR))
+    on_row = rnd.random((T, KR)) < 0.15
+    a[on_row] = rnd.choice(live, int(on_row.sum()))
+    kind = rnd.random((T, KR))
+    length = np.where(kind < 0.4, rnd.integers(1, max(gap, 2), (T, KR)),
+                      np.where(kind < 0.6, rnd.integers(gap, 64 * gap + 1, (T, KR)),
+                               rnd.integers(64 * gap, span // 4 + 64 * gap + 1, (T, KR))))
+    e = np.minimum(a + length, span - 1)
+    e_on_row = rnd.random((T, KR)) < 0.15
+    e[e_on_row] = np.maximum(rnd.choice(live, int(e_on_row.sum())), a[e_on_row])
+    inv = (kind > 0.7) & (kind < 0.75)
+    e[inv] = np.maximum(a[inv] - rnd.integers(0, gap + 1, int(inv.sum())), 0)  # inverted, or empty
+    rb, re = _codes(a, L), _codes(e, L)
+    re[(kind > 0.75) & (kind < 0.8)] = SENT  # ending at the all-0xFF code
+    whole = (kind > 0.8) & (kind < 0.85) if not wide else np.ones((T, KR), bool)
+    rb[whole], re[whole] = 0, SENT  # keyspace-wide
+    pad = (kind > 0.9) & ~whole
+    rb[pad], re[pad] = SENT, SENT
+    return rb, re
+
+
+HISTORY_CASES = [  # (name, P, B, S, L, T, KR)
+    ("width8", 1, 1024, 32, 2, 2500, 2),
+    ("width12_b2", 1, 2, 8, 3, 1, 1),  # B2 = 1: superblocks of one bucket
+    ("width12_b8", 1, 8, 32, 3, 31, 3),
+    ("width12_b65536", 1, 1 << 16, 32, 3, 2500, 1),
+    ("width12_b131072_s8", 1, 1 << 17, 8, 3, 300, 2),  # two doublings past 32768: a fifth step, B1 = 512
+    ("width12_b1m_s8", 1, 1 << 20, 8, 3, 300, 2),  # 2^20, as far as growth is checked
+    ("width32_s64", 1, 1024, 64, 8, 33, 2),
+    ("width64_s8", 1, 1 << 16, 8, 16, 33, 3),
+    ("bench_wide", 1, 32768, 32, 3, 2500, 1),  # every read keyspace-wide
+    ("parts2", 2, 8, 32, 3, 33, 3),
+    ("parts4", 4, 8192, 32, 3, 2500, 1),
+    ("parts8_s64", 8, 1024, 64, 8, 31, 2),
+    ("parts4_wide", 4, 8192, 32, 3, 2500, 1),
+    ("parts40", 40, 8, 8, 3, 33, 3),  # more partitions than lanes: the ballot in chunks of 32
+]
+
+
+def _history_inputs(case):
+    name, P, B, S, L, T, KR = case
+    rnd = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    state, live, span = _history_state(rnd, P, B, S, L)
+    rb, re = _history_reads(rnd, T, KR, L, live, span, span // (P * B), wide=name.endswith("wide"))
+    snap = rnd.integers(-5, 130, T).astype(np.int32)
+    return tuple(_i32(x) for x in state), _i32(rb), _i32(re), torch.from_numpy(snap)
+
+
+@pytest.mark.parametrize("case", HISTORY_CASES, ids=lambda c: c[0])
+def test_history_kernels_match_plain_versions(cuda, case):
+    """K1 (one partition) or K6 history (P partitions, reads straddling
+    their bounds) against the plain version, bit for bit."""
+    state, rb, re, snap = _history_inputs(case)
+    P, L = case[1], case[4]
+    batch = G.Batch(rb, re, rb, re, snap, torch.ones(len(snap), dtype=torch.bool))
+    on_card = [x.to(cuda) for x in (rb, re, snap)]
+    if P == 1:
+        flat = G.GridState(*(x[0] for x in state))
+        want = G.history_conflicts_plain(flat, batch)
+        got = kernels.history(*(x.to(cuda) for x in flat), *on_card)
+    else:
+        bounds = SH.partition_bounds(L, P, CPU)
+        want = SH.history_conflicts_sharded_plain(G.GridState(*state), batch, *bounds)
+        got = kernels.history_parts(*(x.to(cuda) for x in state), *(x.to(cuda) for x in bounds), *on_card)
+    _eq(got, want)
+    assert 0 < int(want.sum()) < len(want) or case[0].endswith("wide") or len(want) == 1

@@ -163,6 +163,37 @@ def test_k1_history_conflicts_matches_jax(name):
         np.testing.assert_array_equal(want, got)
 
 
+@pytest.mark.parametrize("name", ["wide", "low", "reshard"])
+def test_k1_keyspace_wide_reads_match_jax(name):
+    """Reads over the whole keyspace, from a pivot to the all-0xFF end, and
+    across every whole superblock between two pivots, on a grid with
+    B2 > 1 buckets per superblock: the paths the card's kernel takes
+    through its edge superblocks and superblock maxima. Snapshots run from
+    below every version to above them, so both verdicts occur."""
+    state, batches, _ = _setup(name)
+    pivots, grid = state[0], state[1]
+    B, _S, Lp1 = grid.shape
+    L = Lp1 - 1
+    n_used = int((pivots != 0xFFFFFFFF).any(axis=1).sum())
+    B1, B2 = TG._split_factors(B)
+    assert B2 > 1 and n_used > 2 * B2 + 1
+    T = 48
+    rb = np.zeros((T, 3, L), np.uint32)
+    re = np.full((T, 3, L), 0xFFFFFFFF, np.uint32)  # read 0: the whole keyspace
+    rb[:, 1] = pivots[1]  # read 1: a pivot to the end
+    rb[:, 2], re[:, 2] = pivots[1], pivots[n_used - 1]  # read 2: whole superblocks between
+    rb[T // 3 :, 0] = re[T // 3 :, 0] = 0xFFFFFFFF  # padding, so reads 1 and 2 decide
+    rb[2 * T // 3 :, 1] = re[2 * T // 3 :, 1] = 0xFFFFFFFF
+    top = int(max(grid[..., L].max(), state[4].max()))
+    snap = np.linspace(-1, top + 1, T).astype(np.int32)
+    no_writes = np.full((T, 1, L), 0xFFFFFFFF, np.uint32)
+    b = JG.Batch(rb, re, no_writes, no_writes, snap, np.ones(T, bool))
+    want = np.asarray(JG.history_conflicts(_jstate(state), _jbatch(b)))
+    got = TG.history_conflicts(_tstate(state), TB.upload(b, CPU)).numpy()
+    np.testing.assert_array_equal(want, got)
+    assert want.any() and not want.all()
+
+
 def _jax_H(state, b, vers):
     jb = _jbatch(b)
     too_old = jb.t_has_reads & (jb.t_snap < vers[1])

@@ -190,6 +190,42 @@ def test_or_of_clipped_pji_equals_unclipped(n_parts):
         assert whole.sum() > 0
 
 
+@pytest.mark.parametrize("n_parts", [2, 4, 8])
+def test_history_straddling_reads_match_jax_per_partition(n_parts):
+    """K6 history's plain version against the reference's own per-partition
+    check (``_clip`` of the reads, ``history_conflicts`` on each partition's
+    grid, OR over the partitions) on reads straddling every partition bound,
+    reads across several partitions and the whole keyspace, over a stacked
+    state with history in every partition."""
+    rnd = random.Random(20 + n_parts)
+    B, S = 16, 32
+    tstates = TS.make_sharded_states(n_parts, B, S, LANES, CPU)
+    for grp in _groups("spread", 5 + n_parts, n_groups=2, wide=0.3):
+        hb = TB.stack_batches([TB.encode_transactions(t, WIDTH, 0) for t, _n, _o in grp], LANES)
+        cols = [np.asarray([n for _t, n, _o in grp], np.int32)] + [np.zeros(len(grp), np.int32)] * 2
+        tstates, _v, _p = TS.resolve_many_sharded(tstates, TB.upload(hb, CPU), *cols)
+    assert bool((tstates.bmax.amax(dim=1) > 0).all())  # writes landed in every partition
+    txs = _batch(rnd, 48, 30, "spread", wide=0.5)
+    for p in range(1, n_parts):
+        edge = p * 256 // n_parts  # the first byte of partition p's low bound
+        txs.append(CommitTransaction(20 + p, [(bytes([edge - 1, 200]), bytes([edge, 9]))], []))
+        txs.append(CommitTransaction(25 + p, [(bytes([edge - 1]), bytes([min(edge + 256 // n_parts, 255)]))], []))
+    txs.append(CommitTransaction(20, [(b"", END)], []))
+    txs.append(CommitTransaction(60, [(b"", END)], []))
+    hb = TB.encode_transactions(txs, WIDTH, 0)
+    jb = JG.Batch(*(jnp.asarray(x) for x in hb))
+    host = TS.states_to_numpy(tstates)
+    want = np.zeros(hb.t_snap.shape, bool)
+    for p in range(n_parts):
+        plo, phi = JS._partition_bounds(LANES, n_parts, jnp.int32(p))
+        rb, re = JS._clip(jb.rb, jb.re, plo, phi)
+        shard = JG.GridState(*(jnp.asarray(x[p]) for x in host))
+        want |= np.asarray(JG.history_conflicts(shard, jb._replace(rb=rb, re=re)))
+    got = TS.history_conflicts_sharded(tstates, TB.upload(hb, CPU), *TS.partition_bounds(LANES, n_parts, CPU))
+    np.testing.assert_array_equal(want, got.numpy())
+    assert want.any() and not want.all()
+
+
 @pytest.mark.parametrize("n_buckets", [16, 32])
 def test_reshard_parts_matches_jax_vmap(n_buckets):
     """K7a: the reference's vmap of reshard_device in MeshConflictSet._grow,
