@@ -55,8 +55,9 @@ Usage: ``python3 chip_smoke.py``; ``python3 chip_smoke.py --profile-only``
 prints only the two resolver paths' profile lines (each path warmed by one
 group first) and no result line, and runs from any checkout of the port;
 ``--history-only`` adds the history kernels of both paths on the bench batch
-and on keyspace-wide reads (one JSON line), for comparisons of two checkouts
-in one call.
+and on keyspace-wide reads (one JSON line), and ``--reshard-only`` the
+reshard entry point of both paths with its glue (one JSON line), for
+comparisons of two checkouts in one call.
 """
 
 from __future__ import annotations
@@ -161,13 +162,14 @@ def drive(cs, batches, offset: int, force_at: int | None = None, force=None):
     return verdicts, encode_s
 
 
-# the port's kernels by their names in csrc/*.cu (greedy_commit: K2 before
-# its redesign, for profiles of older checkouts); every other kernel on
-# the card is a torch op of the glue
+# the port's kernels by their names in csrc/*.cu (greedy_commit, compact_live,
+# build_buckets and search_both: K2, K4a/K7a and K5 before their redesigns,
+# for profiles of older checkouts); every other kernel on the card is a
+# torch op of the glue
 PORT_KERNELS = re.compile(
     r"\b(superblock_max|history_kernel|build_overlap|greedy_chain|greedy_commit|stage_records"
     r"|stage_sort|stage_merge|stage_aggregate|merge_buckets|compact_live|build_buckets"
-    r"|rebase_kernel|search_both)\b"
+    r"|reshard_scan|reshard_build|rebase_kernel|search_both|search_warp)\b"
 )
 
 
@@ -461,6 +463,32 @@ def row_maker(rows: list, launches: dict):
     return row
 
 
+def reshard_entry(states, label: str) -> dict:
+    """The reshard entry point a resolver calls, its glue included:
+    ``grid.reshard_device`` on one grid, ``sharded.reshard_parts`` on a
+    stacked state, into the same bucket and slot counts; CUDA events around
+    20 calls, and their device time. It calls only those entry points, so
+    it measures any checkout of the port."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import sharded as SH
+
+    if states.grid.dim() == 3:
+        name, (B, S) = "grid.reshard_device", states.grid.shape[:2]
+
+        def fn():
+            return G.reshard_device(states, B, S)
+    else:
+        name, (B, S) = "sharded.reshard_parts", states.grid.shape[1:3]
+
+        def fn():
+            return SH.reshard_parts(states, B, S)
+    ms = cuda_ms(fn, 20)
+    out = {"path": label, "entry": name, "ms": ms, "device_ms": queued_ms(fn, 20, ms)}
+    log(f"  {name}, glue included: {ms:.4f} ms (CUDA events; on the device "
+        f"{fmt_ms(out['device_ms'])})")
+    return out
+
+
 def wide_reads(batch):
     """``batch`` with every read range keyspace-wide: [the all-zero code,
     the all-0xFF code), so each spans every bucket of the grid."""
@@ -597,19 +625,19 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     # K4a device reshard at the same grid shape
     N = B * S
     used = (torch.arange(S, device=dev)[None, :] < state.count[:, None]).reshape(N)
-    dest = torch.cumsum(used, 0, dtype=torch.int32) - 1
-    rk = kernels.maint_reshard(state.grid, state.floor, used, dest, B, S)
+    rk = kernels.maint_reshard(state.grid, state.count, state.floor, B, S)
     rp_state, rp_press = G.reshard_device_plain(state, used, B, S)
     n_live = int(used.sum())
     # the live rows, count and floor read; the whole new grid, pivots,
-    # count, bmax, floor and pressure written (used/dest are the wrapper's
-    # intermediates, not the function's)
+    # count, bmax, floor and pressure written (a kernel's scratch is not
+    # the function's)
     nbytes = (n_live * Lp1 + 2 * B + B * S * Lp1 + B * (L + 3) + 1) * cell
     row("maint_reshard", "maint.cu", "foundationdb_tpu/conflict/grid.py:718",
         max_abs_err(tuple(rk), tuple(rp_state) + (rp_press,)),
-        kernel_ms(lambda: kernels.maint_reshard(state.grid, state.floor, used, dest, B, S), 20),
+        kernel_ms(lambda: kernels.maint_reshard(state.grid, state.count, state.floor, B, S), 20),
         cuda_ms(lambda: G.reshard_device_plain(state, used, B, S), 3),
         nbytes, n_live * Lp1 + B * S)
+    reshard_entry(state, "one grid")
 
     # K4b rebase
     delta = max(now // 2, 1)
@@ -667,16 +695,16 @@ def check_partition_kernels(states, hbatch, vers, launches: dict) -> list[dict]:
 
     # K7a reshard of every partition at its grid shape
     used = (torch.arange(S, device=dev) < states.count[..., None]).reshape(P, B * S)
-    dest = torch.cumsum(used, 1, dtype=torch.int32) - 1
-    rk = kernels.maint_reshard_parts(states.grid, states.floor, used, dest, B, S)
+    rk = kernels.maint_reshard_parts(states.grid, states.count, states.floor, B, S)
     rp_state, rp_press = SH.reshard_parts_plain(states, used, B, S)
     n_live = int(used.sum())
     nbytes = (n_live * Lp1 + 2 * P * B + P * B * S * Lp1 + P * B * (L + 3) + P) * CELL
     row("maint_reshard_parts", "maint.cu", "foundationdb_tpu/conflict/mesh_backend.py:477",
         max_abs_err(tuple(rk), tuple(rp_state) + (rp_press,)),
-        kernel_ms(lambda: kernels.maint_reshard_parts(states.grid, states.floor, used, dest, B, S), 20),
+        kernel_ms(lambda: kernels.maint_reshard_parts(states.grid, states.count, states.floor, B, S), 20),
         cuda_ms(lambda: SH.reshard_parts_plain(states, used, B, S), 3),
         nbytes, n_live * Lp1 + P * B * S)
+    reshard_entry(states, "four partitions")
 
     # K7b rebase of every partition as one flat grid
     delta = max(now // 2, 1)
@@ -707,7 +735,7 @@ def check_search(codes, q, launches: dict) -> list[dict]:
     row = row_maker(rows, launches)
 
     def plain():
-        return G.searchsorted_lex(codes, q, "left"), G.searchsorted_lex(codes, q, "right")
+        return torch.stack([G.searchsorted_lex(codes, q, "left"), G.searchsorted_lex(codes, q, "right")])
 
     # the distinct rows the reference's fixed-step searches probe
     arr, qo = ordered(codes), ordered(q)
@@ -860,23 +888,24 @@ def run_range_index(card: str) -> list[dict]:
     return check_search(idx._codes, q, launches)
 
 
-def profile_only(card: str, history: bool = False) -> None:
+def profile_only(card: str, history: bool = False, reshard: bool = False) -> None:
     """Only the per-batch profile of both resolver paths: each warmed by
     one group of the bench workload, then profiled over the next
     PROFILE_BATCHES batches. With ``history``, then K1 and K6 history on
     the path's state and its last batch, as read and with every read
-    keyspace-wide, against their plain versions: one JSON line. Uses the
-    resolvers' entry points, the kernel wrappers and, for ``history``, the
-    resolvers' device state (``_state`` of the one-grid backend, ``_states``
-    of the partitioned one), so it measures any checkout of the port that
-    keeps those names."""
+    keyspace-wide, against their plain versions; with ``reshard``, the
+    reshard entry point on the path's state (``reshard_entry``): one JSON
+    line. Uses the resolvers' entry points, the kernel wrappers and, for
+    ``history`` and ``reshard``, the resolvers' device state (``_state`` of
+    the one-grid backend, ``_states`` of the partitioned one), so it
+    measures any checkout of the port that keeps those names."""
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict import sharded as SH
     from foundationdb_tpu_torch.conflict import torch_backend as TB
     from foundationdb_tpu_torch.conflict.api import new_conflict_set
 
     offset = 1
-    cases = []
+    cases, reshards = [], []
     for label, key, kwargs in (("one grid", ascii_key, {}), ("four partitions", spread_key, {"n_parts": 4})):
         backend = "torch_mesh" if kwargs else "torch"
         cs = new_conflict_set(backend, key_width=KEY_WIDTH, capacity=CAPACITY, **kwargs)
@@ -884,6 +913,8 @@ def profile_only(card: str, history: bool = False) -> None:
         batches = make_batches(GROUP + PROFILE_BATCHES, N_TXNS, offset, key=key)
         drive(cs, batches[:GROUP], offset)
         profile_path(cs, batches[GROUP:], offset + GROUP, label, card)
+        if reshard:
+            reshards.append(reshard_entry(cs._states if kwargs else cs._state, label))
         if history:
             batch = TB.upload(cs.encode(batches[-1])[0], torch.device("cuda"))
             if kwargs:
@@ -893,12 +924,17 @@ def profile_only(card: str, history: bool = False) -> None:
                 cases += check_history(cs._state, batch, kernels.launch_counts())[1]
     if history:
         log(json.dumps({"history": cases, "card": card}))
+    if reshard:
+        log(json.dumps({"reshard": reshards, "card": card}))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-only", action="store_true",
                     help="print only the per-batch profile lines of both resolver paths")
+    ap.add_argument("--reshard-only", action="store_true",
+                    help="the profile lines, then the reshard entry point of both paths, glue "
+                         "included, on CUDA events")
     ap.add_argument("--history-only", action="store_true",
                     help="the profile lines, then the history kernels of both paths on the bench "
                          "batch and on keyspace-wide reads, timed and held to their plain versions")
@@ -907,10 +943,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    if args.profile_only or args.history_only:
+    if args.profile_only or args.history_only or args.reshard_only:
         card = card_line()
         log(f"card: {card}")
-        profile_only(card, history=args.history_only)
+        profile_only(card, history=args.history_only, reshard=args.reshard_only)
         return 0
 
     from foundationdb_tpu_torch.conflict import kernels

@@ -108,13 +108,13 @@ def lex_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # K5: batched lexicographic binary search (the storage range index)
 
 
-def search_both(codes: torch.Tensor, q: torch.Tensor):
-    """(lo, hi) int32[Q]: ``searchsorted_lex`` of the query rows ``q``
-    [Q, L] over the lex-sorted ``codes`` [P, L], side "left" and side
-    "right" — one kernel launch on the card for both."""
+def search_both(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """int32[2, Q]: ``searchsorted_lex`` of the query rows ``q`` [Q, L]
+    over the lex-sorted ``codes`` [P, L], side "left" (row 0) and side
+    "right" (row 1) — one kernel launch on the card for both."""
     if codes.is_cuda:
         return kernels.search(codes, q)
-    return searchsorted_lex(codes, q, "left"), searchsorted_lex(codes, q, "right")
+    return torch.stack([searchsorted_lex(codes, q, "left"), searchsorted_lex(codes, q, "right")])
 
 
 def searchsorted_lex(sorted_arr: torch.Tensor, q: torch.Tensor, side: str) -> torch.Tensor:
@@ -124,8 +124,9 @@ def searchsorted_lex(sorted_arr: torch.Tensor, q: torch.Tensor, side: str) -> to
     side='left' : first index with sorted_arr[i] >= q  (#elements <  q)
 
     Like the reference it runs ceil(log2 P) + 1 steps and probes row
-    min(mid, P - 1), so a query above every row of a full power-of-two
-    array ends at P + 1, not P; callers clamp."""
+    min(mid, P - 1), so for every P >= 2 a count of P ends at P + 1 (P = 1
+    gives 1) and no other count differs: the result is
+    count + (count == P and P >= 2). Callers clamp."""
     P = sorted_arr.shape[0]
     arr, qo = ordered(sorted_arr), ordered(q)
     lo = torch.zeros(q.shape[:-1], dtype=_I32, device=q.device)
@@ -706,16 +707,11 @@ def reshard_device(
     first row. Returns (new_state, pressure): pressure = max rows any new
     bucket needs; if > n_slots rows were dropped and the caller retries
     with more buckets."""
-    B, S, Lp1 = state.grid.shape
-    N = B * S
-    used = (torch.arange(S, device=state.grid.device)[None, :] < state.count[:, None]).reshape(N)
     if state.grid.is_cuda:
-        # destinations of the stable compaction: prefix sum (torch glue)
-        dest = torch.cumsum(used, 0, dtype=_I32) - 1
-        out = kernels.maint_reshard(
-            state.grid, state.floor, used, dest, n_buckets, n_slots
-        )
+        out = kernels.maint_reshard(state.grid, state.count, state.floor, n_buckets, n_slots)
         return GridState(*out[:5]), out[5]
+    B, S, Lp1 = state.grid.shape
+    used = (torch.arange(S, device=state.grid.device)[None, :] < state.count[:, None]).reshape(B * S)
     return reshard_device_plain(state, used, n_buckets, n_slots)
 
 

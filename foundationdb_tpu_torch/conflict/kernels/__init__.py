@@ -255,48 +255,58 @@ def merge_parts(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now: in
     return out
 
 
-def _reshard(grid, floor, used, dest, n_buckets, n_slots):
+def _scan_words(B: int) -> int:
+    """Words of the reshard's scan per partition (``scan_levels`` of
+    csrc/maint.cu): the B prefix sums, then every 32nd, 1024th, ... of them
+    while more than 32 chunk totals lie above, rounded up to 16 bytes."""
+    words = n = B
+    while n > 1024:
+        n = -(-n // 32)
+        words += n
+    return -(-words // 4) * 4
+
+
+def _reshard(grid, count, floor, n_buckets, n_slots):
     P, B, S, Lp1 = grid.shape
     L = Lp1 - 1
-    N = B * S
     _check(grid, "grid", _I32)
+    _check(count, "count", _I32, (P, B))
     _check(floor, "floor", _I32, (P, B))
-    _check(used, "used", torch.bool, (P, N))
-    _check(dest, "dest", _I32, (P, N))
+    if n_buckets < 1 or n_slots < 1:
+        raise ValueError(f"n_buckets = {n_buckets}, n_slots = {n_slots}: both must be >= 1")
     dev = grid.device
-    lrows = torch.empty((P, N, Lp1), dtype=_I32, device=dev)
+    scan = torch.empty((P, _scan_words(B)), dtype=_I32, device=dev)  # scratch: the counts' prefix sums
+    totals = torch.empty((P, 32), dtype=_I32, device=dev)  # scratch: the scan's chunk totals
     pivots = torch.empty((P, n_buckets, L), dtype=_I32, device=dev)
     out = torch.empty((P, n_buckets, n_slots, Lp1), dtype=_I32, device=dev)
-    count = torch.empty((P, n_buckets), dtype=_I32, device=dev)
+    count_out = torch.empty((P, n_buckets), dtype=_I32, device=dev)
     bmax = torch.empty((P, n_buckets), dtype=_I32, device=dev)
     floor_out = torch.empty((P, n_buckets), dtype=_I32, device=dev)
     pressure = torch.empty(P, dtype=_I32, device=dev)
     _run(
         "fdb_reshard",
-        _ptr(grid), _ptr(floor), _ptr(used), _ptr(dest), _ptr(lrows),
-        _ptr(pivots), _ptr(out), _ptr(count), _ptr(bmax), _ptr(floor_out),
-        _ptr(pressure), P, N, S, L, int(n_buckets), int(n_slots), _stream(),
+        _ptr(grid), _ptr(count), _ptr(floor), _ptr(scan), _ptr(totals), _ptr(pivots),
+        _ptr(out), _ptr(count_out), _ptr(bmax), _ptr(floor_out), _ptr(pressure),
+        P, B, S, L, int(n_buckets), int(n_slots), scan.shape[1], _stream(),
     )
-    return pivots, out, count, bmax, floor_out, pressure
+    return pivots, out, count_out, bmax, floor_out, pressure
 
 
 @_counted
-def maint_reshard(grid, floor, used, dest, n_buckets: int, n_slots: int):
-    """K4a: rebalance the live rows into ``n_buckets`` × ``n_slots``.
-    ``dest`` = cumsum(used) - 1 over the B·S rows. Returns (pivots, grid,
-    count, bmax, floor, pressure int32 scalar)."""
-    out = _reshard(grid[None], floor[None], used[None], dest[None], n_buckets, n_slots)
+def maint_reshard(grid, count, floor, n_buckets: int, n_slots: int):
+    """K4a: rebalance the live rows (slots s < count[b]) into ``n_buckets``
+    × ``n_slots``. Returns (pivots, grid, count, bmax, floor, pressure int32
+    scalar)."""
+    out = _reshard(grid[None], count[None], floor[None], n_buckets, n_slots)
     maint_reshard.launches += 1
     return tuple(x[0] for x in out)
 
 
 @_counted
-def maint_reshard_parts(grid, floor, used, dest, n_buckets: int, n_slots: int):
-    """K7a: K4a on each of P stacked partitions in one launch. ``used`` and
-    ``dest`` are [P, B·S], ``dest`` the prefix sum within each partition.
-    Returns the stacked (pivots, grid, count, bmax, floor) and int32[P]
-    pressures."""
-    out = _reshard(grid, floor, used, dest, n_buckets, n_slots)
+def maint_reshard_parts(grid, count, floor, n_buckets: int, n_slots: int):
+    """K7a: K4a on each of P stacked partitions in one launch. Returns the
+    stacked (pivots, grid, count, bmax, floor) and int32[P] pressures."""
+    out = _reshard(grid, count, floor, n_buckets, n_slots)
     maint_reshard_parts.launches += 1
     return out
 
@@ -344,25 +354,22 @@ def maint_rebase_parts(grid, count, floor, delta: int):
 
 @_counted
 def search(codes, q):
-    """K5: (lo, hi) int32[Q] — for each query row, the count of sorted
-    code rows < q (side "left") and <= q (side "right"), by the
-    reference's fixed-step binary search."""
+    """K5: int32[2, Q] — for each query row, the count of sorted code rows
+    < q (row 0, side "left") and <= q (row 1, side "right"), each plus one
+    where it equals P >= 2, as the reference's fixed-step search ends."""
     P, L = codes.shape
     Q = q.shape[0]
+    if P < 1:
+        raise ValueError("the code array is empty")
     if L > MAX_LANES:
         raise ValueError(f"{L} lanes exceed the kernel's {MAX_LANES}")
     _check(codes, "codes", _I32)
     _check(q, "q", _I32, (Q, L))
-    lo = torch.empty(Q, dtype=_I32, device=codes.device)
-    hi = torch.empty(Q, dtype=_I32, device=codes.device)
+    out = torch.empty((2, Q), dtype=_I32, device=codes.device)
     if Q:
-        _run(
-            "fdb_search",
-            _ptr(codes), _ptr(q), _ptr(lo), _ptr(hi), P, Q, L,
-            search_steps(P), _stream(),
-        )
+        _run("fdb_search", _ptr(codes), _ptr(q), _ptr(out), P, Q, L, _stream())
         search.launches += 1
-    return lo, hi
+    return out
 
 
 def search_steps(n: int) -> int:

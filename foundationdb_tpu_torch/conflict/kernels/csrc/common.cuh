@@ -13,6 +13,8 @@
 // most lanes a kernel copies into registers (key width 64 bytes)
 #define FDB_MAX_LANES 16
 
+constexpr unsigned FULL = 0xffffffffu;  // every lane of a warp
+
 // -1 / 0 / +1: lexicographic compare of two L-lane codes
 __device__ __forceinline__ int lex_cmp(const uint32_t* a, const uint32_t* b, int L) {
     for (int i = 0; i < L; ++i) {
@@ -26,6 +28,24 @@ __device__ __forceinline__ bool is_sentinel(const uint32_t* a, int L) {
         if (a[i] != FDB_SENTINEL) return false;
     }
     return true;
+}
+
+// the code lanes of one key in registers; lanes >= L are never compared
+template <int LM>
+__device__ __forceinline__ void load_code(const uint32_t* p, int L, uint32_t (&x)[LM]) {
+#pragma unroll
+    for (int i = 0; i < LM; ++i) x[i] = i < L ? __ldg(p + i) : 0u;
+}
+
+// -1 / 0 / +1: lexicographic compare of two register codes of L <= LM lanes
+template <int LM>
+__device__ __forceinline__ int cmp_r(const uint32_t (&x)[LM], const uint32_t (&y)[LM], int L) {
+    int c = 0;
+#pragma unroll
+    for (int i = LM - 1; i >= 0; --i) {
+        if (i < L && x[i] != y[i]) c = x[i] < y[i] ? -1 : 1;
+    }
+    return c;
 }
 
 // floor division / modulo for a positive divisor (matches Python / jnp)

@@ -45,26 +45,7 @@
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;  // transactions (warps) per block
-
-// the code lanes of one key in registers; lanes >= L are never compared
-template <int LM>
-__device__ __forceinline__ void load_code(const uint32_t* p, int L, uint32_t (&x)[LM]) {
-#pragma unroll
-    for (int i = 0; i < LM; ++i) x[i] = i < L ? __ldg(p + i) : 0u;
-}
-
-// -1 / 0 / +1: lexicographic compare of two register codes of L <= LM lanes
-template <int LM>
-__device__ __forceinline__ int cmp_r(const uint32_t (&x)[LM], const uint32_t (&y)[LM], int L) {
-    int c = 0;
-#pragma unroll
-    for (int i = LM - 1; i >= 0; --i) {
-        if (i < L && x[i] != y[i]) c = x[i] < y[i] ? -1 : 1;
-    }
-    return c;
-}
 
 // one grid row: its L bound lanes and the gap version; 16-byte loads when
 // ``vec`` (L + 1 a multiple of 4 and the grid 16-byte aligned)

@@ -1,100 +1,393 @@
 // K4a / K4b — grid maintenance: on-device reshard and version rebase.
 //
 // Replaces: foundationdb_tpu/conflict/grid.py:718 reshard_device (floor
-// fold, prefix-sum compaction scatter of the live rows, block partition
-// into q = ceil(live / n_buckets) rows, pivots from block starts, count and
-// bmax recompute) and grid.py:704 rebase (subtract delta from the used
-// rows' versions and the floors, clamp at 0, recompute bmax).
-//
-// What bounds it on the H100: bytes. Both touch the whole grid: at bench
-// shape B·S = 1,048,576 rows × 16 B = 16 MiB in and 16 MiB out (reshard
-// also writes and reads back a compacted copy of the live rows), ~10 µs
-// at 3.35 TB/s. Neither is on the per-batch path; they run on a reshard
-// or when the version origin moves by 2^30.
-//
-// Design: the compaction destinations come from a torch.cumsum prefix sum
-// in the wrapper (exactly the JAX form), so the scatter is one thread per
-// row writing its live row to dest[r] — stable and never out of range,
-// because only used rows write. The bucket build is one warp per new
-// bucket, a lane per slot: the warp reads its q contiguous live rows,
-// recomputes count with a ballot and bmax with a shuffle max. Rebase is
-// one warp per bucket, a lane per slot, writing a fresh grid (the old one
-// may still be the backend's snapshot).
-//
-// K7 replaces the vmaps over partitions in
-// foundationdb_tpu/conflict/mesh_backend.py:477 (_grow, vmap of
+// fold, the live rows in key order cut into blocks of q = ceil(live /
+// n_buckets) rows, pivots from block starts, count and bmax recompute) and
+// grid.py:704 rebase (subtract delta from the used rows' versions and the
+// floors, clamp at 0, recompute bmax). K7 replaces the vmaps over partitions
+// in foundationdb_tpu/conflict/mesh_backend.py:477 (_grow, vmap of
 // reshard_device) and :499 (_maybe_rebase, vmap of rebase), and
-// sharded.py:291 reshard_partition. Reshard gains a partition axis: the
-// wrapper's prefix sum restarts at each partition (dest is [P, N]), the
-// compaction writes partition p's live rows into its own [N] slice of the
-// scratch, and one warp builds bucket b of partition p from that slice,
-// with one pressure word per partition. Rebase is independent per bucket,
-// so a stack of P grids is rebased as one flat grid of P·B buckets.
+// sharded.py:291 reshard_partition.
+//
+// What bounds them on the H100: bytes. Both write a whole grid: at the bench
+// shape B·S = 1,048,576 rows × 16 B = 16 MiB, ~5 µs at 3.35 TB/s (a torch
+// fill of it takes 0.006 ms); reshard reads only the live rows and the B
+// counts, rebase the whole grid. Neither is on the per-batch path; they run
+// on a reshard or when the version origin moves by 2^30.
+//
+// Reshard, from the bucket counts: live row (b, s) is a slot s < count[b], so
+// its global rank is C[b] + s, C the exclusive prefix sum of the B counts
+// (clamped to [0, S], as the reference's slot mask reads them). No per-row
+// mask, prefix sum or compacted copy of the live rows is made.
+// - reshard_scan: a CTA per chunk of 32^K counts (at most 32 chunks: 1,024
+//   counts at the bench's B), each thread holding 8 coalesced 4-count groups
+//   in flight, writes C relative to its chunk, every 32nd (1,024th, ...) of
+//   those words as the sampled levels, and the chunk's total.
+// - reshard_build: launched behind the scan by programmatic dependent launch
+//   (it waits for the scan after its first writes). A CTA builds 32 new
+//   buckets of one partition, 4 a warp, a lane per slot, so each lane holds 4
+//   slots whose loads are in flight together. It scans the ≤ 32 chunk totals
+//   (their prefixes and n_live), computes q and each bucket's live ranks
+//   [b'·q, b'·q + min(q, n_slots)) ∩ [0, n_live), and stores the slots past
+//   them first: sentinel rows (version 0), most of the new grid, with no
+//   wait on the scan. Then rounds: warp 0 descends a 32-ary ballot search
+//   (the chunk, the sampled levels, one coalesced load each) to the 32-bucket
+//   tile holding the source bucket of the CTA's first unplaced rank, the CTA
+//   loads C over the 128 buckets from there into shared memory, and each lane
+//   places its ranks by fixed-step searches of that window, interleaved. Each
+//   live slot gathers its row straight from the old grid (one 16-byte load
+//   and store when L + 1 == 4, the bench's L = 3), folding its source
+//   bucket's floor. count (rows whose code is not all 0xFF, as the
+//   reference's is_row) is a ballot, bmax a warp max; pivot b' is slot 0's
+//   code; floors are 0 and pressure = min(q, n_live) (0 when empty), per
+//   partition. A 1,024-bucket window was slower on the H100 (PERF.md).
+//
+// Rebase is one warp per bucket, a lane per slot, writing a fresh grid (the
+// old one may still be the backend's snapshot); a stack of P grids is rebased
+// as one flat grid of P·B buckets, since rebase is independent per bucket.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
 
-// rows r of all P partitions (N rows each); dest[r] is partition-local
-__global__ void compact_live(
-    const uint32_t* __restrict__ grid, const int* __restrict__ floor_,
-    const uint8_t* __restrict__ used, const int* __restrict__ dest,
-    uint32_t* __restrict__ lrows, long long PN, int N, int S, int L) {
-    long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= PN || !used[r]) return;
-    const int Lp1 = L + 1;
-    const uint32_t* src = grid + (size_t)r * Lp1;
-    uint32_t* dst = lrows + ((size_t)(r / N) * N + dest[r]) * Lp1;
-    for (int i = 0; i < L; ++i) dst[i] = src[i];
-    dst[L] = (uint32_t)max((int)src[L], floor_[r / S]);  // fold the floor
+constexpr int SCAN_THREADS = 256;
+constexpr int SCAN_GROUPS = 8;  // 4-count groups a scan thread holds per round
+constexpr int BUILD_WARPS = 8;
+constexpr int BUCKETS_PER_WARP = 4;
+constexpr int BUILD_BUCKETS = BUILD_WARPS * BUCKETS_PER_WARP;  // new buckets per CTA
+constexpr int WIN = 128;  // source buckets one window of C spans (a power of two, >= 32)
+constexpr int MAX_LEVELS = 8;
+
+// The scan's layout per partition. Chunks of 32^K counts (K >= 1, at most
+// 32 chunks); level 0 is C, level k holds every 32^k-th C word, k < K, all
+// relative to their chunk's start; the chunk totals go to their own array
+struct Levels {
+    int K;
+    int n_chunks;
+    int off[MAX_LEVELS];
+    int len[MAX_LEVELS];
+};
+
+static Levels scan_levels(int B) {
+    Levels lv = {};
+    int K = 0;
+    for (long long n = B; n > 32; n = (n + 31) / 32) ++K;
+    lv.K = K > 1 ? K : 1;
+    long long n = B, off = 0;
+    for (int k = 0; k < lv.K; ++k, n = (n + 31) / 32) {
+        lv.off[k] = (int)off;
+        lv.len[k] = (int)n;
+        off += n;
+    }
+    lv.n_chunks = (int)n;
+    return lv;
 }
 
-__global__ void build_buckets(
-    const uint32_t* __restrict__ lrows, const int* __restrict__ dest,
-    uint32_t* __restrict__ pivots, uint32_t* __restrict__ out,
-    int* __restrict__ count, int* __restrict__ bmax, int* __restrict__ floor_,
-    int* __restrict__ pressure, int P, int N, int L, int nb, int ns) {
-    long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    int lane = threadIdx.x & 31;
-    if (w >= (long long)P * nb) return;
-    const int p = (int)(w / nb), b = (int)(w % nb);
-    const int Lp1 = L + 1;
-    // partition p's slices; the outputs are [P, nb, ...]
-    lrows += (size_t)p * N * Lp1;
-    pivots += (size_t)p * nb * L;
-    out += (size_t)p * nb * ns * Lp1;
-    count += (size_t)p * nb;
-    bmax += (size_t)p * nb;
-    floor_ += (size_t)p * nb;
-    pressure += p;
-    // dest = cumsum(used) - 1 within the partition
-    const long long n_live = (long long)dest[(size_t)p * N + N - 1] + 1;
-    const long long q = max((n_live + nb - 1) / nb, 1LL);
-    const long long start = (long long)b * q;
-    if (lane == 0) {
-        for (int i = 0; i < L; ++i) {
-            pivots[(size_t)b * L + i] = start < n_live ? lrows[start * Lp1 + i] : FDB_SENTINEL;
+__device__ __forceinline__ int live_slots(int count, int S) { return min(max(count, 0), S); }
+
+// counts 4·g .. 4·g + 3 of a partition, each clamped by live_slots, 0 past ``end``
+__device__ __forceinline__ int4 load_group(const int* count, int g, int end, int S, bool vec) {
+    int c[4];
+    if (vec) {
+        const int4 v = 4 * g < end ? __ldg(reinterpret_cast<const int4*>(count) + g) : make_int4(0, 0, 0, 0);
+        c[0] = v.x, c[1] = v.y, c[2] = v.z, c[3] = v.w;
+    } else {
+        for (int e = 0; e < 4; ++e) c[e] = 4 * g + e < end ? __ldg(count + 4 * g + e) : 0;
+    }
+    return make_int4(live_slots(c[0], S), live_slots(c[1], S), live_slots(c[2], S),
+                     live_slots(c[3], S));
+}
+
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
+    for (int off = 1; off < 32; off <<= 1) {
+        const int u = __shfl_up_sync(FULL, v, off);
+        if (lane >= off) v += u;
+    }
+    return v;
+}
+
+// CTA (c, p) scans chunk c of partition p: C relative to the chunk's start
+// (C[b] = Σ live_slots(count[b']), chunk start <= b' < b), its levels, and
+// the chunk's total. A round holds SCAN_GROUPS coalesced 4-count groups per
+// thread, all loads in flight at once
+__global__ void __launch_bounds__(SCAN_THREADS) reshard_scan(
+    const int* __restrict__ count, int* __restrict__ scan, int* __restrict__ totals, int B,
+    int S, int stride, Levels lv, bool vec) {
+    // reshard_build may start now: it waits for this grid before reading the scan
+    cudaTriggerProgrammaticLaunchCompletion();
+    constexpr int WARPS = SCAN_THREADS / 32, PER_LANE = SCAN_GROUPS * WARPS / 32;
+    count += (size_t)blockIdx.y * B;
+    scan += (size_t)blockIdx.y * stride;
+    const int lg = 5 * lv.K;
+    const int start = blockIdx.x << lg, end = min(start + (1 << lg), B);
+    __shared__ int part[SCAN_GROUPS * WARPS];  // per (group, warp): its total, then its offset
+    __shared__ int carry;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    if (threadIdx.x == 0) carry = 0;
+    for (int g0 = start / 4; 4 * g0 < end; g0 += SCAN_GROUPS * SCAN_THREADS) {
+        int4 c[SCAN_GROUPS];
+        int inc[SCAN_GROUPS];
+#pragma unroll
+        for (int k = 0; k < SCAN_GROUPS; ++k) {
+            c[k] = load_group(count, g0 + k * SCAN_THREADS + threadIdx.x, end, S, vec);
         }
-        floor_[b] = 0;  // floors are folded into the rows
-        if (b == 0) *pressure = n_live > 0 ? (int)min(q, n_live) : 0;
+#pragma unroll
+        for (int k = 0; k < SCAN_GROUPS; ++k) {
+            inc[k] = warp_incl_scan(c[k].x + c[k].y + c[k].z + c[k].w, lane);
+            if (lane == 31) part[k * WARPS + w] = inc[k];
+        }
+        __syncthreads();
+        if (w == 0) {  // exclusive offsets of the (group, warp) totals, in count order
+            int t[PER_LANE], sum = 0;
+#pragma unroll
+            for (int e = 0; e < PER_LANE; ++e) {
+                t[e] = part[lane * PER_LANE + e];
+                sum += t[e];
+            }
+            int run = carry;  // read by every lane before lane 31 moves it (the scan syncs the warp)
+            run += warp_incl_scan(sum, lane) - sum;
+#pragma unroll
+            for (int e = 0; e < PER_LANE; ++e) {
+                part[lane * PER_LANE + e] = run;
+                run += t[e];
+            }
+            if (lane == 31) carry = run;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < SCAN_GROUPS; ++k) {
+            const int g = g0 + k * SCAN_THREADS + threadIdx.x;
+            const int b = 4 * g;
+            if (b >= end) continue;
+            int4 o;
+            o.x = part[k * WARPS + w] + inc[k] - (c[k].x + c[k].y + c[k].z + c[k].w);
+            o.y = o.x + c[k].x;
+            o.z = o.y + c[k].y;
+            o.w = o.z + c[k].z;
+            if (vec) {
+                reinterpret_cast<int4*>(scan)[g] = o;
+            } else {
+                const int v[4] = {o.x, o.y, o.z, o.w};
+                for (int e = 0; e < 4 && b + e < end; ++e) scan[b + e] = v[e];
+            }
+            for (int k2 = 1; k2 < lv.K && (b & ((1 << 5 * k2) - 1)) == 0; ++k2) {
+                scan[lv.off[k2] + (b >> 5 * k2)] = o.x;
+            }
+        }
+        __syncthreads();  // part is reused by the next round
     }
-    int cnt = 0, bm = 0;
+    if (threadIdx.x == 0) totals[blockIdx.y * 32 + blockIdx.x] = carry;
+}
+
+// #{lanes i : v_i <= x} of 32 nondecreasing values, one per lane
+__device__ __forceinline__ int count_le32(int v, int x) {
+    const int v31 = __shfl_sync(FULL, v, 31);
+    int n = 0;
+    for (int st = 16; st; st >>= 1) {
+        if (__shfl_sync(FULL, v, n + st - 1) <= x) n += st;
+    }
+    return n + (n == 31 && v31 <= x);
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+    for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(FULL, v, off));
+    return v;
+}
+
+// CTA (x, p) builds the new buckets x·BUILD_BUCKETS .. + BUILD_BUCKETS - 1 of
+// partition p, BUCKETS_PER_WARP a warp, a lane per slot; the outputs are
+// [P, nb, ...]
+__global__ void __launch_bounds__(BUILD_WARPS * 32) reshard_build(
+    const uint32_t* __restrict__ grid, const int* __restrict__ floor_, const int* scan,
+    const int* totals, uint32_t* __restrict__ pivots, uint32_t* __restrict__ out,
+    int* __restrict__ count, int* __restrict__ bmax, int* __restrict__ floor_out,
+    int* __restrict__ pressure, int B, int S, int L, int nb, int ns, int stride, Levels lv,
+    bool vec) {
+    constexpr int G = BUCKETS_PER_WARP;
+    __shared__ int s_top[32];     // the chunks' starts in the global order
+    __shared__ int win[WIN + 1];  // C[base .. base + WIN], global order
+    __shared__ int s_live, s_first, s_base;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int p = blockIdx.y;
+    const int b0 = blockIdx.x * BUILD_BUCKETS + warp * G;  // this warp's first bucket
+    const int Lp1 = L + 1;
+    const int lg = 5 * lv.K;  // counts per chunk: 2^lg
+    grid += (size_t)p * B * S * Lp1;
+    floor_ += (size_t)p * B;
+    scan += (size_t)p * stride;
+    if (lane < G && b0 + lane < nb) floor_out[(size_t)p * nb + b0 + lane] = 0;  // folded into the rows
+    cudaGridDependencySynchronize();  // reshard_scan has finished
+
+    if (threadIdx.x == 0) s_first = INT_MAX;
+    if (warp == 0) {
+        const int tot = lane < lv.n_chunks ? __ldcg(totals + p * 32 + lane) : 0;
+        const int inc = warp_incl_scan(tot, lane);
+        s_top[lane] = lane < lv.n_chunks ? inc - tot : INT_MAX;
+        if (lane == 31) s_live = inc;
+    }
+    __syncthreads();
+    const int n_live = s_live;
+    const int q = max((int)(((unsigned)n_live + nb - 1) / (unsigned)nb), 1);
+    if (blockIdx.x == 0 && threadIdx.x == 0) pressure[p] = n_live > 0 ? min(q, n_live) : 0;
+    // C[k] in the global order, n_live at B, no bound past it
+    const auto C_at = [&](int k) {
+        return k < B ? __ldcg(scan + k) + s_top[k >> lg] : (k == B ? n_live : INT_MAX);
+    };
+    // bucket b0 + t takes the live ranks (b0 + t)·q .. + m[t] - 1 in slots 0 .. m[t] - 1
+    int m[G], cnt[G], bm[G];
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+        const long long j0 = (long long)(b0 + t) * q;
+        m[t] = b0 + t < nb && j0 < n_live ? (int)min((long long)min(q, ns), n_live - j0) : 0;
+        cnt[t] = 0;
+        bm[t] = INT_MIN;
+    }
+    // the slots past the live ranks first: sentinel rows (version 0), most of
+    // the new grid, stored before any wait on the scan's window
+    const uint4 sent4 = make_uint4(FDB_SENTINEL, FDB_SENTINEL, FDB_SENTINEL, 0u);
     for (int s = lane; s < ns; s += 32) {
-        long long j = start + s;
-        bool have = s < q && j < n_live;
-        uint32_t* dst = out + ((size_t)b * ns + s) * Lp1;
-        const uint32_t* src = lrows + (have ? j : 0) * Lp1;
-        bool row = have && !is_sentinel(src, L);
-        for (int i = 0; i < L; ++i) dst[i] = have ? src[i] : FDB_SENTINEL;
-        int ver = row ? (int)src[L] : 0;
-        dst[L] = (uint32_t)ver;
-        cnt += row ? 1 : 0;
-        bm = max(bm, ver);
+#pragma unroll
+        for (int t = 0; t < G; ++t) {
+            if (s < m[t] || b0 + t >= nb) continue;
+            const size_t w = (size_t)p * nb + b0 + t;
+            uint32_t* dst = out + (w * ns + s) * Lp1;
+            if (vec) {
+                *reinterpret_cast<uint4*>(dst) = sent4;
+            } else {
+                for (int i = 0; i < L; ++i) dst[i] = FDB_SENTINEL;
+                dst[L] = 0u;
+            }
+            if (s == 0) {
+                for (int i = 0; i < L; ++i) pivots[w * L + i] = FDB_SENTINEL;
+            }
+            bm[t] = max(bm[t], 0);
+        }
     }
-    cnt = warp_sum(cnt);
-    bm = warp_max(bm);
-    if (lane == 0) {
-        count[b] = cnt;
-        bmax[b] = bm;
+    for (int s0 = 0; s0 < ns; s0 += 32) {
+        const int s = s0 + lane;
+        int j[G], src_b[G], src_s[G];  // the rank of slot s, its row in the old grid
+        bool done[G];
+#pragma unroll
+        for (int t = 0; t < G; ++t) {
+            done[t] = s >= m[t];
+            j[t] = done[t] ? 0 : (b0 + t) * q + s;
+            src_b[t] = src_s[t] = 0;
+        }
+        // rounds: a window of C from the source bucket of the CTA's first
+        // unplaced rank; each lane places the ranks it holds there
+        for (;;) {
+            int mine = INT_MAX;
+#pragma unroll
+            for (int t = 0; t < G; ++t) mine = done[t] ? mine : min(mine, j[t]);
+            mine = warp_min(mine);
+            if (lane == 0 && mine != INT_MAX) atomicMin(&s_first, mine);
+            __syncthreads();
+            const int jf = s_first;
+            if (jf == INT_MAX) break;  // (every thread has read s_first: it is reset after the next barrier)
+            if (warp == 0) {
+                // a 32-ary descent to the 32-bucket tile holding jf's source
+                // bucket: its chunk, then the sampled levels down to level 1
+                // (one coalesced load at the bench's B)
+                int i = count_le32(s_top[lane], jf) - 1;
+                const int pre = s_top[i];
+                for (int k = lv.K - 1; k >= 1; --k) {
+                    const int e = i * 32 + lane;
+                    const bool le = e < lv.len[k] && __ldcg(scan + lv.off[k] + e) + pre <= jf;
+                    i = i * 32 + __popc(__ballot_sync(FULL, le)) - 1;
+                }
+                if (lane == 0) s_base = i * 32;
+            }
+            __syncthreads();
+            const int base = s_base;
+            {  // every load of the window in flight at once
+                constexpr int R = (WIN + BUILD_WARPS * 32) / (BUILD_WARPS * 32);
+                int v[R];
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    const int k = r * BUILD_WARPS * 32 + threadIdx.x;
+                    v[r] = k <= WIN ? C_at(base + k) : 0;
+                }
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    const int k = r * BUILD_WARPS * 32 + threadIdx.x;
+                    if (k <= WIN) win[k] = v[r];
+                }
+            }
+            if (threadIdx.x == 0) s_first = INT_MAX;  // for the next round
+            __syncthreads();
+            const int end = win[WIN];  // > jf: the run ends inside the window
+            // c = #{1 <= k < WIN : win[k] <= j} by fixed steps, the G searches
+            // interleaved; win[0] <= j < win[WIN] puts j in bucket base + c
+            int c[G] = {};
+#pragma unroll
+            for (int st = WIN / 2; st; st >>= 1) {
+#pragma unroll
+                for (int t = 0; t < G; ++t) c[t] += win[c[t] + st] <= j[t] ? st : 0;
+            }
+#pragma unroll
+            for (int t = 0; t < G; ++t) {
+                if (done[t] || j[t] >= end) continue;
+                src_b[t] = base + c[t];
+                src_s[t] = j[t] - win[c[t]];
+                done[t] = true;
+            }
+        }
+        // the live slots: rows folded with their source bucket's floor; at
+        // L + 1 == 4 the G rows and floors are loaded before any store
+        uint4 rv[G];
+        int fv[G];
+#pragma unroll
+        for (int t = 0; t < G; ++t) {
+            const bool have = s < m[t];
+            rv[t] = vec && have
+                ? __ldg(reinterpret_cast<const uint4*>(grid + ((size_t)src_b[t] * S + src_s[t]) * Lp1))
+                : sent4;
+            fv[t] = have ? __ldg(floor_ + src_b[t]) : 0;
+        }
+#pragma unroll
+        for (int t = 0; t < G; ++t) {
+            const size_t w = (size_t)p * nb + b0 + t;
+            bool row = false;
+            if (s < m[t]) {
+                const uint32_t* src = grid + ((size_t)src_b[t] * S + src_s[t]) * Lp1;
+                uint32_t* dst = out + (w * ns + s) * Lp1;
+                int ver;
+                if (vec) {
+                    uint4 v = rv[t];
+                    if (s == 0) {
+                        pivots[w * L] = v.x;
+                        pivots[w * L + 1] = v.y;
+                        pivots[w * L + 2] = v.z;
+                    }
+                    row = !(v.x == FDB_SENTINEL && v.y == FDB_SENTINEL && v.z == FDB_SENTINEL);
+                    ver = row ? max((int)v.w, fv[t]) : 0;
+                    v.w = (uint32_t)ver;
+                    *reinterpret_cast<uint4*>(dst) = v;
+                } else {
+                    bool sent = true;
+                    for (int i = 0; i < L; ++i) {
+                        const uint32_t x = __ldg(src + i);
+                        sent &= x == FDB_SENTINEL;
+                        dst[i] = x;
+                        if (s == 0) pivots[w * L + i] = x;
+                    }
+                    row = !sent;
+                    ver = row ? max((int)__ldg(src + L), fv[t]) : 0;
+                    dst[L] = (uint32_t)ver;
+                }
+                bm[t] = max(bm[t], ver);
+            }
+            cnt[t] += __popc(__ballot_sync(FULL, row));
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+        const int v = warp_max(bm[t]);
+        if (lane == 0 && b0 + t < nb) {
+            count[(size_t)p * nb + b0 + t] = cnt[t];
+            bmax[(size_t)p * nb + b0 + t] = v;
+        }
     }
 }
 
@@ -127,23 +420,42 @@ __global__ void rebase_kernel(
 
 }  // namespace
 
-// P stacked grids of N = B·S rows each (P = 1: a single grid)
+// P stacked grids of B buckets × S slots (P = 1: a single grid) into P
+// grids of nb × ns; ``scan`` [P, stride] and ``totals`` [P, 32] are scratch
 extern "C" int fdb_reshard(
-    const void* grid, const void* floor_, const void* used, const void* dest,
-    void* lrows, void* pivots, void* out, void* count, void* bmax,
-    void* floor_out, void* pressure, int P, int N, int S, int L, int nb,
-    int ns, void* stream) {
+    const void* grid, const void* count, const void* floor_, void* scan, void* totals,
+    void* pivots, void* out, void* count_out, void* bmax, void* floor_out, void* pressure, int P,
+    int B, int S, int L, int nb, int ns, int stride, void* stream) {
+    const Levels lv = scan_levels(B);
+    if (P < 1 || B < 1 || S < 1 || L < 1 || nb < 1 || ns < 1 || lv.K >= MAX_LEVELS
+        || stride < lv.off[lv.K - 1] + lv.len[lv.K - 1]) {
+        return (int)cudaErrorInvalidValue;
+    }
     cudaStream_t st = (cudaStream_t)stream;
-    const int threads = 256;
-    long long PN = (long long)P * N;
-    compact_live<<<(unsigned)((PN + threads - 1) / threads), threads, 0, st>>>(
-        (const uint32_t*)grid, (const int*)floor_, (const uint8_t*)used,
-        (const int*)dest, (uint32_t*)lrows, PN, N, S, L);
-    long long warps = (long long)P * nb * 32;
-    build_buckets<<<(unsigned)((warps + threads - 1) / threads), threads, 0, st>>>(
-        (const uint32_t*)lrows, (const int*)dest, (uint32_t*)pivots,
-        (uint32_t*)out, (int*)count, (int*)bmax, (int*)floor_out,
-        (int*)pressure, P, N, L, nb, ns);
+    const bool vec_scan = B % 4 == 0 && stride % 4 == 0 && (uintptr_t)count % 16 == 0
+                          && (uintptr_t)scan % 16 == 0;
+    reshard_scan<<<dim3(lv.n_chunks, P), SCAN_THREADS, 0, st>>>(
+        (const int*)count, (int*)scan, (int*)totals, B, S, stride, lv, vec_scan);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    // launched behind reshard_scan without waiting for its end
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((nb + BUILD_BUCKETS - 1) / BUILD_BUCKETS, P);
+    cfg.blockDim = dim3(BUILD_WARPS * 32);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const bool vec = L == 3 && (uintptr_t)grid % 16 == 0 && (uintptr_t)out % 16 == 0;
+    err = cudaLaunchKernelEx(
+        &cfg, reshard_build, (const uint32_t*)grid, (const int*)floor_, (const int*)scan,
+        (const int*)totals, (uint32_t*)pivots, (uint32_t*)out, (int*)count_out, (int*)bmax,
+        (int*)floor_out, (int*)pressure, B, S, L, nb, ns, stride, lv, vec);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 

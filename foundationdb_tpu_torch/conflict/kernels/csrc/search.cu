@@ -1,58 +1,134 @@
-// K5 — batched lexicographic binary search, both sides in one launch.
+// K5 — batched lexicographic search of the storage range index, both sides
+// in one launch.
 //
 // Replaces: foundationdb_tpu/conflict/grid.py:125 searchsorted_lex, run as
 // the jitted `kernel` of foundationdb_tpu/ops/range_index.py:105-117
 // (TpuRangeIndex._fn_for), which calls it twice (side "left" and "right")
 // over the storage snapshot's sorted code array.
 //
-// What bounds it on the H100: memory latency. Each query walks
-// steps = ceil(log2 P) + 1 levels per side, each a dependent read of one
-// L-lane row (32 B at width 32): 2 × 21 dependent row reads at P = 2^20,
-// while the bytes a batch needs (the queries in, two int32 out, ~2·log2 P
-// rows per query) are a few MB at most. The first levels hit the same few
-// rows for every query and stay in L1/L2; the last levels are scattered.
+// The function: for each query row q, lo = #rows < q and hi = #rows <= q
+// among the P sorted rows, each then put through the reference's quirk. The
+// reference runs ceil(log2 P) + 1 fixed steps and probes row min(mid, P - 1),
+// so for every P >= 2 a count of P comes out as P + 1 (P = 1 gives 1); no
+// other count differs. The result is count + (count == P && P >= 2).
 //
-// Design: one thread per query keeps its query row in registers and runs
-// the reference's fixed-step search for both sides (the same number of
-// steps, and the same clamp of the probed row index to P - 1, so the
-// results equal the reference's bit for bit, also where lo ends above P).
-// The two sides are independent chains, interleaved in one loop so their
-// loads overlap.
+// What bounds it on the H100: dependent round trips, not bytes. A batch
+// needs the queries in, two int32 out and the ~2·log2 P rows a binary search
+// probes: a few hundred KB at the bench round (P = 2^20 rows of L = 8 lanes,
+// 32 MiB; Q = 4096). A binary search per thread is 21 dependent row loads a
+// side, the last dozen scattered L2/HBM misses, on 32 of the 132 SMs.
+//
+// Design: a warp per query, both sides at once. Lanes 0-15 count the rows
+// < q, lanes 16-31 the rows <= q, by a paired 16-ary search: the count n of a
+// half lies in [base, base + 16·s]; lane i of the half probes row
+// base + (i+1)·s - 1 (none past P), one ballot and a popc per half move base
+// by c·s, and the next step searches s candidates. max(1, ⌈log16 P⌉) steps
+// (5 at P = 2^20, not 21) reach every count in [0, P], P itself included;
+// the last step (s = 1) reads 16 contiguous rows, a coalesced window. The
+// query row is read once per warp (one address for all lanes: a broadcast).
+// A lane compares a whole L-lane row in 4-word chunks (16-byte loads when L
+// is a multiple of 4), lazily before the last step: the next chunk is read
+// only while the row ties the query, so a probe of a distinct key costs one
+// load and its sectors. The first two steps' 16 + 256 rows are shared by
+// every query and stay in L1; staging them in shared memory per CTA was
+// slower on the H100 (a staging round trip and a barrier before the first
+// step), as was reading every chunk at once (PERF.md).
 #include "common.cuh"
 
 namespace {
 
-__global__ void search_both(
-    const uint32_t* __restrict__ codes, const uint32_t* __restrict__ q,
-    int* __restrict__ lo_out, int* __restrict__ hi_out,
-    int P, int Q, int L, int steps) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= Q) return;
-    uint32_t key[FDB_MAX_LANES];
-    for (int k = 0; k < L; ++k) key[k] = q[(size_t)i * L + k];
-    // side "left": first row >= key; side "right": first row > key
-    int lo_l = 0, hi_l = P, lo_r = 0, hi_r = P;
-    for (int s = 0; s < steps; ++s) {
-        int mid_l = (lo_l + hi_l) >> 1;
-        int mid_r = (lo_r + hi_r) >> 1;
-        const uint32_t* row_l = codes + (size_t)min(mid_l, P - 1) * L;
-        const uint32_t* row_r = codes + (size_t)min(mid_r, P - 1) * L;
-        if (lex_cmp(row_l, key, L) < 0) lo_l = mid_l + 1; else hi_l = mid_l;
-        if (lex_cmp(row_r, key, L) <= 0) lo_r = mid_r + 1; else hi_r = mid_r;
+constexpr int WARPS = 16;  // queries in flight per block
+
+// words 4v .. 4v + 3 of a code row (0 past L); one 16-byte load when ``vec``
+__device__ __forceinline__ uint4 load_chunk(const uint32_t* p, int v, int L, bool vec) {
+    if (vec) return __ldg(reinterpret_cast<const uint4*>(p) + v);
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[e] = 4 * v + e < L ? __ldg(p + 4 * v + e) : 0u;
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// -1 / 0 / +1: code row ``p`` against the query ``x``, in 4-word chunks. A
+// lazy compare reads a chunk only while the row ties the query so far, so a
+// probe costs one 16-byte load unless its first chunk equals the query's; an
+// eager one issues every chunk's load at once
+template <int LM>
+__device__ __forceinline__ int cmp_row(const uint32_t* p, int L, bool vec, bool lazy,
+                                       const uint32_t (&x)[LM]) {
+    uint4 ch[LM / 4];
+    if (!lazy) {
+#pragma unroll
+        for (int v = 0; v < LM / 4; ++v) {
+            if (4 * v < L) ch[v] = load_chunk(p, v, L, vec);
+        }
     }
-    lo_out[i] = lo_l;
-    hi_out[i] = lo_r;
+    int c = 0;
+#pragma unroll
+    for (int v = 0; v < LM / 4; ++v) {
+        if (4 * v < L && c == 0) {
+            const uint4 t = lazy ? load_chunk(p, v, L, vec) : ch[v];
+            const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int k = 4 * v + e;
+                if (c == 0 && k < L && w[e] != x[k]) c = w[e] < x[k] ? -1 : 1;
+            }
+        }
+    }
+    return c;
+}
+
+// out[0, i] = lo, out[1, i] = hi of query i
+template <int LM>
+__global__ void __launch_bounds__(WARPS * 32) search_warp(
+    const uint32_t* __restrict__ codes, const uint32_t* __restrict__ q, int* __restrict__ out,
+    int P, int Q, int L, int steps, bool vec) {
+    const int lane = threadIdx.x & 31;
+    const bool le = lane >= 16;  // this half counts the rows <= q
+    const int sub = lane & 15;
+    for (int i = blockIdx.x * WARPS + (threadIdx.x >> 5); i < Q; i += gridDim.x * WARPS) {
+        uint32_t x[LM];
+        load_code<LM>(q + (size_t)i * L, L, x);
+        long long base = 0;
+        long long s = 1LL << (4 * (steps - 1));
+        for (int k = 0; k < steps; ++k, s >>= 4) {
+            const long long j = base + (sub + 1) * s - 1;
+            bool below = false;
+            if (j < P) {
+                // the last step's 16 rows are one coalesced window: eager
+                const int c = cmp_row<LM>(codes + j * L, L, vec, k < steps - 1, x);
+                below = le ? c <= 0 : c < 0;
+            }
+            const unsigned m = __ballot_sync(FULL, below);
+            base += __popc(le ? m >> 16 : m & 0xffffu) * s;
+        }
+        if (sub == 0) out[(le ? Q : 0) + i] = (int)base + (base == P && P >= 2);
+    }
 }
 
 }  // namespace
 
-extern "C" int fdb_search(
-    const void* codes, const void* q, void* lo, void* hi,
-    int P, int Q, int L, int steps, void* stream) {
+// out: int32[2, Q] (lo, then hi)
+extern "C" int fdb_search(const void* codes, const void* q, void* out, int P, int Q, int L,
+                          void* stream) {
+    if (P < 1 || L < 1 || L > FDB_MAX_LANES) return (int)cudaErrorInvalidValue;
+    if (Q == 0) return 0;
+    int steps = 1;
+    while ((1LL << (4 * steps)) < P) ++steps;  // 16^steps >= P
+    int dev = 0, sms = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    // a few blocks per SM; their warps stride over the queries
+    const long long want = (Q + WARPS - 1) / WARPS;
+    const int blocks = (int)(want < 2LL * sms ? want : 2LL * sms);
+    const bool vec = L % 4 == 0 && (uintptr_t)codes % 16 == 0;
     cudaStream_t st = (cudaStream_t)stream;
-    const int threads = 128;
-    search_both<<<(Q + threads - 1) / threads, threads, 0, st>>>(
-        (const uint32_t*)codes, (const uint32_t*)q, (int*)lo, (int*)hi,
-        P, Q, L, steps);
+    const auto go = [&](auto kernel) {
+        kernel<<<blocks, WARPS * 32, 0, st>>>((const uint32_t*)codes, (const uint32_t*)q, (int*)out,
+                                             P, Q, L, steps, vec);
+    };
+    if (L <= 4) go(search_warp<4>);
+    else if (L <= 8) go(search_warp<8>);
+    else go(search_warp<16>);
     return (int)cudaGetLastError();
 }

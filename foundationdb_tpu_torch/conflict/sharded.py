@@ -223,16 +223,14 @@ def reshard_parts(states, n_buckets: int, n_slots: int):
     """``grid.reshard_device`` on every partition (the reference's vmap in
     ``MeshConflictSet._grow``). Returns (new stacked states, int32[P]
     pressures)."""
-    P, B, S, _ = states.grid.shape
-    used = torch.arange(S, device=states.grid.device) < states.count[..., None]
-    used = used.reshape(P, B * S)
     if states.grid.is_cuda:
-        dest = torch.cumsum(used, 1, dtype=_I32) - 1
         out = kernels.maint_reshard_parts(
-            states.grid, states.floor, used, dest, n_buckets, n_slots
+            states.grid, states.count, states.floor, n_buckets, n_slots
         )
         return G.GridState(*out[:5]), out[5]
-    return reshard_parts_plain(states, used, n_buckets, n_slots)
+    P, B, S, _ = states.grid.shape
+    used = torch.arange(S, device=states.grid.device) < states.count[..., None]
+    return reshard_parts_plain(states, used.reshape(P, B * S), n_buckets, n_slots)
 
 
 def reshard_parts_plain(states, used, n_buckets: int, n_slots: int):

@@ -73,7 +73,7 @@ class TorchRangeIndex:
 
     def _search(self, qkeys: list):
         q = lanes_to_torch(K.encode_keys(list(qkeys), width=self.width), self._device)
-        lo, hi = torch.stack(G.search_both(self._codes, q)).cpu().numpy()  # one copy back
+        lo, hi = G.search_both(self._codes, q).cpu().numpy()  # one copy back
         return lo, hi
 
     def batch_lookup(self, qkeys: list):

@@ -518,3 +518,106 @@ def test_history_kernels_match_plain_versions(cuda, case):
         got = kernels.history_parts(*(x.to(cuda) for x in state), *(x.to(cuda) for x in bounds), *on_card)
     _eq(got, want)
     assert 0 < int(want.sum()) < len(want) or case[0].endswith("wide") or len(want) == 1
+
+
+# ---------------------------------------------------------------------------
+# K5 at the edges of its 16-ary steps and of the shared-memory levels
+
+SEARCH_PS = [1, 2, 15, 16, 17, 257, 1000, 1 << 16, (1 << 20) - 3, 1 << 20]
+
+
+@pytest.mark.parametrize("L", [2, 3, 8, 16])
+@pytest.mark.parametrize("P", SEARCH_PS)
+def test_search_kernel_at_the_step_edges(cuda, P, L):
+    """K5 against ``searchsorted_lex`` on the card, both sides: duplicate
+    rows, a tail of all-0xFF rows (the range index's padding), queries equal
+    to rows, between rows, below every row and the all-0xFF query (a count
+    of P, which the reference ends at P + 1); Q = 1 and a Q that is not a
+    multiple of a block's 16 warps."""
+    rnd = np.random.default_rng(P * 17 + L)
+    rows = np.zeros((P, L), np.uint32)
+    rows[:, 0] = rnd.integers(1, max(P // 2, 2), P)  # duplicates; all above the zero query
+    rows[:, -1] = rnd.integers(0, 3, P) * 0x7FFFFFFF if L > 1 else rows[:, 0]
+    rows = rows[np.lexsort(rows.T[::-1])]
+    if P > 16:
+        rows[-(P // 7):] = SENT
+    q = np.concatenate([
+        rows[rnd.integers(0, P, 3000)],
+        rows[rnd.integers(0, P, 1000)] + np.uint32(1),
+        rnd.integers(0, 2**32, (100, L), dtype=np.uint64).astype(np.uint32),
+        np.zeros((1, L), np.uint32), np.full((1, L), SENT, np.uint32),
+    ])
+    codes = _i32(rows).to(cuda)
+    for qq in (q[-1:], q):
+        qt = _i32(qq).to(cuda)
+        want = torch.stack([G.searchsorted_lex(codes, qt, "left"), G.searchsorted_lex(codes, qt, "right")])
+        _eq(kernels.search(codes, qt), want)
+    assert int(want[1, -1]) == P + (P >= 2)
+
+
+# ---------------------------------------------------------------------------
+# K4a / K7a: the reshard from the bucket counts, against the plain versions
+
+RESHARD_CASES = [  # (name, P, B, S, L, n_buckets / B)
+    ("bench", 1, 32768, 32, 3, 1),
+    ("grow", 1, 1024, 32, 3, 2),
+    ("shrink", 1, 1024, 32, 3, 0.5),
+    ("bucket0", 1, 1024, 32, 3, 1),  # only bucket 0 live
+    ("overflow", 1, 64, 32, 3, 0.25),  # q > n_slots: rows dropped
+    ("sentinel_row", 1, 256, 32, 3, 1),  # the last live row's code is all 0xFF
+    ("sparse", 1, 1 << 16, 32, 3, 1),  # 1 bucket in 512 live: windows span empty buckets
+    ("b1m", 1, 1 << 20, 8, 3, 1),
+    ("width8", 1, 1024, 8, 2, 2),
+    ("width32", 1, 512, 64, 8, 0.5),
+    ("width64", 1, 256, 16, 16, 1),
+    ("parts4", 4, 256, 32, 3, 2),
+    ("parts4_half", 4, 256, 32, 3, 0.5),
+    ("parts4_empty", 4, 8192, 32, 3, 1),  # partition 1 holds no row
+]
+
+
+def _reshard_state(case):
+    """A stacked state with each partition's invariants (``_history_state``:
+    floors non-zero in 10 % of the buckets), then the case's counts."""
+    name, P, B, S, L, _f = case
+    rnd = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    (pivots, grid, count, bmax, floor), _live, _span = _history_state(rnd, P, B, S, L)
+    if name == "bucket0":
+        count[:, 1:] = 0
+    if name == "sparse":
+        count[:, np.arange(B) % 512 != 0] = 0
+    if name == "parts4_empty":
+        count[1] = 0
+    if name == "sentinel_row":
+        b = int(np.nonzero(count[0])[0][-1])
+        grid[0, b, count[0, b] - 1, :L] = SENT
+    return G.GridState(*(_i32(x) if x.dtype == np.uint32 else torch.from_numpy(x)
+                         for x in (pivots, grid, count, bmax, floor)))
+
+
+@pytest.mark.parametrize("case", RESHARD_CASES, ids=lambda c: c[0])
+def test_reshard_kernels_match_plain_versions(cuda, case):
+    """``maint_reshard_parts`` (and, on one partition, ``maint_reshard``)
+    against the plain versions on the same inputs on the card, bit for bit:
+    pivots, grid, count, bmax, floor and pressure."""
+    name, P, B, S, L, f = case
+    states = _to(_reshard_state(case), cuda)
+    nb = int(B * f)
+    used = (torch.arange(S, device=cuda) < states.count[..., None]).reshape(P, B * S)
+    want_state, want_p = SH.reshard_parts_plain(states, used, nb, S)
+    got = kernels.maint_reshard_parts(states.grid, states.count, states.floor, nb, S)
+    for a, b in zip(got, (*want_state, want_p)):
+        _eq(a, b)
+    if P == 1:
+        one = SH.partition(states, 0)
+        got = kernels.maint_reshard(one.grid, one.count, one.floor, nb, S)
+        for a, b in zip(got, (*SH.partition(want_state, 0), want_p[0])):
+            _eq(a, b)
+    live = used.sum(dim=1)
+    if name == "overflow":
+        assert int(want_p.max()) > S
+    if name == "sentinel_row":
+        assert int(want_state.count.sum()) == int(live.sum()) - 1
+    if name == "parts4_empty":
+        assert int(want_p[1]) == 0 and int(want_state.count[1].sum()) == 0
+    assert int(states.floor.max()) > 0

@@ -28,8 +28,8 @@ def _lanes(a):
 @pytest.mark.parametrize("P", [1, 2, 5, 8, 64, 100])
 def test_searchsorted_lex_matches_jax_both_sides(P):
     """Both sides, with duplicate rows, queries equal to rows, below and
-    above every row, and the all-0xFF code — including full power-of-two
-    arrays, where the reference's fixed-step search ends at P + 1."""
+    above every row, and the all-0xFF code — including a count of P, where
+    the reference's fixed-step search ends at P + 1 for every P >= 2."""
     rnd = np.random.default_rng(P)
     rows = rnd.integers(0, 6, (P, 2), dtype=np.uint32) * np.uint32(0x40000000)
     rows = rows[np.lexsort(rows.T[::-1])]
@@ -42,6 +42,30 @@ def test_searchsorted_lex_matches_jax_both_sides(P):
     for side, got in (("left", lo), ("right", hi)):
         want = np.asarray(jax_search(jnp.asarray(rows), jnp.asarray(q), side))
         np.testing.assert_array_equal(want, got.numpy(), err_msg=side)
+
+
+@pytest.mark.parametrize("P", [*range(1, 71), 128, 256, 1024, 4096])
+def test_searchsorted_lex_is_the_count_plus_one_at_p(P):
+    """The rule the K5 kernel computes instead of replaying the reference's
+    fixed steps: count + (count == P and P >= 2), the count taken by
+    ``bisect`` over the byte codes, equals the JAX ``searchsorted_lex`` on
+    both sides — duplicate rows, queries equal to rows, below and above
+    every row, and the all-0xFF code among them."""
+    rnd = np.random.default_rng(1000 + P)
+    rows = rnd.integers(0, 4, (P, 2), dtype=np.uint32) * np.uint32(0x55555555)
+    rows[:, 0] += np.uint32(1)  # every row above the all-zero query
+    rows = rows[np.lexsort(rows.T[::-1])]
+    q = np.concatenate([
+        rows[rnd.integers(0, P, 8)],
+        rnd.integers(0, 2**32, (8, 2), dtype=np.uint64).astype(np.uint32),
+        np.array([[0, 0], [0xFFFFFFFF, 0xFFFFFFFF], [rows[-1, 0], 0xFFFFFFFF]], np.uint32),
+    ])
+    keys = [bytes(k) for k in TG.codes_to_bytes(rows)]
+    for side, count in (("left", bisect.bisect_left), ("right", bisect.bisect_right)):
+        n = np.array([count(keys, bytes(k)) for k in TG.codes_to_bytes(q)])
+        want = n + ((n == P) & (P >= 2))
+        got = np.asarray(jax_search(jnp.asarray(rows), jnp.asarray(q), side))
+        np.testing.assert_array_equal(got, want, err_msg=side)
 
 
 def _assert_same_index(tidx, jidx):

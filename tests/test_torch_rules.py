@@ -102,9 +102,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.merge_parts(grid.repeat(2, 1, 1), b.repeat(2), b.repeat(2), b.repeat(2),
                             st, st[..., 0], u, u, 1, 0, 2)
-    used = torch.zeros((2, 8 * 32), dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.maint_reshard_parts(g4, b2, used, used.int(), 8, 32)
+        kernels.maint_reshard_parts(g4, b2, b2, 8, 32)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.maint_rebase_parts(g4, b2, b2, 1)
     with pytest.raises(ValueError, match="CUDA"):
