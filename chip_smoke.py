@@ -29,7 +29,7 @@ card). Phases, each of which raises on failure:
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
    committed clear spans the whole keyspace;
-6. after phases 7 and 8: print the kernel table (every kernel of the three
+6. after phases 7 to 9: print the kernel table (every kernel of the three
    paths), the card line and the result line;
 7. the partitioned resolver, ``new_conflict_set("torch_mesh", key_width=12,
    capacity=1<<19, n_parts=4)`` (4 partitions × 8192 × 32 × 4 uint32 =
@@ -45,7 +45,15 @@ card). Phases, each of which raises on failure:
    keys at width 32 (2^20 × 8 lanes = 32 MiB of codes on the card), 50
    rounds of 4096 lookups (70 % hits) and 4096 range queries, every answer
    equal to host ``bisect``, and a delta of 1K adds and 1K removes equal to
-   a rebuild; then K5 is held against its plain version.
+   a rebuild; then K5 is held against its plain version;
+9. the "limits" phase: the shapes the card path takes past the bench's.
+   At key widths 32 and 128, batches whose transactions have up to 100
+   reads and 40 writes, and one of 130 writes, through one grid and through
+   four partitions, every verdict equal to the oracle and to the same
+   backend's plain path on the CPU; K1, K6 history and K2 on those states;
+   K2 at the read and write slot counts it stages in chunks; the staging of
+   2^23 endpoint rows; the range index at width 128 against ``bisect``.
+   Every kernel is held against its plain version; one JSON line each.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after, and every kernel of the path must have launched.
@@ -55,9 +63,10 @@ Usage: ``python3 chip_smoke.py``; ``python3 chip_smoke.py --profile-only``
 prints only the two resolver paths' profile lines (each path warmed by one
 group first) and no result line, and runs from any checkout of the port;
 ``--history-only`` adds the history kernels of both paths on the bench batch
-and on keyspace-wide reads (one JSON line), and ``--reshard-only`` the
-reshard entry point of both paths with its glue (one JSON line), for
-comparisons of two checkouts in one call.
+and on keyspace-wide reads (one JSON line), ``--reshard-only`` the reshard
+entry point of both paths with its glue and ``--rebase-only`` the rebase
+entry point of both paths with its glue beside a copy of the same grid (one
+JSON line each), for comparisons of two checkouts in one call.
 """
 
 from __future__ import annotations
@@ -489,6 +498,55 @@ def reshard_entry(states, label: str) -> dict:
     return out
 
 
+def rebase_bytes(grid) -> int:
+    """Bytes of the rebase: the whole grid read and written, count and
+    floor read, bmax and floor written (B words each)."""
+    n_buckets = grid.numel() // (grid.shape[-2] * grid.shape[-1])
+    return (2 * grid.numel() + 4 * n_buckets) * CELL
+
+
+def copy_yardstick(grid) -> dict:
+    """The floor of any copy-shaped kernel on this card: one torch copy of
+    the grid's bytes into a fresh tensor (not the rebase's function, so
+    the table's library column stays null), on CUDA events and on the
+    device."""
+
+    def fn():
+        return torch.empty_like(grid).copy_(grid)
+
+    ms = cuda_ms(fn, 20)
+    return {"copy_ms": ms, "copy_device_ms": queued_ms(fn, 20, ms)}
+
+
+def rebase_entry(states, label: str) -> dict:
+    """The rebase entry point a resolver calls, its glue included:
+    ``grid.rebase`` on one grid, ``sharded.rebase_parts`` on a stacked
+    state, by the same delta; CUDA events around 20 calls and their device
+    time, beside the copy yardstick of the same grid. It calls only those
+    entry points, so it measures any checkout of the port."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import sharded as SH
+
+    delta = 1 << 20
+    if states.grid.dim() == 3:
+        name = "grid.rebase"
+
+        def fn():
+            return G.rebase(states, delta)
+    else:
+        name = "sharded.rebase_parts"
+
+        def fn():
+            return SH.rebase_parts(states, delta)
+    ms = cuda_ms(fn, 20)
+    out = {"path": label, "entry": name, "ms": ms, "device_ms": queued_ms(fn, 20, ms),
+           **copy_yardstick(states.grid)}
+    log(f"  {name}, glue included: {ms:.4f} ms (CUDA events; on the device "
+        f"{fmt_ms(out['device_ms'])}); a copy of the grid {out['copy_ms']:.4f} ms (on the device "
+        f"{fmt_ms(out['copy_device_ms'])})")
+    return out
+
+
 def wide_reads(batch):
     """``batch`` with every read range keyspace-wide: [the all-zero code,
     the all-0xFF code), so each spans every bucket of the grid."""
@@ -639,16 +697,17 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
         nbytes, n_live * Lp1 + B * S)
     reshard_entry(state, "one grid")
 
-    # K4b rebase
+    # K4b rebase: the whole grid read and written (every key lane is
+    # copied), count and floor read, bmax and floor written
     delta = max(now // 2, 1)
     bk = kernels.maint_rebase(state.grid, state.count, state.floor, delta)
     bp = G.rebase_plain(state, delta)
-    nbytes = n_live * cell + 2 * B * cell + B * S * Lp1 * cell + 2 * B * cell
     row("maint_rebase", "maint.cu", "foundationdb_tpu/conflict/grid.py:704",
         max_abs_err(bk, (bp.grid, bp.bmax, bp.floor)),
         kernel_ms(lambda: kernels.maint_rebase(state.grid, state.count, state.floor, delta), 20),
         cuda_ms(lambda: G.rebase_plain(state, delta), 5),
-        nbytes, B * S * 3)
+        rebase_bytes(state.grid), B * S * 3)
+    rows[-1].update(copy_yardstick(state.grid))
     torch.cuda.synchronize()
     return rows
 
@@ -710,12 +769,12 @@ def check_partition_kernels(states, hbatch, vers, launches: dict) -> list[dict]:
     delta = max(now // 2, 1)
     bk = kernels.maint_rebase_parts(states.grid, states.count, states.floor, delta)
     bp = SH.rebase_parts_plain(states, delta)
-    nbytes = (n_live + 4 * P * B + P * B * S * Lp1) * CELL
     row("maint_rebase_parts", "maint.cu", "foundationdb_tpu/conflict/mesh_backend.py:499",
         max_abs_err(bk, (bp.grid, bp.bmax, bp.floor)),
         kernel_ms(lambda: kernels.maint_rebase_parts(states.grid, states.count, states.floor, delta), 20),
         cuda_ms(lambda: SH.rebase_parts_plain(states, delta), 5),
-        nbytes, P * B * S * 3)
+        rebase_bytes(states.grid), P * B * S * 3)
+    rows[-1].update(copy_yardstick(states.grid))
     torch.cuda.synchronize()
     return rows
 
@@ -888,15 +947,252 @@ def run_range_index(card: str) -> list[dict]:
     return check_search(idx._codes, q, launches)
 
 
-def profile_only(card: str, history: bool = False, reshard: bool = False) -> None:
+LIMIT_WIDTHS = (32, 128)  # the default key width (L = 8) and one past 64 bytes (L = 32)
+LIMIT_BATCHES = 3
+LIMIT_TXNS = 64
+LIMIT_KEYS = 20_000
+# (KR, KW, L) K2 is held at: the shapes whose staged endpoints outgrow one
+# block before the chunked plan (all but (256, 1, 3), the widest one-chunk
+# plan at the bench's L), T = 512
+K2_LIMIT_SHAPES = ((128, 1, 8), (64, 64, 8), (64, 32, 16), (256, 1, 3), (512, 2, 3), (16, 16, 32))
+
+
+def limit_key(n: int, width: int) -> bytes:
+    """Key n at ``width - 8`` bytes, so it encodes whole: a first byte
+    spread over the partitions, a common run of ``width - 20`` bytes (at
+    width 128 codes first differ past lane 16), then the number."""
+    return bytes([n * 256 // LIMIT_KEYS]) + b"/" * (width - 20) + b"key/%07d" % n
+
+
+def limit_batches(width: int, seed: int):
+    """(transactions, now, oldest) batches that the card refused before the
+    chunked K2 and the wide staging: in every 32 transactions one of 65-100
+    reads and one of 33-40 reads and writes (KR = 128, KW = 64); in the
+    second batch one of 130 writes (KW = 256); the rest one or two of each.
+    Ranges are points or 1-10 keys; snapshots inside a 30-version window."""
+    from foundationdb_tpu_torch.conflict.api import CommitTransaction
+
+    rnd = random.Random(seed)
+
+    def ranges(n):
+        out = []
+        for _ in range(n):
+            a = rnd.randrange(LIMIT_KEYS - 16)
+            end = limit_key(a, width) + b"\x00" if rnd.random() < 0.5 else limit_key(a + 1 + rnd.randrange(10), width)
+            out.append((limit_key(a, width), end))
+        return out
+
+    out, v = [], 100
+    for i in range(LIMIT_BATCHES):
+        txs = []
+        for t in range(LIMIT_TXNS):
+            nr, nw = rnd.randint(0, 2), rnd.randint(0, 2)
+            if t % 32 == 0:
+                nr = rnd.randint(65, 100)
+            elif t % 32 == 1:
+                nr, nw = rnd.randint(33, 40), rnd.randint(33, 40)
+            elif i == 1 and t == 2:
+                nw = 130
+            txs.append(CommitTransaction(read_snapshot=rnd.randrange(v - 30, v + 1),
+                                         read_conflict_ranges=ranges(nr), write_conflict_ranges=ranges(nw)))
+        rnd.shuffle(txs)
+        out.append((txs, v + 10, v - 40))
+        v += 10
+    return out
+
+
+def k2_codes(T: int, KR: int, KW: int, L: int, seed: int):
+    """Random K2 inputs on the card: (begin, end) lanes over a small
+    keyspace in the first lane, 20 % padding slots, 10 % of H set."""
+    import numpy as np
+
+    rnd = np.random.default_rng(seed)
+
+    def ranges(k):
+        b = np.zeros((T, k, L), np.int64)
+        b[..., 0] = rnd.integers(0, 4 * T, (T, k))
+        e = b.copy()
+        e[..., 0] += rnd.integers(1, 8, (T, k))
+        pad = rnd.random((T, k)) < 0.2
+        b[pad] = e[pad] = 0xFFFFFFFF
+        return [torch.from_numpy(x.astype(np.uint32).view(np.int32)).cuda() for x in (b, e)]
+
+    rb, re = ranges(KR)
+    wb, we = ranges(KW)
+    H = torch.from_numpy(rnd.random(T) < 0.1).cuda()
+    return rb, re, wb, we, H
+
+
+def run_limits(card: str) -> None:
+    """The "limits" phase: the shapes the card took only from this slice on.
+    For key widths 32 and 128, ``limit_batches`` through one grid
+    (``TorchConflictSet``) and through four partitions
+    (``TorchMeshConflictSet``) on the card, every verdict equal to the same
+    backend's plain path on the CPU and to the oracle, every kernel of the
+    path launched (counts set to 0 just before each run); K1, K6 history and
+    K2 then held against their plain versions on the final state and the
+    last batch. Then K2 at ``K2_LIMIT_SHAPES`` (its chunk plan and device
+    time), the staging of 2^23 endpoint rows (P = 4, T = 4096, KW = 256,
+    L = 8), and the range index at width 128 against ``bisect`` with K5
+    held against its plain version. One JSON line each."""
+    import bisect
+
+    import numpy as np
+
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import keys as K
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict import sharded as SH
+    from foundationdb_tpu_torch.conflict import torch_backend as TB
+    from foundationdb_tpu_torch.conflict.api import new_conflict_set
+    from foundationdb_tpu_torch.device import lanes_to_torch
+    from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
+
+    t_phase = time.perf_counter()
+    paths = (("one grid", "torch", {}, ("history", "intra_batch", "stage", "merge")),
+             ("four partitions", "torch_mesh", {"n_parts": 4},
+              ("history_parts", "intra_batch", "stage_parts", "merge_parts")))
+    for width in LIMIT_WIDTHS:
+        work = limit_batches(width, width)
+        oracle = new_conflict_set("oracle")
+        want = [oracle.detect_batch(txs, now, old) for txs, now, old in work]
+        for label, backend, kwargs, path in paths:
+            cpu = new_conflict_set(backend, key_width=width, capacity=1 << 14, device="cpu", **kwargs)
+            t0 = time.perf_counter()
+            want_cpu = [cpu.detect_batch(txs, now, old) for txs, now, old in work]
+            cpu_s = time.perf_counter() - t0
+            cs = new_conflict_set(backend, key_width=width, capacity=1 << 14, **kwargs)
+            cs.warm_compile()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = [cs.detect_batch(txs, now, old) for txs, now, old in work]
+            card_s = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            if got != want:
+                raise AssertionError(f"limits, {label}, width {width}: verdicts differ from the oracle")
+            if got != want_cpu:
+                raise AssertionError(f"limits, {label}, width {width}: verdicts differ from the CPU path")
+            missing = [k for k in path if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"limits, {label}, width {width}: kernels never launched: {missing}")
+            # the kernels on the final state and the last batch, against their plain versions
+            txs, now, old = work[-1]
+            batch = TB.upload(cs.encode(txs)[0], torch.device("cuda"))
+            state = cs._states if kwargs else cs._state
+            if kwargs:
+                bounds = SH.partition_bounds(width // 4, 4, "cuda")
+                hk = kernels.history_parts(*state, *bounds, batch.rb, batch.re, batch.t_snap)
+                hp = SH.history_conflicts_sharded_plain(state, batch, *bounds)
+            else:
+                hk = kernels.history(*state, batch.rb, batch.re, batch.t_snap)
+                hp = G.history_conflicts_plain(state, batch)
+            ck = kernels.intra_batch(batch.rb, batch.re, batch.wb, batch.we, hk)
+            cp = G.intra_batch_commits_plain(*G._endpoint_ranks(batch), hk)
+            errs = {"history": max_abs_err(hk, hp), "intra_batch": max_abs_err(ck, cp)}
+            if any(errs.values()):
+                raise AssertionError(f"limits, {label}, width {width}: a kernel differs from its plain version {errs}")
+            T, KR, L = batch.rb.shape
+            log("limits: " + json.dumps({
+                "path": label, "key_width": width, "batches": len(work), "txns": sum(len(w[0]) for w in work),
+                "max_reads": max(len(t.read_conflict_ranges) for w in work for t in w[0]),
+                "max_writes": max(len(t.write_conflict_ranges) for w in work for t in w[0]),
+                "last_batch_shape": [T, KR, batch.wb.shape[1], L], "verdicts_equal_oracle_and_cpu": True,
+                "card_s": card_s, "cpu_s": cpu_s, "launches": {k: launches[k] for k in path},
+                "max_abs_err": errs, "card": card}))
+
+    # K2 at its chunked shapes: the plan, kernel against plain, device
+    # time; beside it the same launch with every endpoint read from global
+    # memory (the plan's last resort, CR = CW = 0), the alternative to chunks
+    def k2_global(rb, re, wb, we, H):
+        T, KR, L = rb.shape
+        W = (T + 31) // 32
+        pt = torch.empty(W * 32 * W, dtype=torch.int32, device="cuda")
+        commit = torch.empty(T, dtype=torch.bool, device="cuda")
+        kernels._run("fdb_intra_batch", *(kernels._ptr(x) for x in (rb, re, wb, we, H, pt, commit)),
+                     T, KR, wb.shape[1], L, 8, 0, 0, kernels._stream())
+        return commit
+
+    cases = []
+    for KR, KW, L in K2_LIMIT_SHAPES:
+        args = k2_codes(512, KR, KW, L, seed=KR * 1000 + KW + L)
+        batch = G.Batch(*args[:4], torch.zeros(512, dtype=torch.int32, device="cuda"), args[4])
+        got = kernels.intra_batch(*args)
+        err = max(max_abs_err(got, G.intra_batch_commits_plain(*G._endpoint_ranks(batch), args[4])),
+                  max_abs_err(got, k2_global(*args)))
+        if err:
+            raise AssertionError(f"intra_batch at KR = {KR}, KW = {KW}, L = {L} differs from its plain version")
+        ms = cuda_ms(lambda: kernels.intra_batch(*args), 5)
+        gms = cuda_ms(lambda: k2_global(*args), 5)
+        cases.append({"kernel": "intra_batch", "T": 512, "KR": KR, "KW": KW, "L": L,
+                      "plan": list(kernels.intra_batch_plan(KR, KW, L)), "ms": ms,
+                      "device_ms": queued_ms(lambda: kernels.intra_batch(*args), 5, ms),
+                      "global_device_ms": queued_ms(lambda: k2_global(*args), 5, gms), "max_abs_err": err})
+
+    # the staging of 2^23 endpoint rows over four partitions
+    P, T, KW, L, B = 4, 4096, 256, 8, 8192
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    wb = torch.randint(0, 1 << 20, (P, T, KW, L), generator=gen, device="cuda", dtype=torch.int32)
+    wb[..., 1:] = 0
+    we = wb.clone()
+    we[..., 0] += torch.randint(1, 64, (P, T, KW), generator=gen, device="cuda", dtype=torch.int32)
+    we[..., -1] = 1
+    piv = torch.zeros((P, B, L), dtype=torch.int32, device="cuda")
+    piv[:, :, 0] = torch.arange(B, device="cuda", dtype=torch.int32) * ((1 << 20) // B)
+    commit = torch.rand(T, generator=gen, device="cuda") < 0.8
+    S2 = G.staging_slots(32)
+    sk = kernels.stage_parts(wb, we, commit, piv, S2)
+    shape_only = torch.empty((), dtype=torch.int32, device="cuda").expand(P, B, 32, L + 1)
+    st = SH._stage_clipped_plain(G.GridState(piv, shape_only, None, None, None), wb, we, commit)
+    err = max_abs_err(tuple(sk), tuple(st))
+    if err:
+        raise AssertionError("the staging of 2^23 rows differs from its plain version")
+    ms = cuda_ms(lambda: kernels.stage_parts(wb, we, commit, piv, S2), 2, warmup=1)
+    cases.append({"kernel": "stage_parts", "P": P, "T": T, "KW": KW, "L": L, "rows": P * 2 * T * KW,
+                  "ms": ms, "max_abs_err": err})
+    log("limits kernels: " + json.dumps({"cases": cases, "card": card}))
+
+    # the range index at width 128: 50K keys of 113 bytes
+    rnd = random.Random(128)
+    prefix = b"tenant/" + b"/" * 94
+    keys = sorted({prefix + b"%012d" % rnd.randrange(10**12) for _ in range(50_000)})
+    idx = TorchRangeIndex(keys, width=128)
+    queries = [[rnd.choice(keys) if rnd.random() < 0.7 else prefix + b"%012d" % rnd.randrange(10**12)
+                for _ in range(INDEX_BATCH)] for _ in range(4)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [idx.batch_lookup(q) for q in queries]
+    launches = kernels.launch_counts()["search"]
+    for q, (rows, found) in zip(queries, answers):
+        pos = [bisect.bisect_left(keys, k) for k in q]
+        want_found = np.array([i < len(keys) and keys[i] == k for k, i in zip(q, pos)])
+        if not (found == want_found).all() or not (rows == np.where(want_found, pos, -1)).all():
+            raise AssertionError("range index at width 128 differs from bisect")
+    if launches != len(queries):
+        raise AssertionError(f"search launches at width 128: {launches}")
+    q = lanes_to_torch(K.encode_keys(queries[0], width=128), "cuda")
+    plain = torch.stack([G.searchsorted_lex(idx._codes, q, "left"), G.searchsorted_lex(idx._codes, q, "right")])
+    err = max_abs_err(kernels.search(idx._codes, q), plain)
+    if err:
+        raise AssertionError("search at width 128 differs from its plain version")
+    ms = cuda_ms(lambda: kernels.search(idx._codes, q), 20)
+    log("limits range index: " + json.dumps({
+        "key_width": 128, "keys": len(keys), "lookups": len(queries) * INDEX_BATCH, "equal_to_bisect": True,
+        "launches": launches, "search_ms": ms, "search_device_ms": queued_ms(lambda: kernels.search(idx._codes, q), 20, ms),
+        "max_abs_err": err, "card": card}))
+    log(f"limits phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def profile_only(card: str, history: bool = False, reshard: bool = False, rebase: bool = False) -> None:
     """Only the per-batch profile of both resolver paths: each warmed by
     one group of the bench workload, then profiled over the next
     PROFILE_BATCHES batches. With ``history``, then K1 and K6 history on
     the path's state and its last batch, as read and with every read
     keyspace-wide, against their plain versions; with ``reshard``, the
-    reshard entry point on the path's state (``reshard_entry``): one JSON
-    line. Uses the resolvers' entry points, the kernel wrappers and, for
-    ``history`` and ``reshard``, the resolvers' device state (``_state`` of
+    reshard entry point on the path's state (``reshard_entry``), with
+    ``rebase`` the rebase entry point (``rebase_entry``): one JSON line
+    each. Uses the resolvers' entry points, the kernel wrappers and, for
+    ``history``, ``reshard`` and ``rebase``, the resolvers' device state (``_state`` of
     the one-grid backend, ``_states`` of the partitioned one), so it
     measures any checkout of the port that keeps those names."""
     from foundationdb_tpu_torch.conflict import kernels
@@ -905,7 +1201,7 @@ def profile_only(card: str, history: bool = False, reshard: bool = False) -> Non
     from foundationdb_tpu_torch.conflict.api import new_conflict_set
 
     offset = 1
-    cases, reshards = [], []
+    cases, reshards, rebases = [], [], []
     for label, key, kwargs in (("one grid", ascii_key, {}), ("four partitions", spread_key, {"n_parts": 4})):
         backend = "torch_mesh" if kwargs else "torch"
         cs = new_conflict_set(backend, key_width=KEY_WIDTH, capacity=CAPACITY, **kwargs)
@@ -915,6 +1211,8 @@ def profile_only(card: str, history: bool = False, reshard: bool = False) -> Non
         profile_path(cs, batches[GROUP:], offset + GROUP, label, card)
         if reshard:
             reshards.append(reshard_entry(cs._states if kwargs else cs._state, label))
+        if rebase:
+            rebases.append(rebase_entry(cs._states if kwargs else cs._state, label))
         if history:
             batch = TB.upload(cs.encode(batches[-1])[0], torch.device("cuda"))
             if kwargs:
@@ -926,6 +1224,8 @@ def profile_only(card: str, history: bool = False, reshard: bool = False) -> Non
         log(json.dumps({"history": cases, "card": card}))
     if reshard:
         log(json.dumps({"reshard": reshards, "card": card}))
+    if rebase:
+        log(json.dumps({"rebase": rebases, "card": card}))
 
 
 def main() -> int:
@@ -938,15 +1238,19 @@ def main() -> int:
     ap.add_argument("--history-only", action="store_true",
                     help="the profile lines, then the history kernels of both paths on the bench "
                          "batch and on keyspace-wide reads, timed and held to their plain versions")
+    ap.add_argument("--rebase-only", action="store_true",
+                    help="the profile lines, then the rebase entry point of both paths, glue "
+                         "included, beside a copy of the same grid, on CUDA events")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    if args.profile_only or args.history_only or args.reshard_only:
+    if args.profile_only or args.history_only or args.reshard_only or args.rebase_only:
         card = card_line()
         log(f"card: {card}")
-        profile_only(card, history=args.history_only, reshard=args.reshard_only)
+        profile_only(card, history=args.history_only, reshard=args.reshard_only,
+                     rebase=args.rebase_only)
         return 0
 
     from foundationdb_tpu_torch.conflict import kernels
@@ -1043,6 +1347,8 @@ def main() -> int:
     mesh_rows = run_mesh(want_oracle, offset, card)
     # 8. the range index
     index_rows = run_range_index(card)
+    # 9. the shapes past the bench's: many ranges a transaction, wide keys
+    run_limits(card)
 
     # 6. results
     log(json.dumps({"kernels": rows + index_rows + mesh_rows}))

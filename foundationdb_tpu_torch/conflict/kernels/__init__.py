@@ -17,7 +17,6 @@ import torch
 from . import build
 
 _I32 = torch.int32
-MAX_LANES = 16  # FDB_MAX_LANES of csrc/common.cuh
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -67,8 +66,6 @@ def _history(fn_name, pivots, grid, count, bmax, floor, bounds, rb, re, t_snap) 
     T, KR, _ = rb.shape
     if B < 1 or B & (B - 1):
         raise ValueError(f"bucket count must be a power of two, got {B}")
-    if L > MAX_LANES:
-        raise ValueError(f"{L} lanes exceed the kernel's {MAX_LANES}")
     _check(pivots, "pivots", _I32, (*lead, B, L))
     _check(grid, "grid", _I32)
     for name, t in (("count", count), ("bmax", bmax), ("floor", floor)):
@@ -112,10 +109,41 @@ MAX_TXNS = 65536  # intra_batch: a 32·ceil(T/32)²-word bitset (512 MiB at the 
 SMEM_OPTIN = 232448  # bytes of shared memory one block may opt into (H100)
 
 
+def intra_batch_plan(KR: int, KW: int, L: int) -> tuple[int, int, int]:
+    """K2's overlap tiling for KR read and KW write slots of L lanes: (WT,
+    CR, CW) — WT writer words per CTA (32·WT threads), and the read and
+    write slots staged in shared memory at a time. Where 32 readers' KR
+    slots and 32·WT writers' KW slots fit one block, that is the plan (the
+    largest WT of 8, 4, 2, 1 that fits, CR = KR, CW = KW). Otherwise WT = 8
+    and the larger of the two staged parts is halved until they fit, then
+    WT; CR = CW = 0 where not even one slot of each fits: the kernel then
+    reads the endpoints from global memory."""
+
+    def words(wt, cr, cw):
+        return 32 * ((cr * 2 * L) | 1) + 32 * wt * cw * 2 * L
+
+    cap = SMEM_OPTIN // 4
+    for wt in (8, 4, 2, 1):
+        if words(wt, KR, KW) <= cap:
+            return wt, KR, KW
+    wt, cr, cw = 8, KR, KW
+    while words(wt, cr, cw) > cap:
+        if cr > 1 and cr >= wt * cw:
+            cr = -(-cr // 2)
+        elif cw > 1:
+            cw = -(-cw // 2)
+        elif wt > 1:
+            wt //= 2
+        else:
+            return 1, 0, 0
+    return wt, cr, cw
+
+
 @_counted
 def intra_batch(rb, re, wb, we, H) -> torch.Tensor:
     """K2: bool[T] in-order greedy commit from the batch's int32 code
-    lanes (``rb``/``re`` [T, KR, L], ``wb``/``we`` [T, KW, L])."""
+    lanes (``rb``/``re`` [T, KR, L], ``wb``/``we`` [T, KW, L]); any KR, KW
+    and L (``intra_batch_plan``), T <= MAX_TXNS."""
     T, KR, L = rb.shape
     KW = wb.shape[1]
     if T > MAX_TXNS:
@@ -125,19 +153,14 @@ def intra_batch(rb, re, wb, we, H) -> torch.Tensor:
     _check(wb, "wb", _I32, (T, KW, L))
     _check(we, "we", _I32, (T, KW, L))
     _check(H, "H", torch.bool, (T,))
-    # writer words per overlap CTA: 8 (256 threads) unless the staged
-    # endpoints of 32 readers and 32·WT writers outgrow shared memory
-    WT = next((wt for wt in (8, 4, 2, 1)
-               if (32 * (KR * 2 * L | 1) + 32 * wt * KW * 2 * L) * 4 <= SMEM_OPTIN), 0)
-    if not WT:
-        raise ValueError(f"KR = {KR}, KW = {KW} at {L} lanes exceed one block's shared memory")
+    WT, CR, CW = intra_batch_plan(KR, KW, L)
     W = (T + 31) // 32
     pt = torch.empty(W * 32 * W, dtype=_I32, device=H.device)  # the transposed bitset
     commit = torch.empty(T, dtype=torch.bool, device=H.device)
     _run(
         "fdb_intra_batch",
         _ptr(rb), _ptr(re), _ptr(wb), _ptr(we), _ptr(H), _ptr(pt),
-        _ptr(commit), T, KR, KW, L, WT, _stream(),
+        _ptr(commit), T, KR, KW, L, WT, CR, CW, _stream(),
     )
     intra_batch.launches += 1
     return commit
@@ -145,7 +168,7 @@ def intra_batch(rb, re, wb, we, H) -> torch.Tensor:
 
 STAGE_TILE_BYTES = SMEM_OPTIN - 2048  # shared memory of one sort tile (the scans take the rest)
 STAGE_TILE_ROWS = 8192  # rows one CTA sorts (16-bit indices); more go through merge passes
-MAX_STAGE_ROWS = 1 << 22  # endpoint rows of all partitions, padded
+MAX_STAGE_ROWS = 1 << 30  # endpoint rows of one partition, padded (int row indices)
 
 
 def _stage(wb, we, commit, pivots, S2):
@@ -155,15 +178,16 @@ def _stage(wb, we, commit, pivots, S2):
     _check(we, "we", _I32, (P, T, KW, L))
     _check(commit, "commit", torch.bool, (T,))
     _check(pivots, "pivots", _I32, (P, B, L))
-    if L > MAX_LANES:
-        raise ValueError(f"{L} lanes exceed the kernel's {MAX_LANES}")
     n2 = 2 * T * KW
     n2pad = 1 << (n2 - 1).bit_length()
-    if P * n2pad > MAX_STAGE_ROWS:
-        raise ValueError(f"{P} × {n2pad} endpoint rows exceed the kernel's {MAX_STAGE_ROWS}")
+    if n2pad > MAX_STAGE_ROWS:
+        raise ValueError(f"{n2pad} endpoint rows a partition exceed the kernel's {MAX_STAGE_ROWS}")
     rw = L + 2
+    fit = STAGE_TILE_BYTES // (rw * 4 + 6)  # records a sort tile holds
+    if fit < 1:
+        raise ValueError(f"{L} lanes: one staging record exceeds a block's shared memory")
     # a tile's records of rw words and its sort keys (4-byte bucket, 2-byte index)
-    tile = min(n2pad, STAGE_TILE_ROWS, 1 << ((STAGE_TILE_BYTES // (rw * 4 + 6)).bit_length() - 1))
+    tile = min(n2pad, STAGE_TILE_ROWS, 1 << (fit.bit_length() - 1))
     U = P * min(n2, B)
     dev = wb.device
     st_code = torch.empty((U, S2, L), dtype=_I32, device=dev)
@@ -192,7 +216,15 @@ def stage(wb, we, commit, pivots, S2: int):
     ``we`` [1, T, KW, L] ranked against ``pivots`` [1, B, L], sorted by
     (bucket, code), aggregated per distinct code and staged per touched
     bucket in planes of ``S2`` slots. Returns (st_code [U, S2, L], st_ev [U, S2], tid [U], carry
-    [U] — the event prefix at each touched bucket —, max_staged [1])."""
+    [U] — the event prefix at each touched bucket —, max_staged [1]).
+
+    Limits (both raise before the launch): at most MAX_STAGE_ROWS = 2^30
+    endpoint rows 2·T·KW a partition, padded to a power of two (the
+    kernel's row indices are int), and at most 57,596 lanes (a key width
+    of 230 KB: one record of L + 2 words and its sort key must fit a sort
+    tile's shared memory). Memory bounds it first: the two record buffers
+    take 2·P·n2pad·(L + 2)·4 bytes, 2 × 335 MB at P = 4, T = 4096,
+    KW = 256, L = 8."""
     out = _stage(wb, we, commit, pivots, S2)
     stage.launches += 1
     return out
@@ -206,6 +238,9 @@ def stage_parts(wb, we, commit, pivots, S2: int):
     out = _stage(wb, we, commit, pivots, S2)
     stage_parts.launches += 1
     return out
+
+
+MERGE_WARPS = 8  # touched buckets per CTA of csrc/merge.cu (kWarps)
 
 
 def _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest, n_parts):
@@ -224,11 +259,16 @@ def _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest,
     _check(tid, "tid", _I32, (U,))
     _check(carry_in, "carry_in", _I32, (U,))
     max_kept = torch.zeros(n_parts, dtype=_I32, device=grid.device)
+    # a warp's 64 rows of L + 1 words in shared memory, or (L > 112) in
+    # global scratch, one plane per staging slot
+    rows = None
+    if MERGE_WARPS * 64 * Lp1 * 4 > SMEM_OPTIN:
+        rows = torch.empty((U, 64, Lp1), dtype=_I32, device=grid.device)
     _run(
         "fdb_merge",
         _ptr(grid), _ptr(count), _ptr(bmax), _ptr(floor), _ptr(st_code),
         _ptr(st_ev), _ptr(tid), _ptr(carry_in), int(now), int(oldest),
-        _ptr(max_kept), B, B // n_parts, S, S2, L, U, _stream(),
+        _ptr(max_kept), None if rows is None else _ptr(rows), B, B // n_parts, S, S2, L, U, _stream(),
     )
     return max_kept
 
@@ -361,8 +401,6 @@ def search(codes, q):
     Q = q.shape[0]
     if P < 1:
         raise ValueError("the code array is empty")
-    if L > MAX_LANES:
-        raise ValueError(f"{L} lanes exceed the kernel's {MAX_LANES}")
     _check(codes, "codes", _I32)
     _check(q, "q", _I32, (Q, L))
     out = torch.empty((2, Q), dtype=_I32, device=codes.device)

@@ -10,7 +10,8 @@
 #include <cuda_runtime.h>
 
 #define FDB_SENTINEL 0xFFFFFFFFu
-// most lanes a kernel copies into registers (key width 64 bytes)
+// most lanes a kernel copies into registers (key width 64 bytes); wider
+// codes are compared in memory (Code<0>)
 #define FDB_MAX_LANES 16
 
 constexpr unsigned FULL = 0xffffffffu;  // every lane of a warp
@@ -46,6 +47,38 @@ __device__ __forceinline__ int cmp_r(const uint32_t (&x)[LM], const uint32_t (&y
         if (i < L && x[i] != y[i]) c = x[i] < y[i] ? -1 : 1;
     }
     return c;
+}
+
+// a key code a warp compares: its L <= LM lanes in registers, or, for
+// LM = 0, a pointer to its lanes in global memory (any L)
+template <int LM>
+struct Code {
+    uint32_t x[LM];
+};
+
+template <>
+struct Code<0> {
+    const uint32_t* p;
+};
+
+template <int LM>
+__device__ __forceinline__ void load(Code<LM>& c, const uint32_t* p, int L) {
+    if constexpr (LM == 0) c.p = p;
+    else load_code<LM>(p, L, c.x);
+}
+
+// -1 / 0 / +1: lexicographic compare of two codes of L lanes
+template <int LM>
+__device__ __forceinline__ int cmp(const Code<LM>& a, const Code<LM>& b, int L) {
+    if constexpr (LM == 0) {
+        for (int i = 0; i < L; ++i) {
+            const uint32_t x = __ldg(a.p + i), y = __ldg(b.p + i);
+            if (x != y) return x < y ? -1 : 1;
+        }
+        return 0;
+    } else {
+        return cmp_r<LM>(a.x, b.x, L);
+    }
 }
 
 // floor division / modulo for a positive divisor (matches Python / jnp)

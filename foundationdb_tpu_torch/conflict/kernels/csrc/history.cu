@@ -41,6 +41,10 @@
 //   and the warp checks only those, clipping in registers exactly as _clip
 //   does. An empty or inverted range touches none. One launch of ⌈T/4⌉
 //   blocks, not T × P threads, and no zeroed H: lane 0 stores every flag.
+// - Codes of up to 16 lanes (64-byte keys) live in register arrays sized
+//   for the width (4, 8 or 16 lanes); wider codes stay in memory (Code<0>,
+//   common.cuh): a compare walks both codes' lanes through the read-only
+//   cache, and a clip selects a pointer. Any L, the same search.
 #include "common.cuh"
 
 namespace {
@@ -50,9 +54,13 @@ constexpr int WARPS = 4;  // transactions (warps) per block
 // one grid row: its L bound lanes and the gap version; 16-byte loads when
 // ``vec`` (L + 1 a multiple of 4 and the grid 16-byte aligned)
 template <int LM>
-__device__ __forceinline__ void load_row(const uint32_t* row, int L, bool vec, uint32_t (&x)[LM],
+__device__ __forceinline__ void load_row(const uint32_t* row, int L, bool vec, Code<LM>& code,
                                          int& ver) {
-    if (vec) {
+    if constexpr (LM == 0) {
+        code.p = row;
+        ver = (int)__ldg(row + L);
+    } else if (vec) {
+        uint32_t(&x)[LM] = code.x;
 #pragma unroll
         for (int q = 0; q < (LM + 4) / 4; ++q) {
             if (4 * q <= L) {
@@ -67,27 +75,36 @@ __device__ __forceinline__ void load_row(const uint32_t* row, int L, bool vec, u
             }
         }
     } else {
-        load_code<LM>(row, L, x);
+        load_code<LM>(row, L, code.x);
         ver = (int)__ldg(row + L);
     }
 }
 
-// [a, e) ∩ [lo, hi) in registers, as sharded._clip: a below lo starts at lo,
+// c ? a : b, lane by lane
+template <int LM>
+__device__ __forceinline__ Code<LM> pick(bool c, const Code<LM>& a, const Code<LM>& b) {
+    if constexpr (LM == 0) {
+        return {c ? a.p : b.p};
+    } else {
+        Code<LM> r;
+#pragma unroll
+        for (int i = 0; i < LM; ++i) r.x[i] = c ? a.x[i] : b.x[i];
+        return r;
+    }
+}
+
+// [a, e) ∩ [lo, hi) (in registers, or as pointers for LM = 0), as sharded._clip: a below lo starts at lo,
 // e above hi ends at hi
 template <int LM>
-__device__ __forceinline__ void clip(const uint32_t (&a)[LM], const uint32_t (&e)[LM],
-                                     const uint32_t* lo, const uint32_t* hi, int L,
-                                     uint32_t (&a2)[LM], uint32_t (&e2)[LM]) {
-    uint32_t l[LM], h[LM];
-    load_code<LM>(lo, L, l);
-    load_code<LM>(hi, L, h);
-    const bool up = cmp_r<LM>(a, l, L) < 0;
-    const bool down = cmp_r<LM>(h, e, L) < 0;
-#pragma unroll
-    for (int i = 0; i < LM; ++i) {
-        a2[i] = up ? l[i] : a[i];
-        e2[i] = down ? h[i] : e[i];
-    }
+__device__ __forceinline__ void clip(const Code<LM>& a, const Code<LM>& e, const uint32_t* lo,
+                                     const uint32_t* hi, int L, Code<LM>& a2, Code<LM>& e2) {
+    Code<LM> l, h;
+    load(l, lo, L);
+    load(h, hi, L);
+    const bool up = cmp(a, l, L) < 0;
+    const bool down = cmp(h, e, L) < 0;
+    a2 = pick(up, l, a);
+    e2 = pick(down, h, e);
 }
 
 // one partition's slice of the (stacked) state
@@ -107,23 +124,21 @@ struct Grid {
 // base by c·s, so the next step searches s candidates.
 template <int LM>
 __device__ __forceinline__ void rank_ends(const uint32_t* __restrict__ piv, int B, int L,
-                                          const uint32_t (&a)[LM], const uint32_t (&e)[LM],
-                                          int lane, int& n_le, int& n_lt) {
+                                          const Code<LM>& a, const Code<LM>& e, int lane,
+                                          int& n_le, int& n_lt) {
     const int steps = max((31 - __clz(B) + 3) / 4, 1);
     const bool strict = lane >= 16;  // this lane ranks e
     const int sub = lane & 15;
-    uint32_t x[LM];
-#pragma unroll
-    for (int i = 0; i < LM; ++i) x[i] = strict ? e[i] : a[i];
+    const Code<LM> x = pick(strict, e, a);
     int base_a = 0, base_e = 0;
     int s = 1 << (4 * (steps - 1));
     for (int k = 0; k < steps; ++k, s >>= 4) {
         const int j = (strict ? base_e : base_a) + (sub + 1) * s - 1;
         bool below = false;
         if (j < B) {
-            uint32_t p[LM];
-            load_code<LM>(piv + (size_t)j * L, L, p);
-            const int c = cmp_r<LM>(p, x, L);
+            Code<LM> p;
+            load(p, piv + (size_t)j * L, L);
+            const int c = cmp(p, x, L);
             below = strict ? c < 0 : c <= 0;
         }
         const unsigned m = __ballot_sync(FULL, below);
@@ -137,8 +152,7 @@ __device__ __forceinline__ void rank_ends(const uint32_t* __restrict__ piv, int 
 // does the active range [a, e) overlap a gap of ``g`` with a version above
 // ``snap``? Warp-uniform result.
 template <int LM>
-__device__ __forceinline__ bool range_hits(const Grid& g, const uint32_t (&a)[LM], const uint32_t (&e)[LM],
-                           int snap, int B, int S, int L, int B1, int lgB2, bool vec, int lane) {
+__device__ __forceinline__ bool range_hits(const Grid& g, const Code<LM>& a, const Code<LM>& e, int snap, int B, int S, int L, int B1, int lgB2, bool vec, int lane) {
     const int Lp1 = L + 1;
     const int B2 = 1 << lgB2;
     int n_le, n_lt;
@@ -158,17 +172,17 @@ __device__ __forceinline__ bool range_hits(const Grid& g, const uint32_t (&a)[LM
     int n_a = 0, v_at = 0;
     for (int s0 = 0; s0 < S; s0 += 32) {
         const int s = s0 + lane;
-        uint32_t ra[LM], re_[LM];
+        Code<LM> ra, re_;
         int va = 0, ve = 0;
         if (s < S) load_row<LM>(win_a + (size_t)s * Lp1, L, vec, ra, va);
         if (diff && s < S) load_row<LM>(win_e + (size_t)s * Lp1, L, vec, re_, ve);
         // a's bucket: rows <= a count toward the value at a; rows strictly
         // inside (a, e) start gaps the range overlaps
         const bool used_a = s < S && s < cnt_a;
-        const bool le = used_a && cmp_r<LM>(ra, a, L) <= 0;
-        if (used_a && !le && cmp_r<LM>(ra, e, L) < 0) v = max(v, va);
+        const bool le = used_a && cmp(ra, a, L) <= 0;
+        if (used_a && !le && cmp(ra, e, L) < 0) v = max(v, va);
         // e's bucket when later: rows before e
-        if (s < S && s < cnt_e && cmp_r<LM>(re_, e, L) < 0) v = max(v, ve);
+        if (s < S && s < cnt_e && cmp(re_, e, L) < 0) v = max(v, ve);
         const int k = __popc(__ballot_sync(FULL, le));
         if (S <= 32 && k > 0) v_at = __shfl_sync(FULL, va, k - 1);
         n_a += k;
@@ -231,20 +245,20 @@ __global__ void __launch_bounds__(WARPS * 32) history_kernel(
     };
     bool any = false;
     for (int r = 0; r < KR && !any; ++r) {
-        uint32_t a[LM], e[LM];
-        load_code<LM>(rb + ((size_t)t * KR + r) * L, L, a);
-        load_code<LM>(re + ((size_t)t * KR + r) * L, L, e);
+        Code<LM> a, e;
+        load(a, rb + ((size_t)t * KR + r) * L, L);
+        load(e, re + ((size_t)t * KR + r) * L, L);
         if (plo == nullptr) {
-            if (cmp_r<LM>(a, e, L) < 0)  // inactive (or empty) ranges are skipped
+            if (cmp(a, e, L) < 0)  // inactive (or empty) ranges are skipped
                 any = range_hits<LM>(part(0), a, e, snap, B, S, L, B1, lgB2, vec, lane);
             continue;
         }
         for (int p0 = 0; p0 < P && !any; p0 += 32) {
-            uint32_t a2[LM], e2[LM];
+            Code<LM> a2, e2;
             bool touch = false;
             if (p0 + lane < P) {
                 clip<LM>(a, e, plo + (size_t)(p0 + lane) * L, phi + (size_t)(p0 + lane) * L, L, a2, e2);
-                touch = cmp_r<LM>(a2, e2, L) < 0;
+                touch = cmp(a2, e2, L) < 0;
             }
             for (unsigned m = __ballot_sync(FULL, touch); m && !any; m &= m - 1) {
                 const int p = p0 + __ffs(m) - 1;
@@ -263,7 +277,7 @@ static int launch_history(
     const void* floor_, const void* plo, const void* phi, const void* rb,
     const void* re, const void* t_snap, void* bmax_sup, void* hit,
     int P, int B, int S, int L, int T, int KR, int B1, int B2, void* stream) {
-    if (L < 1 || L > FDB_MAX_LANES || B < 1 || B1 * B2 != B || (B2 & (B2 - 1))) {
+    if (L < 1 || B < 1 || B1 * B2 != B || (B2 & (B2 - 1))) {
         return (int)cudaErrorInvalidValue;
     }
     cudaStream_t st = (cudaStream_t)stream;
@@ -293,10 +307,12 @@ static int launch_history(
             (const uint32_t*)re, (const int*)t_snap, (const uint32_t*)plo, (const uint32_t*)phi,
             (uint8_t*)hit, P, B, S, L, T, KR, B1, lgB2, vec);
     };
-    // register arrays sized for the key width: 4 lanes at the bench's 12 bytes
+    // register arrays sized for the key width: 4 lanes at the bench's 12
+    // bytes; above FDB_MAX_LANES the codes are compared in memory
     if (L <= 4) err = go(history_kernel<4>);
     else if (L <= 8) err = go(history_kernel<8>);
-    else err = go(history_kernel<16>);
+    else if (L <= FDB_MAX_LANES) err = go(history_kernel<16>);
+    else err = go(history_kernel<0>);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

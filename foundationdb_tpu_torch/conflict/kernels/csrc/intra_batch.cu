@@ -22,7 +22,13 @@
 // the 32·WT writers' endpoints in shared memory, so every (j, i) test
 // reads shared memory; warp w builds word w of the 32 rows, a lane a row,
 // and stores the 32 words side by side. CTAs wholly above the diagonal
-// exit at once.
+// exit at once. When the KR read and KW write slots do not fit one block's
+// shared memory (at L = 8: 65 reads, or 33 of each), the CTA stages them
+// in chunks of CR read and CW write slots, one (read chunk, write chunk)
+// pair at a time, and ORs each row's bits over the pairs in registers; a
+// bit already set skips its writer. kernels.intra_batch_plan picks WT, CR
+// and CW; where not even one slot of each fits (L > 453), the endpoints
+// are read from global memory (CR = 0).
 // Pass 2 (greedy_chain, ONE CTA of 1024 threads) resolves the chain 32
 // transactions at a time: ceil(T/32) dependent steps (80 at the bench
 // shape) instead of T. Thread t owns row t of each panel of 1024 rows
@@ -131,6 +137,97 @@ __global__ void build_overlap(
     if (j < T) pt[(size_t)w * Tp + j] = bits;
 }
 
+// build_overlap where the endpoints do not fit one block: STAGED, they
+// come in chunks of CR read slots and CW write slots, one (read chunk,
+// write chunk) pair at a time, each row's bits ORed over the pairs; else
+// straight from global memory
+template <int LC, bool STAGED>
+__global__ void build_overlap_chunks(
+    const uint32_t* __restrict__ rb, const uint32_t* __restrict__ re,
+    const uint32_t* __restrict__ wb, const uint32_t* __restrict__ we,
+    uint32_t* __restrict__ pt, int T, int KR, int KW, int L_, int Tp, int WT, int CR, int CW) {
+    const int L = LC ? LC : L_;
+    const int w0 = blockIdx.x * WT;
+    const int jb = blockIdx.y;  // reader block: rows 32·jb .. 32·jb + 31
+    if (w0 > jb) return;        // every word strictly above the diagonal
+    const int j0 = jb * kRowsPerCta;
+    const int i0 = w0 * 32;
+    const int n_w = 32 * WT;  // writers staged
+    const int cr = STAGED ? CR : KR, cw = STAGED ? CW : KW;
+    extern __shared__ uint32_t sm[];
+    // readers: [32][CR][2][L] (begin, end) at an odd stride, since the
+    // lanes of a warp read 32 different readers; writers: [32·WT][CW][2][L],
+    // each read by a whole warp at once
+    const int rrec = (cr * 2 * L) | 1;
+    uint32_t* rd = sm;
+    uint32_t* wr = sm + kRowsPerCta * rrec;
+    const int wrec = cw * 2 * L;
+
+    const int r = threadIdx.x & 31, w = w0 + (threadIdx.x >> 5);
+    const int j = j0 + r;
+    const bool active = w <= jb && j < T;  // only words at or below the diagonal
+    uint32_t bits = 0;
+    for (int r0 = 0; r0 < KR; r0 += cr) {
+        const int nr = min(cr, KR - r0);
+        for (int a0 = 0; a0 < KW; a0 += cw) {
+            const int na = min(cw, KW - a0);
+            if (STAGED) {
+                if (r0 | a0) __syncthreads();  // every thread is done with the last chunk
+                if (a0 == 0) {
+                    const int rd_words = kRowsPerCta * nr * L;
+                    for (int k = threadIdx.x; k < rd_words; k += blockDim.x) {
+                        int rr = k / (nr * L), rest = k % (nr * L);
+                        int jj = j0 + rr;
+                        size_t src = ((size_t)jj * KR + r0) * L + rest;
+                        int ar = rest / L, l = rest % L;
+                        uint32_t* dst = rd + rr * rrec + ar * 2 * L + l;
+                        dst[0] = jj < T ? rb[src] : FDB_SENTINEL;
+                        dst[L] = jj < T ? re[src] : FDB_SENTINEL;
+                    }
+                }
+                if (r0 == 0 || cw < KW) {  // one write chunk stays staged
+                    const int wr_words = n_w * na * L;
+                    for (int k = threadIdx.x; k < wr_words; k += blockDim.x) {
+                        int rr = k / (na * L), rest = k % (na * L);
+                        int i = i0 + rr;
+                        size_t src = ((size_t)i * KW + a0) * L + rest;
+                        int aw = rest / L, l = rest % L;
+                        uint32_t* dst = wr + rr * wrec + aw * 2 * L + l;
+                        dst[0] = i < T ? wb[src] : FDB_SENTINEL;
+                        dst[L] = i < T ? we[src] : FDB_SENTINEL;
+                    }
+                }
+                __syncthreads();
+            }
+            if (!active) continue;
+            // reader j's read slots r0 .. r0 + nr - 1: begin at rbj, end at
+            // rej, slot s at s·rs
+            const uint32_t* rbj = STAGED ? rd + r * rrec : rb + ((size_t)j * KR + r0) * L;
+            const uint32_t* rej = STAGED ? rbj + L : re + ((size_t)j * KR + r0) * L;
+            const int rs = STAGED ? 2 * L : L;
+            for (int b = 0; b < 32; ++b) {
+                const int i = w * 32 + b;
+                if (i >= j) break;              // strictly earlier writers only
+                if ((bits >> b) & 1u) continue;  // found in an earlier chunk
+                const uint32_t* wbi = STAGED ? wr + (i - i0) * wrec : wb + ((size_t)i * KW + a0) * L;
+                const uint32_t* wei = STAGED ? wbi + L : we + ((size_t)i * KW + a0) * L;
+                bool o = false;
+                for (int ar = 0; ar < nr && !o; ++ar) {
+                    for (int aw = 0; aw < na; ++aw) {
+                        // read j overlaps write i: rb_j < we_i and wb_i < re_j
+                        if (lex_lt(rbj + ar * rs, wei + aw * rs, L) && lex_lt(wbi + aw * rs, rej + ar * rs, L)) {
+                            o = true;
+                            break;
+                        }
+                    }
+                }
+                if (o) bits |= 1u << b;
+            }
+        }
+    }
+    if (active) pt[(size_t)w * Tp + j] = bits;
+}
+
 __global__ void __launch_bounds__(kChainThreads) greedy_chain(
     const uint32_t* __restrict__ pt, const uint8_t* __restrict__ H,
     uint8_t* __restrict__ commit, int T, int W, int Tp) {
@@ -185,19 +282,32 @@ __global__ void __launch_bounds__(kChainThreads) greedy_chain(
 extern "C" int fdb_intra_batch(
     const void* rb, const void* re, const void* wb, const void* we,
     const void* H, void* pt, void* commit,
-    int T, int KR, int KW, int L, int WT, void* stream) {
+    int T, int KR, int KW, int L, int WT, int CR, int CW, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int W = (T + 31) / 32;
-    if (W > kMaxWords) return (int)cudaErrorInvalidValue;
+    if (W > kMaxWords || CR < 0 || CR > KR || CW < 0 || CW > KW || (CR > 0) != (CW > 0)) {
+        return (int)cudaErrorInvalidValue;
+    }
     const int Tp = 32 * W;  // PT row pitch: 128-byte aligned rows
-    size_t smem1 = ((size_t)kRowsPerCta * ((KR * 2 * L) | 1) + (size_t)32 * WT * KW * 2 * L) * sizeof(uint32_t);
-    auto build = L == 3 ? build_overlap<3> : build_overlap<0>;  // 12-byte keys: the bench's
-    cudaError_t err = cudaFuncSetAttribute(build, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-    if (err != cudaSuccess) return (int)err;
+    size_t smem1 = CR ? ((size_t)kRowsPerCta * ((CR * 2 * L) | 1) + (size_t)32 * WT * CW * 2 * L) * sizeof(uint32_t) : 0;
     dim3 grid1((W + WT - 1) / WT, W);
-    build<<<grid1, 32 * WT, smem1, st>>>(
-        (const uint32_t*)rb, (const uint32_t*)re, (const uint32_t*)wb, (const uint32_t*)we,
-        (uint32_t*)pt, T, KR, KW, L, Tp, WT);
+    cudaError_t err;
+    if (CR == KR && CW == KW) {  // the one-chunk plan (the bench's)
+        auto build = L == 3 ? build_overlap<3> : build_overlap<0>;  // 12-byte keys: the bench's
+        err = cudaFuncSetAttribute(build, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+        if (err != cudaSuccess) return (int)err;
+        build<<<grid1, 32 * WT, smem1, st>>>(
+            (const uint32_t*)rb, (const uint32_t*)re, (const uint32_t*)wb, (const uint32_t*)we,
+            (uint32_t*)pt, T, KR, KW, L, Tp, WT);
+    } else {
+        auto build = !CR ? build_overlap_chunks<0, false>
+                         : L == 3 ? build_overlap_chunks<3, true> : build_overlap_chunks<0, true>;
+        err = cudaFuncSetAttribute(build, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+        if (err != cudaSuccess) return (int)err;
+        build<<<grid1, 32 * WT, smem1, st>>>(
+            (const uint32_t*)rb, (const uint32_t*)re, (const uint32_t*)wb, (const uint32_t*)we,
+            (uint32_t*)pt, T, KR, KW, L, Tp, WT, CR, CW);
+    }
     greedy_chain<<<1, kChainThreads, 0, st>>>(
         (const uint32_t*)pt, (const uint8_t*)H, (uint8_t*)commit, T, W, Tp);
     return (int)cudaGetLastError();

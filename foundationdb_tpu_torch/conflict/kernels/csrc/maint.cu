@@ -42,9 +42,21 @@
 //   code; floors are 0 and pressure = min(q, n_live) (0 when empty), per
 //   partition. A 1,024-bucket window was slower on the H100 (PERF.md).
 //
-// Rebase is one warp per bucket, a lane per slot, writing a fresh grid (the
-// old one may still be the backend's snapshot); a stack of P grids is rebased
-// as one flat grid of P·B buckets, since rebase is independent per bucket.
+// Rebase writes a fresh grid (the old one may still be the backend's
+// snapshot): every key lane copied, used slots' versions max(ver - delta,
+// 0), unused slots' 0, floors max(floor - delta, 0), bmax the bucket's
+// largest version or its floor. It is a streaming copy with one patched
+// word per row and one max per bucket: it reads the whole grid and writes
+// it whole, 2 × 16 MiB at the bench shape, ~10 µs at 3.35 TB/s. A CTA of
+// 256 threads takes whole buckets (a multiple of 4, ~16 KB of words: 32
+// buckets at the bench shape) as one run of 16-byte elements, four loads in
+// flight per thread before its first store, the counts in shared memory.
+// An element's version words are found by their index (at L = 3 an element
+// is one slot row and .w its version); the bucket maxima are a warp
+// reduction (a segmented scan where a warp's elements span buckets) and a
+// shared atomic, then the floor. Misaligned grids take 4-byte accesses in
+// the same kernel. A stack of P grids is rebased as one flat grid of P·B
+// buckets, since rebase is independent per bucket.
 #include <climits>
 
 #include "common.cuh"
@@ -391,30 +403,134 @@ __global__ void __launch_bounds__(BUILD_WARPS * 32) reshard_build(
     }
 }
 
-__global__ void rebase_kernel(
+// ---- rebase ---------------------------------------------------------------
+
+constexpr int REBASE_THREADS = 256;
+constexpr int REBASE_VECS = 4;  // 16-byte elements in flight per thread
+constexpr int REBASE_WORDS = REBASE_THREADS * REBASE_VECS * 4;  // words a CTA aims at
+
+// element e (words 4e .. 4e + 3, the last one cut at nw) of a CTA's words
+__device__ __forceinline__ uint4 load4(const uint32_t* p, int e, int nw, bool vec) {
+    if (vec && 4 * e + 4 <= nw) return __ldg(reinterpret_cast<const uint4*>(p) + e);
+    uint32_t w[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) w[c] = 4 * e + c < nw ? __ldg(p + 4 * e + c) : 0u;
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// plain stores: the next batch reads the new grid, and streaming ones
+// (__stcs, evict first) were slower on the H100 (PERF.md)
+__device__ __forceinline__ void store4(uint32_t* p, int e, int nw, bool vec, uint4 v) {
+    if (vec && 4 * e + 4 <= nw) {
+        reinterpret_cast<uint4*>(p)[e] = v;
+        return;
+    }
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        if (4 * e + c < nw) p[4 * e + c] = w[c];
+    }
+}
+
+// s_max[key] = max(s_max[key], m) for the warp's (key, m) pairs; keys are
+// non-decreasing over the lanes, so equal keys are neighbours: one
+// reduction when the warp holds one bucket (the bench), else a segmented
+// max scan and an atomic from each run's last lane
+__device__ __forceinline__ void bucket_max(int* s_max, int key, int m, int lane) {
+    const int k0 = __shfl_sync(FULL, key, 0);
+    if (__all_sync(FULL, key == k0)) {
+        m = __reduce_max_sync(FULL, m);
+        if (lane == 0 && m > 0) atomicMax(s_max + k0, m);
+        return;
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const int kk = __shfl_up_sync(FULL, key, off), mm = __shfl_up_sync(FULL, m, off);
+        if (lane >= off && kk == key) m = max(m, mm);
+    }
+    const int kn = __shfl_down_sync(FULL, key, 1);
+    if (m > 0 && (lane == 31 || kn != key)) atomicMax(s_max + key, m);
+}
+
+// a CTA rebases buckets b0 .. b0 + bpc - 1: their words are one contiguous
+// run (w0 a multiple of 4), walked as 16-byte elements, REBASE_VECS loads
+// in flight per thread before the first store. ROW4: L = 3, an element is
+// one slot row and .w its version
+template <bool ROW4>
+__global__ void __launch_bounds__(REBASE_THREADS) rebase_kernel(
     const uint32_t* __restrict__ grid, const int* __restrict__ count,
     const int* __restrict__ floor_, uint32_t* __restrict__ out,
     int* __restrict__ bmax_out, int* __restrict__ floor_out,
-    int delta, int B, int S, int L) {
-    int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    int lane = threadIdx.x & 31;
-    if (b >= B) return;
-    const int Lp1 = L + 1;
-    const int cnt = count[b];
-    int m = 0;
-    for (int s = lane; s < S; s += 32) {
-        const uint32_t* src = grid + ((size_t)b * S + s) * Lp1;
-        uint32_t* dst = out + ((size_t)b * S + s) * Lp1;
-        for (int i = 0; i < L; ++i) dst[i] = src[i];
-        int ver = s < cnt ? max((int)src[L] - delta, 0) : 0;
-        dst[L] = (uint32_t)ver;
-        m = max(m, ver);
+    int delta, int B, int S, int L, int bpc, bool vec) {
+    extern __shared__ int sh[];  // [bpc] counts, then [bpc] bucket maxima
+    int* s_cnt = sh;
+    int* s_max = sh + bpc;
+    const int Lp1 = L + 1, lane = threadIdx.x & 31;
+    const int b0 = blockIdx.x * bpc, nb = min(bpc, B - b0);
+    const size_t w0 = (size_t)b0 * S * Lp1;
+    const int nw = nb * S * Lp1, ne = (nw + 3) / 4;
+    const uint32_t* src = grid + w0;
+    uint32_t* dst = out + w0;
+    const uint32_t ud = (uint32_t)delta;  // int32 wrap-around, as the plain version's
+    for (int x = threadIdx.x; x < nb; x += blockDim.x) {
+        s_cnt[x] = count[b0 + x];
+        s_max[x] = 0;
     }
-    m = warp_max(m);
-    if (lane == 0) {
-        int fl = max(floor_[b] - delta, 0);
-        floor_out[b] = fl;
-        bmax_out[b] = max(m, fl);
+    for (int e0 = 0; e0 < ne; e0 += REBASE_THREADS * REBASE_VECS) {
+        uint4 v[REBASE_VECS];
+#pragma unroll
+        for (int k = 0; k < REBASE_VECS; ++k) {
+            const int e = e0 + k * REBASE_THREADS + threadIdx.x;
+            if (e < ne) v[k] = load4(src, e, nw, vec);
+        }
+        if (e0 == 0) __syncthreads();  // the counts are in shared memory
+#pragma unroll
+        for (int k = 0; k < REBASE_VECS; ++k) {
+            const int e = e0 + k * REBASE_THREADS + threadIdx.x;
+            // the element's last bucket with a version word (else its
+            // first) and its largest new version there
+            int key = INT_MAX, m = 0;
+            if (e < ne) {
+                if (ROW4) {
+                    const int lb = e / S, s = e - lb * S;
+                    m = s < s_cnt[lb] ? max((int)(v[k].w - ud), 0) : 0;
+                    v[k].w = (uint32_t)m;
+                    key = lb;
+                } else {
+                    const int row = 4 * e / Lp1;
+                    int off = 4 * e - row * Lp1, lb = row / S, s = row - lb * S;
+                    uint32_t w[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+                    key = lb;
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) {
+                        if (off == L && 4 * e + c < nw) {
+                            const int ver = s < s_cnt[lb] ? max((int)(w[c] - ud), 0) : 0;
+                            w[c] = (uint32_t)ver;
+                            if (lb != key) {  // a second bucket in this element
+                                if (m > 0) atomicMax(s_max + key, m);
+                                key = lb;
+                                m = ver;
+                            } else {
+                                m = max(m, ver);
+                            }
+                        }
+                        if (++off == Lp1) {
+                            off = 0;
+                            if (++s == S) s = 0, ++lb;
+                        }
+                    }
+                    v[k] = make_uint4(w[0], w[1], w[2], w[3]);
+                }
+                store4(dst, e, nw, vec, v[k]);
+            }
+            bucket_max(s_max, key, m, lane);
+        }
+    }
+    __syncthreads();
+    for (int x = threadIdx.x; x < nb; x += blockDim.x) {
+        const int fl = max((int)((uint32_t)floor_[b0 + x] - ud), 0);
+        floor_out[b0 + x] = fl;
+        bmax_out[b0 + x] = max(s_max[x], fl);
     }
 }
 
@@ -459,15 +575,21 @@ extern "C" int fdb_reshard(
     return (int)cudaGetLastError();
 }
 
+// B buckets of S slots × (L + 1) words (P stacked grids as one of P·B)
 extern "C" int fdb_rebase(
     const void* grid, const void* count, const void* floor_, void* out,
     void* bmax_out, void* floor_out, int delta, int B, int S, int L,
     void* stream) {
+    if (B < 0 || S < 1 || L < 1) return (int)cudaErrorInvalidValue;
+    if (B == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    const int threads = 256;
-    long long warps = (long long)B * 32;
-    rebase_kernel<<<(unsigned)((warps + threads - 1) / threads), threads, 0, st>>>(
-        (const uint32_t*)grid, (const int*)count, (const int*)floor_,
-        (uint32_t*)out, (int*)bmax_out, (int*)floor_out, delta, B, S, L);
+    // buckets per CTA: a multiple of 4, so every CTA starts 16-byte aligned
+    const int bpc = max(4, (REBASE_WORDS / (S * (L + 1))) & ~3);
+    const bool vec = (uintptr_t)grid % 16 == 0 && (uintptr_t)out % 16 == 0;
+    const size_t smem = 2 * (size_t)bpc * sizeof(int);
+    auto kernel = L == 3 ? rebase_kernel<true> : rebase_kernel<false>;
+    kernel<<<(B + bpc - 1) / bpc, REBASE_THREADS, smem, st>>>(
+        (const uint32_t*)grid, (const int*)count, (const int*)floor_, (uint32_t*)out,
+        (int*)bmax_out, (int*)floor_out, delta, B, S, L, bpc, vec);
     return (int)cudaGetLastError();
 }

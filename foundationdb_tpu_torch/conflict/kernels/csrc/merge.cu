@@ -17,7 +17,9 @@
 // Design: one warp per touched bucket, eight buckets per CTA. Lane l holds
 // element l (old row l; S ≤ 32) and element 32 + l (staged row l; S2 ≤ 32),
 // as an index into the warp's shared-memory copy of the rows (16-byte row
-// loads and stores at L = 3, a lane loop for other L). The 64 elements are
+// loads and stores at L = 3, a lane loop for other L; above L = 112, where
+// eight warps' rows outgrow a block's shared memory, the copy is a plane of
+// global scratch per touched bucket). The 64 elements are
 // sorted by code — ties broken by index, since tie order inside an
 // equal-code run cannot change the result — with a warp bitonic network
 // (shuffles of the indices). The sequential scan of the JAX passes becomes
@@ -87,9 +89,9 @@ __device__ __forceinline__ void merge_bucket(
     int* __restrict__ floor_, const uint32_t* __restrict__ st_code,
     const int* __restrict__ st_ev, const int* __restrict__ carry_in, int now, int oldest,
     int* __restrict__ max_kept, int B_part, int S, int S2, int L, int u, int b,
-    uint32_t* sm, int warp, int lane) {
+    uint32_t* code, int lane) {
     const int Lp1 = L + 1;
-    uint32_t* code = sm + warp * 64 * Lp1;  // [64, L] element codes
+    // code: [64, L] element codes
     int* pk = (int*)(code + 64 * L);        // [64] packed payloads
     uint32_t* brow = grid + (size_t)b * S * Lp1;
 
@@ -226,12 +228,15 @@ __device__ __forceinline__ void merge_bucket(
     }
 }
 
+// SCRATCH: each warp's rows in ``rows`` (global), else in shared memory
+template <bool SCRATCH>
 __global__ void __launch_bounds__(kWarps * 32) merge_buckets(
     uint32_t* __restrict__ grid, int* __restrict__ count, int* __restrict__ bmax,
     int* __restrict__ floor_, const uint32_t* __restrict__ st_code,
     const int* __restrict__ st_ev, const int* __restrict__ tid,
     const int* __restrict__ carry_in, int now, int oldest,
-    int* __restrict__ max_kept, int B, int B_part, int S, int S2, int L, int U) {
+    int* __restrict__ max_kept, uint32_t* __restrict__ rows, int B, int B_part, int S, int S2, int L,
+    int U) {
     extern __shared__ uint32_t sm[];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int u = blockIdx.x * kWarps + warp;
@@ -239,7 +244,8 @@ __global__ void __launch_bounds__(kWarps * 32) merge_buckets(
         const int b = tid[u];
         if (b < B)
             merge_bucket(grid, count, bmax, floor_, st_code, st_ev, carry_in, now, oldest,
-                         max_kept, B_part, S, S2, L, u, b, sm, warp, lane);
+                         max_kept, B_part, S, S2, L, u, b,
+                         SCRATCH ? rows + (size_t)u * 64 * (L + 1) : sm + warp * 64 * (L + 1), lane);
     }
 
     // the floor raise of the untouched buckets a committed write spans
@@ -261,17 +267,24 @@ __global__ void __launch_bounds__(kWarps * 32) merge_buckets(
 
 }  // namespace
 
+// rows: nullptr, or [U, 64, L + 1] scratch where a CTA's rows outgrow
+// shared memory (L > 112)
 extern "C" int fdb_merge(
     void* grid, void* count, void* bmax, void* floor_,
     const void* st_code, const void* st_ev, const void* tid, const void* carry_in,
-    int now, int oldest, void* max_kept,
+    int now, int oldest, void* max_kept, void* rows,
     int B, int B_part, int S, int S2, int L, int U, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    size_t smem = (size_t)kWarps * 64 * (L + 1) * sizeof(uint32_t);
+    size_t smem = rows ? 0 : (size_t)kWarps * 64 * (L + 1) * sizeof(uint32_t);
+    auto kernel = rows ? merge_buckets<true> : merge_buckets<false>;
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
     const int grid_n = max((U + kWarps - 1) / kWarps, (B + kWarps * 32 - 1) / (kWarps * 32));
-    merge_buckets<<<grid_n, kWarps * 32, smem, st>>>(
+    kernel<<<grid_n, kWarps * 32, smem, st>>>(
         (uint32_t*)grid, (int*)count, (int*)bmax, (int*)floor_,
         (const uint32_t*)st_code, (const int*)st_ev, (const int*)tid,
-        (const int*)carry_in, now, oldest, (int*)max_kept, B, B_part, S, S2, L, U);
+        (const int*)carry_in, now, oldest, (int*)max_kept, (uint32_t*)rows, B, B_part, S, S2, L, U);
     return (int)cudaGetLastError();
 }

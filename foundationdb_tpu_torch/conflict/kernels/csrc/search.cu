@@ -32,7 +32,9 @@
 // load and its sectors. The first two steps' 16 + 256 rows are shared by
 // every query and stay in L1; staging them in shared memory per CTA was
 // slower on the H100 (a staging round trip and a barrier before the first
-// step), as was reading every chunk at once (PERF.md).
+// step), as was reading every chunk at once (PERF.md). Codes wider than 16
+// lanes (64-byte keys) are compared with the query in memory, chunk by
+// chunk (search_warp<0>): any L.
 #include "common.cuh"
 
 namespace {
@@ -78,17 +80,34 @@ __device__ __forceinline__ int cmp_row(const uint32_t* p, int L, bool vec, bool 
     return c;
 }
 
-// out[0, i] = lo, out[1, i] = hi of query i
+// the same compare for codes wider than FDB_MAX_LANES: the query ``x`` is
+// read in memory too (one address for a half-warp: a broadcast), chunk by
+// chunk while the row ties it
+__device__ __forceinline__ int cmp_row_mem(const uint32_t* p, int L, bool vec, const uint32_t* x,
+                                           bool vec_x) {
+    for (int v = 0; 4 * v < L; ++v) {
+        const uint4 t = load_chunk(p, v, L, vec), u = load_chunk(x, v, L, vec_x);
+        const uint32_t w[4] = {t.x, t.y, t.z, t.w}, y[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            if (w[e] != y[e]) return w[e] < y[e] ? -1 : 1;
+        }
+    }
+    return 0;
+}
+
+// out[0, i] = lo, out[1, i] = hi of query i; LM = 0: any L, in memory
 template <int LM>
 __global__ void __launch_bounds__(WARPS * 32) search_warp(
     const uint32_t* __restrict__ codes, const uint32_t* __restrict__ q, int* __restrict__ out,
-    int P, int Q, int L, int steps, bool vec) {
+    int P, int Q, int L, int steps, bool vec, bool vec_q) {
     const int lane = threadIdx.x & 31;
     const bool le = lane >= 16;  // this half counts the rows <= q
     const int sub = lane & 15;
     for (int i = blockIdx.x * WARPS + (threadIdx.x >> 5); i < Q; i += gridDim.x * WARPS) {
-        uint32_t x[LM];
-        load_code<LM>(q + (size_t)i * L, L, x);
+        const uint32_t* qi = q + (size_t)i * L;
+        uint32_t x[LM ? LM : 1];
+        if constexpr (LM > 0) load_code<LM>(qi, L, x);
         long long base = 0;
         long long s = 1LL << (4 * (steps - 1));
         for (int k = 0; k < steps; ++k, s >>= 4) {
@@ -96,7 +115,9 @@ __global__ void __launch_bounds__(WARPS * 32) search_warp(
             bool below = false;
             if (j < P) {
                 // the last step's 16 rows are one coalesced window: eager
-                const int c = cmp_row<LM>(codes + j * L, L, vec, k < steps - 1, x);
+                int c;
+                if constexpr (LM > 0) c = cmp_row<LM>(codes + j * L, L, vec, k < steps - 1, x);
+                else c = cmp_row_mem(codes + j * L, L, vec, qi, vec_q);
                 below = le ? c <= 0 : c < 0;
             }
             const unsigned m = __ballot_sync(FULL, below);
@@ -111,7 +132,7 @@ __global__ void __launch_bounds__(WARPS * 32) search_warp(
 // out: int32[2, Q] (lo, then hi)
 extern "C" int fdb_search(const void* codes, const void* q, void* out, int P, int Q, int L,
                           void* stream) {
-    if (P < 1 || L < 1 || L > FDB_MAX_LANES) return (int)cudaErrorInvalidValue;
+    if (P < 1 || L < 1) return (int)cudaErrorInvalidValue;
     if (Q == 0) return 0;
     int steps = 1;
     while ((1LL << (4 * steps)) < P) ++steps;  // 16^steps >= P
@@ -122,13 +143,15 @@ extern "C" int fdb_search(const void* codes, const void* q, void* out, int P, in
     const long long want = (Q + WARPS - 1) / WARPS;
     const int blocks = (int)(want < 2LL * sms ? want : 2LL * sms);
     const bool vec = L % 4 == 0 && (uintptr_t)codes % 16 == 0;
+    const bool vec_q = L % 4 == 0 && (uintptr_t)q % 16 == 0;
     cudaStream_t st = (cudaStream_t)stream;
     const auto go = [&](auto kernel) {
         kernel<<<blocks, WARPS * 32, 0, st>>>((const uint32_t*)codes, (const uint32_t*)q, (int*)out,
-                                             P, Q, L, steps, vec);
+                                             P, Q, L, steps, vec, vec_q);
     };
     if (L <= 4) go(search_warp<4>);
     else if (L <= 8) go(search_warp<8>);
-    else go(search_warp<16>);
+    else if (L <= FDB_MAX_LANES) go(search_warp<16>);
+    else go(search_warp<0>);
     return (int)cudaGetLastError();
 }

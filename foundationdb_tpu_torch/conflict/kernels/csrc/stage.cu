@@ -80,33 +80,28 @@ __device__ __forceinline__ int rec_cmp(const uint32_t* a, const uint32_t* b, int
     return lex_cmp(a + 1, b + 1, L);
 }
 
-// record of row q of partition p: begins (event +1) then ends (-1)
-__device__ void make_record(const StageArgs& A, int p, int q, uint32_t* rec) {
+// record of row q of partition p: begins (event +1) then ends (-1); a
+// valid row's bucket and code (nullptr: invalid, bucket P·B or INT_MAX)
+__device__ int record_bucket(const StageArgs& A, int p, int q, const uint32_t*& code, int& ev) {
     const int L = A.L, W = A.T * A.KW;
-    int bkt = INT_MAX, ev = 0;
-    const uint32_t* code = nullptr;
-    if (q < A.N2) {
-        bool end = q >= W;
-        int qq = end ? q - W : q;
-        const uint32_t* b = A.wb + ((size_t)p * W + qq) * L;
-        const uint32_t* e = A.we + ((size_t)p * W + qq) * L;
-        bkt = A.P * A.B;
-        if (A.commit[qq / A.KW] && lex_cmp(b, e, L) < 0) {
-            code = end ? e : b;
-            const uint32_t* piv = A.pivots + (size_t)p * A.B * L;
-            int lo = 0, hi = A.B;  // #pivots <= code
-            while (lo < hi) {
-                int mid = (lo + hi) >> 1;
-                if (lex_cmp(piv + (size_t)mid * L, code, L) <= 0) lo = mid + 1;
-                else hi = mid;
-            }
-            bkt = p * A.B + lo - 1;
-            ev = end ? -1 : 1;
-        }
+    code = nullptr;
+    ev = 0;
+    if (q >= A.N2) return INT_MAX;
+    bool end = q >= W;
+    int qq = end ? q - W : q;
+    const uint32_t* b = A.wb + ((size_t)p * W + qq) * L;
+    const uint32_t* e = A.we + ((size_t)p * W + qq) * L;
+    if (!A.commit[qq / A.KW] || lex_cmp(b, e, L) >= 0) return A.P * A.B;
+    code = end ? e : b;
+    const uint32_t* piv = A.pivots + (size_t)p * A.B * L;
+    int lo = 0, hi = A.B;  // #pivots <= code
+    while (lo < hi) {
+        int mid = (lo + hi) >> 1;
+        if (lex_cmp(piv + (size_t)mid * L, code, L) <= 0) lo = mid + 1;
+        else hi = mid;
     }
-    rec[0] = (uint32_t)bkt;
-    for (int i = 0; i < L; ++i) rec[1 + i] = code ? code[i] : FDB_SENTINEL;
-    rec[L + 1] = (uint32_t)ev;
+    ev = end ? -1 : 1;
+    return p * A.B + lo - 1;
 }
 
 // ---- block-wide scan of four (segment head, value) sums -------------------
@@ -276,25 +271,28 @@ __device__ void bitonic_sort(int* kb, uint16_t* ix, const uint32_t* rec, int n, 
 }
 
 // the valid rows' records, compacted to the front of each partition's
-// region in any order (the sort follows; ties cannot change the result);
-// the empty staging slots, unused touched-bucket ids and zero carries
+// region in any order (the sort follows; ties cannot change the result),
+// each written by its own thread straight from the code; the empty staging
+// slots, unused touched-bucket ids and zero carries
 __global__ void stage_records(StageArgs A, uint32_t* __restrict__ rec) {
-    extern __shared__ uint32_t buf[];  // [blockDim, L + 2]
-    const int RW = A.L + 2, PB = A.P * A.B, lane = threadIdx.x & 31;
+    const int L = A.L, RW = L + 2, lane = threadIdx.x & 31;
     const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     const size_t stride = (size_t)gridDim.x * blockDim.x;
     // a block never straddles two partitions: N2pad is a multiple of it
     const int p = (int)(((size_t)blockIdx.x * blockDim.x) / A.N2pad);
-    uint32_t* mine = buf + threadIdx.x * RW;
-    make_record(A, p, (int)(e % A.N2pad), mine);
-    const bool valid = (int)mine[0] < PB;
+    const uint32_t* code;
+    int ev;
+    const int bkt = record_bucket(A, p, (int)(e % A.N2pad), code, ev);
+    const bool valid = code != nullptr;
     const unsigned vm = __ballot_sync(0xffffffffu, valid);
     int base = 0;
     if (lane == 0 && vm) base = atomicAdd(A.n_valid + p, __popc(vm));
     base = __shfl_sync(0xffffffffu, base, 0) + __popc(vm & ((1u << lane) - 1u));
     if (valid) {
         uint32_t* dst = rec + ((size_t)p * A.N2pad + base) * RW;
-        for (int w = 0; w < RW; ++w) dst[w] = mine[w];
+        dst[0] = (uint32_t)bkt;
+        for (int i = 0; i < L; ++i) dst[1 + i] = code[i];
+        dst[L + 1] = (uint32_t)ev;
     }
     const size_t n_slot = (size_t)A.U * A.S2;
     for (size_t x = e; x < n_slot * A.L; x += stride) A.st_code[x] = FDB_SENTINEL;
@@ -391,7 +389,7 @@ extern "C" int fdb_stage(
     uint32_t* b = (uint32_t*)scratch_b;
     const size_t n = (size_t)P * N2pad;
     const int rec_threads = min(N2pad, 256);
-    stage_records<<<(unsigned)(n / rec_threads), rec_threads, rec_threads * RW * sizeof(uint32_t), st>>>(A, a);
+    stage_records<<<(unsigned)(n / rec_threads), rec_threads, 0, st>>>(A, a);
     size_t smem = (size_t)tile * (RW * sizeof(uint32_t) + sizeof(int) + sizeof(uint16_t));
     cudaError_t err = cudaFuncSetAttribute(
         stage_sort, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

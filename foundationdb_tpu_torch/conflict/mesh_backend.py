@@ -45,6 +45,7 @@ from .torch_backend import (
     _bucket,
     _pick_pivots,
     batch_nbytes,
+    check_batch_sizes,
     encode_transactions,
     stack_batches,
     upload,
@@ -76,6 +77,7 @@ class TorchMeshConflictSet(ConflictSet):
     ):
         super().__init__()
         self._device = resolve_device(device)
+        self._max_txns = kernels.MAX_TXNS if self._device.type == "cuda" else None
         self._width = key_width
         self._lanes = K.lanes_for_width(key_width)
         self._reshard_pressure = reshard_pressure
@@ -134,6 +136,7 @@ class TorchMeshConflictSet(ConflictSet):
     def detect_many(self, work):
         if not work:
             return []
+        check_batch_sizes((len(txs) for txs, _, _2 in work), self._max_txns)
         self._maybe_rebase(max(now for _, now, _2 in work))
         return self.detect_many_encoded(
             [(self.encode(txs), now, old) for txs, now, old in work]
@@ -145,6 +148,7 @@ class TorchMeshConflictSet(ConflictSet):
     def encode(self, transactions):
         """Host encode (epoch and base read first, so a concurrent rebase
         surfaces as a StaleEncodingError at dispatch)."""
+        check_batch_sizes([len(transactions)], self._max_txns)
         t0 = time.perf_counter()
         epoch, base = self._base_epoch, self._base
         b = encode_transactions(

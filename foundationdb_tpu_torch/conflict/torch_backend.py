@@ -32,7 +32,7 @@ from . import grid as G
 from . import keys as K
 from . import kernels
 from .api import CommitTransaction, ConflictSet, Verdict
-from .errors import StaleEncodingError
+from .errors import BatchTooLargeError, StaleEncodingError
 
 _INT32_REBASE_THRESHOLD = 1 << 30
 _SAMPLE_CAP = 131072
@@ -101,6 +101,20 @@ class KernelMetrics:
 def batch_nbytes(batch: G.Batch) -> int:
     """Total bytes of a host-encoded batch (transfer accounting)."""
     return sum(int(a.nbytes) for a in batch)
+
+
+def check_batch_sizes(sizes, limit) -> None:
+    """Raise BatchTooLargeError for a batch of more than ``limit``
+    transactions (None: any size). The backends call it before they touch
+    their state, so a refused batch leaves no trace."""
+    if limit is None:
+        return
+    for n in sizes:
+        if n > limit:
+            raise BatchTooLargeError(
+                f"a batch of {n} transactions exceeds the card's limit of {limit} "
+                f"(kernels.MAX_TXNS: K2's commit bitset)"
+            )
 
 
 def _bucket(n: int, floor: int = 1) -> int:
@@ -280,6 +294,9 @@ class TorchConflictSet(ConflictSet):
     ):
         super().__init__()
         self._device = resolve_device(device)
+        # the most transactions a batch may hold: the kernels' limit on the
+        # card, none on the CPU
+        self._max_txns = kernels.MAX_TXNS if self._device.type == "cuda" else None
         self._width = key_width
         self._lanes = K.lanes_for_width(key_width)
         self._reshard_pressure = reshard_pressure
@@ -350,6 +367,7 @@ class TorchConflictSet(ConflictSet):
         group dispatch."""
         if not work:
             return []
+        check_batch_sizes((len(txs) for txs, _, _2 in work), self._max_txns)
         self._maybe_rebase(max(now for _, now, _2 in work))
         return self.detect_many_encoded(
             [(self.encode(txs), now, old) for txs, now, old in work]
@@ -366,6 +384,7 @@ class TorchConflictSet(ConflictSet):
         base-relative: a version rebase invalidates them (epoch stamp).
         Epoch and base are read FIRST, so a concurrent rebase can only make
         this encoding visibly stale (StaleEncodingError at dispatch)."""
+        check_batch_sizes([len(transactions)], self._max_txns)
         t0 = time.perf_counter()
         epoch, base = self._base_epoch, self._base
         b = encode_transactions(

@@ -18,7 +18,7 @@ from foundationdb_tpu_torch.conflict import grid as G
 from foundationdb_tpu_torch.conflict import kernels
 from foundationdb_tpu_torch.conflict import sharded as SH
 from foundationdb_tpu_torch.conflict import torch_backend as TB
-from foundationdb_tpu_torch.conflict.api import CommitTransaction
+from foundationdb_tpu_torch.conflict.api import CommitTransaction, new_conflict_set
 from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
 from foundationdb_tpu_torch.device import ordered
 from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
@@ -117,6 +117,21 @@ def test_backend_on_card_matches_cpu_backend(cuda):
     work = _work(7, batches=20)
     on_card = TB.TorchConflictSet(key_width=12, capacity=1 << 10)
     on_cpu = TB.TorchConflictSet(key_width=12, capacity=1 << 10, device=CPU)
+    for txs, now, old in work:
+        assert on_card.detect_batch(txs, now, old) == on_cpu.detect_batch(txs, now, old)
+
+
+@pytest.mark.parametrize("backend", ["torch", "torch_mesh"])
+@pytest.mark.parametrize("key_width", [128, 512, 2048])
+def test_backend_on_card_matches_cpu_backend_at_wide_keys(cuda, backend, key_width):
+    """Key widths past 64 bytes through a whole backend: codes compared in
+    memory (K1, K6 history), the merge's rows in opt-in shared memory
+    (L = 32) or global scratch (L > 112), K2's endpoints in global memory
+    (L = 512)."""
+    work = _work(11, batches=8, spread=backend == "torch_mesh")
+    kw = {"n_parts": 4} if backend == "torch_mesh" else {}
+    on_card = new_conflict_set(backend, key_width=key_width, capacity=1 << 10, **kw)
+    on_cpu = new_conflict_set(backend, key_width=key_width, capacity=1 << 10, device=CPU, **kw)
     for txs, now, old in work:
         assert on_card.detect_batch(txs, now, old) == on_cpu.detect_batch(txs, now, old)
 
@@ -247,6 +262,11 @@ def _k2_inputs(case):
     elif name == "empty_read":  # an empty read range inside an earlier write
         rb[:, 0, 0] = re[:, 0, 0] = 30
         rb[:, 0, 1:] = re[:, 0, 1:] = 0
+    elif name == "sparse":  # few live slots, anywhere: overlaps found in any chunk
+        for lo, hi in ((rb, re), (wb, we)):
+            pad = rnd.random(lo.shape[:2]) < 0.97
+            lo[pad] = SENT
+            hi[pad] = SENT
     H = rnd.random(T) < 0.1
     return rb, re, wb, we, H
 
@@ -257,6 +277,32 @@ K2_CASES = [
     ("random", 300, 2, 2, 8), ("random", 64, 1, 1, 1), ("chain", 545, 1, 1, 3),
     ("hot", 545, 1, 1, 3), ("empty_read", 545, 3, 2, 3), ("random", 4096, 2, 8, 3),
 ]
+
+
+# (KR, KW, L) at and past the most one block's shared memory holds: K2
+# stages them in chunks where they do not fit (kernels.intra_batch_plan;
+# (256, 1, 3) is the widest one-chunk plan at the bench's L), and at L = 512
+# reads them from global memory
+K2_CHUNK_SHAPES = [(128, 1, 8), (64, 64, 8), (64, 32, 16), (256, 1, 3), (512, 2, 3), (16, 16, 32)]
+K2_CHUNK_CASES = [(name, 300, *shape) for shape in K2_CHUNK_SHAPES
+                  for name in ("random", "chain", "hot", "sparse")]
+K2_CHUNK_CASES += [("random", 100, 2, 2, 512), ("sparse", 100, 4, 4, 512)]
+
+
+@pytest.mark.parametrize("case", K2_CHUNK_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_intra_batch_kernel_in_chunks_matches_plain_version(cuda, case):
+    """K2 at many read and write slots and wide keys (chunks of read and
+    write slots, or global memory) against the plain version, which runs
+    on the card too at these sizes."""
+    rb, re, wb, we, H = _k2_inputs(case)
+    T, KR, L = rb.shape
+    KW = wb.shape[1]
+    codes = [_i32(x).to(cuda) for x in (rb, re, wb, we)]
+    Hc = torch.from_numpy(H).to(cuda)
+    batch = G.Batch(*codes, torch.zeros(T, dtype=torch.int32, device=cuda), Hc)
+    want = G.intra_batch_commits_plain(*G._endpoint_ranks(batch), Hc)
+    _eq(kernels.intra_batch(*codes, Hc), want)
+    assert 0 < int(want.sum()) < T
 
 
 @pytest.mark.parametrize("case", K2_CASES, ids=lambda c: "-".join(map(str, c)))
@@ -303,7 +349,7 @@ def _plain_stage(wb, we, commit, pivots, S):
     P, B, L = pivots.shape
     codes, evs, okok = G._write_events(wb, we, commit)
     bkt = G._rank(ordered(codes), ordered(pivots), strict=False)
-    offs = torch.arange(P, dtype=torch.int32)[:, None] * B
+    offs = torch.arange(P, dtype=torch.int32, device=pivots.device)[:, None] * B
     bkt = torch.where(okok, bkt + offs, torch.full_like(bkt, P * B))
     n2w = codes.shape[1]
     return G._stage(codes.reshape(P * n2w, L), evs.reshape(-1), bkt.reshape(-1),
@@ -318,6 +364,9 @@ STAGE_CASES = [  # (name, P, T, KW, L, B, live pivots, key span)
     ("partitions", 4, 2560, 1, 3, 8192, 5000, 1_000_000),
     ("wide_lanes", 1, 2560, 1, 8, 4096, 3000, 100_000),  # two sort tiles on one grid
     ("global", 1, 4096, 8, 3, 32768, 20000, 1_000_000),  # 65,536 rows: sorted through global memory
+    # 2^23 rows: 4 partitions at MAX_BATCH_TXNS, one txn of 129+ writes
+    # (KW = 256); the plain version runs on the card
+    ("rows_2^23", 4, 4096, 256, 8, 8192, 5000, 1_000_000),
 ]
 
 
@@ -336,6 +385,8 @@ def test_stage_kernel_matches_plain_version(cuda, case):
     commit = torch.from_numpy(rnd.random(T) < 0.8)
     S = 32
     args = (_i32(wb), _i32(we), commit, _i32(piv))
+    if name == "rows_2^23":
+        args = tuple(a.to(cuda) for a in args)
     want = _plain_stage(*args, S)
     fn = kernels.stage if P == 1 else kernels.stage_parts
     got = G.Staged(*fn(*(a.to(cuda) for a in args), G.staging_slots(S)))
@@ -488,6 +539,13 @@ HISTORY_CASES = [  # (name, P, B, S, L, T, KR)
     ("parts8_s64", 8, 1024, 64, 8, 31, 2),
     ("parts4_wide", 4, 8192, 32, 3, 2500, 1),
     ("parts40", 40, 8, 8, 3, 33, 3),  # more partitions than lanes: the ballot in chunks of 32
+    # wider than 16 lanes: codes compared in memory
+    ("width80", 1, 1024, 32, 20, 300, 2),
+    ("width128", 1, 4096, 32, 32, 300, 2),
+    ("width256_s8", 1, 1 << 16, 8, 64, 300, 2),
+    ("parts4_width80", 4, 256, 16, 20, 100, 3),
+    ("parts4_width128", 4, 1024, 32, 32, 300, 2),
+    ("parts8_width256", 8, 512, 8, 64, 100, 2),
 ]
 
 
@@ -526,7 +584,7 @@ def test_history_kernels_match_plain_versions(cuda, case):
 SEARCH_PS = [1, 2, 15, 16, 17, 257, 1000, 1 << 16, (1 << 20) - 3, 1 << 20]
 
 
-@pytest.mark.parametrize("L", [2, 3, 8, 16])
+@pytest.mark.parametrize("L", [2, 3, 8, 16, 20, 32, 64])
 @pytest.mark.parametrize("P", SEARCH_PS)
 def test_search_kernel_at_the_step_edges(cuda, P, L):
     """K5 against ``searchsorted_lex`` on the card, both sides: duplicate
@@ -621,3 +679,61 @@ def test_reshard_kernels_match_plain_versions(cuda, case):
     if name == "parts4_empty":
         assert int(want_p[1]) == 0 and int(want_state.count[1].sum()) == 0
     assert int(states.floor.max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K4b / K7b: the rebase, against the plain versions
+
+REBASE_CASES = [(f"L{L}_S{S}", L, S, 4099) for L in (1, 2, 3, 7, 8, 16, 32) for S in (1, 7, 32)]
+REBASE_CASES += [
+    ("bench", 3, 32, 32768),
+    ("b1m_s8", 3, 8, 1 << 20),
+    ("b1m_s1_l1", 1, 1, 1 << 20),
+    ("misaligned", 3, 32, 1000),  # a grid at a 4-byte offset: 4-byte accesses
+    ("misaligned_l2", 2, 7, 1001),
+]
+
+
+def _rebase_state(case, P, device):
+    """[P, B, S, L + 1] grid of arbitrary words: keys that are not sentinels
+    in unused slots too, versions of any sign, counts below 0 and above S
+    (the slot mask clamps them), floors of any sign."""
+    name, L, S, B = case
+    rnd = np.random.default_rng(zlib.crc32(repr(case).encode()) + P)
+    words = rnd.integers(0, 2**32, (P, B, S, L + 1), dtype=np.uint64).astype(np.uint32)
+    ver = rnd.integers(0, 1 << 30, (P, B, S))
+    odd = rnd.random((P, B, S)) < 0.05
+    ver[odd] = rnd.integers(-(1 << 31), 1 << 31, int(odd.sum()))
+    words[..., L] = ver.astype(np.int64).astype(np.uint32)
+    count = rnd.integers(-2, S + 3, (P, B)).astype(np.int32)
+    floor = rnd.integers(-(1 << 20), 1 << 30, (P, B)).astype(np.int32)
+    grid = _i32(words)
+    if name.startswith("misaligned"):
+        flat = torch.empty(grid.numel() + 1, dtype=torch.int32, device=device)[1:]
+        grid = flat.copy_(grid.reshape(-1).to(device)).view(grid.shape)
+        assert grid.data_ptr() % 16
+    out = G.GridState(torch.zeros((P, B, L), dtype=torch.int32), grid, torch.from_numpy(count),
+                      torch.zeros((P, B), dtype=torch.int32), torch.from_numpy(floor))
+    return G.GridState(*(x.to(device) for x in out))
+
+
+@pytest.mark.parametrize("case", REBASE_CASES, ids=lambda c: c[0])
+def test_rebase_kernels_match_plain_versions(cuda, case):
+    """``maint_rebase`` on one grid and ``maint_rebase_parts`` on four
+    stacked ones against the plain versions on the same inputs, bit for
+    bit (grid, bmax, floor), with a delta inside the versions' range and
+    one above every non-negative version (negative ones wrap as int32, in
+    both); the inputs are left intact."""
+    one = G.GridState(*(x[0] for x in _rebase_state(case, 1, cuda)))
+    parts = _rebase_state(case, 4, cuda)
+    for delta in (12345, (1 << 31) - 1):
+        keep = one.grid.clone()
+        want = G.rebase_plain(one, delta)
+        got = kernels.maint_rebase(one.grid, one.count, one.floor, delta)
+        for a, b in zip(got, (want.grid, want.bmax, want.floor)):
+            _eq(a, b)
+        _eq(one.grid, keep)
+        want = SH.rebase_parts_plain(parts, delta)
+        got = kernels.maint_rebase_parts(parts.grid, parts.count, parts.floor, delta)
+        for a, b in zip(got, (want.grid, want.bmax, want.floor)):
+            _eq(a, b)
