@@ -53,7 +53,30 @@ card). Phases, each of which raises on failure:
    backend's plain path on the CPU; K1, K6 history and K2 on those states;
    K2 at the read and write slot counts it stages in chunks; the staging of
    2^23 endpoint rows; the range index at width 128 against ``bisect``.
-   Every kernel is held against its plain version; one JSON line each.
+   Every kernel is held against its plain version; one JSON line each;
+10. the resolver role, ``server/resolver.py`` over the guarded conflict
+   set, on a RealLoop with all 200 requests of the main workload spawned
+   at once (the proxies' pipelining): ``Resolver(backend="torch")`` and
+   ``"torch_mesh"`` (4 partitions, the spread keys), each with
+   CONFLICT_ENCODE_THREADS 1 and 0, every verdict equal to the oracle's
+   from phase 3; versions step by 100,000 a batch, so the resolver's
+   5,000,000-version MVCC window is the main phase's 50 batches, and they
+   cross the int32 rebase. The guard must stay HEALTHY with no fault,
+   failover or deadline hit, and at most one retry a rebase (the backends
+   carry payloads across it). Then the port's ``native`` skip list
+   through the same resolver on the card's host. One JSON line a run:
+   txn/s, wall, the encode overlap, resolveLatency p50 / p99, the per-batch
+   encode / dispatch / collect split and the guard's health;
+11. the failover phase, through ``Resolver(backend="torch")`` with an
+   explicit ``KernelFaultInjector``: 20 batches × 256 transactions one at
+   a time with the device lost partway, then 31 batches spawned 0.1 s
+   apart with a hang, a stall and a device loss among the dispatches. In
+   both the guard must fail over to the port's ``NativeConflictSet`` (not
+   the oracle), give the oracle's verdicts over the stream, commit nothing
+   an oracle referee of the committed writes refuses, and promote back to
+   the card once the loss heals; the pipelined case must also recover a
+   deadline while later batches are in flight and re-resolve them in order.
+   One JSON line a case.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after, and every kernel of the path must have launched.
@@ -72,6 +95,7 @@ JSON line each), for comparisons of two checkouts in one call.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import random
@@ -818,8 +842,9 @@ def check_search(codes, q, launches: dict) -> list[dict]:
     return rows
 
 
-def run_mesh(want_oracle, offset: int, card: str) -> list[dict]:
-    """Phase 7: the partitioned resolver's main path, then its kernels."""
+def run_mesh(want_oracle, offset: int, card: str):
+    """Phase 7: the partitioned resolver's main path, then its kernels.
+    Returns the kernel rows and the workload with its spread keys."""
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict import sharded as SH
     from foundationdb_tpu_torch.conflict.api import new_conflict_set
@@ -874,7 +899,7 @@ def run_mesh(want_oracle, offset: int, card: str) -> list[dict]:
     rows = check_partition_kernels(cs._states, hbatch, (now, old, old), launches)
     profile_path(cs, make_batches(PROFILE_BATCHES, N_TXNS, offset + N_BATCHES, seed=1, key=spread_key),
                  offset + N_BATCHES, "four partitions", card)
-    return rows
+    return rows, batches
 
 
 def run_range_index(card: str) -> list[dict]:
@@ -1183,6 +1208,298 @@ def run_limits(card: str) -> None:
     log(f"limits phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# the resolver phase: versions step by RES_STEP a batch, so the resolver's
+# MVCC window (MAX_READ_TRANSACTION_LIFE_VERSIONS, 5,000,000 by default) is
+# the main phase's WINDOW of batches
+RES_STEP = 100_000
+RES_BASE = (1 << 30) - 1 - RES_STEP * (2 * GROUP + WINDOW)  # batch 2·GROUP rebases
+FAILOVER_BATCHES = 20
+FAILOVER_TXNS = 256
+PIPE_BATCHES = 30  # the pipelined failover case
+
+
+def resolver_requests(batches, offset: int):
+    """The main workload as the proxies' ResolveBatchRequests. Batch i of
+    the main phase resolves at now = offset + i + WINDOW over the horizon
+    offset + i; here every version v becomes RES_BASE + RES_STEP·(v - offset),
+    so batch i's version is RES_BASE + RES_STEP·(i + WINDOW) and the
+    horizon the resolver derives from it is RES_BASE + RES_STEP·i. The map
+    keeps every order, so every verdict must equal the main phase's."""
+    from foundationdb_tpu_torch.server.interfaces import ResolveBatchRequest, TransactionData
+
+    def v(x):
+        return RES_BASE + RES_STEP * (x - offset)
+
+    reqs = []
+    for i, txs in enumerate(batches):
+        reqs.append(ResolveBatchRequest(
+            prev_version=v(offset + i - 1 + WINDOW) if i else 0,
+            version=v(offset + i + WINDOW),
+            last_receive_version=0,
+            requesting_proxy="px",
+            transactions=[
+                TransactionData(read_snapshot=v(t.read_snapshot),
+                                read_conflict_ranges=t.read_conflict_ranges,
+                                write_conflict_ranges=t.write_conflict_ranges)
+                for t in txs
+            ],
+        ))
+    return reqs
+
+
+def run_resolver(backend: str, reqs, want, card: str, threads: int = 1, **backend_kw) -> dict:
+    """Phase 10, one run: every request spawned at once through
+    ``Resolver(backend=...)`` on a RealLoop (device backends on the card),
+    after the resolver's warm-up has finished. Every verdict must equal
+    ``want``; the guard must end HEALTHY with no fault, failover or
+    deadline hit. Returns the run's JSON record."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.runtime.futures import spawn
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    from foundationdb_tpu_torch.runtime.loop import RealLoop, set_loop
+    from foundationdb_tpu_torch.runtime.trace import trace_log
+    from foundationdb_tpu_torch.server.resolver import Resolver
+
+    knobs = Knobs(CONFLICT_ENCODE_THREADS=threads)
+    if knobs.MAX_READ_TRANSACTION_LIFE_VERSIONS != RES_STEP * WINDOW:
+        raise AssertionError("the resolver's MVCC window is not the main phase's")
+    loop = RealLoop(seed=0)
+    set_loop(loop)
+    device = backend != "native"
+    r = Resolver(knobs=knobs, backend=backend, uid=f"{backend}-{threads}", **backend_kw)
+    try:
+        if r._warm is not None:  # the kernels' build and the warm-up batch, untimed
+            loop.run(stop_when=r._warm.is_ready)
+            r._warm.get()
+        if device:
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [spawn(r.resolve(q)) for q in reqs]
+        loop.run(stop_when=lambda: all(f.is_ready() for f in futs))
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        got = [f.get().committed for f in futs]
+        stats = r.stats.snapshot()
+        health = r.cs.health_snapshot()
+        faults = [e for e in trace_log().events if e["Type"] in ("KernelFault", "KernelRebuilt")
+                  and e.get("Resolver") == r.uid]
+    finally:
+        r.close()
+        set_loop(None)
+        loop.close()
+
+    label = f"resolver {backend}, encode threads {threads}" if device else "resolver native"
+    kernel = stats["kernel"]
+    rebases = kernel.get("rebases", 0)
+    txns = sum(len(q.transactions) for q in reqs)
+
+    def sample(name):
+        return kernel.get(name) if device else None
+
+    out = {
+        "run": label, "backend": backend, "encode_threads": threads if device else None,
+        "batches": len(reqs), "txns": txns, "wall_s": wall, "txn_s": txns / wall,
+        "resolveLatency": stats["resolveLatency"], "resolveLatencyBands": stats["resolveLatencyBands"],
+        "encodeOverlapSeconds": sample("encodeOverlapSeconds"), "encodeSeconds": sample("encodeSeconds"),
+        "dispatchSeconds": sample("dispatchSeconds"), "collectSeconds": sample("collectSeconds"),
+        "rebases": rebases, "health": health, "fault_events": faults[:6],
+        "launches": {k: v for k, v in launches.items() if v} if device else None,
+        "card": card,
+    }
+    log(json.dumps({"resolver": out}, default=str))
+    if len(got) != len(reqs) or any(len(g) != len(q.transactions) for g, q in zip(got, reqs)):
+        raise AssertionError(f"{label}: verdicts of the wrong shape")
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if [int(v) for v in g] != [int(v) for v in w]]
+    if bad:
+        n = sum(int(a) != int(b) for i in bad for a, b in zip(got[i], want[i]))
+        raise AssertionError(f"{label}: {n} verdicts differ from the oracle, in batches {bad[:10]} "
+                             f"(of {len(bad)})")
+    want_backend = {"torch": "TorchConflictSet", "torch_mesh": "TorchMeshConflictSet",
+                    "native": "NativeConflictSet"}[backend]
+    if (health["state"] != "HEALTHY" or health["faults"] or health["failovers"]
+            or health["deadlineHits"] or health["backend"] != want_backend):
+        raise AssertionError(f"{label}: the guard left its healthy path: {health}")
+    if device:
+        if rebases < 1 or health["retries"] > rebases:
+            raise AssertionError(f"{label}: {health['retries']} retries over {rebases} rebases")
+        path = (("history", "intra_batch", "stage", "merge", "maint_rebase") if backend == "torch"
+                else ("history_parts", "intra_batch", "stage_parts", "merge_parts", "maint_rebase_parts"))
+        missing = [k for k in path if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: {missing}")
+    log(f"{label}: {wall:.3f} s, {txns / wall:.1f} txn/s, resolveLatency p50 "
+        f"{stats['resolveLatency']['p50']} s p99 {stats['resolveLatency']['p99']} s, "
+        f"{health['retries']} retries over {rebases} rebases, every verdict equal to the oracle [{card}]")
+    return out
+
+
+class FalseCommitReferee:
+    """Zero-false-commit referee (tests/test_kernel_faults.py): applies
+    exactly the writes the resolver committed to an oracle, and probes each
+    claimed commit's reads against that history. Returns the count of
+    commits it refuses; conservative aborts pass."""
+
+    def __init__(self):
+        from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+
+        self.cs = OracleConflictSet()
+        self.false_commits = 0
+
+    def check_batch(self, txns, verdicts, version):
+        from foundationdb_tpu_torch.conflict.api import CommitTransaction, Verdict
+
+        for t, v in zip(txns, verdicts):
+            if int(v) != int(Verdict.COMMITTED):
+                continue
+            if t.read_conflict_ranges:
+                probe = self.cs.detect_batch(
+                    [CommitTransaction(t.read_snapshot, list(t.read_conflict_ranges), [])],
+                    now=version, new_oldest_version=0)
+                self.false_commits += probe[0] != Verdict.COMMITTED
+            if t.write_conflict_ranges:
+                self.cs.detect_batch([CommitTransaction(0, [], list(t.write_conflict_ranges))],
+                                     now=version, new_oldest_version=0)
+
+
+def failover_requests(n: int, seed: int):
+    """``n`` batches of FAILOVER_TXNS transactions over a hot 2000-key
+    keyspace (conflicts matter), versions 10, 20, ..."""
+    from foundationdb_tpu_torch.server.interfaces import ResolveBatchRequest, TransactionData
+
+    rnd = random.Random(seed)
+    reqs = []
+    for i in range(n):
+        version = 10 * (i + 1)
+
+        def rng():
+            a = rnd.randrange(2000)
+            return [(ascii_key(a), ascii_key(a + 1 + rnd.randrange(10)))]
+
+        reqs.append(ResolveBatchRequest(
+            prev_version=version - 10, version=version, last_receive_version=0,
+            requesting_proxy="px",
+            transactions=[TransactionData(read_snapshot=max(0, version - 10 * rnd.randrange(1, 4)),
+                                          read_conflict_ranges=rng(), write_conflict_ranges=rng())
+                          for _ in range(FAILOVER_TXNS)]))
+    return reqs
+
+
+def run_failover(card: str, pipelined: bool) -> dict:
+    """Phase 11, one case. Sequential: a device loss partway through
+    FAILOVER_BATCHES batches, one batch at a time; a pause after the loss
+    lets it heal and the re-probe interval pass. Pipelined: PIPE_BATCHES
+    batches, batch i spawned 0.1·i s in, with a hang at the 5th dispatch
+    (the deadline recovers it while later batches are in flight on the old
+    backend), a 0.5 s stall at the 12th (an old-backend batch still in
+    collect when the recovery swaps) and a device loss at the 16th, then
+    one batch after the loss heals. Every verdict must equal the oracle's
+    over the same stream, with no false commit; the fallback must be the
+    port's native; the guard must promote back to the card."""
+    from foundationdb_tpu_torch.conflict.faults import KernelFaultInjector
+    from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+    from foundationdb_tpu_torch.runtime.futures import delay, spawn
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    from foundationdb_tpu_torch.runtime.loop import RealLoop, set_loop
+    from foundationdb_tpu_torch.runtime.rng import DeterministicRandom
+    from foundationdb_tpu_torch.runtime.trace import trace_log
+    from foundationdb_tpu_torch.server.resolver import Resolver
+
+    lose_at, pause_after, loss_s = 6, 10, 1.0
+    reqs = failover_requests(PIPE_BATCHES + 1 if pipelined else FAILOVER_BATCHES, 8 if pipelined else 7)
+    inj = KernelFaultInjector(DeterministicRandom(7), p_dispatch_error=0, p_device_loss=0, p_hang=0,
+                              p_compile_stall=0, p_encode_error=0, p_encode_hang=0)
+    knobs = Knobs(CONFLICT_FAILOVER_STRIKES=2, CONFLICT_REPROBE_INTERVAL=0.5,
+                  **({"CONFLICT_DISPATCH_DEADLINE": 1.0} if pipelined else {}))
+    if pipelined:
+        dispatches = {"n": 0}
+        on_dispatch = inj.on_dispatch
+
+        def scheduled():
+            dispatches["n"] += 1
+            if dispatches["n"] == 5:
+                inj._pending_stall = float("inf")
+            if dispatches["n"] == 12:
+                inj._pending_stall = 0.5
+            if dispatches["n"] == 16:
+                inj.lose_device(loss_s)
+            on_dispatch()
+
+        inj.on_dispatch = scheduled
+    loop = RealLoop(seed=0)
+    set_loop(loop)
+    uid = "failover-pipelined" if pipelined else "failover"
+    r = Resolver(knobs=knobs, backend="torch", uid=uid, key_width=KEY_WIDTH, fault_injector=inj)
+    log_rows = []
+    replies = {}
+
+    def note(q, rep):
+        replies[q.version] = rep.committed
+        log_rows.append((q.version, r.cs.health, r.cs.backend_name,
+                         sum(int(v) != 0 for v in rep.committed)))
+
+    async def one(i, q):
+        await delay(0.1 * i)
+        note(q, await r.resolve(q))
+
+    async def go():
+        await r._warm
+        if pipelined:
+            futs = [spawn(one(i, q)) for i, q in enumerate(reqs[:-1])]
+            for f in futs:
+                await f
+            await delay(loss_s + knobs.CONFLICT_REPROBE_INTERVAL)
+            note(reqs[-1], await r.resolve(reqs[-1]))
+            return True
+        for i, q in enumerate(reqs):
+            if i == lose_at:
+                inj.lose_device(loss_s)
+            note(q, await r.resolve(q))
+            if i == pause_after:
+                await delay(loss_s + knobs.CONFLICT_REPROBE_INTERVAL)
+        return True
+
+    try:
+        fut = spawn(go())
+        t0 = time.perf_counter()
+        loop.run(stop_when=fut.is_ready)
+        wall = time.perf_counter() - t0
+        fut.get()
+        health = r.cs.health_snapshot()
+        in_order = sum(e["Type"] == "ResolveInOrder" and e.get("Resolver") == uid
+                       for e in trace_log().events)
+    finally:
+        r.close()
+        set_loop(None)
+        loop.close()
+    referee, oracle, wrong = FalseCommitReferee(), OracleConflictSet(), 0
+    for q in reqs:
+        got = replies[q.version]
+        referee.check_batch(q.transactions, got, q.version)
+        want = oracle.detect_batch(q.transactions, now=q.version, new_oldest_version=0)
+        wrong += sum(int(a) != int(b) for a, b in zip(got, want))
+    fell_back = {b for _v, h, b, _a in log_rows if h == "FAILED_OVER"}
+    mode = "pipelined" if pipelined else "sequential"
+    out = {"failover": {"mode": mode, "batches": len(reqs), "txns": FAILOVER_TXNS,
+                        "fallback": sorted(fell_back), "false_commits": referee.false_commits,
+                        "verdicts_off_oracle": wrong, "in_order_resolves": in_order,
+                        "per_batch": sorted(log_rows), "health": health, "wall_s": wall, "card": card}}
+    log(json.dumps(out, default=str))
+    if fell_back != {"NativeConflictSet"}:
+        raise AssertionError(f"{mode} failover did not go to the port's native skip list: {fell_back}")
+    if referee.false_commits or wrong:
+        raise AssertionError(f"{mode} failover: {referee.false_commits} false commits, "
+                             f"{wrong} verdicts off the oracle's")
+    if not (health["failovers"] >= 1 and health["promotions"] >= 1 and health["state"] == "HEALTHY"
+            and health["backend"] == "TorchConflictSet"):
+        raise AssertionError(f"{mode}: the guard did not fail over and promote back: {health}")
+    if pipelined and not (health["deadlineHits"] >= 1 and in_order >= 1):
+        raise AssertionError(f"pipelined failover: no deadline recovery under pipelining: {health}")
+    log(f"{mode} failover phase: resolved on NativeConflictSet, promoted back to TorchConflictSet, "
+        f"0 false commits, every verdict equal to the oracle's, {in_order} in-order resolves [{card}]")
+    return out
+
+
 def profile_only(card: str, history: bool = False, reshard: bool = False, rebase: bool = False) -> None:
     """Only the per-batch profile of both resolver paths: each warmed by
     one group of the bench workload, then profiled over the next
@@ -1344,11 +1661,33 @@ def main() -> int:
     rows = check_kernels(state_g1, hbatch, vers, launches)
 
     # 7. the partitioned resolver
-    mesh_rows = run_mesh(want_oracle, offset, card)
+    mesh_rows, spread_batches = run_mesh(want_oracle, offset, card)
     # 8. the range index
     index_rows = run_range_index(card)
     # 9. the shapes past the bench's: many ranges a transaction, wide keys
     run_limits(card)
+    # 10. the resolver role over both device paths, then the port's native
+    t_phase = time.perf_counter()
+    reqs = resolver_requests(batches, offset)
+    # the smoke keeps millions of its own objects alive (the workloads, the
+    # oracle's verdicts, the requests): move them out of the collector's
+    # scans, or a full collection stalls every thread of a run for a second
+    # and more, inside the resolver's dispatch deadline
+    gc.collect()
+    gc.freeze()
+    device_kw = {"key_width": KEY_WIDTH, "capacity": CAPACITY}
+    for threads in (1, 0):
+        run_resolver("torch", reqs, want_oracle, card, threads, **device_kw)
+    run_resolver("native", reqs, want_oracle, card)
+    reqs = resolver_requests(spread_batches, offset)
+    for threads in (1, 0):
+        run_resolver("torch_mesh", reqs, want_oracle, card, threads, n_parts=4, **device_kw)
+    del reqs
+    log(f"resolver phase: {time.perf_counter() - t_phase:.1f} s")
+    # 11. a device loss: failover to the port's native and back, one batch
+    # at a time and with every batch in flight
+    run_failover(card, pipelined=False)
+    run_failover(card, pipelined=True)
 
     # 6. results
     log(json.dumps({"kernels": rows + index_rows + mesh_rows}))

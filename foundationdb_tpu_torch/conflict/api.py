@@ -5,6 +5,8 @@ Mirrors the reference's ``fdbserver/ConflictSet.h:27-60``
 
 - ``oracle`` — pure-Python reference implementation (conflict/oracle.py),
   ground truth for differential tests;
+- ``native`` — the C++ versioned skip list on the host (conflict/native.py),
+  the CPU baseline and the guard's failover target;
 - ``torch`` — the bucket-grid conflict index resident on the CUDA card
   (conflict/torch_backend.py), or its plain PyTorch version on the CPU
   when built with ``device="cpu"``;
@@ -79,17 +81,39 @@ class ConflictBatch:
         return self._cs.detect_batch(self._transactions, now, new_oldest_version)
 
 
-def new_conflict_set(backend: str = "oracle", device=None, **kwargs) -> ConflictSet:
+def new_conflict_set(
+    backend: str = "oracle", device=None, fault_injector=None, **kwargs
+) -> ConflictSet:
     """The ``newConflictSet()`` factory seam (ConflictSet.h:28).
 
     ``device`` selects where the ``torch`` and ``torch_mesh`` backends run:
     ``None`` means the CUDA card (and raises without one); ``"cpu"`` runs
-    the plain versions. ``torch_mesh`` takes ``n_parts`` (default 4).
+    the plain versions. ``torch_mesh`` takes ``n_parts`` (default 4). The
+    host backends (``oracle``, ``native``) ignore it.
+
+    ``fault_injector`` (sim-only, conflict/faults.py) wraps the built
+    device backend in a ``FaultInjectingConflictSet`` so chaos runs can
+    inject dispatch errors, hangs, device loss, and compile stalls at this
+    seam; it is ignored for the sync CPU backends (oracle/native), which
+    are the failover *targets*.
     """
+    cs = _build_conflict_set(backend, device, **kwargs)
+    if fault_injector is not None and hasattr(cs, "detect_many_encoded_async"):
+        from .faults import FaultInjectingConflictSet
+
+        cs = FaultInjectingConflictSet(cs, fault_injector)
+    return cs
+
+
+def _build_conflict_set(backend: str, device, **kwargs) -> ConflictSet:
     if backend == "oracle":
         from .oracle import OracleConflictSet
 
         return OracleConflictSet(**kwargs)
+    if backend == "native":
+        from .native import NativeConflictSet
+
+        return NativeConflictSet(**kwargs)
     if backend == "torch":
         from .torch_backend import TorchConflictSet
 

@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from ..errors import cuda_fault_class
 from . import build
 
 _I32 = torch.int32
@@ -41,7 +42,10 @@ def _check(t: torch.Tensor, what: str, dtype, shape=None) -> None:
 def _run(fn_name: str, *args) -> None:
     err = build.load()[fn_name](*args)
     if err != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
+        # a lost or silent card is a kernel fault (failover); any other
+        # error is a defect and leaves the resolver as raised
+        cls = cuda_fault_class(err) or RuntimeError
+        raise cls(f"{fn_name}: CUDA error {err} at launch")
 
 
 def _counted(fn):

@@ -19,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..errors import KernelBuildError
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("history", "intra_batch", "stage", "merge", "maint", "search")
@@ -56,7 +58,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (CUDA_HOME unset and no nvcc on PATH)")
+    raise KernelBuildError("nvcc not found (CUDA_HOME unset and no nvcc on PATH)")
 
 
 def _lib_path(name: str) -> Path:
@@ -69,7 +71,8 @@ def _lib_path(name: str) -> Path:
 
 def load() -> dict:
     """Build (if needed) and load every kernel library; returns the C
-    functions by name. Raises with nvcc's output if a build fails."""
+    functions by name. Raises ``KernelBuildError`` with nvcc's output if a
+    build fails, and when a library does not load."""
     global build_seconds
     with _lock:
         if _fns:
@@ -97,8 +100,11 @@ def load() -> dict:
             else:
                 os.replace(tmp, out)
         if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
-        libs = {name: ctypes.CDLL(str(_lib_path(name))) for name in SOURCES}
+            raise KernelBuildError("nvcc failed for " + "\n".join(failed))
+        try:
+            libs = {name: ctypes.CDLL(str(_lib_path(name))) for name in SOURCES}
+        except OSError as e:
+            raise KernelBuildError(f"a kernel library did not load: {e}") from e
         fns = {}
         for fn_name, (lib, argtypes) in SIGNATURES.items():
             fn = getattr(libs[lib], fn_name)

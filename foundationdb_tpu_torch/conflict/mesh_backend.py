@@ -34,7 +34,6 @@ from . import keys as K
 from . import kernels
 from . import sharded as SH
 from .api import ConflictSet
-from .errors import StaleEncodingError
 from .torch_backend import (
     _INT32_REBASE_THRESHOLD,
     _VERDICT_TABLE,
@@ -45,6 +44,7 @@ from .torch_backend import (
     _bucket,
     _pick_pivots,
     batch_nbytes,
+    carry_work,
     check_batch_sizes,
     encode_transactions,
     stack_batches,
@@ -88,8 +88,10 @@ class TorchMeshConflictSet(ConflictSet):
         self._S = 32
         self._bounds = SH.partition_bounds(self._lanes, n_parts, self._device)
         self._states = self._fresh_states()
-        self._base = -1
-        self._base_epoch = 0
+        # (epoch, base) in one attribute, so the encode thread reads a pair
+        # that belongs together: device versions are (version - base); 0 = never
+        self._origin = (0, -1)
+        self._rebase_deltas: dict[int, int] = {}  # epoch → the rebase that ended it
         self._inflight: list[dict] = []
         # occupancy-driven maintenance flags, set at collect from the
         # per-partition pressure, executed between groups
@@ -104,6 +106,14 @@ class TorchMeshConflictSet(ConflictSet):
         return SH.make_sharded_states(
             self._n_parts, self._B, self._S, self._lanes, self._device
         )
+
+    @property
+    def _base(self) -> int:
+        return self._origin[1]
+
+    @property
+    def _base_epoch(self) -> int:
+        return self._origin[0]
 
     # -- ConflictSet interface ------------------------------------------------
 
@@ -126,8 +136,8 @@ class TorchMeshConflictSet(ConflictSet):
     def clear(self, version: int) -> None:
         self._flush()
         self._states = self._fresh_states()
-        self._base = version - 1
-        self._base_epoch += 1
+        self._origin = (self._base_epoch + 1, version - 1)
+        self._rebase_deltas.clear()
         self.oldest_version = version
 
     def detect_batch(self, transactions, now, new_oldest_version):
@@ -146,11 +156,12 @@ class TorchMeshConflictSet(ConflictSet):
         self._maybe_rebase(now)
 
     def encode(self, transactions):
-        """Host encode (epoch and base read first, so a concurrent rebase
-        surfaces as a StaleEncodingError at dispatch)."""
+        """Host encode (epoch and base read first, so a concurrent rebase is
+        carried at dispatch and a concurrent clear surfaces as a
+        StaleEncodingError, as in ``TorchConflictSet.encode``)."""
         check_batch_sizes([len(transactions)], self._max_txns)
         t0 = time.perf_counter()
-        epoch, base = self._base_epoch, self._base
+        epoch, base = self._origin
         b = encode_transactions(
             transactions, self._width, base, sample_cb=self._sample.add
         )
@@ -165,11 +176,7 @@ class TorchMeshConflictSet(ConflictSet):
         yielding the verdict lists."""
         if not work:
             return lambda: []
-        for (_b, _n, epoch), _now, _old in work:
-            if epoch != self._base_epoch:
-                raise StaleEncodingError(
-                    "stale encoding: version base was rebased after encode()"
-                )
+        work = carry_work(work, self._base_epoch, self._rebase_deltas)
         counts, metas, batches = [], [], []
         for (b, n_real, _epoch), now, new_oldest in work:
             horizon = max(self.oldest_version, new_oldest)
@@ -318,7 +325,7 @@ class TorchMeshConflictSet(ConflictSet):
             lo = lanes_to_numpy(shard.pivots[0])  # the partition's lower bound
             cands = codes
             if self._sample:
-                cands = np.concatenate([cands, K.encode_keys(self._sample.keys, self._width)])
+                cands = np.concatenate([cands, K.encode_keys(self._sample.snapshot(), self._width)])
             keys = G.codes_to_bytes(np.ascontiguousarray(cands))
             _, uniq = np.unique(keys, return_index=True)
             cands = cands[uniq]
@@ -358,6 +365,6 @@ class TorchMeshConflictSet(ConflictSet):
         delta = new_base - self._base
         if delta > 0:
             self._states = SH.rebase_parts(self._states, int(delta))
-            self._base = new_base
-            self._base_epoch += 1
+            self._rebase_deltas[self._base_epoch] = int(delta)
+            self._origin = (self._base_epoch + 1, new_base)
             self.metrics.rebases.add()

@@ -117,6 +117,44 @@ def check_batch_sizes(sizes, limit) -> None:
             )
 
 
+def carry_payload(payload, epoch: int, rebase_deltas: dict):
+    """An encoded payload ``(Batch, n_real, epoch)`` carried to the
+    backend's current ``epoch``, or None when it cannot be. Encodings differ
+    between version bases only in ``t_snap = max(snapshot - base, 0)``, so
+    across rebases alone (``rebase_deltas``: epoch → the delta that ended
+    it, always > 0) ``max(t_snap - shift, 0)`` is exactly the re-encoding. A
+    ``clear`` ends its epoch with no entry: what was encoded before it stays
+    stale. The JAX backend re-encodes instead (StaleEncodingError and a
+    retry); a deep pipeline then re-encodes every payload in flight at a
+    rebase."""
+    b, n_real, e = payload
+    shift = 0
+    while e != epoch:
+        d = rebase_deltas.get(e)
+        if d is None:
+            return None
+        shift += d
+        e += 1
+    if shift:
+        t_snap = np.maximum(b.t_snap.astype(np.int64) - shift, 0).astype(np.int32)
+        b = b._replace(t_snap=t_snap)
+    return b, n_real, epoch
+
+
+def carry_work(work, epoch: int, rebase_deltas: dict) -> list:
+    """``carry_payload`` over a group's work; raises StaleEncodingError if
+    any payload cannot be carried, before anything changes."""
+    out = []
+    for payload, now, old in work:
+        carried = carry_payload(payload, epoch, rebase_deltas)
+        if carried is None:
+            raise StaleEncodingError(
+                "stale encoding: the version base was reset after encode()"
+            )
+        out.append((carried, now, old))
+    return out
+
+
 def _bucket(n: int, floor: int = 1) -> int:
     b = floor
     while b < n:
@@ -143,6 +181,12 @@ class KeyReservoir:
 
     def __bool__(self) -> bool:
         return bool(self.keys)
+
+    def snapshot(self) -> list[bytes]:
+        """A copy of the keys. The resolver's encode thread adds keys while
+        the device thread reshards from them; ``list()`` copies in one step
+        under the GIL, where iterating the live list can see it grow."""
+        return list(self.keys)
 
 
 def encode_transactions(
@@ -306,8 +350,10 @@ class TorchConflictSet(ConflictSet):
         self._B = _bucket(max(8, capacity // 16))
         self._S = 32
         self._state = G.make_state(self._B, self._S, self._lanes, self._device)
-        self._base = -1  # device versions are (version - base); 0 = never
-        self._base_epoch = 0
+        # (epoch, base) in one attribute, so the encode thread reads a pair
+        # that belongs together: device versions are (version - base); 0 = never
+        self._origin = (0, -1)
+        self._rebase_deltas: dict[int, int] = {}  # epoch → the rebase that ended it
         self._sample = KeyReservoir()
         self._resharded_once = False
         self._rebalance_wanted = False
@@ -320,6 +366,14 @@ class TorchConflictSet(ConflictSet):
         self.metrics.gauge("lastMaxStagedRows", lambda: self._last_pressure[0])
         self.metrics.gauge("lastMaxKeptRows", lambda: self._last_pressure[1])
         self.metrics.gauge("inflightGroups", lambda: len(self._inflight))
+
+    @property
+    def _base(self) -> int:
+        return self._origin[1]
+
+    @property
+    def _base_epoch(self) -> int:
+        return self._origin[0]
 
     # -- ConflictSet interface ------------------------------------------------
 
@@ -350,8 +404,8 @@ class TorchConflictSet(ConflictSet):
     def clear(self, version: int) -> None:
         self._flush()
         self._state = G.make_state(self._B, self._S, self._lanes, self._device)
-        self._base = version - 1
-        self._base_epoch += 1
+        self._origin = (self._base_epoch + 1, version - 1)
+        self._rebase_deltas.clear()
         self._resharded_once = False
         self.oldest_version = version
 
@@ -381,12 +435,14 @@ class TorchConflictSet(ConflictSet):
 
     def encode(self, transactions: list[CommitTransaction]):
         """Pre-encode a batch for detect_many_encoded. Encodings are
-        base-relative: a version rebase invalidates them (epoch stamp).
-        Epoch and base are read FIRST, so a concurrent rebase can only make
-        this encoding visibly stale (StaleEncodingError at dispatch)."""
+        base-relative (epoch stamp): one made before a rebase is carried
+        across it at dispatch (``carry_payload``), one made before a
+        ``clear`` is stale (StaleEncodingError). Epoch and base are read
+        FIRST and as one pair, so a concurrent rebase or clear is always
+        visible and a payload never carries one epoch with another's base."""
         check_batch_sizes([len(transactions)], self._max_txns)
         t0 = time.perf_counter()
-        epoch, base = self._base_epoch, self._base
+        epoch, base = self._origin
         b = encode_transactions(
             transactions, self._width, base, sample_cb=self._sample.add
         )
@@ -404,12 +460,8 @@ class TorchConflictSet(ConflictSet):
         and the stream orders it."""
         if not work:
             return lambda: []
-        for (_b, _n, epoch), _now, _old in work:
-            # validate every encoding BEFORE mutating the horizon
-            if epoch != self._base_epoch:
-                raise StaleEncodingError(
-                    "stale encoding: version base was rebased after encode()"
-                )
+        # validate every encoding BEFORE mutating the horizon
+        work = carry_work(work, self._base_epoch, self._rebase_deltas)
         counts = []
         metas = []  # (now, oldest_pre, oldest_post) absolute versions
         batches = []
@@ -594,7 +646,7 @@ class TorchConflictSet(ConflictSet):
         codes, _vers = G.live_rows(state)
         if self._sample:
             codes = np.concatenate(
-                [codes, K.encode_keys(self._sample.keys, self._width)]
+                [codes, K.encode_keys(self._sample.snapshot(), self._width)]
             )
         keys = G.codes_to_bytes(np.ascontiguousarray(codes))
         _, uniq_idx = np.unique(keys, return_index=True)
@@ -624,6 +676,6 @@ class TorchConflictSet(ConflictSet):
         delta = new_base - self._base
         if delta > 0:
             self._state = G.rebase(self._state, int(delta))
-            self._base = new_base
-            self._base_epoch += 1
+            self._rebase_deltas[self._base_epoch] = int(delta)
+            self._origin = (self._base_epoch + 1, new_base)
             self.metrics.rebases.add()

@@ -21,16 +21,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .conflict.errors import DeviceUnavailableError
+
 SENTINEL = -1  # 0xFFFFFFFF seen through the int32 view
 INT32_MIN = -(1 << 31)
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card. Raises when CUDA is asked for (by
-    default or explicitly) and no card is visible."""
+    """``None`` means the CUDA card. Raises ``DeviceUnavailableError`` when
+    CUDA is asked for (by default or explicitly) and no card is visible."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceUnavailableError(
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch versions"
         )

@@ -5,6 +5,7 @@ tests/test_conflict_tpu.py battery, three ways, with identical verdicts."""
 import random
 
 import pytest
+import torch
 
 from foundationdb_tpu.conflict.api import CommitTransaction as JTxn
 from foundationdb_tpu.conflict.tpu_backend import TpuConflictSet
@@ -12,6 +13,8 @@ from foundationdb_tpu.conflict.tpu_backend import KernelMetrics as JKernelMetric
 from foundationdb_tpu_torch.conflict import torch_backend as TB
 from foundationdb_tpu_torch.conflict.api import CommitTransaction, Verdict, new_conflict_set
 from foundationdb_tpu_torch.conflict.errors import StaleEncodingError
+
+torch.set_num_threads(2)  # the suite runs in several xdist workers: cap each one's intra-op threads
 
 END = b"\xff" * 40
 
@@ -173,6 +176,33 @@ def test_stale_encoding_after_rebase_raises():
         cs.detect_many_encoded([(enc, 20, 10)])
 
 
+@pytest.mark.parametrize("backend", ["torch", "torch_mesh"])
+def test_encoding_made_before_a_rebase_is_carried_across_it(backend):
+    """A payload encoded before the int32 rebase dispatches after it with
+    the verdicts of a fresh encoding and of the oracle (exact equality);
+    one encoded before a ``clear`` stays stale."""
+    kw = {"n_parts": 4} if backend == "torch_mesh" else {}
+    base = (1 << 30) - 40
+    rnd = random.Random(5)
+    batches = [_random_batch(rnd, 60, 24, base + 10 * i - 30, base + 10 * i) for i in range(6)]
+    carried = new_conflict_set(backend, device="cpu", capacity=1 << 8, **kw)
+    fresh = new_conflict_set(backend, device="cpu", capacity=1 << 8, **kw)
+    oracle = new_conflict_set("oracle")
+    for i, txs in enumerate(batches):
+        now, old = base + 10 * i + 10, base + 10 * i - 30
+        early = carried.encode(txs)  # before this batch's prepare rebases
+        carried.prepare(now)
+        fresh.prepare(now)
+        got = carried.detect_many_encoded([(early, now, old)])[0]
+        assert got == fresh.detect_many_encoded([(fresh.encode(txs), now, old)])[0]
+        assert got == oracle.detect_batch(txs, now, old)
+    assert carried.metrics.snapshot()["rebases"] == 1
+    stale = carried.encode(batches[0])
+    carried.clear(base + 100)
+    with pytest.raises(StaleEncodingError):
+        carried.detect_many_encoded([(stale, base + 110, 0)])
+
+
 def test_hot_key_batch_exceeding_slot_capacity():
     three = Three(capacity=1 << 8)
     point = [(b"counter", b"counter\x00")]
@@ -284,3 +314,31 @@ def test_metrics_counter_names_match_the_jax_backend():
     )
     snap = _torch().metrics.snapshot()
     assert snap["occupancy"]["bucketCount"] == 1024
+
+
+class _GrowingKeys(list):
+    """A key list that another thread appends to while it is read: each
+    pass over it sees one key more than its length said, as when the
+    resolver's encode thread adds a key while the device thread reshards
+    from the sample."""
+
+    def __iter__(self):
+        it = list.__iter__(self)  # a live iterator: it yields the key added next
+        self.append(b"k99999")
+        return it
+
+
+@pytest.mark.parametrize("backend", ["torch", "torch_mesh"])
+def test_reshard_reads_a_copy_of_the_key_sample(backend):
+    kw = {"n_parts": 2} if backend == "torch_mesh" else {}
+    cs = new_conflict_set(backend, device="cpu", capacity=1 << 8, **kw)
+    oracle = new_conflict_set("oracle")
+    rnd = random.Random(3)
+    for now in (10, 20):
+        cs._sample.keys = _GrowingKeys(b"k%05d" % i for i in range(50))
+        if backend == "torch_mesh" and now == 20:
+            cs._host_reshard_partition(0)  # a partition's host reshard reads the sample
+        # the first group of one grid reshards from the sample; a read of
+        # the live list would outgrow the array sized for it
+        txs = _random_batch(rnd, 80, 16, 0, now - 5)
+        assert cs.detect_batch(txs, now, 0) == oracle.detect_batch(txs, now, 0)

@@ -737,3 +737,103 @@ def test_rebase_kernels_match_plain_versions(cuda, case):
         got = kernels.maint_rebase_parts(parts.grid, parts.count, parts.floor, delta)
         for a, b in zip(got, (want.grid, want.bmax, want.floor)):
             _eq(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The resolver role on the card against its CPU path
+
+
+def _resolver_requests(seed, n_batches=12, n_txns=96):
+    """Seeded requests for the resolver: versions step by 1000 from just
+    below the int32 rebase threshold, snapshots 1-5 batches old under a
+    3-batch MVCC window, 0-2 read and write ranges over 400 keys."""
+    from foundationdb_tpu_torch.server.interfaces import ResolveBatchRequest, TransactionData
+
+    rnd = random.Random(seed)
+    v0 = (1 << 30) - 4000
+    reqs = []
+    for i in range(n_batches):
+        version = v0 + 1000 * (i + 1)
+
+        def ranges():
+            out = []
+            for _ in range(rnd.randrange(3)):
+                a = rnd.randrange(400)
+                out.append((b"r%04d" % a, b"r%04d" % (a + 1 + rnd.randrange(6))))
+            return out
+
+        tds = [TransactionData(read_snapshot=version - 1000 * rnd.randrange(1, 6),
+                               read_conflict_ranges=ranges(), write_conflict_ranges=ranges())
+               for _ in range(n_txns)]
+        reqs.append(ResolveBatchRequest(prev_version=version - 1000 if i else 0, version=version,
+                                        last_receive_version=0, requesting_proxy="px",
+                                        transactions=tds))
+    return reqs
+
+
+def _resolve_all(backend, device, seed, threads, injector=None, lose_at=None):
+    """All requests spawned at once through ``Resolver`` on a RealLoop;
+    returns the verdict lists and the guard's health snapshot."""
+    from foundationdb_tpu_torch.runtime.futures import delay, spawn
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    from foundationdb_tpu_torch.runtime.loop import RealLoop, set_loop
+    from foundationdb_tpu_torch.server.resolver import Resolver
+
+    loop = RealLoop(seed)
+    set_loop(loop)
+    knobs = Knobs(MAX_READ_TRANSACTION_LIFE_VERSIONS=3000, CONFLICT_ENCODE_THREADS=threads,
+                  CONFLICT_DISPATCH_DEADLINE=60.0, CONFLICT_FAILOVER_STRIKES=2,
+                  CONFLICT_REPROBE_INTERVAL=0.2)
+    kw = {"n_parts": 4} if backend == "torch_mesh" else {}
+    r = Resolver(knobs=knobs, backend=backend, uid="r0", device=device,
+                 fault_injector=injector, **kw)
+    try:
+        reqs = _resolver_requests(seed)
+
+        async def one(q, i):
+            if i == lose_at:
+                injector.lose_device(0.3)
+            return await r.resolve(q)
+
+        async def chain():  # one batch at a time, a pause after the loss
+            out = []
+            for i, q in enumerate(reqs):
+                out.append(await one(q, i))
+                if i == lose_at + 2:
+                    await delay(0.5)
+            return out
+
+        futs = ([spawn(chain())] if lose_at is not None
+                else [spawn(one(q, i)) for i, q in enumerate(reqs)])
+        loop.run(until=300.0, stop_when=lambda: all(f.is_ready() for f in futs))
+        reps = futs[0].get() if lose_at is not None else [f.get() for f in futs]
+        return [list(rep.committed) for rep in reps], r.cs.health_snapshot()
+    finally:
+        r.close()
+        set_loop(None)
+        loop.close()
+
+
+@pytest.mark.parametrize("threads", [0, 1])
+@pytest.mark.parametrize("backend", ["torch", "torch_mesh"])
+def test_resolver_on_the_card_equals_its_cpu_path(cuda, backend, threads):
+    got, health = _resolve_all(backend, None, 5, threads)
+    want, cpu_health = _resolve_all(backend, "cpu", 5, threads)
+    assert got == want
+    assert {v for vs in got for v in vs} == {0, 1, 2}
+    assert health["state"] == "HEALTHY" and health["failovers"] == health["faults"] == 0
+    assert health["backend"] == cpu_health["backend"]
+
+
+def test_resolver_on_the_card_fails_over_to_native_and_promotes_back(cuda):
+    from foundationdb_tpu_torch.conflict.faults import KernelFaultInjector
+    from foundationdb_tpu_torch.runtime.rng import DeterministicRandom
+
+    inj = KernelFaultInjector(DeterministicRandom(1), p_dispatch_error=0, p_device_loss=0,
+                              p_hang=0, p_compile_stall=0, p_encode_error=0, p_encode_hang=0)
+    got, health = _resolve_all("torch", None, 6, 1, injector=inj, lose_at=4)
+    want, _h = _resolve_all("torch", "cpu", 6, 1)
+    # a failover may abort conservatively, never commit what the CPU path aborts
+    assert not [(a, b) for g, w in zip(got, want) for a, b in zip(g, w) if a == 0 and b != 0]
+    assert health["failovers"] >= 1 and health["promotions"] >= 1
+    assert health["state"] == "HEALTHY" and health["backend"] == "TorchConflictSet"

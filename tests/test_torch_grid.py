@@ -23,6 +23,8 @@ from foundationdb_tpu.conflict.tpu_backend import TpuConflictSet
 from foundationdb_tpu_torch.conflict import grid as TG
 from foundationdb_tpu_torch.conflict import torch_backend as TB
 
+torch.set_num_threads(2)  # the suite runs in several xdist workers: cap each one's intra-op threads
+
 CPU = torch.device("cpu")
 END = b"\xff" * 40  # encodes to the all-0xFF sentinel code at any width
 

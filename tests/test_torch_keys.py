@@ -16,6 +16,8 @@ from foundationdb_tpu_torch.device import (
     ordered,
 )
 
+torch.set_num_threads(2)  # the suite runs in several xdist workers: cap each one's intra-op threads
+
 
 def _fuzz_keys(seed, n=400):
     rnd = random.Random(seed)

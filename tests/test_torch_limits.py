@@ -18,6 +18,8 @@ from foundationdb_tpu_torch.conflict import sharded as TS
 from foundationdb_tpu_torch.conflict.api import CommitTransaction, Verdict, new_conflict_set
 from foundationdb_tpu_torch.conflict.errors import BatchTooLargeError
 
+torch.set_num_threads(2)  # the suite runs in several xdist workers: cap each one's intra-op threads
+
 POW2 = [1 << i for i in range(11)]  # 1 .. 1024
 
 

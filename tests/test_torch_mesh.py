@@ -9,12 +9,15 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from foundationdb_tpu.conflict.api import CommitTransaction as JTxn
 from foundationdb_tpu.conflict.mesh_backend import MeshConflictSet
 from foundationdb_tpu_torch.conflict import sharded as TS
 from foundationdb_tpu_torch.conflict.api import CommitTransaction, Verdict, new_conflict_set
 from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
+
+torch.set_num_threads(2)  # the suite runs in several xdist workers: cap each one's intra-op threads
 
 END = b"\xff" * 40
 MAINTENANCE = (

@@ -18,6 +18,8 @@ from foundationdb_tpu.ops.range_index import TpuRangeIndex
 from foundationdb_tpu_torch.conflict import grid as TG
 from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
 
+torch.set_num_threads(2)  # the suite runs in several xdist workers: cap each one's intra-op threads
+
 CPU = torch.device("cpu")
 
 

@@ -12,6 +12,8 @@ from foundationdb_tpu_torch.conflict import kernels
 from foundationdb_tpu_torch.conflict.api import new_conflict_set
 from foundationdb_tpu_torch.device import resolve_device
 
+torch.set_num_threads(2)  # the suite runs in several xdist workers: cap each one's intra-op threads
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "foundationdb_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"

@@ -25,6 +25,8 @@ from foundationdb_tpu_torch.conflict import sharded as TS
 from foundationdb_tpu_torch.conflict import torch_backend as TB
 from foundationdb_tpu_torch.conflict.api import CommitTransaction, Verdict, new_conflict_set
 
+torch.set_num_threads(2)  # the suite runs in several xdist workers: cap each one's intra-op threads
+
 CPU = torch.device("cpu")
 END = b"\xff" * 40  # encodes to the all-0xFF sentinel code
 WIDTH, LANES = 12, 3
