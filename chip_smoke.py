@@ -29,8 +29,8 @@ card). Phases, each of which raises on failure:
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
    committed clear spans the whole keyspace;
-6. after phases 7 to 9: print the kernel table (every kernel of the three
-   paths), the card line and the result line;
+6. after phases 7 to 12: print the kernel table (every kernel of the
+   paths, K5 also at the storage shapes), the card line and the result line;
 7. the partitioned resolver, ``new_conflict_set("torch_mesh", key_width=12,
    capacity=1<<19, n_parts=4)`` (4 partitions × 8192 × 32 × 4 uint32 =
    16 MiB), over the same workload with every key re-encoded
@@ -76,7 +76,25 @@ card). Phases, each of which raises on failure:
    an oracle referee of the committed writes refuses, and promote back to
    the card once the loss heals; the pipelined case must also recover a
    deadline while later batches are in flight and re-resolve them in order.
-   One JSON line a case.
+   One JSON line a case;
+12. the storage role: one tlog and one ``StorageServer`` (index on, on the
+   card by default) on the port's ``Sim``, each on its own SimDisk, fed
+   through the tlog's commit endpoint with phase 8's shape of keys (1M
+   random 12-byte keys, 16-byte values) in commits of 10,000, then empty
+   commits until the durable engine and the index hold every key. 50
+   rounds of one multiGet of 4096 keys (70 % present) and one
+   multiGetRange of 4096 forward ranges at the last version, with a few
+   getKeyValues and getValue requests; then a delta of 1000 new keys and
+   1000 single-key clears, after which the index must equal a fresh one
+   over the engine's keys, and 5 more rounds. Every reply must equal a
+   host model of the writes (a dict and a sorted list), every engine miss
+   must be served by the index (``multiGetFallbackKeys`` 0) and K5 must
+   launch for every request; K5 is then held against its plain version
+   at the two storage shapes (Q = 4096 and 8192 over 2^20 rows). One
+   ``{"storage": ...}`` JSON line: ingest and durable seconds, p50/p95
+   request ms, lookups/s through the role beside phase 8's and host
+   ``bisect``'s, the index search's share, ``apply_delta`` ms and bytes,
+   the device's idle share over a round.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after, and every kernel of the path must have launched.
@@ -902,8 +920,9 @@ def run_mesh(want_oracle, offset: int, card: str):
     return rows, batches
 
 
-def run_range_index(card: str) -> list[dict]:
-    """Phase 8: the storage range index at bench.py's shape, then K5."""
+def run_range_index(card: str) -> tuple[list[dict], float]:
+    """Phase 8: the storage range index at bench.py's shape, then K5.
+    Returns the K5 row and the lookups/s on the card."""
     import bisect
 
     import numpy as np
@@ -969,7 +988,424 @@ def run_range_index(card: str) -> list[dict]:
 
     log(f"range index kernel check [{card}]:")
     q = lanes_to_torch(K.encode_keys(queries[1], width=idx.width), "cuda")
-    return check_search(idx._codes, q, launches)
+    return check_search(idx._codes, q, launches), n_q / wall
+
+
+STORAGE_KEYS = INDEX_KEYS  # bench.py bench_range_index: 1M random b"%012d" keys over 10^12
+STORAGE_COMMIT = 10_000  # SET_VALUEs a tlog commit
+STORAGE_STEP = 100_000  # versions a commit
+STORAGE_ROUNDS = INDEX_ROUNDS  # timed rounds: one multiGet and one multiGetRange each
+STORAGE_DELTA = 1000  # the epoch delta: new keys and single-key clears of present keys
+STORAGE_DELTA_ROUNDS = 5
+STORAGE_RANGE_LIMIT = 10
+
+
+def storage_value(n: int) -> bytes:
+    return b"v%015d" % n  # 16 bytes
+
+
+class StorageModel:
+    """The host model of the storage phase's writes: a dict and a sorted
+    key list, searched with ``bisect``."""
+
+    def __init__(self, items: dict):
+        self.map = items
+        self.keys = sorted(items)
+
+    def update(self, sets: dict, cleared: list) -> None:
+        import bisect
+
+        for k in cleared:
+            del self.map[k]
+            del self.keys[bisect.bisect_left(self.keys, k)]
+        for k, v in sets.items():
+            if k not in self.map:
+                bisect.insort(self.keys, k)
+            self.map[k] = v
+
+    def rows(self, begin: bytes, end: bytes, limit: int, reverse: bool = False):
+        """(rows, more) as a storage range read returns them."""
+        import bisect
+
+        lo, hi = bisect.bisect_left(self.keys, begin), bisect.bisect_left(self.keys, end)
+        ks = self.keys[lo:hi][::-1] if reverse else self.keys[lo:hi]
+        return [(k, self.map[k]) for k in ks[:limit]], hi - lo > limit
+
+
+def storage_queries(rnd, model: StorageModel):
+    """One round: 4096 point keys (70 % present, as bench.py) and 4096
+    forward ranges of 0-20 keys on average."""
+    keys = [rnd.choice(model.keys) if rnd.random() < 0.7 else b"%012d" % rnd.randrange(10**12)
+            for _ in range(INDEX_BATCH)]
+    ranges = []
+    for _ in range(INDEX_BATCH):
+        a = rnd.randrange(10**12)
+        ranges.append((b"%012d" % a, b"%012d" % (a + rnd.randrange(2 * 10**12 // STORAGE_KEYS * 10)),
+                       STORAGE_RANGE_LIMIT, False))
+    return keys, ranges
+
+
+def check_multi_get(rep, keys, model: StorageModel) -> None:
+    if rep.errors or rep.selectors or rep.selector_errors or len(rep.values) != len(keys):
+        raise AssertionError(f"multiGet replied errors {rep.errors[:4]} or {len(rep.values)} values")
+    bad = [k for k, v in zip(keys, rep.values) if v != model.map.get(k)]
+    if bad:
+        raise AssertionError(f"multiGet: {len(bad)} values differ from the host model, e.g. {bad[0]!r}")
+
+
+def check_multi_get_range(rep, ranges, model: StorageModel) -> None:
+    if rep.errors or len(rep.results) != len(ranges):
+        raise AssertionError(f"multiGetRange replied errors {rep.errors[:4]}")
+    for (b, e, limit, reverse), res in zip(ranges, rep.results):
+        rows, more = model.rows(b, e, limit, reverse)
+        if res.data != rows or res.more != more:
+            raise AssertionError(f"multiGetRange [{b!r}, {e!r}) differs from the host model")
+
+
+def percentile(xs: list, q: float) -> float:
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def run_storage(card: str, index_lookups_s: float) -> tuple[dict, list[dict]]:
+    """Phase 12: the storage role's read path on the card. One tlog and one
+    storage server on the port's Sim, each on its own SimDisk, with a
+    client process standing in for the proxy. Every write goes in through
+    the tlog's commit endpoint, every read through a storage endpoint at
+    the last committed version; every reply must equal the host model.
+    Returns the phase's JSON object and K5's rows at the storage shapes."""
+    import bisect
+
+    from foundationdb_tpu_torch.conflict import keys as K
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.device import lanes_to_torch
+    from foundationdb_tpu_torch.kv.mutations import Mutation, MutationType
+    from foundationdb_tpu_torch.net.sim import Endpoint, Sim
+    from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
+    from foundationdb_tpu_torch.runtime.futures import AsyncVar, delay
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    from foundationdb_tpu_torch.server import interfaces as I
+    from foundationdb_tpu_torch.server.log_system import LogSystemConfig, TLogInterface, TLogSet
+    from foundationdb_tpu_torch.server.storage import StorageServer
+    from foundationdb_tpu_torch.server.tlog import TLog
+
+    t_phase = time.perf_counter()
+    rnd = random.Random(12)
+    keys: dict = {}
+    while len(keys) < STORAGE_KEYS:
+        keys.setdefault(b"%012d" % rnd.randrange(10**12), None)
+    keys = list(keys)  # distinct, in draw order
+    model = StorageModel({k: storage_value(i) for i, k in enumerate(keys)})
+
+    knobs = Knobs(STORAGE_TPU_INDEX=True)
+    sim = Sim(12, knobs=knobs)
+    sim.activate()
+    tlog = TLog(knobs, tags=frozenset({0}), epoch=0, log_id="tlog0", disk=sim.disk("tlog0"))
+    tlog.register_instance(sim.new_process("tlog0"))
+    logs = (TLogInterface(address="tlog0", log_id="tlog0", tags=(0,)),)
+    config = AsyncVar(LogSystemConfig(epoch=0, current=TLogSet(epoch=0, logs=logs)))
+    ss = StorageServer(tag=0, log_config=config, knobs=knobs, disk=sim.disk("ss0"), uid="ss0")
+    ss.register(sim.new_process("ss0"))
+    client = sim.new_process("client")
+
+    # apply_delta's wall time and the bytes it copies to the card, a call
+    # each (the copy is from pageable host memory, so it returns once the
+    # codes have been staged; nothing is added to the role's own work);
+    # and the wall time of each index search (query encode, the copy up,
+    # K5, the copy back), to split a request's time. With ``spans`` set,
+    # CUDA events also bracket the device part of each search (the copy
+    # up, K5, the copy back). Each wrapper's calls are checked against
+    # what the role must have made, so a rename that bypassed one fails
+    # the phase
+    deltas, searches, spans = [], [], {"on": False, "pairs": []}
+    apply_delta, search = TorchRangeIndex.apply_delta, TorchRangeIndex._search
+    search_codes = TorchRangeIndex._search_codes
+
+    def timed_apply_delta(idx, added, removed):
+        t0 = time.perf_counter()
+        new = apply_delta(idx, added, removed)
+        deltas.append({"ms": (time.perf_counter() - t0) * 1e3, "added": len(added),
+                       "removed": len(removed), "bytes_to_card": new._codes.numel() * 4,
+                       "rows": new.n, "at_s": time.perf_counter() - t_phase})
+        return new
+
+    def timed_search(idx, qkeys):
+        t0 = time.perf_counter()
+        lo_hi = search(idx, qkeys)
+        searches.append((time.perf_counter() - t0) * 1e3)
+        return lo_hi
+
+    def spanned_search_codes(idx, codes):
+        if not spans["on"]:
+            return search_codes(idx, codes)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        lo_hi = search_codes(idx, codes)  # ends in a copy back, so e1 waits for nothing
+        e1.record()
+        spans["pairs"].append((e0, e1))
+        return lo_hi
+
+    st = {"v": 0}
+    out: dict = {"keys": STORAGE_KEYS, "card": card}
+
+    async def commit(muts):
+        prev, v = st["v"], st["v"] + STORAGE_STEP
+        await client.request(Endpoint("tlog0", "tlog.commit#tlog0"), I.TLogCommitRequest(
+            prev_version=prev, version=v, messages={0: muts} if muts else {}, known_committed=prev))
+        st["v"] = v
+
+    async def until_durable():
+        """Empty commits until the durable engine and the index hold every
+        write (the MVCC window is 50 commits; a stalled durability loop, one
+        whose index launch raised, fails here)."""
+        target = st["v"]
+        for _ in range(500):
+            if ss.durable_version >= target and ss._range_index is not None and (
+                    ss._range_index.n == len(ss.engine._keys)):
+                return
+            await commit([])
+            await delay(0.1)
+        raise AssertionError(f"durability stalled at {ss.durable_version} below {target}")
+
+    async def ask(token, req):
+        return await client.request(Endpoint("ss0", token), req)
+
+    def search_launches() -> int:
+        return kernels.launch_counts()["search"]
+
+    async def read_rounds(n: int, timed: dict) -> tuple:
+        """``n`` rounds of one multiGet and one multiGetRange, then a few
+        single reads; every reply against the model."""
+        v = st["v"]
+        before = ss.stats.snapshot()
+        last = None
+        for _ in range(n):
+            qkeys, ranges = storage_queries(rnd, model)
+            c0, s0 = search_launches(), len(searches)
+            t0 = time.perf_counter()
+            rep = await ask(I.Tokens.MULTI_GET, I.MultiGetRequest(keys=qkeys, version=v))
+            t1 = time.perf_counter()
+            c1, s1 = search_launches(), len(searches)
+            rrep = await ask(I.Tokens.MULTI_GET_RANGE, I.MultiGetRangeRequest(ranges=ranges, version=v))
+            t2 = time.perf_counter()
+            c2 = search_launches()
+            timed["index_ms"][0].append(sum(searches[s0:s1]))
+            timed["index_ms"][1].append(sum(searches[s1:]))
+            if c1 - c0 < 1 or c2 - c1 < 1:
+                raise AssertionError(f"K5 did not launch for a request: {c1 - c0}, {c2 - c1}")
+            if (s1 - s0, len(searches) - s1) != (c1 - c0, c2 - c1):
+                raise AssertionError("the timed index search was bypassed: searches "
+                                     f"{s1 - s0}, {len(searches) - s1} against launches {c1 - c0}, {c2 - c1}")
+            check_multi_get(rep, qkeys, model)
+            check_multi_get_range(rrep, ranges, model)
+            timed["multi_get_ms"].append((t1 - t0) * 1e3)
+            timed["multi_get_range_ms"].append((t2 - t1) * 1e3)
+            timed["launches_multi_get"] += c1 - c0
+            timed["launches_multi_get_range"] += c2 - c1
+            timed["queries"].append(qkeys)
+            last = (qkeys, ranges)
+        for b, e, limit, _r in last[1][:4] + [(b"", b"\xff", 25, False), (b"5", b"6", 7, True)]:
+            for reverse in (False, True):
+                rep = await ask(I.Tokens.GET_KEY_VALUES, I.GetKeyValuesRequest(
+                    begin=b, end=e, version=v, limit=limit, reverse=reverse))
+                if (rep.data, rep.more) != model.rows(b, e, limit, reverse):
+                    raise AssertionError(f"getKeyValues [{b!r}, {e!r}) differs from the host model")
+        for k in last[0][:8]:
+            rep = await ask(I.Tokens.GET_VALUE, I.GetValueRequest(key=k, version=v))
+            if rep.value != model.map.get(k):
+                raise AssertionError(f"getValue {k!r} differs from the host model")
+        after = ss.stats.snapshot()
+        return (after["multiGetIndexKeys"] - before["multiGetIndexKeys"],
+                after["multiGetFallbackKeys"] - before["multiGetFallbackKeys"], last)
+
+    def new_timed():
+        return {"multi_get_ms": [], "multi_get_range_ms": [], "index_ms": ([], []),
+                "launches_multi_get": 0, "launches_multi_get_range": 0, "queries": []}
+
+    async def main():
+        t0 = time.perf_counter()
+        muts = [Mutation(MutationType.SET_VALUE, k, model.map[k]) for k in keys]
+        for i in range(0, len(muts), STORAGE_COMMIT):
+            await commit(muts[i:i + STORAGE_COMMIT])
+        del muts[:]  # the tlog drops its copies once storage pops them
+        out["ingest_s"] = time.perf_counter() - t0
+        out["commits"] = STORAGE_KEYS // STORAGE_COMMIT
+        t0 = time.perf_counter()
+        await until_durable()
+        out["durable_s"] = time.perf_counter() - t0
+        out["index_rows"] = ss._range_index.n
+        out["index_bytes"] = ss._range_index._codes.numel() * 4
+        log(f"storage: {STORAGE_KEYS} keys in {out['commits']} tlog commits in {out['ingest_s']:.2f} s, "
+            f"durable and indexed ({out['index_rows']} rows, codes {tuple(ss._range_index._codes.shape)}) "
+            f"{out['durable_s']:.2f} s later [{card}]")
+
+        await read_rounds(1, new_timed())  # warm
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        timed = new_timed()
+        index_keys, fallback, last = await read_rounds(STORAGE_ROUNDS, timed)
+        launches = kernels.launch_counts()
+        want_index = STORAGE_ROUNDS * 2 * INDEX_BATCH  # every point key and every forward range
+        if index_keys != want_index or fallback != 0:
+            raise AssertionError(f"multiGetIndexKeys {index_keys} (want {want_index}), "
+                                 f"multiGetFallbackKeys {fallback} (want 0)")
+        out["launches"] = launches
+        out["timed"] = timed
+        out["last"] = last
+
+        # one round under the profiler: the device's idle share. The
+        # profiler gives the device's kernels and copies, but on the H100
+        # host it has dropped device events at random (none, some or all
+        # of a session's), so its share is used only where it saw every K5
+        # launch. CUDA events bracketing the device part of each search
+        # (the copy up, K5, the copy back) give a span that holds all of
+        # the round's device work and the host's launch and copy time
+        # between those steps, so 1 - spans / window is a floor on the idle
+        # share; it stands in where the profiler missed a launch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        qkeys, ranges = storage_queries(rnd, model)
+        torch.cuda.synchronize()
+        c0 = search_launches()
+        spans["on"], spans["pairs"] = True, []
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                rep = await ask(I.Tokens.MULTI_GET, I.MultiGetRequest(keys=qkeys, version=st["v"]))
+                rrep = await ask(I.Tokens.MULTI_GET_RANGE,
+                                 I.MultiGetRangeRequest(ranges=ranges, version=st["v"]))
+                torch.cuda.synchronize()
+                window = time.perf_counter() - t0
+        finally:
+            spans["on"] = False
+        k5_launches = search_launches() - c0
+        check_multi_get(rep, qkeys, model)
+        check_multi_get_range(rrep, ranges, model)
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        k5_dev = [e for e in dev if "search_warp" in e.name]
+        busy = sum(e.time_range.elapsed_us() for e in dev) * 1e-6
+        span = sum(e0.elapsed_time(e1) for e0, e1 in spans["pairs"]) * 1e-3
+        if k5_launches < 2 or len(spans["pairs"]) != k5_launches:
+            raise AssertionError(f"the profiled round launched K5 {k5_launches} times "
+                                 f"over {len(spans['pairs'])} device spans (want 2 and 2)")
+        whole = len(k5_dev) == k5_launches  # the profiler saw every K5 launch
+        out["round_profile"] = {
+            "window_ms": window * 1e3, "k5_launches": k5_launches,
+            "profiler_device_events": len(dev), "profiler_k5_kernels": len(k5_dev),
+            "profiler_device_busy_ms": busy * 1e3, "search_device_span_ms": span * 1e3,
+            "device_idle_at_least": 1.0 - span / window,
+            "device_idle": 1.0 - (busy if whole else span) / window,
+            "device_busy_from": "profiler" if whole else "cuda_events_around_device_part"}
+        # where a request's host time goes, by function (the log only)
+        import cProfile
+        import pstats
+
+        for token, req in ((I.Tokens.MULTI_GET, I.MultiGetRequest(keys=qkeys, version=st["v"])),
+                           (I.Tokens.MULTI_GET_RANGE, I.MultiGetRangeRequest(ranges=ranges, version=st["v"]))):
+            cprof = cProfile.Profile()
+            cprof.enable()
+            await ask(token, req)
+            cprof.disable()
+            stats = pstats.Stats(cprof)
+            top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:8]
+
+            def where(fn):
+                return f"{fn[2]} ({fn[0].rsplit('/', 1)[-1]}:{fn[1]})"
+
+            callers = sorted(top[0][1][4].items(), key=lambda kv: -kv[1][2])[:3]
+            log(f"storage {token} under cProfile, top functions by own time: " + "; ".join(
+                f"{where(fn)} {tt * 1e3:.1f} ms in {nc} calls"
+                for fn, (_cc, nc, tt, _ct, _callers) in top)
+                + f"; the first one's callers: " + "; ".join(
+                f"{where(fn)} {c[2] * 1e3:.1f} ms in {c[1]} calls" for fn, c in callers))
+
+        # the epoch delta: new keys and single-key clears of present keys
+        live = set(model.map)
+        added = {}
+        while len(added) < STORAGE_DELTA:
+            k = b"%012d" % rnd.randrange(10**12)
+            if k not in live:
+                added[k] = storage_value(STORAGE_KEYS + len(added))
+        cleared = rnd.sample(model.keys, STORAGE_DELTA)
+        await commit([Mutation(MutationType.SET_VALUE, k, v) for k, v in added.items()]
+                     + [Mutation(MutationType.CLEAR_RANGE, k, k + b"\x00") for k in cleared])
+        model.update(added, cleared)
+        n_deltas = len(deltas)
+        await until_durable()
+        if [(d["added"], d["removed"]) for d in deltas[n_deltas:]] != [(STORAGE_DELTA, STORAGE_DELTA)]:
+            raise AssertionError("the epoch delta did not reach the index as one apply_delta: "
+                                 f"{[(d['added'], d['removed']) for d in deltas[n_deltas:]]}")
+        fresh = TorchRangeIndex(list(ss.engine._keys))
+        if ss._range_index.n != fresh.n or not torch.equal(ss._range_index._codes, fresh._codes):
+            raise AssertionError("the index after the delta differs from a fresh index of the engine's keys")
+
+        dtimed = new_timed()
+        index_keys, fallback, _ = await read_rounds(STORAGE_DELTA_ROUNDS, dtimed)
+        if index_keys != STORAGE_DELTA_ROUNDS * 2 * INDEX_BATCH or fallback != 0:
+            raise AssertionError(f"after the delta: multiGetIndexKeys {index_keys}, fallback {fallback}")
+        return True
+
+    TorchRangeIndex.apply_delta, TorchRangeIndex._search = timed_apply_delta, timed_search
+    TorchRangeIndex._search_codes = spanned_search_codes
+    try:
+        sim.run_until_done(client.spawn(main()), limit=1e6)
+    finally:
+        TorchRangeIndex.apply_delta, TorchRangeIndex._search = apply_delta, search
+        TorchRangeIndex._search_codes = search_codes
+    out["apply_delta"] = deltas
+    timed = out.pop("timed")
+    qkeys, ranges = out.pop("last")
+
+    # lookups through the role against host bisect over the same keys
+    n_q = STORAGE_ROUNDS * INDEX_BATCH
+    t0 = time.perf_counter()
+    for q in timed["queries"]:
+        for k in q:
+            bisect.bisect_left(model.keys, k)
+    host_s = time.perf_counter() - t0
+    mg, mgr = timed["multi_get_ms"], timed["multi_get_range_ms"]
+    out.update({
+        "multi_get_ms": {"p50": percentile(mg, 0.5), "p95": percentile(mg, 0.95)},
+        "multi_get_range_ms": {"p50": percentile(mgr, 0.5), "p95": percentile(mgr, 0.95)},
+        # the index search's wall ms inside each request (encode, copies, K5)
+        "index_ms": {"multi_get_p50": percentile(timed["index_ms"][0], 0.5),
+                     "multi_get_range_p50": percentile(timed["index_ms"][1], 0.5)},
+        "lookups_s_storage": n_q / (sum(mg) / 1e3),
+        "lookups_s_range_index": index_lookups_s,
+        "lookups_s_bisect": n_q / host_s,
+        "launches_multi_get": timed["launches_multi_get"],
+        "launches_multi_get_range": timed["launches_multi_get_range"],
+        "counters": {k: v for k, v in ss.stats.snapshot().items()
+                     if k.startswith("multiGet") or k == "batchRangeSeconds"},
+    })
+
+    # K5 at the storage shapes against its plain version
+    codes = ss._range_index._codes
+    width = ss._range_index.width
+    q_get = lanes_to_torch(K.encode_keys(qkeys, width=width), "cuda")
+    q_range = lanes_to_torch(K.encode_keys([r[0] for r in ranges] + [r[1] for r in ranges], width=width),
+                             "cuda")
+    log(f"K5 at the storage shapes [{card}]:")
+    rows = []
+    for label, q, n in (("multiGet", q_get, out["launches_multi_get"]),
+                        ("multiGetRange", q_range, out["launches_multi_get_range"])):
+        row = check_search(codes, q, {"search": n})[0]
+        row["name"] = f"search (storage {label}, Q={q.shape[0]})"
+        rows.append(row)
+    out["k5"] = [{k: r[k] for k in ("name", "launches", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "max_abs_err")} for r in rows]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"storage: multiGet p50 {out['multi_get_ms']['p50']:.2f} ms p95 {out['multi_get_ms']['p95']:.2f} ms, "
+        f"multiGetRange p50 {out['multi_get_range_ms']['p50']:.2f} ms p95 "
+        f"{out['multi_get_range_ms']['p95']:.2f} ms; {out['lookups_s_storage']:.1f} lookups/s through the "
+        f"role, {index_lookups_s:.1f} direct (phase 8), {out['lookups_s_bisect']:.1f} by host bisect; "
+        f"device idle {out['round_profile']['device_idle']:.4f} over a round "
+        f"({out['round_profile']['device_busy_from']}) [{card}]")
+    log(json.dumps({"storage": out}))
+    del sim, ss, tlog, client, model, keys
+    gc.collect()
+    return out, rows
 
 
 LIMIT_WIDTHS = (32, 128)  # the default key width (L = 8) and one past 64 bytes (L = 32)
@@ -1663,7 +2099,7 @@ def main() -> int:
     # 7. the partitioned resolver
     mesh_rows, spread_batches = run_mesh(want_oracle, offset, card)
     # 8. the range index
-    index_rows = run_range_index(card)
+    index_rows, index_lookups_s = run_range_index(card)
     # 9. the shapes past the bench's: many ranges a transaction, wide keys
     run_limits(card)
     # 10. the resolver role over both device paths, then the port's native
@@ -1689,8 +2125,14 @@ def main() -> int:
     run_failover(card, pipelined=False)
     run_failover(card, pipelined=True)
 
+    # 12. the storage role: tlog -> storage server on the port's Sim, its
+    # reads through K5; the earlier phases' objects go first
+    del batches, spread_batches, want, want_oracle, cs, warm, cpu, oracle, state_g1, hbatch
+    gc.collect()
+    _storage, storage_rows = run_storage(card, index_lookups_s)
+
     # 6. results
-    log(json.dumps({"kernels": rows + index_rows + mesh_rows}))
+    log(json.dumps({"kernels": rows + index_rows + mesh_rows + storage_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -4,8 +4,10 @@ The resolver's MVCC conflict check (``conflict.api.new_conflict_set("torch")``,
 or split into key-range partitions with ``"torch_mesh"``) and the storage
 range index (``ops.range_index.TorchRangeIndex``) run on an NVIDIA Hopper card
 through hand-written CUDA kernels (``conflict/kernels/csrc``), with a plain
-PyTorch version of every kernel for tensors that lie on the CPU. The package
-imports torch and numpy only.
+PyTorch version of every kernel for tensors that lie on the CPU. Above them
+run the resolver role (``server.resolver``) and the storage role fed by its
+tlog (``server.storage``, ``server.tlog``) on the deterministic simulator
+(``net.sim``). The package imports torch and numpy only.
 """
 
 from .device import resolve_device

@@ -72,8 +72,13 @@ class TorchRangeIndex:
     # -- queries ---------------------------------------------------------------
 
     def _search(self, qkeys: list):
-        q = lanes_to_torch(K.encode_keys(list(qkeys), width=self.width), self._device)
-        lo, hi = G.search_both(self._codes, q).cpu().numpy()  # one copy back
+        return self._search_codes(K.encode_keys(list(qkeys), width=self.width))
+
+    def _search_codes(self, codes: np.ndarray):
+        """The device part of a search: the query codes up, one K5 launch,
+        both insertion points back in one copy."""
+        q = lanes_to_torch(codes, self._device)
+        lo, hi = G.search_both(self._codes, q).cpu().numpy()
         return lo, hi
 
     def batch_lookup(self, qkeys: list):

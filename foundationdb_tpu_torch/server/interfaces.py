@@ -5,15 +5,19 @@ The analog of the reference's *Interface.h structs of RequestStreams
 StorageServerInterface.h, MasterProxyInterface.h). An interface here is a
 set of (endpoint token, request dataclass) pairs.
 
-The port's copy of ``foundationdb_tpu/server/interfaces.py``, so far only
-what the resolver takes and returns: ``Version``, ``TransactionData``,
-``ResolveBatchRequest``, ``ResolveBatchReply`` and the endpoint ``Tokens``,
-field for field. The other roles' messages come with those roles.
+The port's copy of ``foundationdb_tpu/server/interfaces.py``, so far the
+messages of the roles the port runs, field for field: the resolver's
+(``Version``, ``TransactionData``, ``ResolveBatchRequest``,
+``ResolveBatchReply``), the tlog's (``TLogCommitRequest``, ``TLogPeek*``,
+``TLogPop*``, ``TLogLock*``), the storage server's (``Get*``, ``Watch*``,
+``WaitMetricsRequest``, ``FeedRead*``, ``MultiGet*``) and the endpoint
+``Tokens``. The other roles' messages come with those roles.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 from ..kv.mutations import Mutation
 
@@ -75,6 +79,231 @@ class ResolveBatchReply:
     # this resolver's forget horizon — the proxy's summary must drop
     # entries at/below it (jumps on failover / journal capacity pressure)
     version_floor: Version = 0
+
+
+# -- tlog (TLogInterface.h) ---------------------------------------------------
+
+
+@dataclass
+class TLogCommitRequest:
+    prev_version: Version = INVALID_VERSION
+    version: Version = INVALID_VERSION
+    # tag → mutations at this version (LogPushData's tagged messages)
+    messages: dict[Tag, list[Mutation]] = field(default_factory=dict)
+    epoch: int = 0
+    known_committed: Version = 0  # piggybacked committed version
+
+
+@dataclass
+class TLogLockRequest:
+    """Recovery fence from a higher-epoch master (tLogLock:467)."""
+
+    epoch: int = 0
+
+
+@dataclass
+class TLogLockReply:
+    end_version: Version = INVALID_VERSION  # this tlog's durable version
+    known_committed: Version = 0
+
+
+@dataclass
+class TLogPeekRequest:
+    tag: Tag = 0
+    begin: Version = 0
+
+
+@dataclass
+class TLogPeekReply:
+    # [(version, mutations)] with version >= begin, ascending
+    messages: list[tuple[Version, list[Mutation]]] = field(default_factory=list)
+    end_version: Version = INVALID_VERSION  # data complete through this version
+    # piggybacked proxy-acked committed version (the consumer's committed
+    # frontier: watch firing / change-feed visibility gate)
+    known_committed: Version = 0
+
+
+@dataclass
+class TLogPopRequest:
+    tag: Tag = 0
+    upto: Version = INVALID_VERSION
+    # consumer class: "ss" (storage / master) or "router" (remote-region
+    # LogRouter) — each keeps an independent pop frontier at the tlog
+    consumer: str = "ss"
+
+
+# -- storage (StorageServerInterface.h) ---------------------------------------
+
+
+@dataclass
+class GetValueRequest:
+    key: bytes = b""
+    version: Version = INVALID_VERSION
+
+
+@dataclass
+class GetValueReply:
+    value: Optional[bytes] = None
+
+
+@dataclass
+class WatchValueRequest:
+    """Long-poll until the key's value differs from `value`
+    (watchValue_impl, storageserver.actor.cpp:758)."""
+
+    key: bytes = b""
+    value: Optional[bytes] = None  # the value the watcher believes is current
+    version: Version = INVALID_VERSION
+
+
+@dataclass
+class WatchValueReply:
+    value: Optional[bytes] = None  # the changed value
+    version: Version = INVALID_VERSION
+
+
+@dataclass
+class WaitMetricsRequest:
+    """Threshold-band metrics subscription: the storage
+    server replies immediately if its sampled byte estimate for
+    [begin, end) is outside [min_bytes, max_bytes], else parks the reply
+    until a sampled mutation pushes the estimate across the band
+    (StorageMetrics.actor.h waitMetrics — DD's trackShardBytes
+    subscribes instead of polling). A (-1, -1) band forces an immediate
+    reply with the current estimate."""
+
+    begin: bytes = b""
+    end: Optional[bytes] = None  # None = end of keyspace
+    min_bytes: int = -1
+    max_bytes: int = -1
+
+
+@dataclass
+class FeedReadRequest:
+    """One change-feed page: committed per-version diffs for
+    [begin, end) above from_version. Long-polls while the range is
+    quiet; `sub_id` identifies the subscriber's retention lease (the
+    feed floor holds at its cursor while the lease is live, bounded)."""
+
+    begin: bytes = b""
+    end: bytes = b"\xff"
+    from_version: Version = 0
+    limit: int = 0  # 0 = server default (STORAGE_FEED_BATCH_ENTRIES)
+    sub_id: str = ""
+
+
+@dataclass
+class FeedReadReply:
+    """batches = [(version, [(clear_begin, clear_end)...],
+    [(key, value)...])] — whole versions, clears clipped to the
+    subscribed range, both lists canonically sorted. `more` = page was
+    cut at the limit; resume immediately from next_version."""
+
+    batches: list = field(default_factory=list)
+    next_version: Version = 0
+    more: bool = False
+
+
+@dataclass
+class GetKeyRequest:
+    """Resolve a NORMALIZED key selector against this server's shard
+    (getKeyQ, storageserver.actor.cpp:1288). ``key``/``offset`` are the
+    or_equal-removed form (kv/selector.py): the result is the key
+    ``offset`` positions after "the last key < key". ``begin``/``end``
+    are the client's located shard bounds (end=None = infinity): servers
+    that own everything tag-route their data client-side here, so the
+    walk must clamp to the bounds the CLIENT located, intersected with
+    the server's own shard map."""
+
+    key: bytes = b""
+    offset: int = 1
+    version: Version = INVALID_VERSION
+    begin: bytes = b""
+    end: Optional[bytes] = None
+
+
+@dataclass
+class GetKeyReply:
+    """resolved=True: ``key`` is the answer (clamped to [b"", b"\\xff"]).
+    resolved=False: the walk ran off this shard's edge — continue with the
+    normalized selector (``key``, ``offset``) at the adjacent shard (the
+    client findKey loop, NativeAPI.actor.cpp:1220)."""
+
+    key: bytes = b""
+    offset: int = 0
+    resolved: bool = True
+
+
+@dataclass
+class GetKeyValuesRequest:
+    begin: bytes = b""
+    end: bytes = b""
+    version: Version = INVALID_VERSION
+    limit: int = 1 << 30
+    reverse: bool = False
+
+
+@dataclass
+class GetKeyValuesReply:
+    data: list[tuple[bytes, bytes]] = field(default_factory=list)
+    more: bool = False
+
+
+# -- batched reads (the read pipeline's wire shapes) ---------------------------
+#
+# Per-entry error codes a batched reply may carry. A batched endpoint
+# answers every entry it can and reports the rest individually, so one
+# bad key cannot fail a whole batch:
+#   too_old     — definitive: that entry's read is below the MVCC window
+#                 (only reachable per-entry via fault injection; a version
+#                 genuinely below the window fails the batch up front)
+#   wrong_shard — this server can't serve that entry at the version; the
+#                 client re-locates and retries it per-key
+#   dropped     — the reply for that entry was lost (fault injection /
+#                 partial reply); the client degrades it to a per-key read
+READ_ERR_TOO_OLD = "too_old"
+READ_ERR_WRONG_SHARD = "wrong_shard"
+READ_ERR_DROPPED = "dropped"
+
+
+@dataclass
+class MultiGetRequest:
+    """Many point reads — and selector resolutions — against ONE version
+    in one RPC (the client's same-tick read coalescing; the storage
+    answers engine misses through TorchRangeIndex.batch_lookup in one
+    kernel and pays waitVersion once for the whole batch)."""
+
+    keys: list[bytes] = field(default_factory=list)
+    # normalized selector resolutions riding the same hop, each in the
+    # GetKeyRequest shape: (key, offset, begin, end)
+    selectors: list = field(default_factory=list)
+    version: Version = INVALID_VERSION
+
+
+@dataclass
+class MultiGetReply:
+    values: list = field(default_factory=list)  # per key: value | None
+    errors: list = field(default_factory=list)  # [(key index, READ_ERR_*)]
+    selectors: list = field(default_factory=list)  # per selector: GetKeyReply
+    selector_errors: list = field(default_factory=list)  # [(index, READ_ERR_*)]
+
+
+@dataclass
+class MultiGetRangeRequest:
+    """Several range reads against ONE version in one RPC — the
+    multiGetRange sibling of getRange; the storage resolves every
+    forward range's engine bounds with one TorchRangeIndex.batch_range
+    interval query."""
+
+    # (begin, end, limit, reverse) per range
+    ranges: list = field(default_factory=list)
+    version: Version = INVALID_VERSION
+
+
+@dataclass
+class MultiGetRangeReply:
+    results: list = field(default_factory=list)  # per range: GetKeyValuesReply|None
+    errors: list = field(default_factory=list)  # [(range index, READ_ERR_*)]
 
 
 # -- endpoint token names (well-known, fdbrpc/fdbrpc.h:56) --------------------

@@ -837,3 +837,19 @@ def test_resolver_on_the_card_fails_over_to_native_and_promotes_back(cuda):
     assert not [(a, b) for g, w in zip(got, want) for a, b in zip(g, w) if a == 0 and b != 0]
     assert health["failovers"] >= 1 and health["promotions"] >= 1
     assert health["state"] == "HEALTHY" and health["backend"] == "TorchConflictSet"
+
+
+@pytest.mark.parametrize("chaos", [False, True], ids=["calm", "chaos"])
+def test_storage_slice_on_the_card_equals_its_cpu_run(cuda, chaos):
+    """The tlog → storage run of tests/test_torch_storage.py with the index
+    on the card: every reply, the index codes after each durability epoch,
+    the counters and the sim clock equal the CPU run's, and K5 served the
+    reads."""
+    from storage_slice import run_storage
+
+    kernels.reset_launch_counts()
+    got = run_storage("foundationdb_tpu_torch", seed=2, chaos=chaos, device="cuda")
+    assert kernels.launch_counts()["search"] > 0
+    want = run_storage("foundationdb_tpu_torch", seed=2, chaos=chaos, device="cpu")
+    assert got == want
+    assert got["counters"]["multiGetIndexKeys"] > 0
