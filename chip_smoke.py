@@ -29,8 +29,9 @@ card). Phases, each of which raises on failure:
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
    committed clear spans the whole keyspace;
-6. after phases 7 to 12: print the kernel table (every kernel of the
-   paths, K5 also at the storage shapes), the card line and the result line;
+6. after phases 7 to 13: print the kernel table (every kernel of the
+   paths, K5 also at the storage shapes, K1-K3 and K5 also on the commit
+   path), the card line and the result line;
 7. the partitioned resolver, ``new_conflict_set("torch_mesh", key_width=12,
    capacity=1<<19, n_parts=4)`` (4 partitions × 8192 × 32 × 4 uint32 =
    16 MiB), over the same workload with every key re-encoded
@@ -95,6 +96,28 @@ card). Phases, each of which raises on failure:
    request ms, lookups/s through the role beside phase 8's and host
    ``bisect``'s, the index search's share, ``apply_delta`` ms and bytes,
    the device's idle share over a round.
+13. the commit path: the port's static ``Cluster`` (2 proxies, 2
+   resolvers on ``torch``, 1 tlog, 1 storage server with its durable
+   engine, bench_e2e's datacenter latency) on the port's ``Sim(seed=0)``,
+   the resolution balancer on, and one ``Database``. 1M keys
+   ``b"rw/%08d"`` with 16-byte values are loaded in transactions of 2000
+   sets, until the engine and its index hold them; then mix A "90_10" (100
+   actors × 50 transactions of 9 parallel gets and 1 set) and mix B
+   "write" (100 × 20 of 10 sets), retried through ``on_error``. Gates: a
+   serializability referee over every committed transaction (reads, read
+   and commit versions, batch order), every written key read back through
+   a multiGet, K1, K2, K3 staging, K3 merge and K5 launched in the mixes
+   with no multiGet fallback, both resolvers' guards HEALTHY with no fault,
+   both resolvers given transactions in mix A (the balancer moved the
+   boundary), and a CPU twin: the same phase at 100,000 keys with
+   ``device="cpu"`` and on the card gives identical transcripts. K1, K2
+   and K3 are then held against their plain versions on mix A's widest
+   batch and K5 at its widest multiGet search. One ``{"commit_path": ...}``
+   JSON line: load and durable seconds, per mix committed txn/s and ops/s,
+   NotCommitted, commit and GRV latency (sim and wall), per resolver
+   batches, transactions, resolveLatency and the encode / dispatch /
+   collect split, the proxies' phase latencies, multiGets and their keys,
+   the grid's growths and device reshards, the device's idle share.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after, and every kernel of the path must have launched.
@@ -657,23 +680,22 @@ def check_history(state, batch, launches: dict, bounds=None) -> tuple[list[dict]
     return rows, cases
 
 
-def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
-    """Each kernel against its plain version on the card, on the state
-    after the first group and the next bench batch. Exact equality; times
-    from CUDA events (the 16 MiB grid stays resident in the 50 MB L2, as it
-    does between the main path's batches)."""
+def check_resolve_kernels(state, hbatch, vers, launches: dict):
+    """The kernels of one batch's resolve against their plain versions on
+    the card: K1 history (on ``hbatch`` and on keyspace-wide reads), K2,
+    the K3 staging and the K3 merge with its floor raise. Exact equality;
+    times from CUDA events. Returns (the rows, the uploaded batch, K2's
+    commit flags, the staged writes)."""
     from foundationdb_tpu_torch.conflict import grid as G
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict import torch_backend as TB
 
-    dev = state.grid.device
-    now, old_pre, old_post = vers
-    batch = TB.upload(hbatch, dev)
+    old_pre = vers[1]
+    batch = TB.upload(hbatch, state.grid.device)
     B, S, Lp1 = state.grid.shape
     L = Lp1 - 1
     T, KR, _ = batch.rb.shape
     KW = batch.wb.shape[1]
-    cell = CELL
     rows = []
     row = row_maker(rows, launches)
 
@@ -707,6 +729,24 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     err, timed, plain_ms, ks = merge_case(state, st, vers, 1)
     row("merge", "merge.cu", "foundationdb_tpu/conflict/grid.py:526", err, timed, plain_ms,
         *merge_work(state, ks, st, 1))
+    return rows, batch, ck, st
+
+
+def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
+    """Each kernel against its plain version on the card, on the state
+    after the first group and the next bench batch. Exact equality; times
+    from CUDA events (the 16 MiB grid stays resident in the 50 MB L2, as it
+    does between the main path's batches)."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import kernels
+
+    rows, batch, ck, st = check_resolve_kernels(state, hbatch, vers, launches)
+    row = row_maker(rows, launches)
+    dev = state.grid.device
+    now = vers[0]
+    B, S, Lp1 = state.grid.shape
+    L = Lp1 - 1
+    cell = CELL
 
     # the same launch when one committed clear spans the whole keyspace and
     # nothing else commits: two touched buckets, all others floor-raised
@@ -1936,6 +1976,508 @@ def run_failover(card: str, pipelined: bool) -> dict:
     return out
 
 
+COMMIT_KEYS = 1_000_000  # ReadWrite's key shape at BASELINE.json's YCSB "uniform 1M keys" scale
+COMMIT_TWIN_KEYS = 100_000  # bench.py:917 bench_e2e's keyspace: the CPU twin's scale
+COMMIT_LOAD_SETS = 2000  # workloads/readwrite.py:134 setup: sets a load transaction
+COMMIT_ACTORS = 100
+MIX_A = ("90_10", 50, 9, 1)  # tools/perf.py:39: (name, txns an actor, parallel gets, sets)
+MIX_B = ("write", 20, 0, 10)  # perf.py's "write" preset
+COMMIT_ATTEMPTS = 20  # ReadWriteWorkload._one_txn's retry budget
+
+
+def commit_key(n: int) -> bytes:
+    return b"rw/%08d" % n
+
+
+class CommitReferee:
+    """Serializability referee of the commit path. Each committed
+    transaction comes with its read version, its commit version, its batch
+    index (the versionstamp's last two bytes), what it read and what it
+    wrote; (commit version, batch index) is the order the proxies gave
+    them. Checks that every read saw the last write at or below the read
+    version (or the loaded value), that no committed write came between a
+    reader's read version and its own commit point over a key it read, and
+    that among the transactions of one commit version "the reader precedes
+    the writer" has no cycle. ``model()`` is every key's last value."""
+
+    def __init__(self):
+        self.txns = []  # (cv, idx, rv, reads {k: v}, writes {k: v})
+
+    def add(self, cv: int, stamp: bytes, rv: int, reads: dict, writes: dict) -> None:
+        self.txns.append((cv, int.from_bytes(stamp[8:10], "big"), rv, reads, writes))
+
+    def check(self) -> dict:
+        import bisect
+
+        self.txns.sort(key=lambda t: (t[0], t[1]))
+        order = [(t[0], t[1]) for t in self.txns]
+        if len(set(order)) != len(order):
+            raise AssertionError("two committed transactions share a commit version and batch index")
+        hist: dict = {}  # key -> [(cv, idx, value)] in commit order
+        for cv, idx, _rv, _r, writes in self.txns:
+            for k, v in writes.items():
+                hist.setdefault(k, []).append((cv, idx, v))
+        n_reads = 0
+        for cv, idx, rv, reads, _w in self.txns:
+            if reads and rv >= cv:
+                raise AssertionError(f"read version {rv} not below commit version {cv}")
+            for k, v in reads.items():
+                h = hist.get(k, [])
+                i = bisect.bisect_right(h, (rv, 1 << 62))
+                want = h[i - 1][2] if i else None
+                if v != want:
+                    raise AssertionError(f"read of {k!r} at {rv} saw {v!r}, the last write is {want!r}")
+                if i < len(h) and (h[i][0], h[i][1]) < (cv, idx):
+                    raise AssertionError(f"{k!r} read at {rv} was written at {h[i][:2]} before the "
+                                         f"reader committed at {(cv, idx)}")
+                n_reads += 1
+        # one commit version: edges reader -> writer of a key it read
+        by_cv: dict = {}
+        for t in self.txns:
+            by_cv.setdefault(t[0], []).append(t)
+        for cv, group in by_cv.items():
+            if len(group) < 2:
+                continue
+            edges = {t[1]: [u[1] for u in group if u is not t and set(t[3]) & set(u[4])] for t in group}
+            state = {}
+
+            def visit(n):
+                state[n] = 1
+                for m in edges[n]:
+                    if state.get(m) == 1 or (m not in state and visit(m)):
+                        return True
+                state[n] = 2
+                return False
+
+            if any(n not in state and visit(n) for n in edges):
+                raise AssertionError(f"the reads-before-writes graph of commit version {cv} has a cycle")
+        return {"committed": len(self.txns), "reads_checked": n_reads, "commit_versions": len(by_cv)}
+
+    def model(self) -> dict:
+        final = {}
+        for _cv, _idx, _rv, _r, writes in sorted(self.txns, key=lambda t: (t[0], t[1])):
+            final.update(writes)
+        return final
+
+
+def commit_path_run(card: str, device, n_keys: int, measure: bool) -> dict:
+    """Phase 13, one run: the port's static ``Cluster`` on the port's
+    ``Sim(seed=0)`` with bench_e2e's datacenter latency profile and layout
+    (2 proxies, 2 resolvers on ``torch``, 1 tlog, 1 storage server; every
+    other knob at its default), the resolution balancer on, one
+    ``Database``. Loads ``n_keys`` keys in transactions of 2000 sets, waits
+    until the storage engine and its index hold them, then runs mix A
+    (100 actors × 50 transactions of 9 parallel gets and 1 set) and mix B
+    (100 × 20 of 10 sets), retrying through ``on_error``. Every committed
+    transaction goes to the referee; every key the mixes wrote is read back
+    through a multiGet. ``device`` is the cluster's (``"cpu"``: the plain
+    versions). With ``measure``, also the kernel launches, the device's
+    idle share, a cProfile of one mix-A round and the kernel rows. Returns
+    the transcript (every attempt's read version, reads, writes and
+    outcome) and the measurements."""
+    from foundationdb_tpu_torch.client import Database
+    from foundationdb_tpu_torch.client.read_coalescer import ReadCoalescer
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    from foundationdb_tpu_torch.net.sim import Sim
+    from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
+    from foundationdb_tpu_torch.runtime.futures import delay, spawn, wait_for_all
+    from foundationdb_tpu_torch.runtime.loop import now as sim_now
+    from foundationdb_tpu_torch.server import Cluster, ClusterConfig
+    from foundationdb_tpu_torch.server.interfaces import Tokens
+
+    on_card = device is None
+    t_run = time.perf_counter()
+    sim = Sim(seed=0)
+    sim.activate()
+    sim.knobs.SIM_FAST_LATENCY = 0.00025  # bench.py:928-929, the datacenter profile
+    sim.knobs.SIM_MAX_LATENCY = 0.001
+    cluster = Cluster(sim, ClusterConfig(n_proxies=2, n_resolvers=2, n_tlogs=1, n_storage=1,
+                                         conflict_backend="torch"), device=device)
+    balancer = cluster.start_resolution_balancer()
+    db = Database(sim, cluster.proxy_addrs)
+    ss = cluster.storages[0]
+    referee = CommitReferee()
+    transcript: list = []
+    out: dict = {"keys": n_keys, "device": "card" if on_card else "cpu"}
+
+    # instruments: the multiGet sizes the clients send; with ``spans`` on,
+    # CUDA events around the device part of each resolver group (dispatch
+    # to collected verdicts) and of each index search; and the widest batch
+    # a resolver encodes while ``capture`` is on
+    mg_sizes, spans, capture = [], {"on": False, "pairs": []}, {"on": False, "best": None}
+    send, detect_async = ReadCoalescer._send, TorchConflictSet.detect_many_encoded_async
+    encode, search_codes = TorchConflictSet.encode, TorchRangeIndex._search_codes
+
+    async def sized_send(self, team, token, req, batch, size_tags):
+        if token == Tokens.MULTI_GET:
+            mg_sizes.append(len(req.keys))
+        return await send(self, team, token, req, batch, size_tags)
+
+    def spanned_detect(self, work):
+        if not spans["on"]:
+            return detect_async(self, work)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        collect = detect_async(self, work)
+
+        def collected():
+            verdicts = collect()  # ends in a copy of the verdicts to the host
+            e1 = torch.cuda.Event(enable_timing=True)
+            e1.record()
+            spans["pairs"].append((e0, e1))
+            return verdicts
+
+        return collected
+
+    def spanned_search(self, codes):
+        if not spans["on"]:
+            return search_codes(self, codes)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        lo_hi = search_codes(self, codes)
+        e1.record()
+        spans["pairs"].append((e0, e1))
+        if capture["on"] and codes.shape[0] > capture.get("q", (0,))[0]:
+            capture["q"] = (codes.shape[0], self, codes)
+        return lo_hi
+
+    def captured_encode(self, transactions):
+        enc = encode(self, transactions)
+        if capture["on"]:
+            b = enc[0]
+            size = (len(transactions), b.rb.shape[1] * b.wb.shape[1])
+            if capture["best"] is None or size > capture["best"][0]:
+                capture["best"] = (size, self, enc)
+        return enc
+
+    def resolver_snaps():
+        return [r.stats.snapshot() for r in cluster.resolvers]
+
+    async def load():
+        t0, s0 = time.perf_counter(), sim_now()
+        for lo in range(0, n_keys, COMMIT_LOAD_SETS):
+            writes = {commit_key(i): b"%016d" % i for i in range(lo, min(lo + COMMIT_LOAD_SETS, n_keys))}
+            for _attempt in range(COMMIT_ATTEMPTS):
+                tr = db.transaction()
+                try:
+                    for k, v in writes.items():
+                        tr.set(k, v)
+                    rv = await tr.get_read_version()
+                    cv = await tr.commit()
+                    referee.add(cv, tr.get_versionstamp(), rv, {}, writes)
+                    transcript.append(("load", lo, rv, cv))
+                    break
+                except Exception as e:
+                    transcript.append(("load", lo, type(e).__name__))
+                    await tr.on_error(e)
+            else:
+                raise AssertionError(f"load transaction at {lo} failed {COMMIT_ATTEMPTS} times")
+        out["load_s"] = time.perf_counter() - t0
+        out["load_sim_s"] = sim_now() - s0
+        out["load_txns"] = math.ceil(n_keys / COMMIT_LOAD_SETS)
+        target = max(r[3] for r in transcript if len(r) == 4)  # the last load commit
+        t0 = time.perf_counter()
+        for _ in range(2000):  # the engine also holds its own metadata key
+            idx = ss._range_index
+            if (ss.durable_version >= target and len(ss.engine._keys) > n_keys and idx is not None
+                    and idx.n == len(ss.engine._keys)):
+                break
+            await delay(0.05)
+        else:
+            raise AssertionError(f"storage durable at {ss.durable_version} below {target}, "
+                                 f"{len(ss.engine._keys)} engine keys of {n_keys}")
+        out["durable_s"] = time.perf_counter() - t0
+        log(f"commit path ({out['device']}): {n_keys} keys in {out['load_txns']} transactions of "
+            f"{COMMIT_LOAD_SETS} sets in {out['load_s']:.2f} s, durable and indexed "
+            f"{out['durable_s']:.2f} s later" + (f" [{card}]" if on_card else ""))
+
+    async def run_mix(spec, seed: int, n_actors: int = COMMIT_ACTORS, txns: int | None = None):
+        name, n_txns, n_reads, n_sets = spec
+        n_txns = n_txns if txns is None else txns
+        lat = {"commit_sim": [], "commit_wall": [], "grv_sim": [], "grv_wall": []}
+        stats = {"committed": 0, "not_committed": 0, "other_errors": 0}
+
+        async def actor(a):
+            rnd = random.Random(seed * 1000 + a)
+            for t in range(n_txns):
+                for attempt in range(COMMIT_ATTEMPTS):
+                    tr = db.transaction()
+                    try:
+                        s0, w0 = sim_now(), time.perf_counter()
+                        rv = await tr.get_read_version()
+                        lat["grv_sim"].append(sim_now() - s0)
+                        lat["grv_wall"].append(time.perf_counter() - w0)
+                        keys = [commit_key(rnd.randrange(n_keys)) for _ in range(n_reads)]
+                        vals = await wait_for_all([spawn(tr.get(k)) for k in keys]) if keys else []
+                        writes = {commit_key(rnd.randrange(n_keys)): b"%s%03d-%011d" % (name[:1].encode(), a, t)
+                                  for _ in range(n_sets)}
+                        for k, v in writes.items():
+                            tr.set(k, v)
+                        s0, w0 = sim_now(), time.perf_counter()
+                        cv = await tr.commit()
+                        lat["commit_sim"].append(sim_now() - s0)
+                        lat["commit_wall"].append(time.perf_counter() - w0)
+                        reads = dict(zip(keys, vals))
+                        referee.add(cv, tr.get_versionstamp(), rv, reads, writes)
+                        transcript.append((name, a, t, attempt, rv, keys, vals, sorted(writes.items()), cv))
+                        stats["committed"] += 1
+                        break
+                    except Exception as e:
+                        kind = type(e).__name__
+                        transcript.append((name, a, t, attempt, kind))
+                        stats["not_committed" if kind == "NotCommitted" else "other_errors"] += 1
+                        await tr.on_error(e)
+                else:
+                    raise AssertionError(f"{name}: actor {a} transaction {t} failed {COMMIT_ATTEMPTS} times")
+            return True
+
+        before = resolver_snaps()
+        w0, s0 = time.perf_counter(), sim_now()
+        await wait_for_all([spawn(actor(a)) for a in range(n_actors)])
+        wall, sim_s = time.perf_counter() - w0, sim_now() - s0
+        after = resolver_snaps()
+        ops = stats["committed"] * (n_reads + n_sets)
+        res = {
+            "actors": n_actors, "txns_per_actor": n_txns, "wall_s": wall, "sim_s": sim_s,
+            "txn_s_wall": stats["committed"] / wall, "ops_s_wall": ops / wall, **stats,
+            "commit_ms_sim": {"p50": percentile(lat["commit_sim"], 0.5) * 1e3,
+                              "p95": percentile(lat["commit_sim"], 0.95) * 1e3},
+            "commit_ms_wall": {"p50": percentile(lat["commit_wall"], 0.5) * 1e3,
+                               "p95": percentile(lat["commit_wall"], 0.95) * 1e3},
+            "grv_ms_sim_p50": percentile(lat["grv_sim"], 0.5) * 1e3,
+            "grv_ms_wall_p50": percentile(lat["grv_wall"], 0.5) * 1e3,
+            "resolvers": [{k: a_[k] - b_[k] for k in ("resolveBatchIn", "transactions", "conflicts")}
+                          for a_, b_ in zip(after, before)],
+        }
+        return res
+
+    async def main():
+        await load()
+        # phase 12's rule: the run's millions of objects leave the
+        # collector's scans before the timed mixes
+        gc.collect()
+        gc.freeze()
+        st0 = ss.stats.snapshot()
+        if on_card:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+        mixes = {}
+        capture["on"], spans["on"], spans["pairs"] = True, on_card, []
+        mixes["A"] = await run_mix(MIX_A, seed=1)
+        capture["on"], spans["on"] = False, False
+        if on_card:
+            torch.cuda.synchronize()
+            busy = sum(e0.elapsed_time(e1) for e0, e1 in spans["pairs"]) * 1e-3
+            mixes["A"]["device_spans"] = len(spans["pairs"])
+            mixes["A"]["device_idle_at_least"] = 1.0 - busy / mixes["A"]["wall_s"]
+            mixes["A"]["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+        if measure:
+            out["round_profile"] = await profiled_round()
+            out["cprofile"] = await cprofiled_round()
+        mixes["B"] = await run_mix(MIX_B, seed=2)
+        out["mixes"] = mixes
+        if on_card:
+            out["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+        st1 = ss.stats.snapshot()
+        out["storage"] = {k: st1[k] - st0[k] for k in ("multiGetBatches", "multiGetKeys",
+                                                          "multiGetIndexKeys", "multiGetFallbackKeys")}
+        # read-back: every key the mixes wrote, through one multiGet tick
+        written = sorted({k for row in transcript if len(row) == 9 for k, _v in row[7]})
+        tr = db.transaction()
+        rv = await tr.get_read_version()
+        n_mg = len(mg_sizes)
+        vals = await wait_for_all([spawn(tr.get(k)) for k in written])
+        out["read_back"] = {"keys": len(written), "read_version": rv, "multi_gets": len(mg_sizes) - n_mg}
+        return dict(zip(written, vals))
+
+    async def profiled_round():
+        """One mix-A round (one transaction an actor) under torch.profiler
+        and the device spans: the profiler's idle share where it saw every
+        launch of the port's kernels, else the spans' floor."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        c0 = sum(kernels.launch_counts().values())
+        spans["on"], spans["pairs"] = True, []
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                w0 = time.perf_counter()
+                await run_mix(MIX_A, seed=3, txns=1)
+                torch.cuda.synchronize()
+                window = time.perf_counter() - w0
+        finally:
+            spans["on"] = False
+        n_launch = sum(kernels.launch_counts().values()) - c0
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ours = [e for e in dev if PORT_KERNELS.search(e.name)]
+        busy = sum(e.time_range.elapsed_us() for e in dev) * 1e-6
+        span = sum(e0.elapsed_time(e1) for e0, e1 in spans["pairs"]) * 1e-3
+        whole = len(ours) >= n_launch > 0
+        return {"window_ms": window * 1e3, "launches": n_launch, "profiler_device_events": len(dev),
+                "profiler_port_kernels": len(ours), "profiler_device_busy_ms": busy * 1e3,
+                "device_span_ms": span * 1e3, "device_idle_at_least": 1.0 - span / window,
+                "device_idle": 1.0 - (busy if whole else span) / window,
+                "device_busy_from": "profiler" if whole else "cuda_events_around_device_part"}
+
+    async def cprofiled_round():
+        """One mix-A round under cProfile: the top functions by own time."""
+        import cProfile
+        import pstats
+
+        cprof = cProfile.Profile()
+        w0 = time.perf_counter()
+        cprof.enable()
+        await run_mix(MIX_A, seed=4, txns=1)
+        cprof.disable()
+        wall = time.perf_counter() - w0
+        stats = pstats.Stats(cprof)
+        top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:15]
+        cum = sorted(stats.stats.items(), key=lambda kv: -kv[1][3])[:25]
+
+        def where(fn):
+            return f"{fn[2]} ({fn[0].rsplit('/', 2)[-2:][-1]}:{fn[1]})"
+
+        return {"wall_s": wall,
+                "own": [(where(fn), tt, nc) for fn, (_cc, nc, tt, _ct, _c) in top],
+                "cumulative": [(where(fn), ct, nc) for fn, (_cc, nc, _tt, ct, _c) in cum]}
+
+    ReadCoalescer._send, TorchConflictSet.detect_many_encoded_async = sized_send, spanned_detect
+    TorchConflictSet.encode, TorchRangeIndex._search_codes = captured_encode, spanned_search
+    try:
+        read_back = sim.run_until_done(spawn(main()), limit=1e6)
+    finally:
+        ReadCoalescer._send, TorchConflictSet.detect_many_encoded_async = send, detect_async
+        TorchConflictSet.encode, TorchRangeIndex._search_codes = encode, search_codes
+    out["referee"] = referee.check()
+
+    # gate: every acknowledged write read back
+    model = referee.model()
+    bad = [k for k, v in read_back.items() if v != model[k]]
+    if bad:
+        raise AssertionError(f"{len(bad)} written keys read back other than the referee's model, "
+                             f"e.g. {bad[0]!r}: {read_back[bad[0]]!r} != {model[bad[0]]!r}")
+    if out["storage"]["multiGetFallbackKeys"] != 0:
+        raise AssertionError(f"multiGetFallbackKeys {out['storage']['multiGetFallbackKeys']} in the mixes")
+    # gate: both guards healthy
+    health = [r.cs.health_snapshot() for r in cluster.resolvers]
+    for i, h in enumerate(health):
+        if h["state"] != "HEALTHY" or h["faults"] or h["failovers"] or h["deadlineHits"]:
+            raise AssertionError(f"resolver {i}: the guard left its healthy path: {h}")
+    # gate: the balancer gave resolver 1 work in mix A
+    if any(r["transactions"] <= 0 for r in out["mixes"]["A"]["resolvers"]):
+        raise AssertionError(f"a resolver resolved no transaction in mix A: {out['mixes']['A']['resolvers']} "
+                             f"(balancer moves {balancer.moves})")
+    snaps = resolver_snaps()
+    out["resolvers"] = [{
+        "batches": s["resolveBatchIn"], "transactions": s["transactions"], "conflicts": s["conflicts"],
+        "resolveLatency_s": {k: s["resolveLatency"].get(k) for k in ("p50", "p99")},
+        "encode_s": s["kernel"].get("encodeSeconds"), "dispatch_s": s["kernel"].get("dispatchSeconds"),
+        "collect_s": s["kernel"].get("collectSeconds"),
+        "capacityGrowths": s["kernel"]["capacityGrowths"], "reshardsDevice": s["kernel"]["reshardsDevice"],
+        "overflowReplays": s["kernel"]["overflowReplays"], "reshard_s": s["kernel"].get("reshardSeconds"),
+        "grid": list(r.cs._cs._state.grid.shape[:2]), "health": h["state"],
+    } for s, r, h in zip(snaps, cluster.resolvers, health)]
+    out["balancer_moves"] = balancer.moves
+    out["resolver_map"] = [(b.decode("latin-1"), None if e is None else e.decode("latin-1"), r.address)
+                           for b, e, r in balancer.map.ranges()]
+    out["proxies"] = [{k: p.stats.snapshot()[k] for k in ("phase1Version", "phase2Resolve", "phase4LogPush",
+                                                           "commitBatchesOut", "txnCommitOut", "txnConflicts")}
+                      for p in cluster.proxies]
+    out["multi_get_keys_p50"] = percentile(mg_sizes, 0.5) if mg_sizes else 0
+    out["multi_gets"] = len(mg_sizes)
+    out["run_s"] = time.perf_counter() - t_run
+    out["capture"] = capture
+    out["transcript"] = transcript
+    out["cluster"] = cluster
+    return out
+
+
+def run_commit_path(card: str) -> tuple[dict, list[dict]]:
+    """Phase 13: the commit path on the card. The CPU twin first (the same
+    run at bench_e2e's 100,000 keys with ``device="cpu"``, then on the
+    card: identical transcripts), then the 1M-key run on the card with its
+    gates, its measurements and the kernel rows of its widest mix-A batch
+    and its widest K5 search. Returns the phase's JSON object and the rows."""
+    from foundationdb_tpu_torch.device import lanes_to_torch
+    from foundationdb_tpu_torch.runtime.loop import set_loop
+
+    t_phase = time.perf_counter()
+    twin = {}
+    for label, device in (("cpu", "cpu"), ("card", None)):
+        run = commit_path_run(card, device, COMMIT_TWIN_KEYS, measure=False)
+        twin[label] = run
+        set_loop(None)
+        gc.unfreeze()  # the run froze its objects before its mixes
+        gc.collect()
+    a, b = twin["cpu"]["transcript"], twin["card"]["transcript"]
+    if a != b:
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        raise AssertionError(f"the CPU twin's transcript differs from the card's at record {i} of "
+                             f"{len(a)} / {len(b)}: {a[i] if i < len(a) else None} != "
+                             f"{b[i] if i < len(b) else None}")
+    twin_out = {"keys": COMMIT_TWIN_KEYS, "records": len(a),
+                "committed": sum(1 for r in a if len(r) in (4, 9)),
+                "not_committed": sum(1 for r in a if r[-1] == "NotCommitted"),
+                "cpu_run_s": twin["cpu"]["run_s"], "card_run_s": twin["card"]["run_s"]}
+    log(f"commit path twin: {len(a)} records identical on the CPU and on the card "
+        f"({twin_out['committed']} commits, {twin_out['not_committed']} NotCommitted) [{card}]")
+    del twin, a, b
+    gc.collect()
+
+    run = commit_path_run(card, None, COMMIT_KEYS, measure=True)
+    cluster, capture = run.pop("cluster"), run.pop("capture")
+    transcript = run.pop("transcript")
+    launches = run["launches"]
+    path = ("history", "intra_batch", "stage", "merge", "search")
+    missing = [k for k in path if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the mixes: {missing} ({launches})")
+
+    # the kernel rows: K1, K2, K3 on the widest mix-A batch, K5 at mix A's
+    # widest multiGet, each against its plain version
+    (_size, cs, (hbatch, n_real, _epoch)) = capture["best"]
+    base = cs._origin[1]
+    window = cluster.knobs.MAX_READ_TRANSACTION_LIFE_VERSIONS
+    old = max(cs.oldest_version - base, 0)
+    vers = (old + window, old, old)
+    T, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
+    log(f"kernel checks on the widest mix-A batch ({n_real} transactions, T={T} KR={KR} KW={KW}) "
+        f"and the resolver's state after the mixes [{card}]:")
+    rows = check_resolve_kernels(cs._state, hbatch, vers, launches)[0]
+    for r in rows:
+        r["name"] = f"{r['name']} (commit path, mix A batch T={T} KR={KR} KW={KW})"
+    q_rows, idx, codes = capture["q"]
+    log(f"K5 at mix A's widest multiGet search (Q={q_rows}) [{card}]:")
+    k5 = check_search(idx._codes, lanes_to_torch(codes, "cuda"), {"search": launches["search"]})[0]
+    k5["name"] = f"search (commit path, mix A multiGet, Q={q_rows})"
+    rows.append(k5)
+    run["kernel_rows"] = [{k: r[k] for k in ("name", "launches", "ms", "device_ms", "plain_ms",
+                                             "bound_ms", "bound_by", "max_abs_err")} for r in rows]
+    run["twin"] = twin_out
+    run["phase_s"] = time.perf_counter() - t_phase
+    run["card"] = card
+    cp = run.pop("cprofile")
+    A = run["mixes"]["A"]
+    log(f"commit path: mix A {A['txn_s_wall']:.1f} committed txn/s ({A['ops_s_wall']:.1f} ops/s) of wall "
+        f"time, commit p50 {A['commit_ms_sim']['p50']:.3f} ms sim / {A['commit_ms_wall']['p50']:.3f} ms wall, "
+        f"{A['not_committed']} NotCommitted; device idle {run['round_profile']['device_idle']:.4f} "
+        f"({run['round_profile']['device_busy_from']}), at least {A.get('device_idle_at_least', 0):.4f} "
+        f"over mix A [{card}]")
+    log("commit path, one mix-A round under cProfile (%.3f s wall), top own time: " % cp["wall_s"]
+        + "; ".join(f"{w} {t * 1e3:.1f} ms in {n} calls" for w, t, n in cp["own"]))
+    log("commit path, one mix-A round under cProfile, top cumulative: "
+        + "; ".join(f"{w} {t * 1e3:.1f} ms" for w, t, _n in cp["cumulative"]))
+    log(json.dumps({"commit_path": run}, default=str))
+    log(card)
+    del cluster, transcript, capture, cs
+    set_loop(None)
+    gc.unfreeze()
+    gc.collect()
+    return run, rows
+
+
 def profile_only(card: str, history: bool = False, reshard: bool = False, rebase: bool = False) -> None:
     """Only the per-batch profile of both resolver paths: each warmed by
     one group of the bench workload, then profiled over the next
@@ -2130,9 +2672,12 @@ def main() -> int:
     del batches, spread_batches, want, want_oracle, cs, warm, cpu, oracle, state_g1, hbatch
     gc.collect()
     _storage, storage_rows = run_storage(card, index_lookups_s)
+    # 13. the commit path: client -> proxy -> master -> resolver -> tlog ->
+    # storage in the port's static Cluster, its CPU twin first
+    _commit, commit_rows = run_commit_path(card)
 
     # 6. results
-    log(json.dumps({"kernels": rows + index_rows + mesh_rows + storage_rows}))
+    log(json.dumps({"kernels": rows + index_rows + mesh_rows + storage_rows + commit_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -769,7 +769,7 @@ def reshard_device_plain(state, used, n_buckets: int, n_slots: int):
 
 
 # ---------------------------------------------------------------------------
-# Host-side construction / conversion / resharding (rare, numpy)
+# Construction / conversion / resharding (rare)
 
 
 def state_from_numpy(pivots, grid, count, bmax, floor, device) -> GridState:
@@ -836,123 +836,110 @@ def codes_to_bytes(codes: np.ndarray) -> np.ndarray:
     return be.view(np.dtype((np.void, 4 * L))).reshape(n)
 
 
-def live_rows(state: GridState) -> tuple[np.ndarray, np.ndarray]:
-    """(codes uint32[N, L], versions int64[N]) of all live boundaries, in
-    global key order. Bucket floors are folded into the versions."""
-    _piv, grid, count, _bmax, floor = state_to_numpy(state)
-    B_old, S_old, Lp1 = grid.shape
-    used = np.arange(S_old)[None, :] < count[:, None]
-    codes = grid[..., : Lp1 - 1][used]
-    vers = grid[..., Lp1 - 1].astype(np.int64)
-    vers = np.maximum(vers, floor[:, None].astype(np.int64))[used]
+def live_codes(state: GridState) -> tuple[torch.Tensor, torch.Tensor]:
+    """(codes int32[N, L], versions int64[N]) of all live boundaries, in
+    global key order, on the state's device. Bucket floors are folded into
+    the versions."""
+    S_old, L = state.grid.shape[1], state.grid.shape[2] - 1
+    used = torch.arange(S_old, device=state.grid.device)[None, :] < state.count[:, None]
+    codes = state.grid[..., :L][used]
+    vers = torch.maximum(state.grid[..., L], state.floor[:, None])[used].long()
     return codes, vers
 
 
-def reshard_host(
-    state: GridState, new_pivot_codes: np.ndarray, n_buckets: int, n_slots: int
-) -> GridState:
-    """Rebuild the grid under new pivots (vectorized numpy; rare — init,
-    growth, or skew). Preserves the step function exactly: every live
-    boundary is re-bucketed and each new pivot becomes a boundary
-    inheriting the value of the gap containing it. Raises OverflowError
-    when some bucket needs more than ``n_slots`` rows."""
+def live_rows(state: GridState) -> tuple[np.ndarray, np.ndarray]:
+    """``live_codes`` on the host: (codes uint32[N, L], versions int64[N])."""
+    codes, vers = live_codes(state)
+    return lanes_to_numpy(codes), vers.cpu().numpy()
+
+
+def _same_as_previous(codes: torch.Tensor) -> torch.Tensor:
+    """bool[N]: row i equals row i - 1 in every lane (False for row 0)."""
+    out = torch.zeros(codes.shape[0], dtype=torch.bool, device=codes.device)
+    if codes.shape[0] > 1:
+        out[1:] = (codes[1:] == codes[:-1]).all(dim=1)
+    return out
+
+
+def sorted_unique(codes: torch.Tensor) -> torch.Tensor:
+    """The distinct rows of int32[N, L] lane codes, in key order."""
+    codes = codes[_lex_order([ordered(codes[:, i]) for i in range(codes.shape[1])])]
+    return codes[~_same_as_previous(codes)]
+
+
+def reshard(state: GridState, pivots, n_buckets: int, n_slots: int) -> GridState:
+    """Rebuild the grid under new pivots (sorted lane codes, an int32
+    tensor or uint32 numpy [P, L]; pivot 0 must equal the smallest live
+    boundary) on the state's device (rare: init, growth, skew, a replay).
+    Preserves the step function exactly: every live boundary is
+    re-bucketed and each new pivot becomes a boundary inheriting the value
+    of the gap containing it. Raises OverflowError when some bucket needs
+    more than ``n_slots`` rows."""
+    dev = state.grid.device
     Lp1 = state.grid.shape[-1]
     L = Lp1 - 1
-
-    codes, vers = live_rows(state)
-    keys = codes_to_bytes(codes)
-
-    piv = np.asarray(new_pivot_codes, dtype=np.uint32).reshape(-1, L)
-    # pivot 0 must EQUAL the smallest live boundary (the slot-0 invariant)
-    if tuple(piv[0].tolist()) != tuple(codes[0].tolist()):
+    codes, vers = live_codes(state)
+    if isinstance(pivots, np.ndarray):
+        pivots = lanes_to_torch(pivots.reshape(-1, L))
+    piv = pivots.to(dev).reshape(-1, L)
+    if not torch.equal(piv[0], codes[0]):
         raise ValueError("pivot 0 must equal the smallest live boundary")
     P = piv.shape[0]
     if P > n_buckets:
         raise ValueError(f"{P} pivots for {n_buckets} buckets")
-    piv_keys = codes_to_bytes(piv)
 
-    # pivot rows inherit the value of the gap containing them
-    idx = np.searchsorted(keys, piv_keys, side="right") - 1
-    inherit = vers[idx]
-
-    # combined row set: pivots first so an equal-coded live row (sorted
-    # after) wins the dedupe-keep-last rule
-    all_codes = np.concatenate([piv, codes])
-    all_vers = np.concatenate([inherit, vers])
-    all_bkt = np.concatenate(
-        [
-            np.arange(P, dtype=np.int64),
-            np.searchsorted(piv_keys, keys, side="right") - 1,
-        ]
-    )
-    all_keys = codes_to_bytes(all_codes)
-    is_piv = np.concatenate(
-        [np.ones(P, dtype=np.int8), np.zeros(len(vers), dtype=np.int8)]
-    )
-    order = np.lexsort((1 - is_piv, all_keys))  # by key, pivots first
-    k_s = all_keys[order]
-    v_s = all_vers[order]
-    b_s = all_bkt[order]
-    c_s = all_codes[order]
-    p_s = is_piv[order].astype(bool)
+    # pivots and live rows in one order: by key, pivots first; a pivot row
+    # inherits the value of the last live row at or below it (an equal live
+    # row sorts after it and wins the dedupe below)
+    all_codes = torch.cat([piv, codes])
+    is_piv = torch.cat([torch.ones(P, dtype=torch.bool, device=dev),
+                        torch.zeros(codes.shape[0], dtype=torch.bool, device=dev)])
+    order = _lex_order([ordered(all_codes[:, i]) for i in range(L)] + [(~is_piv).to(_I32)])
+    c_s, p_s = all_codes[order], is_piv[order]
+    pos = torch.arange(c_s.shape[0], device=dev)
+    live_pos = torch.cummax(torch.where(p_s, torch.full_like(pos, -1), pos), 0).values
+    vers_all = torch.cat([torch.zeros(P, dtype=torch.long, device=dev), vers])[order]
+    v_s = torch.where(p_s, vers_all[live_pos.clamp(min=0)], vers_all)
+    b_s = torch.cumsum(p_s.long(), 0) - 1  # the bucket of the pivot at or before
 
     # dedupe equal keys keeping the LAST; a deduped-away pivot row passes
     # its pivot-ness to the kept row (runs have length 1 or 2)
-    n = len(k_s)
-    last = np.ones(n, dtype=bool)
-    last[:-1] = k_s[:-1] != k_s[1:]
-    first = np.ones(n, dtype=bool)
-    first[1:] = k_s[1:] != k_s[:-1]
-    piv_kept = p_s.copy()
-    piv_kept[1:] |= p_s[:-1] & ~first[1:]
-
-    v_d = v_s[last]
-    b_d = b_s[last]
-    c_d = c_s[last]
-    p_d = piv_kept[last]
+    same_prev = _same_as_previous(c_s)
+    last = torch.ones_like(p_s)
+    last[:-1] = ~same_prev[1:]
+    piv_kept = p_s.clone()
+    piv_kept[1:] |= p_s[:-1] & same_prev[1:]
+    v_d, b_d, c_d, p_d = v_s[last], b_s[last], c_s[last], piv_kept[last]
 
     # coalesce: drop rows whose value equals the previous row's value,
     # except pivot rows (slot 0 invariant); equality is transitive, so
     # comparing with the previous row is exact
-    prev_val = np.empty(len(v_d), dtype=np.int64)
-    prev_val[0] = -1
+    prev_val = torch.full_like(v_d, -1)
     prev_val[1:] = v_d[:-1]
     keep = p_d | (v_d != prev_val)
-
-    v_k = v_d[keep]
-    b_k = b_d[keep]
-    c_k = c_d[keep]
+    v_k, b_k, c_k = v_d[keep], b_d[keep], c_d[keep]
 
     # slot index within bucket
-    nkeep = len(v_k)
-    bucket_first = np.ones(nkeep, dtype=bool)
+    nkeep = v_k.shape[0]
+    kpos = torch.arange(nkeep, device=dev)
+    bucket_first = torch.ones(nkeep, dtype=torch.bool, device=dev)
     bucket_first[1:] = b_k[1:] != b_k[:-1]
-    pos = np.arange(nkeep, dtype=np.int64)
-    run_start = np.maximum.accumulate(np.where(bucket_first, pos, 0))
-    slot = pos - run_start
+    run_start = torch.cummax(torch.where(bucket_first, kpos, torch.zeros_like(kpos)), 0).values
+    slot = kpos - run_start
+    counts = torch.zeros(n_buckets, dtype=torch.long, device=dev)
+    counts.scatter_add_(0, b_k, torch.ones_like(b_k))
+    worst = int(counts.max()) if nkeep else 0
+    if worst > n_slots:
+        raise OverflowError(f"bucket {int(counts.argmax())} needs {worst} slots > {n_slots}")
 
-    counts = np.zeros(n_buckets, dtype=np.int64)
-    np.add.at(counts, b_k, 1)
-    if counts.max(initial=0) > n_slots:
-        worst = int(counts.argmax())
-        raise OverflowError(
-            f"bucket {worst} needs {int(counts[worst])} slots > {n_slots}"
-        )
-
-    new_grid = np.full((n_buckets, n_slots, Lp1), 0xFFFFFFFF, dtype=np.uint32)
-    new_grid[..., L] = 0
-    new_grid[b_k, slot, :L] = c_k
-    new_grid[b_k, slot, L] = v_k.astype(np.uint32)
-    new_bmax = np.zeros(n_buckets, dtype=np.int64)
-    np.maximum.at(new_bmax, b_k, v_k)
-
-    new_pivots = np.full((n_buckets, L), 0xFFFFFFFF, dtype=np.uint32)
+    grid = torch.full((n_buckets, n_slots, Lp1), SENTINEL, dtype=_I32, device=dev)
+    grid[..., L] = 0
+    grid[b_k, slot, :L] = c_k
+    grid[b_k, slot, L] = v_k.to(_I32)
+    bmax = torch.zeros(n_buckets, dtype=torch.long, device=dev)
+    bmax.scatter_reduce_(0, b_k, v_k, reduce="amax")
+    new_pivots = torch.full((n_buckets, L), SENTINEL, dtype=_I32, device=dev)
     new_pivots[:P] = piv
-    return state_from_numpy(
-        new_pivots,
-        new_grid,
-        counts.astype(np.int32),
-        new_bmax.astype(np.int32),
-        np.zeros(n_buckets, np.int32),  # floors folded by live_rows
-        state.grid.device,
-    )
+    # the floors are folded into the versions by live_codes
+    return GridState(new_pivots, grid, counts.to(_I32), bmax.to(_I32),
+                     torch.zeros(n_buckets, dtype=_I32, device=dev))

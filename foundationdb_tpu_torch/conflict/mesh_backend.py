@@ -13,7 +13,10 @@ the original tensors while the group works on a clone, so an overflow can
 replay from it. Collected per-partition pressure drives the replay ladder
 (attempt 0: device rebalance of the overflowing partitions; 1+: host
 reshard of those partitions from their live rows and the key sample; 3+:
-grow every partition) and flags partitions for a proactive rebalance
+grow every partition; where those give up, as under a sequential bulk
+load, 6+: repivot on the device among the partition's live rows and the
+replayed batches' own write endpoints, from the grid size before the
+ladder) and flags partitions for a proactive rebalance
 between groups (or growth, when the stacked fill fraction crosses
 ``grow_fill``).
 
@@ -28,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from ..device import lanes_to_numpy, resolve_device
+from ..device import lanes_to_numpy, ordered, resolve_device
 from . import grid as G
 from . import keys as K
 from . import kernels
@@ -43,6 +46,7 @@ from .torch_backend import (
     KeyReservoir,
     _bucket,
     _pick_pivots,
+    _pick_pivots_among,
     batch_nbytes,
     carry_work,
     check_batch_sizes,
@@ -259,7 +263,9 @@ class TorchMeshConflictSet(ConflictSet):
         assert self._inflight and self._inflight[0] is group
         t0 = time.perf_counter()
         S2 = G.staging_slots(self._S)
-        for attempt in range(6):
+        overflowed = np.zeros(self._n_parts, dtype=bool)
+        first_snapshot, first_B = group["snapshot"], self._B  # a replay re-snapshots
+        for attempt in range(9):
             if group["event"] is not None:
                 group["event"].synchronize()
             prs = group["pressures"].numpy()  # int32[G, P, 2]
@@ -269,6 +275,7 @@ class TorchMeshConflictSet(ConflictSet):
             over = (worst[:, 0] > S2) | (worst[:, 1] > self._S)
             if not over.any():
                 break
+            overflowed |= over
             self.metrics.overflow_replays.add()
             self.metrics.replayed_groups.add(len(self._inflight))
             # the in-flight chain is abandoned: let every queued kernel
@@ -277,18 +284,31 @@ class TorchMeshConflictSet(ConflictSet):
                 torch.cuda.current_stream(self._device).synchronize()
             # rebalance the overflowing partitions from the pre-group
             # snapshot, then replay this group and everything after it.
-            # Attempt 0: device rebalance; 1+: host reshard with the key
-            # sample; 3+: grow every partition first
+            # Attempts 0-5 are the reference's: 0: device rebalance; 1+: host
+            # reshard with the key sample; 3+: grow every partition first.
+            # Where they do not converge (a bulk load once the sample holds
+            # older keys), 6+: pivots among each overflowing partition's
+            # live boundaries and the replayed groups' own write endpoints
+            # (every partition that overflowed in this ladder), on the
+            # device, at the grid size from before the ladder, doubled on
+            # each attempt from 7 on
             self._states = group["snapshot"]
-            if attempt >= 3:
-                self._grow()
-            for p in np.nonzero(over)[0]:
-                if attempt == 0:
-                    self._states, pr = SH.reshard_partition(self._states, int(p), self._B, self._S)
-                    self.metrics.reshards_device.add()
-                    if pr <= self._S:
-                        continue
-                self._host_reshard_partition(int(p))
+            if attempt >= 6:
+                self._states, self._B = first_snapshot, first_B
+                for _ in range(attempt - 6):
+                    self._grow()
+                for p in np.nonzero(overflowed)[0]:
+                    self._merge_partition(int(p))
+            else:
+                if attempt >= 3:
+                    self._grow()
+                for p in np.nonzero(over)[0]:
+                    if attempt == 0:
+                        self._states, pr = SH.reshard_partition(self._states, int(p), self._B, self._S)
+                        self.metrics.reshards_device.add()
+                        if pr <= self._S:
+                            continue
+                    self._host_reshard_partition(int(p))
             for g in self._inflight:
                 self._dispatch(g)
         else:
@@ -338,7 +358,34 @@ class TorchMeshConflictSet(ConflictSet):
             cands = cands[keep]
             pivots = _pick_pivots(cands, self._B, self._lanes, lo=lo)
             try:
-                new_shard = G.reshard_host(shard, pivots, self._B, self._S)
+                new_shard = G.reshard(shard, pivots, self._B, self._S)
+            except OverflowError:
+                self._grow()
+                continue
+            self._states = SH.set_partition(self._states, p, new_shard)
+            self.metrics.reshard_s.add(time.perf_counter() - t0)
+            return
+
+    def _merge_partition(self, p: int) -> None:
+        """Rebuild partition p's grid on the device under pivots among its
+        live boundaries and the write endpoints of every in-flight group
+        that fall in its range; grows every partition while a bucket
+        overflows."""
+        t0 = time.perf_counter()
+        self.metrics.reshards_device.add()
+        extra = torch.cat(
+            [torch.cat([g["stacked"].wb, g["stacked"].we]).reshape(-1, self._lanes)
+             for g in self._inflight]
+        )
+        if p + 1 < self._n_parts:
+            hi = self._states.pivots[p + 1][0]
+            extra = extra[G.lex_lt(ordered(extra), ordered(hi))]
+        while True:
+            shard = SH.partition(self._states, p)
+            codes, _vers = G.live_codes(shard)
+            pivots = _pick_pivots_among(codes, extra, self._B)
+            try:
+                new_shard = G.reshard(shard, pivots, self._B, self._S)
             except OverflowError:
                 self._grow()
                 continue

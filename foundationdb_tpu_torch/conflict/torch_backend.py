@@ -9,8 +9,10 @@
 - tracks the int64→int32 version rebasing origin;
 - owns the **reshard loop**: each group returns bucket pressure; on
   overflow the host rebuilds the grid under fresh pivots from the
-  pre-group snapshot and replays the group — verdicts are deterministic,
-  so callers never see it. Proactive reshards run between groups when
+  pre-group snapshot (a device rebalance, then pivots among the live
+  boundaries and the replayed batches' own write endpoints, growing only
+  when those cannot stage the replay) and replays the group — verdicts
+  are deterministic, so callers never see it. Proactive reshards run between groups when
   pressure nears the slot capacity, growing the bucket count when the
   index fills.
 
@@ -26,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from ..device import lanes_to_torch, resolve_device
+from ..device import SENTINEL, lanes_to_torch, ordered, resolve_device
 from ..runtime.stats import CounterCollection
 from . import grid as G
 from . import keys as K
@@ -307,6 +309,17 @@ def upload(batch: G.Batch, device: torch.device) -> G.Batch:
     return G.Batch(*out)
 
 
+def _quantiles(n_cands: int, n_buckets: int) -> np.ndarray:
+    """The indices of ≤ n_buckets-1 quantile pivots among n_cands sorted
+    candidates."""
+    n_piv = min(n_buckets - 1, n_cands)
+    if n_piv <= 0:
+        return np.zeros(0, dtype=np.int64)
+    step = n_cands / (n_piv + 1)
+    idx = np.minimum((np.arange(1, n_piv + 1) * step).astype(np.int64), n_cands - 1)
+    return np.unique(idx)
+
+
 def _pick_pivots(
     cands: np.ndarray, n_buckets: int, lanes: int, lo: np.ndarray = None
 ) -> np.ndarray:
@@ -316,15 +329,19 @@ def _pick_pivots(
     if lo is None:
         lo = np.zeros((1, lanes), dtype=np.uint32)
     lo = np.asarray(lo, dtype=np.uint32).reshape(1, lanes)
-    n_piv = min(n_buckets - 1, len(cands))
-    if n_piv <= 0:
-        return lo
-    step = len(cands) / (n_piv + 1)
-    idx = np.minimum(
-        (np.arange(1, n_piv + 1) * step).astype(np.int64), len(cands) - 1
-    )
-    idx = np.unique(idx)
-    return np.concatenate([lo, cands[idx]], axis=0)
+    return np.concatenate([lo, cands[_quantiles(len(cands), n_buckets)]], axis=0)
+
+
+def _pick_pivots_among(codes: torch.Tensor, extra: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """``_pick_pivots`` on the device: quantile pivots among the live
+    boundaries ``codes`` (int32[N, L] in key order, row 0 the lower bound)
+    and the ``extra`` codes; all-sentinel rows of ``extra`` are ignored."""
+    extra = extra[~(extra == SENTINEL).all(dim=1)]
+    lo = codes[:1]
+    cands = G.sorted_unique(torch.cat([codes, extra]))
+    cands = cands[G.lex_lt(ordered(lo), ordered(cands))]
+    idx = torch.from_numpy(_quantiles(cands.shape[0], n_buckets)).to(cands.device)
+    return torch.cat([lo, cands[idx]])
 
 
 class TorchConflictSet(ConflictSet):
@@ -543,7 +560,7 @@ class TorchConflictSet(ConflictSet):
         assert self._inflight and self._inflight[0] is group
         t0 = time.perf_counter()
         S2 = G.staging_slots(self._S)
-        for attempt in range(6):
+        for attempt in range(7):
             if group["event"] is not None:
                 group["event"].synchronize()
             pr = group["pressure"].numpy()
@@ -560,12 +577,16 @@ class TorchConflictSet(ConflictSet):
                 torch.cuda.current_stream(self._device).synchronize()
             # rebuild the grid under fresh pivots from the pre-group
             # snapshot, then replay this group and everything after it.
-            # Attempt 0: device rebalance; 1+: host reshard whose pivots
-            # include the recent key SAMPLE (a device rebalance can only
-            # split between live boundaries); 2+: grow
-            self._reshard(
-                group["snapshot"], grow=attempt >= 2, with_sample=attempt >= 1
-            )
+            # Attempt 0: device rebalance (it can only split between live
+            # boundaries, and the first reshard takes the host path whose
+            # pivots also come from the recent key sample); 1+: pivots among
+            # the live boundaries and the replayed groups' own write
+            # endpoints, on the device, with the grid doubled on each
+            # attempt from 2 on: the best pivots could not stage the replay
+            if attempt == 0:
+                self._reshard(group["snapshot"])
+            else:
+                self._reshard_merge(group["snapshot"], grow=attempt >= 2)
             for g in self._inflight:
                 self._dispatch(g)
         else:
@@ -605,18 +626,13 @@ class TorchConflictSet(ConflictSet):
         self.metrics.h2d_bytes.add(batch_nbytes(stacked))
         return upload(stacked, self._device)
 
-    def _reshard(
-        self,
-        from_state: G.GridState,
-        grow: bool = False,
-        with_sample: bool = False,
-    ) -> None:
+    def _reshard(self, from_state: G.GridState, grow: bool = False) -> None:
         """Rebuild the grid under fresh pivots: on the device
         (grid.reshard_device, balancing on the LIVE boundaries) unless this
-        is the first reshard or an escalated replay, which take the host
-        path whose pivots also come from the recent key sample."""
+        is the first reshard, which takes the host path whose pivots also
+        come from the recent key sample."""
         t0 = time.perf_counter()
-        if self._resharded_once and not with_sample:
+        if self._resharded_once:
             if grow:
                 self._B *= 2
                 self.metrics.capacity_growths.add()
@@ -632,6 +648,33 @@ class TorchConflictSet(ConflictSet):
                 self.metrics.capacity_growths.add()
         self._reshard_host_sampled(from_state, grow=grow)
         self.metrics.reshards_host.add()
+        self.metrics.reshard_s.add(time.perf_counter() - t0)
+
+    def _reshard_merge(self, from_state: G.GridState, grow: bool = False) -> None:
+        """Rebuild the grid on the device with pivots among its live
+        boundaries and the write endpoints of every in-flight group, so that
+        a batch whose writes all land past the live boundaries, as a bulk
+        load's do, gets buckets of its own. Grows the grid first if asked
+        to, and while a bucket overflows."""
+        t0 = time.perf_counter()
+        if grow:
+            self._B *= 2
+            self.metrics.capacity_growths.add()
+        codes, _vers = G.live_codes(from_state)
+        extra = torch.cat(
+            [torch.cat([g["stacked"].wb, g["stacked"].we]).reshape(-1, self._lanes)
+             for g in self._inflight]
+        )
+        while True:
+            pivots = _pick_pivots_among(codes, extra, self._B)
+            try:
+                self._state = G.reshard(from_state, pivots, self._B, self._S)
+                break
+            except OverflowError:
+                self._B *= 2
+                self.metrics.capacity_growths.add()
+        self._resharded_once = True
+        self.metrics.reshards_device.add()
         self.metrics.reshard_s.add(time.perf_counter() - t0)
 
     def _reshard_host_sampled(
@@ -660,7 +703,7 @@ class TorchConflictSet(ConflictSet):
         while True:
             pivot_codes = _pick_pivots(cands, self._B, L)
             try:
-                self._state = G.reshard_host(state, pivot_codes, self._B, self._S)
+                self._state = G.reshard(state, pivot_codes, self._B, self._S)
                 break
             except OverflowError:
                 # the quantile split still left a bucket over capacity

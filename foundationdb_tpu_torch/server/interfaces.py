@@ -6,12 +6,17 @@ StorageServerInterface.h, MasterProxyInterface.h). An interface here is a
 set of (endpoint token, request dataclass) pairs.
 
 The port's copy of ``foundationdb_tpu/server/interfaces.py``, so far the
-messages of the roles the port runs, field for field: the resolver's
-(``Version``, ``TransactionData``, ``ResolveBatchRequest``,
+messages of the roles the port runs, field for field: the master's
+(``GetCommitVersion*``, ``ReportRawCommittedVersionRequest``), the
+proxy's (``GetReadVersion*``, ``Commit*``, ``GetKeyServers*``), the
+resolver's (``Version``, ``TransactionData``, ``ResolveBatchRequest``,
 ``ResolveBatchReply``), the tlog's (``TLogCommitRequest``, ``TLogPeek*``,
 ``TLogPop*``, ``TLogLock*``), the storage server's (``Get*``, ``Watch*``,
-``WaitMetricsRequest``, ``FeedRead*``, ``MultiGet*``) and the endpoint
-``Tokens``. The other roles' messages come with those roles.
+``WaitMetricsRequest``, ``FeedRead*``, ``MultiGet*``), the role
+interfaces (``MasterInterface``, ``ProxyInterface``, ``ResolverInterface``,
+``StorageInterface``), the client's bootstrap (``OpenDatabaseRequest``,
+``ClientDBInfo``) and the endpoint ``Tokens``. The worker and recruitment
+messages come with the dynamic cluster.
 """
 
 from __future__ import annotations
@@ -45,6 +50,95 @@ class TransactionData:
     # CommitDebug trace event carrying it, so one id reconstructs where a
     # commit's latency went across client→proxy→resolver→tlog
     debug_id: str = ""
+
+
+# -- master (version assignment; masterserver.actor.cpp:763 getVersion) -------
+
+
+@dataclass
+class GetCommitVersionRequest:
+    requesting_proxy: str = ""
+    # per-proxy sequence (the reference's requestNum,
+    # fdbserver/MasterInterface.h GetCommitVersionRequest): lets a proxy
+    # keep several version requests in flight while the master assigns
+    # versions in submission order despite network reordering. -1 =
+    # unordered legacy caller (assign on arrival).
+    request_num: int = -1
+    # highest resolver_changes_version this proxy has applied — the ack
+    # that lets the master stop re-attaching a balancing change set (a
+    # lost grant reply must not lose the delivery)
+    applied_changes_version: Version = 0
+
+
+@dataclass
+class GetCommitVersionReply:
+    prev_version: Version = INVALID_VERSION
+    version: Version = INVALID_VERSION
+    # resolutionBalancing piggyback (masterserver.actor.cpp:806): boundary
+    # moves [(begin, end, ResolverInterface)] delivered to each proxy with
+    # its first version grant after the master recorded them; they apply
+    # to commit versions >= resolver_changes_version
+    resolver_changes: tuple = ()
+    resolver_changes_version: Version = 0
+
+
+@dataclass
+class ReportRawCommittedVersionRequest:
+    version: Version = INVALID_VERSION
+
+
+# -- proxy (MasterProxyInterface.h) -------------------------------------------
+
+
+@dataclass
+class GetReadVersionRequest:
+    """GRV envelope. ``priority`` is a transaction priority class
+    (server/admission.py: 0=batch, 1=default, 2=immediate) and ``tenant``
+    an opaque tenant id — both consumed by the proxy's admission queue
+    (per-class and per-tenant token buckets; Ratekeeper-grade
+    admission). Empty tenant = untenanted (class bucket only). ``count``
+    is how many client transactions share this coalesced request (the
+    reference's transactionCount): admission debits that many tokens."""
+
+    priority: int = 1  # PRIORITY_DEFAULT
+    tenant: str = ""
+    count: int = 1
+
+
+@dataclass
+class GetReadVersionReply:
+    version: Version = INVALID_VERSION
+
+
+@dataclass
+class CommitRequest:
+    transaction: TransactionData = None
+
+
+@dataclass
+class CommitReply:
+    version: Version = INVALID_VERSION  # commit version if committed
+    versionstamp: bytes = b""
+
+
+@dataclass
+class GetKeyServersRequest:
+    """Key-location query (NativeAPI getKeyLocation → proxy
+    readRequestServer, MasterProxyServer.actor.cpp:1036)."""
+
+    key: bytes = b""
+    # resolve the shard containing the keys immediately BELOW `key` instead
+    # (reverse range reads walk shards right-to-left from the range end)
+    before: bool = False
+
+
+@dataclass
+class GetKeyServersReply:
+    # (shard_begin, shard_end, [storage addresses], [storage tags])
+    begin: bytes = b""
+    end: Optional[bytes] = None
+    team: list[str] = field(default_factory=list)
+    tags: list = None
 
 
 # -- resolver (ResolverInterface.h / ResolveTransactionBatchRequest) ----------
@@ -304,6 +398,102 @@ class MultiGetRangeRequest:
 class MultiGetRangeReply:
     results: list = field(default_factory=list)  # per range: GetKeyValuesReply|None
     errors: list = field(default_factory=list)  # [(range index, READ_ERR_*)]
+
+
+# -- role interfaces (the *Interface.h structs): address + instance uid -------
+#
+# A role instance registers its handlers under "{token}#{uid}" so many
+# instances (e.g. tlog generations across epochs) can share one worker
+# process; uid == "" means the well-known static tokens (fdbrpc.h:56).
+
+
+def _suffixed(token: str, uid: str):
+    return token if not uid else f"{token}#{uid}"
+
+
+@dataclass(frozen=True)
+class MasterInterface:
+    address: str = ""
+    uid: str = ""
+
+    def ep(self, method: str):
+        from ..net.sim import Endpoint
+
+        token = {
+            "getCommitVersion": Tokens.GET_COMMIT_VERSION,
+            "reportCommitted": Tokens.REPORT_COMMITTED,
+            "getLiveCommitted": Tokens.GET_LIVE_COMMITTED,
+            "getRate": "master.getRate",
+            "ping": "master.ping",
+        }[method]
+        return Endpoint(self.address, _suffixed(token, self.uid))
+
+
+@dataclass(frozen=True)
+class ProxyInterface:
+    address: str = ""
+    uid: str = ""
+
+    def ep(self, method: str):
+        from ..net.sim import Endpoint
+
+        token = {
+            "grv": Tokens.GRV,
+            "commit": Tokens.COMMIT,
+            "keyServers": Tokens.GET_KEY_SERVERS,
+            "ping": "proxy.ping",
+        }[method]
+        return Endpoint(self.address, _suffixed(token, self.uid))
+
+
+@dataclass(frozen=True)
+class ResolverInterface:
+    address: str = ""
+    uid: str = ""
+
+    def ep(self, method: str):
+        from ..net.sim import Endpoint
+
+        token = {"resolve": Tokens.RESOLVE, "ping": "resolver.ping"}[method]
+        return Endpoint(self.address, _suffixed(token, self.uid))
+
+
+@dataclass(frozen=True)
+class StorageInterface:
+    """Storage keeps well-known data tokens (one storage role per process;
+    it outlives recoveries) plus a uid-suffixed ping."""
+
+    address: str = ""
+    uid: str = ""
+    tag: Tag = 0
+
+    def ep(self, method: str):
+        from ..net.sim import Endpoint
+
+        token = {
+            "getValue": Tokens.GET_VALUE,
+            "getKeyValues": Tokens.GET_KEY_VALUES,
+            "getKey": Tokens.GET_KEY,
+        }.get(method)
+        if token is not None:
+            return Endpoint(self.address, token)
+        return Endpoint(self.address, _suffixed(f"storage.{method}", self.uid))
+
+
+# -- client bootstrap (ClusterInterface.h) -------------------------------------
+
+
+@dataclass
+class OpenDatabaseRequest:
+    """Client → CC: long-polled ClientDBInfo (serves the proxy list)."""
+
+    known_id: int = -1
+
+
+@dataclass
+class ClientDBInfo:
+    id: int = 0
+    proxies: list = field(default_factory=list)  # proxy addresses
 
 
 # -- endpoint token names (well-known, fdbrpc/fdbrpc.h:56) --------------------

@@ -853,3 +853,85 @@ def test_storage_slice_on_the_card_equals_its_cpu_run(cuda, chaos):
     want = run_storage("foundationdb_tpu_torch", seed=2, chaos=chaos, device="cpu")
     assert got == want
     assert got["counters"]["multiGetIndexKeys"] > 0
+
+
+@pytest.mark.parametrize("backend", ["torch", "torch_mesh"])
+def test_commit_path_on_the_card_equals_its_cpu_run(cuda, backend):
+    """The commit path scenarios of tests/test_torch_commit_path.py in a
+    small static Cluster (2 proxies, 2 resolvers, 2 durable storage servers
+    with a 0.2 s MVCC window, the resolution balancer on) with the
+    resolvers' conflict sets and the storage index on the card: the whole
+    transcript (every read value, commit version and error, the roles'
+    counters, the sim clock) equals the same seed's run with
+    ``device="cpu"``, and the path's kernels launched."""
+    from commit_slice import SCENARIOS, run_commit
+
+    kw = dict(seed=6, backend=backend, shape={"n_proxies": 2, "n_resolvers": 2, "n_storage": 2},
+              balancer=True,
+              knobs={"MAX_READ_TRANSACTION_LIFE_VERSIONS": 200_000, "RESOLUTION_BALANCE_MIN_OPS": 20},
+              scenarios=tuple(SCENARIOS))
+    if backend == "torch_mesh":
+        kw["resolver_kw"] = {"n_parts": 4}
+    kernels.reset_launch_counts()
+    got = run_commit("foundationdb_tpu_torch", device="cuda", **kw)
+    launches = kernels.launch_counts()
+    want = run_commit("foundationdb_tpu_torch", device="cpu", **kw)
+    assert got == want
+    path = (("history", "intra_batch", "stage", "merge") if backend == "torch"
+            else ("history_parts", "intra_batch", "stage_parts", "merge_parts"))
+    assert all(launches[k] > 0 for k in path + ("search",)), launches
+    assert sum(dict(s)["multiGetIndexKeys"] for s in got["storages"]) > 0
+
+
+@pytest.mark.parametrize("backend", ["torch", "torch_mesh"])
+def test_empty_and_bulk_load_batches_on_the_card(cuda, backend):
+    """The commit path's extremes through the conflict set on the card and
+    on the CPU: an idle proxy's empty batch (T = 0: no verdicts, the horizon
+    still advances) and a bulk-load transaction of 2000 write ranges, then
+    readers of those keys. The verdicts and the horizon are equal."""
+    rs = np.random.RandomState(4)
+    load = [(b"rw/%08d" % i, b"rw/%08d\x00" % i) for i in range(2000)]
+    readers = [CommitTransaction(read_snapshot=int(s), read_conflict_ranges=[load[int(i)]],
+                                 write_conflict_ranges=[(b"z%d" % j, b"z%d\x00" % j)])
+               for j, (s, i) in enumerate(zip(rs.choice([50, 150], 64), rs.randint(0, 2000, 64)))]
+    work = [([], 20, 15),
+            ([CommitTransaction(read_snapshot=30, write_conflict_ranges=load)], 100, 15),
+            ([], 110, 16),
+            (readers, 200, 20)]
+    kw = {"n_parts": 4} if backend == "torch_mesh" else {}
+    got = []
+    for dev in ("cuda", "cpu"):
+        cs = new_conflict_set(backend, device=dev, capacity=1 << 12, **kw)
+        got.append([[int(v) for v in cs.detect_batch(*w)] for w in work] + [cs.oldest_version])
+    assert got[0] == got[1]
+    assert got[0][0] == [] and got[0][1] == [0] and got[0][-1] == 20
+    assert 0 < sum(got[0][3]) < 64
+
+
+@pytest.mark.parametrize("backend", ["torch", "torch_mesh"])
+def test_sequential_bulk_load_on_the_card(cuda, monkeypatch, backend):
+    """The bulk load's replay ladder on the card: batches of sequential
+    keys past every live boundary, repivoted on the device among their own
+    endpoints once the key sample is full (the single grid's second step,
+    the mesh's after the reference's steps); the verdicts equal the CPU
+    run's and the oracle's."""
+    from foundationdb_tpu_torch.conflict import torch_backend
+
+    monkeypatch.setattr(torch_backend, "_SAMPLE_CAP", 512)
+    kw = {"n_parts": 2} if backend == "torch_mesh" else {}
+
+    def load(cs):
+        out = []
+        for b in range(8):
+            writes = [(b"rw/%08d" % i, b"rw/%08d\x00" % i) for i in range(b * 200, (b + 1) * 200)]
+            reads = [(b"rw/%08d" % (b * 200 - 1), b"rw/%08d\x00" % (b * 200 - 1))] if b else []
+            txs = [CommitTransaction(read_snapshot=100 * b, write_conflict_ranges=writes),
+                   CommitTransaction(read_snapshot=100 * b - 50, read_conflict_ranges=reads)]
+            out.append([int(v) for v in cs.detect_batch(txs, 100 * (b + 1), 0)])
+        return out
+
+    card = new_conflict_set(backend, device="cuda", capacity=1 << 10, **kw)
+    got = load(card)
+    assert got == load(new_conflict_set(backend, device="cpu", capacity=1 << 10, **kw))
+    assert got == load(new_conflict_set("oracle"))
+    assert card.metrics.snapshot()["overflowReplays"] >= 7

@@ -311,7 +311,7 @@ def test_host_reshard_and_live_rows_match_jax():
     np.testing.assert_array_equal(piv, TB._pick_pivots(cands, B, jcodes.shape[1]))
     _assert_state_equal(
         JG.reshard_host(_jstate(state), piv, B, S),
-        TG.reshard_host(_tstate(state), piv, B, S),
+        TG.reshard(_tstate(state), piv, B, S),
     )
     assert JG.occupancy_stats(_jstate(state)) == TG.occupancy_stats(_tstate(state))
 

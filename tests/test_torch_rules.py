@@ -111,3 +111,43 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.search(torch.zeros((8, 3), dtype=torch.int32), torch.zeros((4, 3), dtype=torch.int32))
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
+
+
+def _relative_imports(path):
+    """(line, module, names) of every relative import in ``path``, at
+    module level or inside a function body."""
+    package = ".".join(path.relative_to(ROOT).with_suffix("").parts[:-1])
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level > 0:
+            base = package.split(".")
+            base = base[: len(base) - (node.level - 1)]
+            module = ".".join(base + ([node.module] if node.module else []))
+            yield node.lineno, module, [a.name for a in node.names]
+
+
+@pytest.mark.parametrize(
+    "path",
+    [p for p in PORT_FILES if p.name != "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_every_relative_import_names_what_the_port_has(path):
+    """A lazy import inside a function runs only when its line does: a
+    module or name that the port does not have yet would show only then."""
+    import importlib
+
+    missing = []
+    for line, module, names in _relative_imports(path):
+        try:
+            mod = importlib.import_module(module)
+        except ImportError as e:
+            missing.append(f"{path.name}:{line} {module} ({e})")
+            continue
+        for name in names:
+            if hasattr(mod, name):
+                continue
+            try:
+                importlib.import_module(f"{module}.{name}")
+            except ImportError:
+                missing.append(f"{path.name}:{line} {module}.{name}")
+    assert not missing, missing
