@@ -29,9 +29,9 @@ card). Phases, each of which raises on failure:
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
    committed clear spans the whole keyspace;
-6. after phases 7 to 13: print the kernel table (every kernel of the
+6. after phases 7 to 14: print the kernel table (every kernel of the
    paths, K5 also at the storage shapes, K1-K3 and K5 also on the commit
-   path), the card line and the result line;
+   path and in the dynamic cluster), the card line and the result line;
 7. the partitioned resolver, ``new_conflict_set("torch_mesh", key_width=12,
    capacity=1<<19, n_parts=4)`` (4 partitions × 8192 × 32 × 4 uint32 =
    16 MiB), over the same workload with every key re-encoded
@@ -118,6 +118,30 @@ card). Phases, each of which raises on failure:
    batches, transactions, resolveLatency and the encode / dispatch /
    collect split, the proxies' phase latencies, multiGets and their keys,
    the grid's growths and device reshards, the device's idle share.
+14. the dynamic cluster: the port's ``DynamicCluster`` (3 coordinators, 2
+   proxies, 2 resolvers on ``torch``, 2 tlogs and 4 storage servers, both
+   at 2 replicas; default knobs and phase 13's latency) on ``Sim(seed=0)``,
+   one ``Database.from_coordinators``. It forms, loads phase 13's 1M keys
+   until all four storage servers' engines and indexes hold their shards,
+   runs a mix-A round (100 actors x 10 transactions), kills the master's
+   worker during a round (recovery: fresh resolvers at the recovery
+   version), kills a storage worker and reboots it 1 s later (its index
+   rebuilt from the engine it recovers), kills another storage worker for
+   good until data distribution has every team at 2 replicas again, runs
+   a last round and reads every key back from a fresh client. Gates: the
+   read-back equals the referee's model, the serializability referee
+   (unknown results count where their proxy logged them within their
+   generation), every generation's guards HEALTHY on ``torch`` on the
+   card with K1-K3 launched, K5 launched on the rebooted and the filled
+   servers, no multiGet fallback, and a CPU twin at 100,000 keys with an
+   identical transcript. Then K1-K3 against their plain versions on the
+   newest generation's widest batch and K5 on the rebooted and the filled
+   indexes. One ``{"dynamic_cluster": ...}`` JSON line: per step the
+   times and mix figures, time to recover and to the new generation's
+   first commit (sim and wall), time to serve after the reboot, time to
+   full replication and keys moved, recoveries, per generation resolver
+   batches and grid growths, card memory after each step, the device's
+   idle share over a profiled round.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after, and every kernel of the path must have launched.
@@ -144,6 +168,8 @@ import re
 import subprocess
 import sys
 import time
+import weakref
+import zlib
 
 import torch
 
@@ -2478,6 +2504,779 @@ def run_commit_path(card: str) -> tuple[dict, list[dict]]:
     return run, rows
 
 
+DYN_KEYS = 1_000_000  # phase 13's keys: BASELINE.json's YCSB "uniform 1M keys"
+DYN_TWIN_KEYS = COMMIT_TWIN_KEYS
+DYN_TXNS = 10  # mix A transactions an actor in each round of phase 14
+DYN_SHAPE = dict(n_proxies=2, n_resolvers=2, n_tlogs=2, tlog_replication=2, n_storage=4, replication=2,
+                 conflict_backend="torch")  # FoundationDB's "double" mode (configuration.rst)
+DYN_COORDINATORS = 3
+DYN_ATTEMPTS = 100  # a transaction's retry budget (db.run retries without one)
+DYN_READ_CHUNK = 10_000  # rows a range read of the final read-back
+DYN_REBOOT_S = 1.0  # the storage worker's reboot delay
+RESOLVE_PATH = ("history", "intra_batch", "stage", "merge")
+# trace events of the transcript: the recovery's, the roles' and data
+# distribution's (none carries a host value)
+DYN_EVENTS = ("MasterRecoveryState", "MasterFullyRecovered", "RoleRecruited", "RoleDestroyed",
+              "FetchKeysDone", "KillProcess", "ResurrectingRole", "BecameClusterController",
+              "StorageServerUp", "RecruitedMaster", "DDShardSplit", "DDShardMerge", "DDRelocating",
+              "DDStorageFailed")
+
+
+class StackSampler:
+    """Samples the calling thread's stack every ``interval`` seconds from a
+    second thread (``sys._current_frames``): the functions a slow stretch
+    of host work spends its time in, at a cost of a few frame walks a
+    second. ``top()`` is the innermost frames and the port's innermost
+    frames by share of samples."""
+
+    def __init__(self, interval: float = 0.005):
+        import threading
+
+        self.interval, self.samples = interval, []
+        self._target, self._stop = threading.get_ident(), threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(self.interval):
+            frame = sys._current_frames().get(self._target)
+            stack = []
+            while frame is not None and len(stack) < 40:
+                code = frame.f_code
+                stack.append((code.co_name, code.co_filename.rsplit("/", 1)[-1], frame.f_lineno))
+                frame = frame.f_back
+            self.samples.append(stack)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def top(self, n: int = 25) -> dict:
+        """The ``n`` frames most often innermost, and most often anywhere
+        in the stack (cumulative), each with its share of the samples."""
+        def share(frames):
+            counts: dict = {}
+            for f in frames:
+                counts[f] = counts.get(f, 0) + 1
+            total = max(len(self.samples), 1)
+            return sorted(((f, c / total) for f, c in counts.items()), key=lambda fc: -fc[1])[:n]
+
+        return {"samples": len(self.samples), "interval_s": self.interval,
+                "innermost": share("%s (%s:%d)" % st[0] for st in self.samples if st),
+                "cumulative": share(f for st in self.samples for f in {"%s (%s)" % fr[:2] for fr in st})}
+
+
+def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
+    """Phase 14, one run: the port's ``DynamicCluster`` (3 coordinators,
+    2 proxies, 2 resolvers on ``torch``, 2 tlogs with 2 replicas, 4
+    storage servers in teams of 2) on the port's ``Sim(seed=0)`` with
+    bench_e2e's datacenter latency profile and default knobs, one
+    ``Database.from_coordinators``. The steps: form the cluster; load
+    ``n_keys`` keys in transactions of 2000 sets until every storage
+    server's engine and index hold its shards; a mix-A round; the master's
+    worker killed during a mix-A round; a storage worker killed and
+    rebooted 1 s later, then a round; another storage worker killed for
+    good until data distribution has every team at 2 replicas again; a
+    last round and a read-back of every key from a fresh client. Every
+    committed transaction goes to the serializability referee, those with
+    an unknown result too where the proxy logged them at or below their
+    generation's end. ``device`` is the cluster's (``"cpu"``: the plain
+    versions). With ``measure``, also the device's idle share over a
+    profiled round. Returns the transcript and the measurements."""
+    import bisect
+
+    from foundationdb_tpu_torch.client import Database
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    from foundationdb_tpu_torch.net.sim import Endpoint, Sim
+    from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
+    from foundationdb_tpu_torch.runtime import trace as T
+    from foundationdb_tpu_torch.runtime.futures import delay, spawn, wait_for_all
+    from foundationdb_tpu_torch.runtime.loop import now as sim_now
+    from foundationdb_tpu_torch.server import proxy as proxy_mod
+    from foundationdb_tpu_torch.server.cluster import ClusterConfig, DynamicCluster
+    from foundationdb_tpu_torch.server.interfaces import GetKeyValuesRequest, Tokens
+    from foundationdb_tpu_torch.server.movekeys import walk_shards
+    from foundationdb_tpu_torch.server.storage import StorageServer
+    from foundationdb_tpu_torch.server.worker import Worker
+
+    on_card = device is None
+    t_run = time.perf_counter()
+    marks: list = []  # (type, sim time, wall time, process, fields) of the transcript's events
+
+    class MarkedLog(T.TraceLog):
+        def log(self, severity, event_type, time_, process, **fields):
+            super().log(severity, event_type, time_, process, **fields)
+            if event_type in DYN_EVENTS:
+                marks.append((event_type, time_, time.perf_counter(), process, fields))
+
+    saved_log = T.trace_log()
+    T.set_trace_log(MarkedLog())
+    sim = Sim(seed=0)
+    sim.activate()
+    sim.knobs.SIM_FAST_LATENCY = 0.00025  # bench.py:928-929, the datacenter profile
+    sim.knobs.SIM_MAX_LATENCY = 0.001
+    cluster = DynamicCluster(sim, ClusterConfig(**DYN_SHAPE), n_coordinators=DYN_COORDINATORS, device=device)
+    db = Database.from_coordinators(sim, cluster.coordinators)
+    referee = CommitReferee()
+    transcript: list = []
+    unknowns: list = []  # attempts whose commit outcome the client did not learn
+    acks: list = []  # (sim time, wall time, commit version) of every acknowledged commit
+    out: dict = {"keys": n_keys, "device": "card" if on_card else "cpu", "steps": {}}
+
+    # instruments: the roles every worker recruits; kernel launches by
+    # resolver (K1-K3, around each dispatch) and by storage server (K5,
+    # around each index read); the widest batch the newest generation
+    # encodes and each server's widest search while ``capture`` is on;
+    # device spans for the idle share; every committed transaction's
+    # (version, batch index, mutations) as its proxy tags it
+    # the phase holds no role itself (a reference would keep a destroyed
+    # generation's grids, or a replaced index, on the card): weak references,
+    # and each resolver's figures taken as its worker destroys it
+    resolvers: dict = {}  # uid -> (epoch, weak reference to the Resolver)
+    resolved_by: dict = {}  # uid -> (epoch, health, stats, device type, launches)
+    storages: list = []  # weak references to every StorageServer, in recruitment order
+    fallbacks: dict = {}  # id(storage server) -> (tag, multiGetFallbackKeys) of the killed ones
+    by_cs: dict = {}  # id(conflict set) -> launches
+    by_ss: dict = {}  # id(storage server) -> K5 launches
+    spans, capture = {"on": False, "pairs": []}, {"on": False, "best": None, "q": {}}
+    current = {"ss": None}
+    tagged: dict = {}  # (key, value) -> (epoch, cv, batch index)
+    make_resolver, make_storage, destroy = Worker._make_resolver, Worker._make_storage, Worker._destroy
+    detect_async, encode = TorchConflictSet.detect_many_encoded_async, TorchConflictSet.encode
+    search_codes = TorchRangeIndex._search_codes
+    ss_reads = {n: getattr(StorageServer, n) for n in ("_multi_get_at", "_multi_engine_bounds", "_engine_range")}
+    substitute = proxy_mod.substitute_versionstamps
+
+    def counts():
+        return kernels.launch_counts() if on_card else {}
+
+    def recorded_resolver(self, h, **kw):
+        make_resolver(self, h, **kw)
+        resolvers[h.uid] = (h.epoch, weakref.ref(h.obj))
+
+    def recorded_storage(self, h, **kw):
+        make_storage(self, h, **kw)
+        storages.append(weakref.ref(h.obj))
+
+    def summarize(uid, epoch, r):
+        cs = r.cs._cs
+        resolved_by[uid] = (epoch, r.cs.health_snapshot(), r.stats.snapshot(), cs._device.type,
+                            dict(by_cs.get(id(cs), {})))
+
+    def summarized_destroy(self, uid):
+        h = self.roles.get(uid)
+        if h is not None and h.kind == "resolver":
+            summarize(uid, h.epoch, h.obj)
+        destroy(self, uid)
+
+    def counted_detect(self, work):
+        c0 = counts()
+        e0 = None
+        if spans["on"]:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        collect = detect_async(self, work)
+        c1 = counts()
+        mine = by_cs.setdefault(id(self), {})
+        for k in RESOLVE_PATH:
+            mine[k] = mine.get(k, 0) + c1.get(k, 0) - c0.get(k, 0)
+        if e0 is None:
+            return collect
+
+        def collected():
+            verdicts = collect()
+            e1 = torch.cuda.Event(enable_timing=True)
+            e1.record()
+            spans["pairs"].append((e0, e1))
+            return verdicts
+
+        return collected
+
+    def captured_encode(self, transactions):
+        enc = encode(self, transactions)
+        if capture["on"] and capture.get("cs") is self:
+            b = enc[0]
+            size = (len(transactions), b.rb.shape[1] * b.wb.shape[1])
+            if capture["best"] is None or size > capture["best"][0]:
+                capture["best"] = (size, self, enc)
+        return enc
+
+    def spanned_search(self, codes):
+        if spans["on"]:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+        lo_hi = search_codes(self, codes)
+        if spans["on"]:
+            e1.record()
+            spans["pairs"].append((e0, e1))
+        ss = current["ss"]
+        if capture["on"] and ss is not None and codes.shape[0] > capture["q"].get(id(ss), (0,))[0]:
+            capture["q"][id(ss)] = (codes.shape[0], codes)
+        return lo_hi
+
+    def counted_read(name):
+        fn = ss_reads[name]
+
+        def read(self, *a, **kw):
+            c0, current["ss"] = counts().get("search", 0), self
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                current["ss"] = None
+                by_ss[id(self)] = by_ss.get(id(self), 0) + counts().get("search", 0) - c0
+
+        return read
+
+    def tagging(mutations, stamp):
+        caller = sys._getframe(1).f_locals.get("self")
+        cv, idx = int.from_bytes(stamp[:8], "big"), int.from_bytes(stamp[8:10], "big")
+        for m in mutations:
+            if m.param2 and m.param2[:2] == b"A:":
+                tagged[(m.param1, m.param2)] = (caller.epoch, cv, idx)
+        return substitute(mutations, stamp)
+
+    def hosting(kind):
+        return [a for a, p in sorted(sim.processes.items()) if getattr(p, "worker", None) is not None
+                and p.alive and any(h.kind == kind for h in p.worker.roles.values())]
+
+    def live_storages():
+        return [(a, h.obj) for a, p in sorted(sim.processes.items()) if getattr(p, "worker", None) is not None
+                and p.alive for h in p.worker.roles.values() if h.kind == "storage"]
+
+    def recovered():
+        return [(f["RecoveryCount"], f["RecoveryVersion"], s, w) for e, s, w, _p, f in marks
+                if e == "MasterFullyRecovered"]
+
+    def memory():
+        return torch.cuda.memory_allocated() if on_card else None
+
+    async def attempt_loop(label, body):
+        for attempt in range(DYN_ATTEMPTS):
+            tr = db.transaction()
+            try:
+                return await body(tr, attempt)
+            except Exception as e:
+                transcript.append((label, attempt, type(e).__name__))
+                await tr.on_error(e)
+        raise AssertionError(f"{label}: no commit in {DYN_ATTEMPTS} attempts")
+
+    async def form():
+        w0 = time.perf_counter()
+
+        async def body(tr, _attempt):
+            tr.set(b"dyn/formed", b"%016d" % 0)
+            rv = await tr.get_read_version()
+            cv = await tr.commit()
+            referee.add(cv, tr.get_versionstamp(), rv, {}, {b"dyn/formed": b"%016d" % 0})
+            transcript.append(("form", rv, cv))
+
+        await attempt_loop("form", body)
+        out["steps"]["form"] = {"sim_s": sim_now(), "wall_s": time.perf_counter() - w0,
+                                "recoveries": [r[:2] for r in recovered()]}
+        log(f"dynamic cluster ({out['device']}): formed, first commit at {sim_now():.3f} sim s, "
+            f"{out['steps']['form']['wall_s']:.2f} s wall")
+
+    def data_keys(ss) -> int:
+        keys = ss.engine._keys
+        return bisect.bisect_left(keys, b"rw0") - bisect.bisect_left(keys, b"rw/")
+
+    async def load():
+        t0, s0 = time.perf_counter(), sim_now()
+        for lo in range(0, n_keys, COMMIT_LOAD_SETS):
+            writes = {commit_key(i): b"%016d" % i for i in range(lo, min(lo + COMMIT_LOAD_SETS, n_keys))}
+
+            async def body(tr, _attempt, writes=writes, lo=lo):
+                for k, v in writes.items():
+                    tr.set(k, v)
+                rv = await tr.get_read_version()
+                cv = await tr.commit()
+                referee.add(cv, tr.get_versionstamp(), rv, {}, writes)
+                transcript.append(("load", lo, rv, cv))
+                return cv
+
+            target = await attempt_loop(f"load {lo}", body)
+        load_s, load_sim = time.perf_counter() - t0, sim_now() - s0
+        # durable: every live server durable past the last load commit, its
+        # index over its whole engine, no fetch in flight, and the data at
+        # exactly two replicas
+        t0 = time.perf_counter()
+        for _ in range(20_000):
+            live = [ss for _a, ss in live_storages()]
+            if (len(live) == DYN_SHAPE["n_storage"]
+                    and all(ss.durable_version >= target and ss._range_index is not None
+                            and ss._range_index.n == len(ss.engine._keys) and not ss._fetch_buffers
+                            for ss in live)
+                    and sum(data_keys(ss) for ss in live) == DYN_SHAPE["replication"] * n_keys):
+                break
+            await delay(0.05)
+        else:
+            raise AssertionError("the load never became durable at two replicas: " + str(
+                [(ss.tag, ss.durable_version, data_keys(ss)) for _a, ss in live_storages()]))
+        out["steps"]["load"] = {"load_s": load_s, "load_sim_s": load_sim, "txns": math.ceil(n_keys / COMMIT_LOAD_SETS),
+                                "durable_s": time.perf_counter() - t0, "durable_sim_s": sim_now() - s0 - load_sim,
+                                "keys_by_tag": {ss.tag: data_keys(ss) for _a, ss in live_storages()},
+                                "device_bytes": memory()}
+        log(f"dynamic cluster ({out['device']}): {n_keys} keys in {out['steps']['load']['txns']} transactions "
+            f"of {COMMIT_LOAD_SETS} sets in {load_s:.2f} s ({load_sim:.3f} sim s), durable at two replicas "
+            f"{out['steps']['load']['durable_s']:.2f} s later; keys by tag {out['steps']['load']['keys_by_tag']}")
+
+    async def mix_round(label: str, seed: int, txns: int = DYN_TXNS, during=None):
+        _name, _n, n_reads, n_sets = MIX_A
+        lat = {"commit_sim": [], "commit_wall": [], "grv_sim": [], "grv_wall": []}
+        stats = {"committed": 0, "not_committed": 0, "unknown": 0, "other_errors": 0}
+        errors: dict = {}  # error class -> attempts it ended
+
+        async def actor(a):
+            rnd = random.Random(seed * 1000 + a)
+            for t in range(txns):
+                for attempt in range(DYN_ATTEMPTS):
+                    tr = db.transaction()
+                    rv, reads, writes = None, {}, {}
+                    try:
+                        s0, w0 = sim_now(), time.perf_counter()
+                        rv = await tr.get_read_version()
+                        lat["grv_sim"].append(sim_now() - s0)
+                        lat["grv_wall"].append(time.perf_counter() - w0)
+                        keys = [commit_key(rnd.randrange(n_keys)) for _ in range(n_reads)]
+                        vals = await wait_for_all([spawn(tr.get(k)) for k in keys])
+                        reads = dict(zip(keys, vals))
+                        # a value no other attempt writes: an unknown result
+                        # is told apart by it
+                        writes = {commit_key(rnd.randrange(n_keys)): b"A:%02d-%03d-%03d-%03d" % (seed, a, t, attempt)
+                                  for _ in range(n_sets)}
+                        for k, v in writes.items():
+                            tr.set(k, v)
+                        s0, w0 = sim_now(), time.perf_counter()
+                        cv = await tr.commit()
+                        lat["commit_sim"].append(sim_now() - s0)
+                        lat["commit_wall"].append(time.perf_counter() - w0)
+                        acks.append((sim_now(), time.perf_counter(), cv))
+                        referee.add(cv, tr.get_versionstamp(), rv, reads, writes)
+                        transcript.append((label, a, t, attempt, rv, keys, vals, sorted(writes.items()), cv))
+                        stats["committed"] += 1
+                        break
+                    except Exception as e:
+                        kind = type(e).__name__
+                        transcript.append((label, a, t, attempt, kind))
+                        errors[kind] = errors.get(kind, 0) + 1
+                        if kind == "CommitUnknownResult":
+                            unknowns.append((label, rv, reads, writes))
+                            stats["unknown"] += 1
+                        else:
+                            stats["not_committed" if kind == "NotCommitted" else "other_errors"] += 1
+                        await tr.on_error(e)
+                else:
+                    raise AssertionError(f"{label}: actor {a} transaction {t} failed {DYN_ATTEMPTS} times")
+            return True
+
+        w0, s0 = time.perf_counter(), sim_now()
+        tasks = [spawn(actor(a)) for a in range(COMMIT_ACTORS)]
+        if during is not None:
+            await during()
+        await wait_for_all(tasks)
+        wall, sim_s = time.perf_counter() - w0, sim_now() - s0
+
+        def pct(xs, q):
+            return percentile(xs, q) * 1e3 if xs else None
+
+        return {"actors": COMMIT_ACTORS, "txns_per_actor": txns, "wall_s": wall, "sim_s": sim_s,
+                "txn_s_wall": stats["committed"] / wall, **stats, "errors": errors,
+                "commit_ms_sim": {"p50": pct(lat["commit_sim"], 0.5), "p95": pct(lat["commit_sim"], 0.95)},
+                "commit_ms_wall": {"p50": pct(lat["commit_wall"], 0.5), "p95": pct(lat["commit_wall"], 0.95)},
+                "grv_ms_sim": {"p50": pct(lat["grv_sim"], 0.5), "p95": pct(lat["grv_sim"], 0.95)},
+                "grv_ms_wall": {"p50": pct(lat["grv_wall"], 0.5), "p95": pct(lat["grv_wall"], 0.95)}}
+
+    async def step(name, coro):
+        res = await coro
+        res["device_bytes"] = memory()
+        out["steps"][name] = res
+        r = res.get("mix", res)
+        log(f"dynamic cluster ({out['device']}) {name}: {r['txn_s_wall']:.1f} committed txn/s of wall time "
+            f"({r['sim_s']:.3f} sim s), {r['not_committed']} NotCommitted, {r['unknown']} unknown results, "
+            f"commit p50 {r['commit_ms_sim']['p50']:.3f} ms sim / {r['commit_ms_wall']['p50']:.3f} ms wall, "
+            f"GRV p50 {r['grv_ms_sim']['p50']:.3f} ms sim / {r['grv_ms_wall']['p50']:.3f} ms wall")
+
+    async def kill_master():
+        n0 = len(recovered())
+        info = {}
+
+        async def during():
+            a0 = len(acks)
+            while len(acks) < a0 + COMMIT_ACTORS // 2:  # the round is under way
+                await delay(0.001)
+            victim = hosting("master")[0]
+            info.update(victim=victim, sim=sim_now(), wall=time.perf_counter())
+            transcript.append(("kill master", victim, sim_now()))
+            sim.kill_process(victim)
+
+        mix = await mix_round("master kill", seed=2, during=during)
+        rc, rv, s_rec, w_rec = recovered()[n0]
+        first = next((s, w, cv) for s, w, cv in acks if cv > rv and s >= info["sim"])
+        transcript.append(("recovered", rc, rv))
+        return {"mix": mix, "victim": info["victim"], "recovery_count": rc, "recovery_version": rv,
+                "to_recovered_sim_s": s_rec - info["sim"], "to_recovered_wall_s": w_rec - info["wall"],
+                "to_first_commit_sim_s": first[0] - info["sim"], "to_first_commit_wall_s": first[1] - info["wall"],
+                "first_commit_version": first[2]}
+
+    async def reboot_storage():
+        victim, old = next((a, ss) for a, ss in live_storages() if ss.tag == 0)
+        rv = await attempt_loop("reboot rv", lambda tr, _a: tr.get_read_version())
+        s0, w0 = sim_now(), time.perf_counter()
+        fallbacks[id(old)] = (old.tag, old.stats.snapshot()["multiGetFallbackKeys"])
+        transcript.append(("kill storage", victim, old.tag, sim_now(), DYN_REBOOT_S))
+        sim.kill_process(victim, reboot_in=DYN_REBOOT_S)
+        for _ in range(100_000):
+            new = next((ss for a, ss in live_storages() if a == victim and ss is not old), None)
+            if new is not None and new._range_index is not None and new.version.get() >= rv:
+                break
+            await delay(0.01)
+        else:
+            raise AssertionError("the rebooted storage server never served again")
+        serve = {"victim": victim, "tag": new.tag, "serves_sim_s": sim_now() - s0,
+                 "serves_wall_s": time.perf_counter() - w0, "index_rows": new._range_index.n}
+        transcript.append(("storage serves", new.tag, sim_now()))
+        capture["rebooted"] = new
+        return {"mix": await mix_round("storage reboot", seed=3), **serve}
+
+    async def kill_storage():
+        victim, dead = next((a, ss) for a, ss in live_storages() if ss.tag == 1)
+        n_marks = len(marks)
+        s0, w0 = sim_now(), time.perf_counter()
+        fallbacks[id(dead)] = (dead.tag, dead.stats.snapshot()["multiGetFallbackKeys"])
+        transcript.append(("kill storage for good", victim, dead.tag, sim_now()))
+        sim.kill_process(victim)
+        while True:
+            await delay(1.0)
+            shards = await walk_shards(db)
+            if all(dead.tag not in tags and len(tags) == DYN_SHAPE["replication"] for _b, _e, _t, tags in shards):
+                break
+            if sim_now() - s0 > 600.0:
+                raise AssertionError(f"data distribution left teams below two replicas: {shards}")
+        fetched = [(p, f) for e, _s, _w, p, f in marks[n_marks:] if e == "FetchKeysDone"]
+        transcript.append(("replicated", sim_now(), [(b, e, tags) for b, e, _t, tags in shards]))
+        res = {"victim": victim, "tag": dead.tag, "replicated_sim_s": sim_now() - s0,
+               "replicated_wall_s": time.perf_counter() - w0, "keys_moved": sum(f["Rows"] for _p, f in fetched),
+               "fetches": len(fetched), "destinations": sorted({f["Tag"] for _p, f in fetched}),
+               "shards": len(shards)}
+        # the fetched rows leave the destinations' MVCC windows for their
+        # engines: from then on their reads go through the filled indexes
+        ready: dict = {}
+        for _p, f in fetched:
+            ready[f["Tag"]] = max(ready.get(f["Tag"], 0), f["ReadyVersion"])
+        filled = [ss for _a, ss in live_storages() if ss.tag in ready]
+        while any(ss.durable_version < ready[ss.tag] or ss._range_index is None
+                  or ss._range_index.n != len(ss.engine._keys) for ss in filled):
+            await delay(0.1)
+        res["filled_durable_sim_s"] = sim_now() - s0
+        res["filled_durable_wall_s"] = time.perf_counter() - w0
+        res["filled_index_rows"] = {ss.tag: ss._range_index.n for ss in filled}
+        transcript.append(("filled durable", sim_now()))
+        capture["filled"] = filled
+        capture["filled_base"] = {id(ss): by_ss.get(id(ss), 0) for ss in filled}
+        return res
+
+    async def read_back():
+        """Every key through a fresh client's range reads, then every
+        shard from every replica of its team through that server's own
+        getKeyValues at one read version (each server's engine and index
+        answer for their whole shards)."""
+        db2 = Database.from_coordinators(sim, cluster.coordinators, client_addr="reader")
+        got, lo = {}, b"rw/"
+        w0 = time.perf_counter()
+        while True:
+            async def body(tr, _attempt, lo=lo):
+                return await tr.get_range(lo, b"rw0", limit=DYN_READ_CHUNK)
+
+            rows = await attempt_loop("read back", body)
+            got.update(rows)
+            if len(rows) < DYN_READ_CHUNK:
+                break
+            lo = rows[-1][0] + b"\x00"
+        client_s = time.perf_counter() - w0
+        rv = await attempt_loop("replica read version", lambda tr, _a: tr.get_read_version())
+        replicas: dict = {}
+        for begin, end, team, _tags in await walk_shards(db2):
+            lo, hi = max(begin, b"rw/"), b"rw0" if end is None else min(end, b"rw0")
+            for addr in team if lo < hi else ():
+                rows, at = replicas.setdefault(addr, {}), lo
+                while True:
+                    reply = await db2.client.request(
+                        Endpoint(addr, Tokens.GET_KEY_VALUES),
+                        GetKeyValuesRequest(begin=at, end=hi, version=rv, limit=DYN_READ_CHUNK))
+                    rows.update(reply.data)
+                    if not reply.more:
+                        break
+                    at = reply.data[-1][0] + b"\x00"
+        return got, replicas, {"client_s": client_s, "replicas_s": time.perf_counter() - w0 - client_s,
+                               "replica_read_version": rv}
+
+    async def profiled_round():
+        """One mix-A round (one transaction an actor) under torch.profiler
+        and the device spans, as phase 13's."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        c0 = sum(kernels.launch_counts().values())
+        spans["on"], spans["pairs"] = True, []
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                w0 = time.perf_counter()
+                await mix_round("profiled", seed=9, txns=1)
+                torch.cuda.synchronize()
+                window = time.perf_counter() - w0
+        finally:
+            spans["on"] = False
+        n_launch = sum(kernels.launch_counts().values()) - c0
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ours = [e for e in dev if PORT_KERNELS.search(e.name)]
+        busy = sum(e.time_range.elapsed_us() for e in dev) * 1e-6
+        span = sum(e0.elapsed_time(e1) for e0, e1 in spans["pairs"]) * 1e-3
+        whole = len(ours) >= n_launch > 0
+        return {"window_ms": window * 1e3, "launches": n_launch, "profiler_port_kernels": len(ours),
+                "profiler_device_busy_ms": busy * 1e3, "device_span_ms": span * 1e3,
+                "device_idle_at_least": 1.0 - span / window,
+                "device_idle": 1.0 - (busy if whole else span) / window,
+                "device_busy_from": "profiler" if whole else "cuda_events_around_device_part"}
+
+    async def main():
+        await form()
+        await load()
+        gc.collect()
+        gc.freeze()  # phase 12's rule: the load's objects leave the collector's scans
+        if on_card:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+        w0 = time.perf_counter()
+        if measure:  # the first round after the load is the slow one: where its host time goes
+            with StackSampler() as sampler:
+                await step("mix_a", mix_round("mix A", seed=1))
+            out["steps"]["mix_a"]["stacks"] = sampler.top()
+        else:
+            await step("mix_a", mix_round("mix A", seed=1))
+        await step("master_kill", kill_master())
+        await step("storage_reboot", reboot_storage())
+        res = await kill_storage()
+        res["device_bytes"] = memory()
+        out["steps"]["storage_death"] = res
+        log(f"dynamic cluster ({out['device']}): storage tag {res['tag']} dead, every team at two replicas "
+            f"{res['replicated_sim_s']:.3f} sim s / {res['replicated_wall_s']:.2f} s wall later, "
+            f"{res['keys_moved']} keys moved in {res['fetches']} fetches to tags {res['destinations']}")
+        if measure:
+            out["round_profile"] = await profiled_round()
+        newest = max(e for e, _r in resolvers.values())
+        capture["on"] = True
+        capture["cs"] = next(r() for e, r in resolvers.values() if e == newest).cs._cs
+        await step("last", mix_round("last", seed=4))
+        got, replicas, read_s = await read_back()
+        capture["on"] = False
+        out["main_wall_s"] = time.perf_counter() - w0
+        out["read_back"] = {"keys": len(got), "replica_keys": {a: len(r) for a, r in sorted(replicas.items())},
+                            **read_s}
+        if on_card:
+            out["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+        return got, replicas
+
+    Worker._make_resolver, Worker._make_storage, Worker._destroy = recorded_resolver, recorded_storage, summarized_destroy
+    TorchConflictSet.detect_many_encoded_async, TorchConflictSet.encode = counted_detect, captured_encode
+    TorchRangeIndex._search_codes = spanned_search
+    for n in ss_reads:
+        setattr(StorageServer, n, counted_read(n))
+    proxy_mod.substitute_versionstamps = tagging
+    try:
+        got, replicas = sim.run_until_done(spawn(main()), limit=1e6)
+    finally:
+        Worker._make_resolver, Worker._make_storage, Worker._destroy = make_resolver, make_storage, destroy
+        TorchConflictSet.detect_many_encoded_async, TorchConflictSet.encode = detect_async, encode
+        TorchRangeIndex._search_codes = search_codes
+        for n, fn in ss_reads.items():
+            setattr(StorageServer, n, fn)
+        proxy_mod.substitute_versionstamps = substitute
+        T.set_trace_log(saved_log)
+
+    # unknown results: committed where the proxy tagged the attempt's write
+    # at or below its generation's end (the next recovery's version)
+    ends = {rc - 1: rv for rc, rv, _s, _w in recovered()}
+    resolved = []
+    for label, rv, reads, writes in unknowns:
+        (key, value), = writes.items()
+        epoch, cv, idx = tagged.get((key, value), (None, None, None))
+        committed = cv is not None and cv <= ends.get(epoch, 1 << 62)
+        if committed:
+            referee.add(cv, cv.to_bytes(8, "big") + idx.to_bytes(2, "big"), rv, reads, writes)
+        resolved.append((label, rv, sorted(writes.items()), committed, cv, idx))
+    transcript.append(("unknown results", resolved))
+    out["unknown_results"] = {"attempts": len(resolved), "committed": sum(r[3] for r in resolved)}
+    out["referee"] = referee.check()
+
+    # gate: every acknowledged write read back, as the referee's model says
+    model = {commit_key(i): b"%016d" % i for i in range(n_keys)}
+    model.update({k: v for k, v in referee.model().items() if k.startswith(b"rw/")})
+    if got != model:
+        bad = sorted(set(got) ^ set(model)) or [k for k in model if got[k] != model[k]]
+        raise AssertionError(f"read-back differs from the model at {len(bad)} keys, e.g. {bad[0]!r}: "
+                             f"{got.get(bad[0])!r} != {model.get(bad[0])!r}")
+    transcript.append(("read back", len(got), zlib.crc32(b"".join(k + v for k, v in sorted(got.items())))))
+    # gate: every replica holds exactly its shards' keys with the model's
+    # values, and every key has two replicas
+    held: dict = {}
+    for addr, rows in sorted(replicas.items()):
+        bad = [k for k, v in rows.items() if model.get(k) != v]
+        if bad:
+            raise AssertionError(f"replica {addr} holds {len(bad)} keys other than the model's, e.g. "
+                                 f"{bad[0]!r}: {rows[bad[0]]!r} != {model.get(bad[0])!r}")
+        for k in rows:
+            held[k] = held.get(k, 0) + 1
+    if len(held) != len(model) or set(held.values()) != {DYN_SHAPE["replication"]}:
+        raise AssertionError(f"{len(held)} keys on the replicas of {len(model)}, copies "
+                             f"{sorted(set(held.values()))}")
+    transcript.append(("replicas", sorted((a, len(r)) for a, r in replicas.items())))
+    # gate: no multiGet key fell back to the engine bisect, on any server
+    for ref in storages:
+        ss = ref()
+        if ss is not None and id(ss) not in fallbacks:
+            fallbacks[id(ss)] = (ss.tag, ss.stats.snapshot()["multiGetFallbackKeys"])
+    if any(n for _tag, n in fallbacks.values()):
+        raise AssertionError(f"multiGetFallbackKeys (tag, keys): {sorted(fallbacks.values())}")
+    # gate: every generation's resolvers healthy on torch, on the card named
+    for uid, (epoch, ref) in resolvers.items():
+        if uid not in resolved_by:  # still serving
+            summarize(uid, epoch, ref())
+    gens: dict = {}
+    for uid, (epoch, h, snap, device_type, launched) in sorted(resolved_by.items()):
+        if (h["state"], h["faults"], h["failovers"], h["backend"]) != ("HEALTHY", 0, 0, "TorchConflictSet"):
+            raise AssertionError(f"resolver {uid}: the guard left its healthy path: {h}")
+        if device_type != ("cuda" if on_card else "cpu"):
+            raise AssertionError(f"resolver {uid} runs on {device_type}")
+        g = gens.setdefault(epoch, {"resolvers": 0, "batches": 0, "transactions": 0, "grid_growths": 0,
+                                    "launches": {}})
+        g["resolvers"] += 1
+        g["batches"] += snap["resolveBatchIn"]
+        g["transactions"] += snap["transactions"]
+        g["grid_growths"] += snap["kernel"]["capacityGrowths"]
+        for k, v in launched.items():
+            g["launches"][k] = g["launches"].get(k, 0) + v
+    for epoch, g in gens.items():
+        if g["resolvers"] != DYN_SHAPE["n_resolvers"]:
+            raise AssertionError(f"generation {epoch} recruited {g['resolvers']} resolvers")
+        if on_card and any(g["launches"].get(k, 0) <= 0 for k in RESOLVE_PATH):
+            raise AssertionError(f"generation {epoch}: the resolve kernels did not all launch: {g['launches']}")
+    out["generations"] = {str(e): g for e, g in sorted(gens.items())}
+    transcript.append(("generations", sorted((e, g["batches"], g["transactions"], g["grid_growths"])
+                                             for e, g in gens.items())))
+    if len(gens) < 2:
+        raise AssertionError(f"no recovery recruited a second generation: {sorted(gens)}")
+    # gate: K5 on the rebooted server and on the data distribution's
+    # destinations
+    rebooted, filled = capture["rebooted"], capture["filled"]
+    after_fill = {ss.tag: by_ss.get(id(ss), 0) - capture["filled_base"][id(ss)] for ss in filled}
+    out["search_launches"] = {"rebooted": by_ss.get(id(rebooted), 0), "filled_after_the_fill": after_fill}
+    if on_card and (out["search_launches"]["rebooted"] <= 0 or not filled
+                    or any(n <= 0 for n in after_fill.values())):
+        raise AssertionError(f"K5 did not launch on the rebooted and the filled servers: {out['search_launches']}")
+    events = [(e, s, p, sorted((k, v) for k, v in f.items() if isinstance(v, (int, str, bytes))))
+              for e, s, _w, p, f in marks]
+    transcript.append(("events", events))
+    out["recoveries"] = [r[:2] for r in recovered()]
+    out["data_distribution"] = [(e, s, w - t_run) for e, s, w, _p, _f in marks if e.startswith("DD")]
+    out["run_s"] = time.perf_counter() - t_run
+    out["transcript"] = transcript
+    out["capture"] = capture
+    out["cluster"] = cluster
+    return out
+
+
+def run_dynamic_cluster(card: str) -> tuple[dict, list[dict]]:
+    """Phase 14: the dynamic cluster on the card. The CPU twin first (the
+    same run at 100,000 keys with ``device="cpu"``, then on the card:
+    identical transcripts), then the 1M-key run on the card with its gates
+    and measurements; after it, K1-K3 against their plain versions on the
+    newest generation's widest batch, and K5 on the rebooted server's and
+    a filled server's index. Returns the phase's JSON object and the rows."""
+    from foundationdb_tpu_torch.device import lanes_to_torch
+    from foundationdb_tpu_torch.runtime.loop import set_loop
+
+    t_phase = time.perf_counter()
+    twin = {}
+    for label, device in (("cpu", "cpu"), ("card", None)):
+        twin[label] = dynamic_cluster_run(card, device, DYN_TWIN_KEYS, measure=False)
+        set_loop(None)
+        gc.unfreeze()  # the run froze its objects before its mixes
+        gc.collect()
+    a, b = twin["cpu"]["transcript"], twin["card"]["transcript"]
+    if a != b:
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        raise AssertionError(f"the CPU twin's transcript differs from the card's at record {i} of "
+                             f"{len(a)} / {len(b)}: {str(a[i] if i < len(a) else None)[:400]} != "
+                             f"{str(b[i] if i < len(b) else None)[:400]}")
+    twin_out = {"keys": DYN_TWIN_KEYS, "records": len(a), "cpu_run_s": twin["cpu"]["run_s"],
+                "card_run_s": twin["card"]["run_s"], "recoveries": twin["card"]["recoveries"],
+                "unknown_results": twin["card"]["unknown_results"]}
+    log(f"dynamic cluster twin: {len(a)} records identical on the CPU and on the card "
+        f"({twin_out['cpu_run_s']:.1f} s and {twin_out['card_run_s']:.1f} s) [{card}]")
+    del twin, a, b
+    gc.collect()
+
+    run = dynamic_cluster_run(card, None, DYN_KEYS, measure=True)
+    cluster, capture = run.pop("cluster"), run.pop("capture")
+    run.pop("transcript")
+    launches = run["launches"]
+    missing = [k for k in RESOLVE_PATH + ("search",) if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the dynamic cluster: {missing} ({launches})")
+
+    # K1-K3 on the newest generation's widest batch of the last round
+    (_size, cs, (hbatch, n_real, _epoch)) = capture["best"]
+    newest = max(int(e) for e in run["generations"])
+    gen_launches = run["generations"][str(newest)]["launches"]
+    base = cs._origin[1]
+    window = cluster.knobs.MAX_READ_TRANSACTION_LIFE_VERSIONS
+    old = max(cs.oldest_version - base, 0)
+    vers = (old + window, old, old)
+    T_, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
+    log(f"kernel checks on generation {newest}'s widest batch of the last round ({n_real} transactions, "
+        f"T={T_} KR={KR} KW={KW}; version origin {base}) [{card}]:")
+    rows = check_resolve_kernels(cs._state, hbatch, vers, gen_launches)[0]
+    for r in rows:
+        r["name"] = f"{r['name']} (dynamic cluster, generation {newest} batch T={T_} KR={KR} KW={KW})"
+    # K5 on the rebooted server's index and on the filled server that
+    # searched most after the fill, each with its widest search of the
+    # last round and the read-back
+    after_fill = run["search_launches"]["filled_after_the_fill"]
+    filled = max(capture["filled"], key=lambda ss: after_fill[ss.tag])
+    for label, ss, n in (("rebooted", capture["rebooted"], run["search_launches"]["rebooted"]),
+                         ("filled by data distribution", filled, after_fill[filled.tag])):
+        q_rows, codes = capture["q"][id(ss)]
+        idx = ss._range_index
+        log(f"K5 on the {label} storage server's index (tag {ss.tag}, {idx.n} rows), its widest search "
+            f"(Q={q_rows}) [{card}]:")
+        k5 = check_search(idx._codes, lanes_to_torch(codes, "cuda"), {"search": n})[0]
+        k5["name"] = f"search (dynamic cluster, {label} index, Q={q_rows})"
+        rows.append(k5)
+    run["kernel_rows"] = [{k: r[k] for k in ("name", "launches", "ms", "device_ms", "plain_ms",
+                                             "bound_ms", "bound_by", "max_abs_err")} for r in rows]
+    run["twin"] = twin_out
+    run["phase_s"] = time.perf_counter() - t_phase
+    run["card"] = card
+    mk = run["steps"]["master_kill"]
+    log(f"dynamic cluster: master killed, recovered (count {mk['recovery_count']}, version "
+        f"{mk['recovery_version']}) {mk['to_recovered_sim_s']:.3f} sim s / {mk['to_recovered_wall_s']:.3f} s wall "
+        f"later, first commit of the new generation {mk['to_first_commit_sim_s']:.3f} sim s / "
+        f"{mk['to_first_commit_wall_s']:.3f} s wall; device idle {run['round_profile']['device_idle']:.4f} "
+        f"({run['round_profile']['device_busy_from']}) [{card}]")
+    log(json.dumps({"dynamic_cluster": run}, default=str))
+    log(card)
+    del cluster, capture, cs
+    set_loop(None)
+    gc.unfreeze()
+    gc.collect()
+    return run, rows
+
+
 def profile_only(card: str, history: bool = False, reshard: bool = False, rebase: bool = False) -> None:
     """Only the per-batch profile of both resolver paths: each warmed by
     one group of the bench workload, then profiled over the next
@@ -2675,9 +3474,13 @@ def main() -> int:
     # 13. the commit path: client -> proxy -> master -> resolver -> tlog ->
     # storage in the port's static Cluster, its CPU twin first
     _commit, commit_rows = run_commit_path(card)
+    # 14. the dynamic cluster: coordinators -> cluster controller -> master
+    # recovery -> recruited resolvers and storage, through a master kill, a
+    # storage reboot and a storage death; its CPU twin first
+    _dynamic, dynamic_rows = run_dynamic_cluster(card)
 
     # 6. results
-    log(json.dumps({"kernels": rows + index_rows + mesh_rows + storage_rows + commit_rows}))
+    log(json.dumps({"kernels": rows + index_rows + mesh_rows + storage_rows + commit_rows + dynamic_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -5,25 +5,28 @@ every binding exposes, e.g. bindings/python/fdb/impl.py @transactional):
 holds the key-location cache (getKeyLocation:1059) and proxy endpoints, and
 ``run()`` retries a transaction body on retryable errors.
 
-The port's copy of ``foundationdb_tpu/client/database.py`` in its static
-mode: an explicit proxy address list (``Database(sim,
-cluster.proxy_addrs)``). The dynamic mode (``coordinators=``,
-``Database.from_coordinators``: monitor the coordinators for the elected
-cluster controller, then long-poll its openDatabase endpoint for the
-proxy list) needs the coordination role and comes with the dynamic
-cluster (ROADMAP queue A, item 9); until then ``coordinators=`` raises
-``NotImplementedError``.
+Two connection modes:
+- static: an explicit proxy address list (the unit-test fast path);
+- dynamic (``Database.from_coordinators``): monitor the coordinators for
+  the elected cluster controller (fdbclient/MonitorLeader), then long-poll
+  its openDatabase endpoint for the current ClientDBInfo — the proxy list
+  refreshes itself across recoveries, exactly how a real client rides out
+  a master failure.
+
+The port's copy of ``foundationdb_tpu/client/database.py``, both modes.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from ..net.sim import BrokenPromise, Sim
+from ..net.sim import BrokenPromise, Endpoint, Sim
 from ..runtime.futures import (
     AsyncVar,
     RequestBatcher,
     delay,
+    settled,
+    timeout,
     wait_for_any,
 )
 from ..runtime.knobs import Knobs
@@ -32,6 +35,7 @@ from ..kv.keyrange_map import KeyRangeMap
 from ..server.interfaces import (
     GetKeyServersRequest,
     GetReadVersionRequest,
+    OpenDatabaseRequest,
     ProxyInterface,
     Tokens,
 )
@@ -56,14 +60,8 @@ class Database:
         proxy_addrs: list[str] = None,
         client_addr: str = "client",
         coordinators: list[str] = None,
+        proxy_ifaces: list = None,  # explicit ProxyInterface list (e.g. DD)
     ):
-        if coordinators:
-            raise NotImplementedError(
-                "Database(coordinators=...) needs the coordination role, which "
-                "the port does not have yet (ROADMAP queue A, item 9: "
-                "coordination.py with DynamicCluster and "
-                "Database.from_coordinators); pass proxy_addrs"
-            )
         self.sim = sim
         self.knobs: Knobs = sim.knobs
         self.client = sim.processes.get(client_addr) or sim.new_process(client_addr)
@@ -71,7 +69,8 @@ class Database:
         # per-replica latency/penalty model for read load balancing
         # (fdbrpc/QueueModel.cpp analog; client/loadbalance.py)
         self.queue_model = QueueModel()
-        proxy_ifaces = None if proxy_addrs is None else [ProxyInterface(a) for a in proxy_addrs]
+        if proxy_ifaces is None and proxy_addrs is not None:
+            proxy_ifaces = [ProxyInterface(a) for a in proxy_addrs]
         self._proxies: AsyncVar = AsyncVar(proxy_ifaces)
         # location cache: key range → team addresses (None = unknown)
         self._locations = KeyRangeMap(default=None)
@@ -91,11 +90,53 @@ class Database:
         from .read_coalescer import ReadCoalescer
 
         self.reads = ReadCoalescer(self)
+        if coordinators:
+            self.client.spawn(self._monitor_proxies(coordinators))
+
+    @classmethod
+    def from_coordinators(
+        cls, sim: Sim, coordinators: list[str], client_addr: str = "client"
+    ) -> "Database":
+        return cls(sim, client_addr=client_addr, coordinators=coordinators)
 
     @property
     def proxy_addrs(self) -> list[str]:
         ps = self._proxies.get() or []
         return [p.address for p in ps]
+
+    # -- cluster-controller discovery (dynamic mode) ---------------------------
+
+    async def _monitor_proxies(self, coordinators: list[str]):
+        from ..server.coordination import monitor_leader
+
+        leader = AsyncVar(None)
+        self.client.spawn(monitor_leader(self.client, coordinators, leader))
+        known = -1
+        while True:
+            cc = leader.get()
+            if cc is None:
+                await leader.on_change()
+                continue
+            fut = self.client.request(
+                Endpoint(cc.address, Tokens.CC_OPEN_DATABASE),
+                OpenDatabaseRequest(known_id=known),
+            )
+            # re-issue when the CC changes under the long-poll; settled()
+            # keeps a BrokenPromise from killing this monitor actor
+            which = await wait_for_any([settled(fut), leader.on_change()])
+            if which == 1:
+                fut.cancel()
+                continue
+            if fut.is_error():
+                await delay(0.5)
+                continue
+            info = fut.get()
+            if info is None:
+                continue
+            known = info.id
+            self._proxies.set(list(info.proxies))
+            # topology moved: cached locations may be stale
+            self._locations = KeyRangeMap(default=None)
 
     async def _get_proxies(self) -> list:
         while not self._proxies.get():

@@ -1,9 +1,18 @@
 """Cluster assembly: build a full database in the simulator.
 
-``Cluster`` is the static wiring (the analog of a hand-built
-setupSimulatedSystem, SimulatedCluster.actor.cpp:886): one process per
-role, fixed epoch-0 log system, no recovery. Fast to build; used by the
-commit-path and workload tests.
+Two forms:
+
+- ``Cluster`` — static wiring (the analog of a hand-built
+  setupSimulatedSystem, SimulatedCluster.actor.cpp:886): one process per
+  role, fixed epoch-0 log system, no recovery. Fast to build; used by the
+  commit-path tests.
+
+- ``DynamicCluster`` — the real thing: coordinator processes + worker
+  processes only. Workers campaign for cluster controllership through the
+  coordinators' leader election, the winning CC recruits a master, and the
+  master's recovery state machine (master.master_core) recruits every other
+  role and seeds storage. Kill the master/proxies/tlogs and the cluster
+  re-forms itself — the full §3.3 recovery loop of SURVEY.md.
 
 Layout rules:
 - storage server i carries tag i (fdbclient/FDBTypes.h:39 Tag)
@@ -14,23 +23,19 @@ Layout rules:
 - the conflict-resolution key space splits evenly across resolvers
   (the keyResolvers map, MasterProxyServer.actor.cpp:233)
 
-The port's copy of ``ClusterConfig`` and the static ``Cluster`` of
-``foundationdb_tpu/server/cluster.py``. The cluster runs on the CUDA card
-named by ``device``: every resolver's conflict set and every storage
-server's range index is built there (``None`` = the card, which raises
-``DeviceUnavailableError`` when there is none; ``"cpu"`` runs the kernels'
-plain versions, as the tests do). ``conflict_backend`` defaults to
-``"torch"``; the device backends are named ``torch`` and ``torch_mesh``
-where the JAX package says ``tpu1`` and ``mesh``. Each storage server has
-its own ``SimDisk``: a durable engine under the MVCC window and, with the
-index knob on (its default in the Sim), the range index that engine reads
-go through (the K5 kernel). The reference's static cluster keeps its
-storage in memory only, so its reads never leave the window; a storage
-server of the dynamic cluster has its worker's disk in both packages.
-``DynamicCluster`` and its boot helpers need the coordinators and the
-workers, and come with them (ROADMAP queue A, item 9); the reference's
-multi-region options (``remote_dc``, ``n_log_routers``), which only the
-dynamic cluster reads, come with ``log_router.py``.
+The port's copy of ``foundationdb_tpu/server/cluster.py``. Either cluster
+runs on the CUDA card named by ``device``: every resolver's conflict set
+and every storage server's range index is built there (``None`` = the
+card, which raises ``DeviceUnavailableError`` before any process is made
+when there is none; ``"cpu"`` runs the kernels' plain versions, as the
+tests do). ``conflict_backend`` defaults to ``"torch"``; the device
+backends are named ``torch`` and ``torch_mesh`` where the JAX package says
+``tpu1`` and ``mesh``. Each storage server has a ``SimDisk``: a durable
+engine under the MVCC window and, with the index knob on (its default in
+the Sim), the range index that engine reads go through (the K5 kernel).
+The reference's static cluster keeps its storage in memory only, so its
+reads never leave the window; a storage server of the dynamic cluster has
+its worker's disk in both packages.
 """
 
 from __future__ import annotations
@@ -44,11 +49,13 @@ from ..runtime.futures import AsyncVar
 from ..runtime.knobs import Knobs
 from .interfaces import MasterInterface, ResolverInterface
 from .log_system import LogSystem, LogSystemConfig, TLogSet, assign_tags
+from .coordination import CoordinatorServer
 from .master import Master, _split_points
 from .proxy import Proxy, ShardMap
 from .resolver import Resolver
 from .storage import StorageServer
 from .tlog import TLog
+from .worker import Worker
 
 
 @dataclass
@@ -60,6 +67,25 @@ class ClusterConfig:
     replication: int = 1  # storage replicas per shard (team size)
     tlog_replication: int = 1  # tlog replicas per tag
     conflict_backend: str = "torch"
+    # multi-region: a remote dc gets a LogRouter set + a storage mirror
+    # (regions config, fdbclient/DatabaseConfiguration.h:52)
+    remote_dc: str = ""
+    n_log_routers: int = 1
+
+    def as_dict(self) -> dict:
+        return dict(
+            n_proxies=self.n_proxies,
+            n_resolvers=self.n_resolvers,
+            n_tlogs=self.n_tlogs,
+            n_storage=self.n_storage,
+            replication=self.replication,
+            tlog_replication=self.tlog_replication,
+            conflict_backend=self.conflict_backend,
+            remote_dc=self.remote_dc,
+            n_log_routers=self.n_log_routers,
+        )
+
+
 
 
 class Cluster:
@@ -175,3 +201,120 @@ class Cluster:
     def quiesce_version(self) -> int:
         """Highest committed version (for draining in tests — QuietDatabase)."""
         return self.master.live_committed
+
+
+class DynamicCluster:
+    """Coordinators + workers; everything else recruits itself (§3.3)."""
+
+    def __init__(
+        self,
+        sim: Sim,
+        config: ClusterConfig = None,
+        n_coordinators: int = 1,
+        n_workers: int = None,
+        knobs: Knobs = None,
+        prefix: str = "",  # distinct prefixes let several clusters share a sim
+        n_zones: int = 0,  # >0: spread workers over failure domains
+        device=None,  # every worker's: None = the card
+    ):
+        # no card, no cluster: checked before any process is made, since a
+        # recruitment that raised inside a worker would only be traced and
+        # the master would retry it forever
+        resolve_device(device)
+        self.sim = sim
+        self.config = cfg = config or ClusterConfig()
+        self.knobs = knobs or sim.knobs
+
+        def zone_of(i: int):
+            return f"{prefix}z{i % n_zones}" if n_zones else None
+
+        self.coordinators = [f"{prefix}coord{i}" for i in range(n_coordinators)]
+        for i, addr in enumerate(self.coordinators):
+            sim.new_process(addr, boot=_boot_coordinator, zone=zone_of(i))
+
+        # worker fleet: storage-class + transaction-class + stateless
+        if n_workers is None:
+            n_workers = (
+                cfg.n_storage
+                + cfg.n_tlogs
+                + cfg.n_proxies
+                + cfg.n_resolvers
+                + 2  # master + CC headroom
+            )
+        n_stateless = max(
+            2, n_workers - cfg.n_storage - cfg.n_tlogs
+        )
+        classes = (
+            ["storage"] * cfg.n_storage
+            + ["transaction"] * cfg.n_tlogs
+            + ["stateless"] * n_stateless
+        )
+        self.worker_addrs = []
+        # zone assignment strides WITHIN each class so every class spans
+        # all zones (e.g. 6 storage workers over 3 zones = 2 per zone)
+        per_class_idx: dict = {}
+        for i, pclass in enumerate(classes):
+            j = per_class_idx.get(pclass, 0)
+            per_class_idx[pclass] = j + 1
+            addr = f"{prefix}worker{i}"
+            self.worker_addrs.append(addr)
+            sim.new_process(
+                addr,
+                boot=_make_worker_boot(
+                    self.coordinators, pclass, cfg.as_dict(), self.knobs, device=device
+                ),
+                zone=zone_of(j),
+            )
+
+        # remote region: storage mirror workers + router hosts in a
+        # second dc. In NORMAL operation the primary region runs the
+        # transaction subsystem (master_core restricts primary roles to
+        # it), but remote workers stay CC-eligible: after a region
+        # failover they are the only processes left to elect one
+        # (the reference's CC can run in any region).
+        if cfg.remote_dc:
+            r_classes = ["storage"] * cfg.n_storage + ["transaction"] * max(
+                cfg.n_log_routers, 1
+            ) + ["stateless"]
+            for i, pclass in enumerate(r_classes):
+                addr = f"{prefix}remote{i}"
+                self.worker_addrs.append(addr)
+                sim.new_process(
+                    addr,
+                    boot=_make_worker_boot(
+                        self.coordinators,
+                        pclass,
+                        cfg.as_dict(),
+                        self.knobs,
+                        device=device,
+                    ),
+                    zone=f"{prefix}{cfg.remote_dc}-z{i}",
+                    dc=cfg.remote_dc,
+                )
+
+
+def _boot_coordinator(process):
+    async def run():
+        CoordinatorServer(disk=process.sim.disk(process.machine)).register(
+            process
+        )
+
+    return run()
+
+
+def _make_worker_boot(coordinators, pclass, config, knobs, can_be_cc=True, device=None):
+    def boot(process):
+        async def run():
+            Worker(
+                process,
+                coordinators,
+                process_class=pclass,
+                initial_config=config,
+                knobs=knobs,
+                can_be_cc=can_be_cc,
+                device=device,
+            ).start()
+
+        return run()
+
+    return boot

@@ -5,8 +5,8 @@ The analog of the reference's *Interface.h structs of RequestStreams
 StorageServerInterface.h, MasterProxyInterface.h). An interface here is a
 set of (endpoint token, request dataclass) pairs.
 
-The port's copy of ``foundationdb_tpu/server/interfaces.py``, so far the
-messages of the roles the port runs, field for field: the master's
+The port's copy of ``foundationdb_tpu/server/interfaces.py``, every
+message field for field: the master's
 (``GetCommitVersion*``, ``ReportRawCommittedVersionRequest``), the
 proxy's (``GetReadVersion*``, ``Commit*``, ``GetKeyServers*``), the
 resolver's (``Version``, ``TransactionData``, ``ResolveBatchRequest``,
@@ -15,8 +15,10 @@ resolver's (``Version``, ``TransactionData``, ``ResolveBatchRequest``,
 ``WaitMetricsRequest``, ``FeedRead*``, ``MultiGet*``), the role
 interfaces (``MasterInterface``, ``ProxyInterface``, ``ResolverInterface``,
 ``StorageInterface``), the client's bootstrap (``OpenDatabaseRequest``,
-``ClientDBInfo``) and the endpoint ``Tokens``. The worker and recruitment
-messages come with the dynamic cluster.
+``ClientDBInfo``), the worker's and the cluster controller's
+(``RegisterWorkerRequest``, ``GetWorkers*``, ``WorkerDetails``,
+``RecruitRole*``, ``ServerDBInfo``, ``SetDBInfoRequest``) and the endpoint
+``Tokens``.
 """
 
 from __future__ import annotations
@@ -480,7 +482,53 @@ class StorageInterface:
         return Endpoint(self.address, _suffixed(f"storage.{method}", self.uid))
 
 
-# -- client bootstrap (ClusterInterface.h) -------------------------------------
+# -- worker / cluster controller (WorkerInterface.h, ClusterInterface.h) ------
+
+
+@dataclass
+class RegisterWorkerRequest:
+    address: str = ""
+    process_class: str = "unset"  # storage | transaction | stateless | unset
+    roles: tuple = ()  # role kinds currently hosted (for fitness)
+    # process locality (fdbrpc/Locality.h) for policy-driven placement
+    machine: str = ""
+    zone: str = ""
+    dc: str = "dc0"
+
+
+@dataclass
+class GetWorkersRequest:
+    pass
+
+
+@dataclass
+class WorkerDetails:
+    address: str = ""
+    process_class: str = "unset"
+    roles: tuple = ()
+    machine: str = ""
+    zone: str = ""
+    dc: str = "dc0"
+
+
+@dataclass
+class GetWorkersReply:
+    workers: list = field(default_factory=list)  # [WorkerDetails]
+
+
+@dataclass
+class RecruitRoleRequest:
+    """CC/master → worker: instantiate a role (worker.actor.cpp:693-794)."""
+
+    role: str = ""  # master | proxy | resolver | tlog | storage
+    uid: str = ""
+    params: dict = field(default_factory=dict)
+
+
+@dataclass
+class RecruitRoleReply:
+    address: str = ""
+    uid: str = ""
 
 
 @dataclass
@@ -494,6 +542,31 @@ class OpenDatabaseRequest:
 class ClientDBInfo:
     id: int = 0
     proxies: list = field(default_factory=list)  # proxy addresses
+
+
+@dataclass
+class ServerDBInfo:
+    """Broadcast cluster topology (the reference's ServerDBInfo pushed by
+    the CC to every worker). None fields = not yet recovered."""
+
+    id: int = 0
+    recovery_count: int = 0
+    master_address: str = ""
+    master_uid: str = ""
+    client_info: ClientDBInfo = None
+    log_system: object = None  # log_system.LogSystemConfig
+    recovery_version: Version = 0  # epoch-end of the previous generation
+    # multi-region: the remote region's LogRouter set as a
+    # LogSystemConfig (routers expose tlog-shaped peek/pop, so remote
+    # storage follows them with the ordinary PeekCursor), plus the
+    # remote storage mirror (tag → address for intra-region fetches)
+    log_routers: object = None
+    remote_storage: tuple = ()
+
+
+@dataclass
+class SetDBInfoRequest:
+    info: ServerDBInfo = None
 
 
 # -- endpoint token names (well-known, fdbrpc/fdbrpc.h:56) --------------------

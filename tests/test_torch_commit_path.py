@@ -13,6 +13,10 @@ must be equal: the tolerance is exact. Also the cluster shapes of
 ``test_cluster_shapes``, the resolution balancer on, a run with the Sim's
 buggify on, a 2000-write transaction and an empty batch through both
 packages' conflict sets, and the refusal to build a cluster without a card.
+And what the client and the config reach beyond the static cluster:
+``Database(sim, coordinators=...)`` finds the proxies through the elected
+cluster controller, and ``ClusterConfig(remote_dc=...)`` reaches the
+dynamic cluster's remote workers.
 """
 
 import functools
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from commit_slice import SCENARIOS, run_commit
+from dynamic_slice import collect_garbage
 
 torch.set_num_threads(2)  # the suite runs in several xdist workers: cap each one's intra-op threads
 
@@ -257,31 +262,78 @@ def test_a_cluster_without_a_card_raises():
         set_loop(None)
 
 
-def test_database_with_coordinators_is_not_implemented():
+def test_database_with_coordinators_finds_the_proxies_through_the_cluster_controller():
+    """``Database(sim, coordinators=...)`` monitors the coordinators for the
+    elected cluster controller and long-polls it for the proxy list: the
+    proxies it finds are the ones the recovered master recruited, and it
+    follows them to the next generation."""
     from foundationdb_tpu_torch.client import Database
     from foundationdb_tpu_torch.net.sim import Sim
-    from foundationdb_tpu_torch.runtime.loop import set_loop
+    from foundationdb_tpu_torch.runtime.futures import delay, spawn
+    from foundationdb_tpu_torch.server.cluster import ClusterConfig, DynamicCluster
 
     sim = Sim(0)
     sim.activate()
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Database(sim, coordinators=["coord0"])
-        assert not sim.processes
+        cluster = DynamicCluster(sim, ClusterConfig(n_proxies=2, conflict_backend="oracle"),
+                                 n_coordinators=3, device="cpu")
+        db = Database(sim, coordinators=cluster.coordinators)
+
+        def hosting(kind):
+            return sorted((a, uid) for a, p in sim.processes.items() if getattr(p, "worker", None) is not None
+                          and p.alive for uid, h in p.worker.roles.items() if h.kind == kind)
+
+        def found():
+            return sorted((p.address, p.uid) for p in db._proxies.get())
+
+        async def go():
+            async def body(tr):
+                tr.set(b"k", b"v")
+
+            await db.run(body)
+            first = found()
+            assert first == hosting("proxy") and len(first) == 2
+            sim.kill_process(hosting("master")[0][0])
+            await db.run(body)
+            await delay(1.0)
+            return first, found(), hosting("proxy")
+
+        first, now, live = sim.run_until_done(spawn(go()), limit=600.0)
+        assert now == live and not set(now) & set(first)
     finally:
-        set_loop(None)
+        collect_garbage("foundationdb_tpu_torch")  # the next test's Sim must not meet this one's actors
 
 
-def test_cluster_config_takes_only_what_the_static_cluster_reads():
-    """The reference's multi-region options are read only by its dynamic
-    cluster, which the port does not have yet: the port's config refuses
-    them instead of building a one-region cluster."""
-    from foundationdb_tpu_torch.server import ClusterConfig
+def test_remote_dc_reaches_the_dynamic_clusters_remote_workers():
+    """``ClusterConfig(remote_dc=..., n_log_routers=...)`` builds the remote
+    region's workers (a storage mirror a tag, the router hosts and one
+    stateless) in that dc, and the recovered master recruits the routers."""
+    from foundationdb_tpu_torch.net.sim import Sim
+    from foundationdb_tpu_torch.runtime.futures import delay, spawn
+    from foundationdb_tpu_torch.server.cluster import ClusterConfig, DynamicCluster
 
-    for option in ({"remote_dc": "dc2"}, {"n_log_routers": 2}):
-        with pytest.raises(TypeError):
-            ClusterConfig(**option)
-    assert ClusterConfig().conflict_backend == "torch"
+    cfg = ClusterConfig(n_storage=2, n_tlogs=2, remote_dc="dc2", n_log_routers=2, conflict_backend="oracle")
+    assert cfg.as_dict()["remote_dc"] == "dc2" and cfg.as_dict()["n_log_routers"] == 2
+    sim = Sim(0)
+    sim.activate()
+    try:
+        cluster = DynamicCluster(sim, cfg, n_coordinators=3, device="cpu")
+        remote = [a for a in cluster.worker_addrs if a.startswith("remote")]
+        assert len(remote) == 2 + 2 + 1
+        assert {sim.processes[a].locality.dc for a in remote} == {"dc2"}
+
+        async def go():
+            await delay(5.0)
+            return sorted(
+                (sim.processes[a].locality.dc, h.kind) for a in cluster.worker_addrs
+                for h in sim.processes[a].worker.roles.values() if h.kind in ("log_router", "storage")
+            )
+
+        roles = sim.run_until_done(spawn(go()), limit=60.0)
+        assert roles.count(("dc2", "log_router")) == 2
+        assert roles.count(("dc2", "storage")) == 2 and roles.count(("dc0", "storage")) == 2
+    finally:
+        collect_garbage("foundationdb_tpu_torch")
 
 
 # -- the bulk load's grid growth (a repair of the reference's replay ladder;

@@ -935,3 +935,74 @@ def test_sequential_bulk_load_on_the_card(cuda, monkeypatch, backend):
     assert got == load(new_conflict_set(backend, device="cpu", capacity=1 << 10, **kw))
     assert got == load(new_conflict_set("oracle"))
     assert card.metrics.snapshot()["overflowReplays"] >= 7
+
+
+# -- the dynamic cluster on the card --------------------------------------------
+
+
+def _dynamic(scenario, backend, device, **kw):
+    from dynamic_slice import run_dynamic
+
+    if backend == "torch_mesh":
+        kw["resolver_kw"] = {"n_parts": 4}
+    return run_dynamic("foundationdb_tpu_torch", [scenario], backend, device=device, **kw)[scenario]
+
+
+@pytest.mark.parametrize("backend", ["torch", "torch_mesh"])
+def test_dynamic_cluster_on_the_card_survives_a_master_kill(cuda, backend):
+    """tests/dynamic_slice.py's master kill on the card: the whole
+    transcript equals the same seed's run with ``device="cpu"``; what the
+    clients saw, the recoveries, the shard map and the sim clock equal the
+    oracle cluster's; both generations' resolvers launched their kernels."""
+    kernels.reset_launch_counts()
+    card = _dynamic("kill_master", backend, "cuda")
+    launches = kernels.launch_counts()
+    assert card == _dynamic("kill_master", backend, "cpu")
+    oracle = _dynamic("kill_master", "oracle", "cpu")
+    for part in ("client", "recoveries", "shards", "now"):
+        assert card[part] == oracle[part], part
+    assert max(rc for _a, _i, rc, _rv in card["recoveries"]) >= 2
+    path = (("history", "intra_batch", "stage", "merge") if backend == "torch"
+            else ("history_parts", "intra_batch", "stage_parts", "merge_parts"))
+    assert all(launches[k] > 0 for k in path + ("search",)), launches
+    want = "TorchMeshConflictSet" if backend == "torch_mesh" else "TorchConflictSet"
+    assert card["guards"] and all(g[2:] == ("HEALTHY", 0, 0, want) for g in card["guards"])
+
+
+def test_rebooted_storage_servers_index_on_the_card_matches_its_plain_version(cuda):
+    """tests/dynamic_slice.py's storage reboot on the card: the rebooted
+    server rebuilds its range index from the engine it recovered from its
+    disk; once the scenario's keys have left the MVCC window for the
+    engine, K5's answers over that index equal the plain version's over
+    the same codes, and a CPU index over the same keys."""
+    from foundationdb_tpu_torch.conflict import grid as G
+
+    from foundationdb_tpu_torch.runtime.futures import delay, spawn
+
+    async def idle():
+        await delay(8.0)
+
+    def probe(sim):
+        # past the 5 s MVCC window: the scenario's keys are in the engine
+        sim.run_until_done(spawn(idle()), limit=60.0)
+        ss = next(h.obj for p in sim.processes.values() if getattr(p, "worker", None) is not None
+                  and p.alive for h in p.worker.roles.values() if h.kind == "storage")
+        idx = ss._range_index
+        assert idx is not None and idx._codes.is_cuda
+        keys = list(ss.engine._keys)
+        queries = keys + [k + b"\x00" for k in keys] + [b"", b"s", b"s99", b"\xff"]
+        q = TorchRangeIndex(queries, device="cuda")._codes
+        got = kernels.search(idx._codes, q)
+        plain = torch.stack([G.searchsorted_lex(idx._codes, q, "left"),
+                             G.searchsorted_lex(idx._codes, q, "right")])
+        cpu = TorchRangeIndex(keys, device="cpu")
+        return (ss.stats.snapshot()["multiGetFallbackKeys"], len(keys), torch.equal(got, plain),
+                [list(x) for x in idx.batch_lookup(queries)] == [list(x) for x in cpu.batch_lookup(queries)])
+
+    kernels.reset_launch_counts()
+    card = _dynamic("storage_reboot", "torch", "cuda", probe=probe)
+    assert kernels.launch_counts()["search"] > 0
+    fallback, n_keys, same_as_plain, same_as_cpu = card["probe"]
+    assert n_keys >= 25 and same_as_plain and same_as_cpu and fallback == 0
+    card.pop("probe")
+    assert card == _dynamic("storage_reboot", "torch", "cpu")
