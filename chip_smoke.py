@@ -29,9 +29,10 @@ card). Phases, each of which raises on failure:
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
    committed clear spans the whole keyspace;
-6. after phases 7 to 14: print the kernel table (every kernel of the
+6. after phases 7 to 15: print the kernel table (every kernel of the
    paths, K5 also at the storage shapes, K1-K3 and K5 also on the commit
-   path and in the dynamic cluster), the card line and the result line;
+   path, in the dynamic cluster and in the soak), the card line and the
+   result line;
 7. the partitioned resolver, ``new_conflict_set("torch_mesh", key_width=12,
    capacity=1<<19, n_parts=4)`` (4 partitions × 8192 × 32 × 4 uint32 =
    16 MiB), over the same workload with every key re-encoded
@@ -121,7 +122,8 @@ card). Phases, each of which raises on failure:
 14. the dynamic cluster: the port's ``DynamicCluster`` (3 coordinators, 2
    proxies, 2 resolvers on ``torch``, 2 tlogs and 4 storage servers, both
    at 2 replicas; default knobs and phase 13's latency) on ``Sim(seed=0)``,
-   one ``Database.from_coordinators``. It forms, loads phase 13's 1M keys
+   one ``Database.from_coordinators``. It forms, loads 500,000 keys (half
+   of phase 13's, for the script's budget)
    until all four storage servers' engines and indexes hold their shards,
    runs a mix-A round (100 actors x 10 transactions), kills the master's
    worker during a round (recovery: fresh resolvers at the recovery
@@ -133,7 +135,7 @@ card). Phases, each of which raises on failure:
    (unknown results count where their proxy logged them within their
    generation), every generation's guards HEALTHY on ``torch`` on the
    card with K1-K3 launched, K5 launched on the rebooted and the filled
-   servers, no multiGet fallback, and a CPU twin at 100,000 keys with an
+   servers, no multiGet fallback, and a CPU twin at 50,000 keys with an
    identical transcript. Then K1-K3 against their plain versions on the
    newest generation's widest batch and K5 on the rebooted and the filled
    indexes. One ``{"dynamic_cluster": ...}`` JSON line: per step the
@@ -141,7 +143,24 @@ card). Phases, each of which raises on failure:
    first commit (sim and wall), time to serve after the reboot, time to
    full replication and keys moved, recoveries, per generation resolver
    batches and grid growths, card memory after each step, the device's
-   idle share over a profiled round.
+   idle share over a profiled round. After the master kill, the resolvers
+   the surviving workers destroyed must have taken their grids off the
+   card (the killed worker's stay: the Sim keeps its roles); the step
+   reports the bytes.
+15. the chaos soak: the port's ``tools.soak.run_one`` on the card for
+   ``tests/test_soak.py``'s seeds 0, 1, 4 and 7, seed 0 with kernel faults
+   and the overload burst forced, then seeds from 8 while the phase has
+   budget (at least four, none past 18). Each seed draws its own cluster
+   shape, knobs, buggify sites and fault workloads from its seed. Gates a
+   seed: the run's own checks (the workloads' oracles, the exact ledger
+   under kernel faults, the ConsistencyCheck, the prefilter oracle), a
+   CPU twin with the identical summary, K5 launched, K1-K3 on a ``torch``
+   seed with every live guard on the card (or failed over by an injected
+   fault), the forced seed's failover to ``native`` and promotion back,
+   and ``torch.cuda.memory_allocated()`` back at its value before the
+   phase. K1-K3 on the forced seed's widest batch and K5 on its widest
+   search against their plain versions. One ``{"soak": ...}`` line a seed
+   and one ``{"soak_summary": ...}`` line.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after, and every kernel of the path must have launched.
@@ -758,6 +777,30 @@ def check_resolve_kernels(state, hbatch, vers, launches: dict):
     return rows, batch, ck, st
 
 
+def check_reshard(state, n_buckets: int, n_slots: int, row) -> int:
+    """K4a (``maint_reshard``) against ``grid.reshard_device_plain`` on
+    ``state`` into ``n_buckets`` × ``n_slots``; one row through ``row``.
+    Returns the live rows it moved."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import kernels
+
+    B, S, Lp1 = state.grid.shape
+    used = (torch.arange(S, device=state.grid.device)[None, :] < state.count[:, None]).reshape(B * S)
+    rk = kernels.maint_reshard(state.grid, state.count, state.floor, n_buckets, n_slots)
+    rp_state, rp_press = G.reshard_device_plain(state, used, n_buckets, n_slots)
+    n_live = int(used.sum())
+    # the live rows, count and floor read; the whole new grid, pivots,
+    # count, bmax, floor and pressure written (a kernel's scratch is not
+    # the function's)
+    nbytes = (n_live * Lp1 + 2 * B + n_buckets * n_slots * Lp1 + n_buckets * (Lp1 + 2) + 1) * CELL
+    row("maint_reshard", "maint.cu", "foundationdb_tpu/conflict/grid.py:718",
+        max_abs_err(tuple(rk), tuple(rp_state) + (rp_press,)),
+        kernel_ms(lambda: kernels.maint_reshard(state.grid, state.count, state.floor, n_buckets, n_slots), 20),
+        cuda_ms(lambda: G.reshard_device_plain(state, used, n_buckets, n_slots), 3),
+        nbytes, n_live * Lp1 + B * S)
+    return n_live
+
+
 def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     """Each kernel against its plain version on the card, on the state
     after the first group and the next bench batch. Exact equality; times
@@ -768,11 +811,8 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
 
     rows, batch, ck, st = check_resolve_kernels(state, hbatch, vers, launches)
     row = row_maker(rows, launches)
-    dev = state.grid.device
     now = vers[0]
-    B, S, Lp1 = state.grid.shape
-    L = Lp1 - 1
-    cell = CELL
+    B, S, _Lp1 = state.grid.shape
 
     # the same launch when one committed clear spans the whole keyspace and
     # nothing else commits: two touched buckets, all others floor-raised
@@ -789,20 +829,7 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
         f"max_abs_err {err}")
 
     # K4a device reshard at the same grid shape
-    N = B * S
-    used = (torch.arange(S, device=dev)[None, :] < state.count[:, None]).reshape(N)
-    rk = kernels.maint_reshard(state.grid, state.count, state.floor, B, S)
-    rp_state, rp_press = G.reshard_device_plain(state, used, B, S)
-    n_live = int(used.sum())
-    # the live rows, count and floor read; the whole new grid, pivots,
-    # count, bmax, floor and pressure written (a kernel's scratch is not
-    # the function's)
-    nbytes = (n_live * Lp1 + 2 * B + B * S * Lp1 + B * (L + 3) + 1) * cell
-    row("maint_reshard", "maint.cu", "foundationdb_tpu/conflict/grid.py:718",
-        max_abs_err(tuple(rk), tuple(rp_state) + (rp_press,)),
-        kernel_ms(lambda: kernels.maint_reshard(state.grid, state.count, state.floor, B, S), 20),
-        cuda_ms(lambda: G.reshard_device_plain(state, used, B, S), 3),
-        nbytes, n_live * Lp1 + B * S)
+    check_reshard(state, B, S, row)
     reshard_entry(state, "one grid")
 
     # K4b rebase: the whole grid read and written (every key lane is
@@ -2504,8 +2531,10 @@ def run_commit_path(card: str) -> tuple[dict, list[dict]]:
     return run, rows
 
 
-DYN_KEYS = 1_000_000  # phase 13's keys: BASELINE.json's YCSB "uniform 1M keys"
-DYN_TWIN_KEYS = COMMIT_TWIN_KEYS
+# half of phase 13's keys (BASELINE.json's YCSB "uniform 1M keys"), and its
+# CPU twin at half of phase 13's: the script's budget with phase 15 after it
+DYN_KEYS = 500_000
+DYN_TWIN_KEYS = 50_000
 DYN_TXNS = 10  # mix A transactions an actor in each round of phase 14
 DYN_SHAPE = dict(n_proxies=2, n_resolvers=2, n_tlogs=2, tlog_replication=2, n_storage=4, replication=2,
                  conflict_backend="torch")  # FoundationDB's "double" mode (configuration.rst)
@@ -2900,24 +2929,51 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
             f"commit p50 {r['commit_ms_sim']['p50']:.3f} ms sim / {r['commit_ms_wall']['p50']:.3f} ms wall, "
             f"GRV p50 {r['grv_ms_sim']['p50']:.3f} ms sim / {r['grv_ms_wall']['p50']:.3f} ms wall")
 
+    def resolver_grids():
+        """uid -> (worker, grid bytes, weak references to the grid's
+        tensors) of every live resolver."""
+        out = {}
+        for addr, p in sim.processes.items():
+            w = getattr(p, "worker", None)
+            for uid, h in (w.roles.items() if w is not None and p.alive else ()):
+                if h.kind == "resolver":
+                    state = h.obj.cs.primary._state
+                    out[uid] = (addr, sum(x.numel() * x.element_size() for x in state),
+                                [weakref.ref(x) for x in state])
+        return out
+
     async def kill_master():
         n0 = len(recovered())
-        info = {}
+        info, grids = {}, {}
 
         async def during():
             a0 = len(acks)
             while len(acks) < a0 + COMMIT_ACTORS // 2:  # the round is under way
                 await delay(0.001)
             victim = hosting("master")[0]
-            info.update(victim=victim, sim=sim_now(), wall=time.perf_counter())
+            grids.update(resolver_grids())
+            info.update(victim=victim, sim=sim_now(), wall=time.perf_counter(), memory=memory())
             transcript.append(("kill master", victim, sim_now()))
             sim.kill_process(victim)
 
         mix = await mix_round("master kill", seed=2, during=during)
+        # gate: the surviving workers destroyed the old generation's
+        # resolvers, and their grids left the card with them (those on the
+        # killed worker stay: the Sim keeps its roles)
+        gc.collect()
+        destroyed = {u: g for u, g in grids.items() if g[0] != info["victim"]}
+        kept = {u: g for u, g in grids.items() if g[0] == info["victim"]}
+        held = sorted(u for u, (_a, _n, refs) in destroyed.items() if any(r() is not None for r in refs))
+        if held or not destroyed:
+            raise AssertionError(f"destroyed resolvers' grids still held: {held} of {sorted(destroyed)}")
+        freed = {"destroyed_resolvers": len(destroyed), "destroyed_grid_bytes": sum(g[1] for g in destroyed.values()),
+                 "kept_on_killed_worker": len(kept), "kept_grid_bytes": sum(g[1] for g in kept.values()),
+                 "device_bytes_at_kill": info["memory"], "device_bytes_after_recovery": memory()}
+        del grids, destroyed, kept
         rc, rv, s_rec, w_rec = recovered()[n0]
         first = next((s, w, cv) for s, w, cv in acks if cv > rv and s >= info["sim"])
         transcript.append(("recovered", rc, rv))
-        return {"mix": mix, "victim": info["victim"], "recovery_count": rc, "recovery_version": rv,
+        return {"mix": mix, "victim": info["victim"], "recovery_count": rc, "recovery_version": rv, "grids": freed,
                 "to_recovered_sim_s": s_rec - info["sim"], "to_recovered_wall_s": w_rec - info["wall"],
                 "to_first_commit_sim_s": first[0] - info["sim"], "to_first_commit_wall_s": first[1] - info["wall"],
                 "first_commit_version": first[2]}
@@ -3192,8 +3248,8 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
 
 def run_dynamic_cluster(card: str) -> tuple[dict, list[dict]]:
     """Phase 14: the dynamic cluster on the card. The CPU twin first (the
-    same run at 100,000 keys with ``device="cpu"``, then on the card:
-    identical transcripts), then the 1M-key run on the card with its gates
+    same run at DYN_TWIN_KEYS keys with ``device="cpu"``, then on the card:
+    identical transcripts), then the DYN_KEYS run on the card with its gates
     and measurements; after it, K1-K3 against their plain versions on the
     newest generation's widest batch, and K5 on the rebooted server's and
     a filled server's index. Returns the phase's JSON object and the rows."""
@@ -3277,6 +3333,321 @@ def run_dynamic_cluster(card: str) -> tuple[dict, list[dict]]:
     return run, rows
 
 
+SOAK_SEEDS = (0, 1, 4, 7)  # tests/test_soak.py's seeds
+SOAK_FORCED = {"force_kernel_faults": True, "force_overload": True}  # its composition case, on seed 0
+SOAK_MORE_FROM = 8  # then consecutive seeds from here ...
+SOAK_MORE_MIN = 4  # ... at least this many,
+SOAK_BUDGET_S = 90.0  # no more once the phase has run this long,
+SOAK_MORE_LAST = 18  # and none past 18: seed 19 never finishes, in either package (ROADMAP C6)
+SOAK_EVENTS = ("KernelFailover", "KernelPromoted", "MasterFullyRecovered")
+
+
+def collect_all() -> None:
+    """Collect until nothing is left: a freed Sim's coroutines run their
+    ``finally`` blocks as the collector finalizes them, and what those
+    schedule on the dead loop holds the Sim through one more pass."""
+    for _ in range(20):
+        if not gc.collect():
+            return
+
+
+def live_guards(sim) -> list:
+    """(health, backend, device, last error) of every live resolver's
+    guard."""
+    out = []
+    for _addr, proc in sorted(sim.processes.items()):
+        w = getattr(proc, "worker", None)
+        for h in (w.roles.values() if w is not None and proc.alive else ()):
+            if h.kind == "resolver":
+                primary = h.obj.cs.primary
+                out.append((h.obj.cs.health, type(primary).__name__,
+                            getattr(getattr(primary, "_device", None), "type", "host"), h.obj.cs.last_error))
+    return out
+
+
+def soak_once(seed: int, device, kw: dict, capture: dict | None = None,
+              reshards: dict | None = None) -> dict:
+    """One ``tools.soak.run_one(seed, device=device, **kw)`` of the port:
+    its summary, its sim and wall seconds, the guards' failovers and
+    promotions and the recoveries (from its trace), the kernel launches of
+    the run (on the card), the transport arm, and each live resolver's
+    guard at the end (health, backend, device, last error). With
+    ``capture``, the run's widest resolver batch (a copy of the grid it
+    met, the encoded batch and its versions) and its widest K5 search (the
+    index's codes and the query codes) go into it. With ``reshards``, the
+    widest device reshard (K4a) it has seen so far, over this and earlier
+    runs: a host copy of the grid (so the card's memory gate does not see
+    it), the bucket and slot counts and the seed."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
+    from foundationdb_tpu_torch.runtime import trace as T
+    from foundationdb_tpu_torch.runtime.loop import set_loop
+    from foundationdb_tpu_torch.tools import soak
+
+    on_card = device is None
+    counted = {e: 0 for e in SOAK_EVENTS}
+
+    class CountingLog(T.TraceLog):
+        def log(self, severity, event_type, time_, process, **fields):
+            super().log(severity, event_type, time_, process, **fields)
+            if event_type in counted:
+                counted[event_type] += 1
+
+    sims: list = []
+    make_sim, encode, search_codes = soak.Sim, TorchConflictSet.encode, TorchRangeIndex._search_codes
+    reshard = G.reshard_device
+
+    def recorded_sim(*a, **k):
+        sims.append(make_sim(*a, **k))
+        return sims[-1]
+
+    def captured_encode(self, transactions):
+        enc = encode(self, transactions)
+        size = (len(transactions), enc[0].rb.shape[1] * enc[0].wb.shape[1])
+        if size > capture.get("size", (0, 0)):
+            base = self._origin[1]
+            old = max(self.oldest_version - base, 0)
+            window = sims[-1].knobs.MAX_READ_TRANSACTION_LIFE_VERSIONS
+            capture.update(size=size, state=G.clone_state(self._state), enc=enc, vers=(old + window, old, old))
+        return enc
+
+    def captured_search(self, codes):
+        if codes.shape[0] > capture.get("q_rows", 0):
+            capture.update(q_rows=codes.shape[0], q=codes, index=self._codes)
+        return search_codes(self, codes)
+
+    def captured_reshard(state, n_buckets, n_slots):
+        size = (int(state.count.sum()), n_buckets * n_slots)
+        if size > reshards.get("size", (-1, 0)):
+            reshards.update(size=size, seed=seed, buckets=n_buckets, slots=n_slots,
+                            state=type(state)(*(t.cpu() for t in state)))
+        return reshard(state, n_buckets, n_slots)
+
+    def run() -> dict:
+        """The run, and what it leaves as plain data: no frame that
+        outlives this call holds its Sim."""
+        if on_card:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+        w0 = time.perf_counter()
+        summary = soak.run_one(seed, device=device, **kw)
+        wall = time.perf_counter() - w0
+        if on_card:
+            torch.cuda.synchronize()
+        sim = sims[0]
+        return {"summary": summary, "wall_s": wall, "sim_s": sim.loop.now(),
+                "failovers": counted["KernelFailover"], "promotions": counted["KernelPromoted"],
+                "recoveries": counted["MasterFullyRecovered"],
+                "launches": {k: v for k, v in kernels.launch_counts().items() if v} if on_card else {},
+                "transport_armed": bool(sim.knobs.TRANSPORT_FAULT_INJECTION), "guards": live_guards(sim)}
+
+    saved_log = T.trace_log()
+    T.set_trace_log(CountingLog())
+    soak.Sim = recorded_sim
+    if capture is not None:
+        TorchConflictSet.encode, TorchRangeIndex._search_codes = captured_encode, captured_search
+    if reshards is not None:
+        G.reshard_device = captured_reshard
+    try:
+        return run()
+    finally:
+        # the run is freed before the next one starts: an abandoned Sim's
+        # actors run their ``finally`` blocks when the collector frees
+        # them, into whatever run is current (its RNG draws, its trace)
+        soak.Sim = make_sim
+        TorchConflictSet.encode, TorchRangeIndex._search_codes = encode, search_codes
+        G.reshard_device = reshard
+        T.set_trace_log(saved_log)
+        sims.clear()
+        set_loop(None)
+        collect_all()
+
+
+def soak_kernel_rows(capture: dict, card: str) -> list[dict]:
+    """K1-K3 on the forced seed's widest batch and K5 on its widest
+    search, against their plain versions (launch counts filled in by the
+    caller)."""
+    from foundationdb_tpu_torch.device import lanes_to_torch
+
+    if "size" not in capture or "q" not in capture:
+        raise AssertionError(f"the forced seed captured no batch or search: {sorted(capture)}")
+    hbatch, n_real, _epoch = capture["enc"]
+    T_, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
+    counts = {k: 0 for k in RESOLVE_PATH + ("search",)}
+    log(f"kernel checks on the forced soak seed's widest batch ({n_real} transactions, T={T_} KR={KR} "
+        f"KW={KW}) [{card}]:")
+    rows = check_resolve_kernels(capture["state"], hbatch, capture["vers"], counts)[0]
+    for r in rows:
+        r["kernel"], r["name"] = r["name"], f"{r['name']} (chaos soak, forced seed's widest batch T={T_} KR={KR} KW={KW})"
+    log(f"K5 on the forced soak seed's widest search (Q={capture['q_rows']} over "
+        f"{capture['index'].shape[0]} rows) [{card}]:")
+    k5 = check_search(capture["index"], lanes_to_torch(capture["q"], "cuda"), counts)[0]
+    k5["kernel"], k5["name"] = "search", f"search (chaos soak, forced seed's widest search, Q={capture['q_rows']})"
+    return rows + [k5]
+
+
+def soak_reshard_rows(reshards: dict, card: str) -> list[dict]:
+    """K4a on the widest device reshard of the phase's card runs, against
+    its plain version (launch count filled in by the caller)."""
+    if "state" not in reshards:
+        raise AssertionError("K4a launched in the soak, but no reshard was captured")
+    host = reshards["state"]
+    state = type(host)(*(t.to("cuda") for t in host))
+    B, S = reshards["buckets"], reshards["slots"]
+    rows: list = []
+    log(f"K4a on the widest reshard of the soak's card runs (seed {reshards['seed']}, "
+        f"{reshards['size'][0]} live rows of a {tuple(state.grid.shape)} grid into B={B} S={S}) [{card}]:")
+    check_reshard(state, B, S, row_maker(rows, {"maint_reshard": 0}))
+    (r,) = rows
+    r["kernel"], r["name"] = "maint_reshard", (
+        f"maint_reshard (chaos soak, the card runs' widest reshard: seed {reshards['seed']}, "
+        f"{reshards['size'][0]} live rows into B={B} S={S})")
+    return rows
+
+
+def same_guards(card_guards: list, twin_guards: list) -> bool:
+    """The card run's live guards equal its CPU twin's: health, backend
+    and last error, with the device left out."""
+    def strip(guards):
+        return [(health, backend, err) for health, backend, _device, err in guards]
+
+    return strip(card_guards) == strip(twin_guards)
+
+
+def injected(last_error: str) -> bool:
+    """A failed-over guard's last error is a fault the injector raised,
+    or the dispatch deadline on an injected stall: in a Sim the device
+    thread runs inline, so a real card that stops answering blocks the
+    run instead of reaching the deadline, and a lost card's CUDA error
+    names no injection."""
+    return "injected" in last_error or last_error.startswith(
+        "KernelTimeoutError('conflict dispatch deadline")
+
+
+def run_soak(card: str) -> tuple[dict, list[dict]]:
+    """Phase 15: the port's chaos soak (``tools.soak.run_one``) on the card,
+    through its own entry point. Seeds 0, 1, 4 and 7, then seed 0 with
+    kernel faults and the overload burst forced, then consecutive seeds
+    from 8 (at least four, more while the phase is under its budget, none
+    past 18: seed 19 never finishes in either package, ROADMAP C6). Each
+    seed's gates: the run passes every check of its own; a CPU twin (the
+    same call with ``device="cpu"``) gives the identical summary; K5
+    launched; on a seed that drew ``torch``, K1-K3 launched and every live
+    guard on the card at the end (or failed over, where kernel faults are
+    armed); on the forced seed, a ``kernel-*`` site fired and the guard
+    failed over and promoted back (the run's ``KernelChaosWorkload`` holds
+    its exact ledger), then K1-K3 on its widest batch and K5 on its widest
+    search against their plain versions; after the seed,
+    ``torch.cuda.memory_allocated()`` is back at its value before the
+    phase. The twin also gives the same failovers, promotions, recoveries
+    and live guards (health, backend, last error), and a guard failed
+    over at the end names an injected fault. After the seeds, K4a on the
+    widest reshard of the card runs against its plain version. One
+    ``{"soak": ...}`` line a seed, then one summary line; a failing seed
+    fails the phase after every seed has run. Returns the phase's JSON
+    object and the rows."""
+    t_phase = time.perf_counter()
+    # the first matmul on the card allocates cuBLAS's workspace (32 MiB on
+    # Hopper) through the caching allocator, and it stays: K2's plain
+    # version makes one in the forced seed's checks, so the baseline holds
+    # it already, as it does after phase 5
+    torch.ones(1, 1, device="cuda") @ torch.ones(1, 1, device="cuda")
+    collect_all()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    plan = [(s, {}) for s in SOAK_SEEDS] + [(0, SOAK_FORCED)]
+    lines, failures, totals, rows, reshards = [], [], {}, [], {}
+    more = SOAK_MORE_FROM
+    while plan or (more <= SOAK_MORE_LAST and (more - SOAK_MORE_FROM < SOAK_MORE_MIN
+                                               or time.perf_counter() - t_phase < SOAK_BUDGET_S)):
+        if plan:
+            seed, kw = plan.pop(0)
+        else:
+            seed, kw = more, {}
+            more += 1
+        forced = bool(kw)
+        line = {"seed": seed, "forced": forced}
+        capture: dict = {}
+        collect_all()  # a failed seed's traceback held its Sim until here
+        try:
+            card_run = soak_once(seed, None, kw, capture if forced else None, reshards)
+            twin = soak_once(seed, "cpu", kw)
+            s = card_run["summary"]
+            backend = s["config"]["conflict_backend"]
+            launches = card_run["launches"]
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            kernel_sites = [x for x in s["buggify_sites"] if x.startswith("kernel-")]
+            line.update({
+                "config": s["config"], "backend": backend, "workloads": s["workloads"],
+                "kernel_faults_armed": s["kernel_faults_armed"], "overload_armed": s["overload_armed"],
+                "transport_armed": card_run["transport_armed"], "buggify_fired": s["buggify_fired"],
+                "kernel_sites": kernel_sites, "failovers": card_run["failovers"],
+                "promotions": card_run["promotions"], "recoveries": card_run["recoveries"],
+                "launches": {**{k: 0 for k in RESOLVE_PATH + ("search",)}, **launches},
+                "card": {"wall_s": card_run["wall_s"], "sim_s": card_run["sim_s"]},
+                "twin": {"wall_s": twin["wall_s"], "sim_s": twin["sim_s"]},
+                "guards": card_run["guards"],
+            })
+            if twin["summary"] != s:
+                diff = sorted(k for k in s if twin["summary"].get(k) != s[k])
+                raise AssertionError(f"the CPU twin's summary differs in {diff}")
+            # the injector's draws are seeded: the card's faults are the twin's
+            for k in ("failovers", "promotions", "recoveries"):
+                if card_run[k] != twin[k]:
+                    raise AssertionError(f"{k}: card {card_run[k]}, CPU twin {twin[k]}")
+            if not same_guards(card_run["guards"], twin["guards"]):
+                raise AssertionError(f"live guards: card {card_run['guards']}, CPU twin {twin['guards']}")
+            stray = [g for g in card_run["guards"] if g[0] == "FAILED_OVER" and not injected(g[3])]
+            if stray:
+                raise AssertionError(f"a guard failed over on a fault nothing injected: {stray}")
+            if launches.get("search", 0) <= 0:
+                raise AssertionError(f"K5 never launched: {launches}")
+            if backend == "torch":
+                missing = [k for k in RESOLVE_PATH if launches.get(k, 0) <= 0]
+                if missing:
+                    raise AssertionError(f"kernels never launched on a torch seed: {missing}")
+                # a guard fails over only on a kernel fault: with the
+                # injection armed, the run may end before it promotes back
+                off = [g for g in card_run["guards"] if g[1:3] != ("TorchConflictSet", "cuda")
+                       and not (s["kernel_faults_armed"] and g[0] == "FAILED_OVER")]
+                if off or not card_run["guards"]:
+                    raise AssertionError(f"a live guard is off the card at the end: {card_run['guards']}")
+            if forced:
+                if not (kernel_sites and card_run["failovers"] > 0 and card_run["promotions"] > 0):
+                    raise AssertionError(f"the forced seed: kernel sites {kernel_sites}, failovers "
+                                         f"{card_run['failovers']}, promotions {card_run['promotions']}")
+                rows = soak_kernel_rows(capture, card)
+        except Exception as e:  # the seed fails; the phase fails after every seed has run
+            failures.append((seed, forced, repr(e)))
+            line["error"] = repr(e)[:600]
+        capture.clear()
+        collect_all()
+        torch.cuda.synchronize()
+        line["memory"] = {"before_phase": m0, "after": torch.cuda.memory_allocated()}
+        if line["memory"]["after"] != m0:
+            failures.append((seed, forced, f"card memory {line['memory']['after']} B after the seed, "
+                                           f"{m0} B before the phase"))
+        lines.append(line)
+        log(json.dumps({"soak": line}, default=str))
+    if totals.get("maint_reshard", 0):
+        rows += soak_reshard_rows(reshards, card)
+    reshards.clear()
+    for r in rows:  # the launches of the phase's runs, not of the checks
+        r["launches"] = totals.get(r.pop("kernel"), 0)
+    torch_seeds = [x["seed"] for x in lines if x.get("backend") == "torch" and not x["forced"]]
+    out = {"seeds": len(lines), "green": len(lines) - len({(s, f) for s, f, _e in failures}),
+           "torch_seeds": torch_seeds, "failures": failures, "wall_s": time.perf_counter() - t_phase,
+           "launches": totals, "memory_before_phase": m0, "card": card}
+    log(json.dumps({"soak_summary": out}, default=str))
+    log(card)
+    if failures:
+        raise AssertionError(f"phase 15: {len(failures)} failure(s): {failures}")
+    return out, rows
+
+
 def profile_only(card: str, history: bool = False, reshard: bool = False, rebase: bool = False) -> None:
     """Only the per-batch profile of both resolver paths: each warmed by
     one group of the bench workload, then profiled over the next
@@ -3352,6 +3723,7 @@ def main() -> int:
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
 
     # 1. the card
+    t_script = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"card: {card}")
@@ -3478,9 +3850,14 @@ def main() -> int:
     # recovery -> recruited resolvers and storage, through a master kill, a
     # storage reboot and a storage death; its CPU twin first
     _dynamic, dynamic_rows = run_dynamic_cluster(card)
+    # 15. the chaos soak: tools.soak.run_one on the card, seed by seed, each
+    # held to its CPU twin
+    _soak, soak_rows = run_soak(card)
 
     # 6. results
-    log(json.dumps({"kernels": rows + index_rows + mesh_rows + storage_rows + commit_rows + dynamic_rows}))
+    log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
+    log(json.dumps({"kernels": rows + index_rows + mesh_rows + storage_rows + commit_rows + dynamic_rows
+                               + soak_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

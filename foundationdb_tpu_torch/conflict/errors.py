@@ -48,6 +48,11 @@ class BatchTooLargeError(KernelFaultError):
     snapshot or metric changes; the caller splits the batch."""
 
 
+class ConflictSetClosedError(Exception):
+    """The conflict set's role was destroyed and its backend freed; it
+    resolves nothing more. Not a kernel fault: nothing rebuilds it."""
+
+
 class DeviceUnavailableError(RuntimeError):
     """No usable CUDA card: none is visible, or the caller asked for one
     that is not there. Not a kernel fault."""

@@ -45,6 +45,12 @@ deliberate differences:
   resolver abandoned at a deadline may still be inside such a call, or run
   the jobs queued behind it; the lock keeps it from running beside the new
   device thread.
+- ``close`` (the resolver's role is destroyed) frees the backend's device
+  memory: at once when no call holds the lock, else when the call that
+  holds it returns. A closed guard builds no backend again: every later
+  call that would reach one, a recovery or a re-probe included, raises
+  ``ConflictSetClosedError`` (a job queued on the device thread before
+  the role was destroyed still runs).
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from ..runtime.knobs import Knobs
 from ..runtime.loop import now as loop_now
 from ..runtime.trace import SevError, SevInfo, SevWarn, trace
 from .api import CommitTransaction, new_conflict_set
-from .errors import as_kernel_fault
+from .errors import ConflictSetClosedError, as_kernel_fault
 from .faults import KernelTimeoutError, StaleEncodingError
 
 # the device backends (the resolver's pipelined path)
@@ -87,12 +93,19 @@ def fault_of(err: BaseException):
 
 
 def _locked(method):
-    """Run ``method`` under the guard's lock (see the module docstring)."""
+    """Run ``method`` under the guard's lock (see the module docstring):
+    on a closed guard it raises ``ConflictSetClosedError``, and a call
+    that ``close`` overlapped frees the backend on its way out."""
 
     @functools.wraps(method)
     def run(self, *args, **kw):
         with self._lock:
-            return method(self, *args, **kw)
+            self._check_open()
+            try:
+                return method(self, *args, **kw)
+            finally:
+                if self._closed:
+                    self._release_backend()
 
     return run
 
@@ -225,6 +238,7 @@ class GuardedConflictSet:
         self.encode_queue_fn = lambda: 0
         self.metrics = _GuardMetrics(self)
         self._lock = threading.RLock()
+        self._closed = False
         self._cs = None  # set below; _note_fault may run before it exists
         self._fallback_kind = None
         try:
@@ -261,7 +275,12 @@ class GuardedConflictSet:
         generation is not in the current backend's history."""
         return self._gen
 
+    def _check_open(self) -> None:
+        if self._closed:
+            raise ConflictSetClosedError(f"conflict set of resolver {self.uid!r} is closed")
+
     def _build_primary(self):
+        self._check_open()
         return new_conflict_set(
             self.kind, fault_injector=self._injector, **self._kw
         )
@@ -486,6 +505,24 @@ class GuardedConflictSet:
             fault_of(e)
             trace(SevWarn, "KernelWarmCompileFailed", "", Resolver=self.uid, Err=repr(e))
 
+    def close(self) -> None:
+        """Free the current backend's device memory (the resolver's role
+        is destroyed); its metrics and the guard's health stay readable.
+        It never waits for the lock: a dispatch wedged on the card must not
+        wedge the worker's loop as well. When a call holds the lock, that
+        call frees the backend as it returns (``_locked``)."""
+        self._closed = True
+        if self._lock.acquire(blocking=False):
+            try:
+                self._release_backend()
+            finally:
+                self._lock.release()
+
+    def _release_backend(self) -> None:
+        close = getattr(self._cs, "close", None)
+        if close is not None:
+            close()
+
     def take_stall(self):
         take = getattr(self._cs, "take_stall", None)
         return take() if take is not None else None
@@ -516,6 +553,7 @@ class GuardedConflictSet:
         previous batch's device scan (encodeOverlapSeconds). A backend
         swap between encode and dispatch surfaces as a transient
         StaleEncodingError (the resolver re-encodes)."""
+        self._check_open()
         t0 = time.perf_counter()  # flowlint: disable=det-wall-clock — phase evidence
         fn = getattr(self._cs, "encode", None)
         payload = fn(transactions) if fn is not None else list(transactions)
@@ -552,12 +590,11 @@ class GuardedConflictSet:
             ]
             handle = lambda: outs  # noqa: E731
         self._applied = max([self._applied] + [v for _p, v, _o in work])
+        return functools.partial(self._collect, handle)
 
-        def collect():
-            with self._lock:
-                return handle()
-
-        return collect
+    @_locked
+    def _collect(self, handle):
+        return handle()
 
     @_locked
     def detect_batch(self, transactions, now, new_oldest_version):

@@ -191,6 +191,9 @@ class FaultInjectingConflictSet:
     def take_stall(self):
         return self.injector.take_stall()
 
+    def close(self) -> None:
+        self.inner.close()
+
     # -- injected dispatch paths ----------------------------------------------
 
     def clear(self, version: int) -> None:

@@ -137,6 +137,18 @@ class TorchMeshConflictSet(ConflictSet):
         self.metrics.warm_compiles.add()
         self.metrics.warm_s.add(time.perf_counter() - t0)
 
+    def close(self) -> None:
+        """Drop the stacked grids, the partition bounds and the in-flight
+        groups' tensors (see ``TorchConflictSet.close``)."""
+        if self._states is None:
+            return
+        occupancy = SH.stacked_occupancy_stats(self._states)
+        self.metrics.gauge("occupancy", lambda: occupancy)
+        for group in self._inflight:
+            group.clear()
+        self._inflight = []
+        self._states = self._bounds = None
+
     def clear(self, version: int) -> None:
         self._flush()
         self._states = self._fresh_states()

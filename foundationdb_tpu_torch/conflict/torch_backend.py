@@ -418,6 +418,21 @@ class TorchConflictSet(ConflictSet):
         while self._inflight:
             self._collect(self._inflight[0])
 
+    def close(self) -> None:
+        """Drop the grid and the in-flight groups' tensors, so the card's
+        memory is freed now, whatever still holds this object (the
+        resolver's role is destroyed). The metrics stay readable, the last
+        occupancy with them; the set resolves nothing afterwards. A second
+        call frees only what a call in flight stored since the first."""
+        if self._state is None:
+            return
+        occupancy = G.occupancy_stats(self._state)
+        self.metrics.gauge("occupancy", lambda: occupancy)
+        for group in self._inflight:
+            group.clear()
+        self._inflight = []
+        self._state = None
+
     def clear(self, version: int) -> None:
         self._flush()
         self._state = G.make_state(self._B, self._S, self._lanes, self._device)

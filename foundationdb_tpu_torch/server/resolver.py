@@ -762,13 +762,16 @@ class Resolver:
 
     def close(self) -> None:
         """Retire the role (worker._destroy): stop the device + encode
-        threads."""
+        threads and free the conflict set's device memory now. The role's
+        actors hold the resolver in reference cycles, which only the
+        collector frees, and never while it is frozen (``gc.freeze``)."""
         if self._exec is not None:
             self._exec.stop()
             self._exec = None
         if self._encode_exec is not None:
             self._encode_exec.stop()
             self._encode_exec = None
+        self.cs.close()
 
     # -- load sampling / repartitioning (resolutionBalancing) ------------------
 

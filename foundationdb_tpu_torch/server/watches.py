@@ -101,9 +101,12 @@ class WatchManager:
         self._c_cancelled = cancelled
         self._c_streamed = streamed
         self._c_fanout = fanout_batches
-        # key → set of parked entries; _keys mirrors the key set sorted,
-        # so a range tombstone finds its watchers in O(log W + hits)
-        self._watches: dict[bytes, set] = {}
+        # key → parked entries in registration order (a dict: a set of
+        # entries iterates in address order, so the watches of one key
+        # fired in a different order from run to run of one seed, and the
+        # seed's run with them); _keys mirrors the keys sorted, so a range
+        # tombstone finds its watchers in O(log W + hits)
+        self._watches: dict[bytes, dict] = {}
         self._keys: list[bytes] = []
         self._count = 0
         self._bytes = 0
@@ -140,9 +143,9 @@ class WatchManager:
         entry = WatchEntry(key, value, span_ctx)
         bucket = self._watches.get(key)
         if bucket is None:
-            bucket = self._watches[key] = set()
+            bucket = self._watches[key] = {}
             insort(self._keys, key)
-        bucket.add(entry)
+        bucket[entry] = None
         self._count += 1
         self._bytes += entry.cost
         self._c_registered.add()
@@ -152,7 +155,7 @@ class WatchManager:
         bucket = self._watches.get(entry.key)
         if bucket is None or entry not in bucket:
             return False
-        bucket.discard(entry)
+        del bucket[entry]
         if not bucket:
             del self._watches[entry.key]
             i = bisect_left(self._keys, entry.key)

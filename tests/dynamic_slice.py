@@ -506,13 +506,17 @@ def collect_garbage(pkg: str) -> None:
     """Free an abandoned run's actors with no loop current and into a
     trace log nobody reads: a freed actor runs its ``finally`` blocks (a
     worker's role handle traces ``RoleDestroyed``, settles futures), which
-    must reach neither the next run's loop nor its log."""
+    must reach neither the next run's loop nor its log. What those blocks
+    schedule on the dead loop holds the run through one more pass, so the
+    collector runs until it finds nothing."""
     P = package(pkg)
     saved = P.trace.trace_log()
     P.set_loop(None)
     P.trace.set_trace_log(P.trace.TraceLog())
     try:
-        gc.collect()
+        for _ in range(20):
+            if not gc.collect():
+                break
     finally:
         P.trace.set_trace_log(saved)
 

@@ -1006,3 +1006,49 @@ def test_rebooted_storage_servers_index_on_the_card_matches_its_plain_version(cu
     assert n_keys >= 25 and same_as_plain and same_as_cpu and fallback == 0
     card.pop("probe")
     assert card == _dynamic("storage_reboot", "torch", "cpu")
+
+
+def test_destroyed_resolvers_free_their_grids_on_the_card(cuda):
+    """A master kill on the card: each old-generation resolver the
+    surviving workers destroy takes at least its grid's bytes off the card
+    (``torch.cuda.memory_allocated()`` drops by them at the destruction),
+    with the collector frozen as ``chip_smoke.py`` freezes it."""
+    from test_torch_resolver_close import _grid_tensors, _master_kill
+
+    drops = []
+
+    def measured(h, destroy):
+        grid = None
+        if h is not None and h.kind == "resolver":
+            grid = sum(t.numel() * t.element_size() for t in _grid_tensors(h.obj.cs))
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        destroy()
+        torch.cuda.synchronize()
+        if grid is not None:
+            drops.append((grid, m0 - torch.cuda.memory_allocated()))
+
+    old, master, _new, _sim = _master_kill("torch", freeze=True, device=None, on_destroy=measured)
+    assert [o for o in old if o[0] != master] and drops
+    for grid, drop in drops:
+        assert grid > 0 and drop >= grid, drops
+
+
+def test_soak_seed_on_the_card_equals_its_cpu_twin(cuda):
+    """``tools.soak.run_one`` on the card gives the summary of the same
+    seed on the CPU (seed 0 draws ``torch``), and the resolve path and K5
+    launched on the card."""
+    import gc
+
+    from foundationdb_tpu_torch.runtime.loop import set_loop
+    from foundationdb_tpu_torch.tools.soak import run_one
+
+    kernels.reset_launch_counts()
+    card = run_one(0, device=None)
+    launches = kernels.launch_counts()
+    set_loop(None)
+    gc.collect()
+    assert card == run_one(0, device="cpu")
+    set_loop(None)
+    assert card["config"]["conflict_backend"] == "torch"
+    assert all(launches[k] > 0 for k in ("history", "intra_batch", "stage", "merge", "search")), launches
