@@ -29,10 +29,10 @@ card). Phases, each of which raises on failure:
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
    committed clear spans the whole keyspace;
-6. after phases 7 to 15: print the kernel table (every kernel of the
+6. after phases 7 to 16: print the kernel table (every kernel of the
    paths, K5 also at the storage shapes, K1-K3 and K5 also on the commit
-   path, in the dynamic cluster and in the soak), the card line and the
-   result line;
+   path, in the dynamic cluster, in the soak and in the in-process TCP
+   cluster), the card line and the result line;
 7. the partitioned resolver, ``new_conflict_set("torch_mesh", key_width=12,
    capacity=1<<19, n_parts=4)`` (4 partitions × 8192 × 32 × 4 uint32 =
    16 MiB), over the same workload with every key re-encoded
@@ -110,8 +110,8 @@ card). Phases, each of which raises on failure:
    a multiGet, K1, K2, K3 staging, K3 merge and K5 launched in the mixes
    with no multiGet fallback, both resolvers' guards HEALTHY with no fault,
    both resolvers given transactions in mix A (the balancer moved the
-   boundary), and a CPU twin: the same phase at 100,000 keys with
-   ``device="cpu"`` and on the card gives identical transcripts. K1, K2
+   boundary) (its CPU twin at 100,000 keys, identical transcripts on the
+   CPU and on the card, is cut for phase 16's budget). K1, K2
    and K3 are then held against their plain versions on mix A's widest
    batch and K5 at its widest multiGet search. One ``{"commit_path": ...}``
    JSON line: load and durable seconds, per mix committed txn/s and ops/s,
@@ -161,12 +161,42 @@ card). Phases, each of which raises on failure:
    phase. K1-K3 on the forced seed's widest batch and K5 on its widest
    search against their plain versions. One ``{"soak": ...}`` line a seed
    and one ``{"soak_summary": ...}`` line.
+16. the real-process cluster. (a) The port's ``TcpCluster``
+   (``tools/tcp_soak.py``), each server a real ``fdbserver --device cuda``
+   process: 1 coordinator and workers of class storage x3, transaction x2
+   and stateless x2; 2 proxies, 2 resolvers on ``torch``, 2 tlogs and 2
+   storage servers at 2 replicas, the storage index on. Its 1M keys
+   ``b"rw/%08d"`` (16-byte values) come from 4 load client processes
+   (this script with ``--tcp-loader``); once both storage servers are
+   durable at the load's last version, ``perf``'s 90_10 preset runs for
+   20 s from 2 ``tcp-client`` processes (this script with ``--tcp-mix``,
+   which times them). Then ``status json`` through the port's cli: both
+   resolvers HEALTHY on the card with 0 failovers, batches dispatched and
+   K1-K3 launched in their processes, both indexes on the card with K5
+   launched and no multiGet fallback. The process
+   hosting the master is SIGKILLed and restarted, a probe write is timed
+   until it commits, the new resolvers are checked the same way, and a
+   fresh client reads every key back. A server that dies (but the killed
+   one) fails the phase, its output printed. One ``{"tcp_cluster": ...}``
+   line: processes and roles, load and mix figures, the proxies' commit
+   phases, recovery seconds, the read-back, each process's card memory as
+   its status pull reports it. (b) ``perf --mode tcp-inproc`` through ``perf.main``: the same
+   layout as RealWorlds on one RealLoop in this process at 100,000 keys
+   and a 10 s mix, over loopback and then over sockets; every resolver's
+   guard HEALTHY on the card, K1-K3 on the widest batch and K5 on the
+   widest search held to their plain versions and timed (one ``{"tcp_inproc":
+   ...}`` line). (c) The 55 bindingtester streams of
+   ``tests/test_bindingtester.py`` (seeds 0-49, the long stream, the four
+   chaos seeds) through the port's ``Cluster`` on the card, each
+   identical to the port's model database (one ``{"bindings": ...}`` line).
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after, and every kernel of the path must have launched.
 
 Exits non-zero, without a result line, when no CUDA card is visible.
-Usage: ``python3 chip_smoke.py``; ``python3 chip_smoke.py --profile-only``
+Usage: ``python3 chip_smoke.py``; ``--tcp-only`` runs phases 1, 2 and 16
+alone and prints phase 16's kernel rows but no result line;
+``python3 chip_smoke.py --profile-only``
 prints only the two resolver paths' profile lines (each path warmed by one
 group first) and no result line, and runs from any checkout of the port;
 ``--history-only`` adds the history kernels of both paths on the bench batch
@@ -2030,7 +2060,6 @@ def run_failover(card: str, pipelined: bool) -> dict:
 
 
 COMMIT_KEYS = 1_000_000  # ReadWrite's key shape at BASELINE.json's YCSB "uniform 1M keys" scale
-COMMIT_TWIN_KEYS = 100_000  # bench.py:917 bench_e2e's keyspace: the CPU twin's scale
 COMMIT_LOAD_SETS = 2000  # workloads/readwrite.py:134 setup: sets a load transaction
 COMMIT_ACTORS = 100
 MIX_A = ("90_10", 50, 9, 1)  # tools/perf.py:39: (name, txns an actor, parallel gets, sets)
@@ -2448,37 +2477,15 @@ def commit_path_run(card: str, device, n_keys: int, measure: bool) -> dict:
 
 
 def run_commit_path(card: str) -> tuple[dict, list[dict]]:
-    """Phase 13: the commit path on the card. The CPU twin first (the same
-    run at bench_e2e's 100,000 keys with ``device="cpu"``, then on the
-    card: identical transcripts), then the 1M-key run on the card with its
+    """Phase 13: the commit path on the card: the 1M-key run with its
     gates, its measurements and the kernel rows of its widest mix-A batch
-    and its widest K5 search. Returns the phase's JSON object and the rows."""
+    and its widest K5 search (its CPU twin at bench_e2e's 100,000 keys is
+    cut for phase 16's budget). Returns the phase's JSON object and the
+    rows."""
     from foundationdb_tpu_torch.device import lanes_to_torch
     from foundationdb_tpu_torch.runtime.loop import set_loop
 
     t_phase = time.perf_counter()
-    twin = {}
-    for label, device in (("cpu", "cpu"), ("card", None)):
-        run = commit_path_run(card, device, COMMIT_TWIN_KEYS, measure=False)
-        twin[label] = run
-        set_loop(None)
-        gc.unfreeze()  # the run froze its objects before its mixes
-        gc.collect()
-    a, b = twin["cpu"]["transcript"], twin["card"]["transcript"]
-    if a != b:
-        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-        raise AssertionError(f"the CPU twin's transcript differs from the card's at record {i} of "
-                             f"{len(a)} / {len(b)}: {a[i] if i < len(a) else None} != "
-                             f"{b[i] if i < len(b) else None}")
-    twin_out = {"keys": COMMIT_TWIN_KEYS, "records": len(a),
-                "committed": sum(1 for r in a if len(r) in (4, 9)),
-                "not_committed": sum(1 for r in a if r[-1] == "NotCommitted"),
-                "cpu_run_s": twin["cpu"]["run_s"], "card_run_s": twin["card"]["run_s"]}
-    log(f"commit path twin: {len(a)} records identical on the CPU and on the card "
-        f"({twin_out['committed']} commits, {twin_out['not_committed']} NotCommitted) [{card}]")
-    del twin, a, b
-    gc.collect()
-
     run = commit_path_run(card, None, COMMIT_KEYS, measure=True)
     cluster, capture = run.pop("cluster"), run.pop("capture")
     transcript = run.pop("transcript")
@@ -2508,7 +2515,6 @@ def run_commit_path(card: str) -> tuple[dict, list[dict]]:
     rows.append(k5)
     run["kernel_rows"] = [{k: r[k] for k in ("name", "launches", "ms", "device_ms", "plain_ms",
                                              "bound_ms", "bound_by", "max_abs_err")} for r in rows]
-    run["twin"] = twin_out
     run["phase_s"] = time.perf_counter() - t_phase
     run["card"] = card
     cp = run.pop("cprofile")
@@ -2532,7 +2538,8 @@ def run_commit_path(card: str) -> tuple[dict, list[dict]]:
 
 
 # half of phase 13's keys (BASELINE.json's YCSB "uniform 1M keys"), and its
-# CPU twin at half of phase 13's: the script's budget with phase 15 after it
+# CPU twin at half of phase 13's: the script's budget with phases 15 and 16
+# after it
 DYN_KEYS = 500_000
 DYN_TWIN_KEYS = 50_000
 DYN_TXNS = 10  # mix A transactions an actor in each round of phase 14
@@ -3648,6 +3655,675 @@ def run_soak(card: str) -> tuple[dict, list[dict]]:
     return out, rows
 
 
+# 16. the real-process cluster: the port's fdbserver processes over TCP,
+# the same layout as RealWorlds in this process, and the bindingtester
+TCP_KEYS = COMMIT_KEYS  # BASELINE.json's YCSB "uniform 1M keys", phase 13's b"rw/%08d" keys
+TCP_VALUE = b"v" * 16  # workloads/readwrite.py's value, which the mix writes too
+TCP_CLASSES = ("storage",) * 3 + ("transaction",) * 2 + ("stateless",) * 2
+# FoundationDB's "double" redundancy, cell 9's shape on two storage servers
+TCP_CONFIG = ("n_proxies=2,n_resolvers=2,n_tlogs=2,tlog_replication=2,n_storage=2,replication=2,"
+              "conflict_backend=torch")
+TCP_KNOBS = ("STORAGE_TPU_INDEX=true",)  # on a RealLoop the index is off unless asked for (knobs.py)
+TCP_LOADERS = 4  # load client processes
+TCP_LOAD_ACTORS = 4  # transactions of COMMIT_LOAD_SETS sets in flight in each
+TCP_MIX_PROCS = 2  # perf tcp-client processes of the 90_10 mix
+TCP_MIX_ACTORS = 20  # perf.py's default actors
+TCP_MIX_S = 20.0  # the mix's steady-state seconds (perf --duration)
+TCP_READ_CHUNK = 10_000  # rows a range read of the read-back
+TCP_FORM_S = 240.0
+TCP_RECOVER_S = 180.0
+INPROC_KEYS = 100_000  # bench_e2e's keyspace, phase 13's twin
+INPROC_ACTORS = 20
+INPROC_MIX_S = 10.0
+BINDING_SEEDS = range(50)  # tests/test_bindingtester.py's streams
+BINDING_CHAOS = (3, 17, 29, 41)
+BINDING_OPS, BINDING_CHAOS_OPS = 1000, 250
+BINDING_PREFIXES = (b"bt/i", b"bt/d/", b"bt/r/")  # instructions, data, results
+
+
+def tcp_loader(coord: str, lo: int, hi: int, actors: int) -> dict:
+    """One load client process (``--tcp-loader``): keys ``[lo, hi)`` in
+    transactions of COMMIT_LOAD_SETS sets, ``actors`` of them in flight,
+    each retried through ``Database.run``; every key of the range is
+    acknowledged when this returns."""
+    from foundationdb_tpu_torch.client.database import Database
+    from foundationdb_tpu_torch.net.tcp import RealWorld
+    from foundationdb_tpu_torch.runtime.futures import spawn, wait_for_all
+
+    world = RealWorld("127.0.0.1:0")
+    world.activate()
+    db = Database.from_coordinators(world, [coord])
+    starts = list(range(lo, hi, COMMIT_LOAD_SETS))
+    lat: list = []
+
+    async def actor(i):
+        for b in starts[i::actors]:
+            async def fill(tr, b=b):
+                for n in range(b, min(b + COMMIT_LOAD_SETS, hi)):
+                    tr.set(commit_key(n), TCP_VALUE)
+
+            t0 = time.perf_counter()
+            await db.run(fill)
+            lat.append(time.perf_counter() - t0)
+        return True
+
+    async def load():
+        await wait_for_all([spawn(actor(i)) for i in range(actors)])
+        return True
+
+    t0 = time.perf_counter()
+    try:
+        world.run_until_done(spawn(load()), 3600.0)
+    finally:
+        world.close()
+    return {"keys": hi - lo, "txns": len(lat), "wall_s": time.perf_counter() - t0,
+            "commit_ms": {"p50": percentile(lat, 0.5) * 1e3, "p95": percentile(lat, 0.95) * 1e3}}
+
+
+def tcp_mix(argv: list) -> dict:
+    """One mix client process (``--tcp-mix``): ``perf.main(argv)`` (its
+    report is the line it prints), with the seconds from this process's
+    start to the workload's start, the workload's run and its exit
+    returned beside it. The load processes hold the keyspace already:
+    perf's tcp-client gives its ReadWrite workload no client id, so each
+    such process would load the whole keyspace again in the workload's
+    setup, which is skipped here."""
+    from foundationdb_tpu_torch.tools import perf
+    from foundationdb_tpu_torch.workloads import readwrite
+
+    t0 = time.perf_counter()
+    marks: dict = {}
+    start = readwrite.ThroughputWorkload.start
+
+    async def loaded(self):
+        return None
+
+    readwrite.ReadWriteWorkload.setup = loaded
+
+    async def timed_start(self):
+        marks["to_start_s"] = time.perf_counter() - t0
+        await start(self)
+        marks["start_s"] = time.perf_counter() - t0 - marks["to_start_s"]
+
+    readwrite.ThroughputWorkload.start = timed_start
+    if perf.main(argv) != 0:
+        raise AssertionError(f"perf {' '.join(argv)} failed")
+    marks["process_s"] = time.perf_counter() - t0
+    return marks
+
+
+def child_lines(proc, what: str) -> list:
+    """The JSON lines a child process printed, once it has exited 0."""
+    out, _ = proc.communicate(timeout=3600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n{out[-3000:]}")
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def child_json(proc, what: str) -> dict:
+    return child_lines(proc, what)[-1]
+
+
+def cli_status(coord: str) -> dict:
+    """``status json`` through the port's cli, as an operator runs it."""
+    from foundationdb_tpu_torch.tools.tcp_soak import fdbcli
+
+    rc, out = fdbcli(coord, "status json", timeout=90)
+    if rc != 0:
+        raise AssertionError(f"cli status json exited {rc}: {out[-2000:]}")
+    return json.loads(out[out.index("{"):])
+
+
+def roles_by_process(doc: dict, names: dict) -> dict:
+    """process name -> the roles status lists for its address."""
+    workers = (doc.get("cluster") or {}).get("workers") or {}
+    return {names.get(a, a): sorted(w.get("roles") or []) for a, w in sorted(workers.items())}
+
+
+def check_cluster_kernels(doc: dict, device: str, names: dict, want_batches: bool, after: int = 0) -> dict:
+    """Every resolver of the status document on ``device``, HEALTHY, with 0
+    failovers; at least two of the newest generation (its recovery count,
+    above ``after``), and with ``want_batches`` at least two of them with
+    batches dispatched, and on the card each busy one's process with K1-K3
+    launched. A master attempt that a newer one fenced leaves its resolvers
+    recruited, idle. Each storage server's index on ``device``, with no
+    multiGet fallback and, on the card, K5 launched in its process.
+    Returns the per-resolver and per-storage figures and the generation."""
+    resolvers, storages = {}, {}
+    for uid, snap in sorted((doc.get("resolvers") or {}).items()):
+        k = snap.get("kernel") or {}
+        h = k.get("health") or {}
+        resolvers[uid] = {"process": names.get(snap.get("address"), snap.get("address")),
+                          "generation": int(uid.split("-")[1]),
+                          "device": k.get("device"), "batches": k.get("batches"),
+                          "deviceDispatches": k.get("deviceDispatches"), "txns": k.get("txns"),
+                          "state": h.get("state"), "failovers": h.get("failovers"),
+                          "deadlineHits": h.get("deadlineHits"), "backend": h.get("backend"),
+                          "launches": {n: c for n, c in (k.get("launches") or {}).items() if c}}
+    for addr, w in sorted(((doc.get("cluster") or {}).get("workers") or {}).items()):
+        for uid, snap in sorted((w.get("metrics") or {}).items()):
+            if snap.get("kind") == "storage":
+                storages[uid] = {"process": names.get(addr, addr), "indexDevice": snap.get("indexDevice"),
+                                 "indexLaunches": snap.get("indexLaunches"),
+                                 "multiGetFallbackKeys": snap.get("multiGetFallbackKeys"),
+                                 "durableVersion": snap.get("durableVersion")}
+    newest = max((r["generation"] for r in resolvers.values()), default=0)
+    current = [r for r in resolvers.values() if r["generation"] == newest]
+    bad = [(u, r) for u, r in resolvers.items()
+           if r["device"] != device or r["state"] != "HEALTHY" or r["failovers"] != 0
+           or r["backend"] != "TorchConflictSet"]
+    busy = [r for r in current if (r["batches"] or 0) > 0]
+    # on the card, a busy resolver's process launched K1-K3 (the counts are
+    # the process's; off it nothing launches)
+    unlaunched = [r for r in busy if device == "cuda" and any(r["launches"].get(k, 0) <= 0 for k in RESOLVE_PATH)]
+    if bad or unlaunched or newest <= after or len(current) < 2 or (want_batches and len(busy) < 2):
+        raise AssertionError(f"resolvers (generation {newest}, after {after}): {resolvers}")
+    if len(storages) != 2 or any(s["indexDevice"] != device or s["multiGetFallbackKeys"] != 0
+                                 or (device == "cuda" and (s["indexLaunches"] or 0) <= 0)
+                                 for s in storages.values()):
+        raise AssertionError(f"storage indexes: {storages}")
+    return {"resolvers": resolvers, "storage": storages, "generation": newest}
+
+
+def commit_phases(doc: dict, names: dict) -> dict:
+    """Where a commit's time goes, as the status document has it: each
+    proxy's version, resolve and log-push phases and its commit latency,
+    and each resolver's resolveLatency (p50 / p95 ms)."""
+    out = {}
+    for addr, w in sorted(((doc.get("cluster") or {}).get("workers") or {}).items()):
+        for uid, snap in sorted((w.get("metrics") or {}).items()):
+            keys = {"proxy": ("phase1Version", "phase2Resolve", "phase4LogPush", "commitLatency", "grvLatency"),
+                    "resolver": ("resolveLatency",)}.get(snap.get("kind"), ())
+            for k in keys:
+                lat = snap.get(k) or {}
+                out[f"{uid}@{names.get(addr, addr)} {k}"] = (lat.get("count"), (lat.get("p50") or 0) * 1e3,
+                                                             (lat.get("p95") or 0) * 1e3)
+    return out
+
+
+def card_memory(doc: dict, names: dict) -> dict:
+    """Each server process's card memory in MiB, as its status pull reports
+    it from inside the process (``cardMemory`` of its resolvers' kernel
+    sections and its storage servers: the allocator's allocated and
+    reserved bytes, without the CUDA context)."""
+    out = {}
+    for addr, w in sorted(((doc.get("cluster") or {}).get("workers") or {}).items()):
+        for snap in (w.get("metrics") or {}).values():
+            mem = snap.get("cardMemory") or (snap.get("kernel") or {}).get("cardMemory")
+            if mem:
+                out[names.get(addr, addr)] = {k: v / 2**20 for k, v in mem.items()}
+    return out
+
+
+async def wait_durable(db, coord: str) -> dict:
+    """Until every storage server's durable version reaches a read version
+    taken now (so every commit acknowledged before it): that version, and
+    the status reads it took."""
+    from foundationdb_tpu_torch.client import management
+    from foundationdb_tpu_torch.runtime.futures import delay
+
+    v = await db.transaction().get_read_version()
+    polls = 0
+    while True:
+        polls += 1
+        doc = await management.get_status([coord], db.client)
+        durable = [snap.get("durableVersion") or 0
+                   for w in ((doc.get("cluster") or {}).get("workers") or {}).values()
+                   for snap in (w.get("metrics") or {}).values() if snap.get("kind") == "storage"]
+        if durable and min(durable) >= v:
+            return {"version": v, "status_reads": polls}
+        await delay(0.5)
+
+
+def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix_s: float = TCP_MIX_S) -> dict:
+    """Phase 16 (a): the port's ``TcpCluster`` (``tools/tcp_soak.py``), each
+    server a real ``fdbserver --device <device>`` process: one coordinator
+    and workers of class storage x3, transaction x2 and stateless x2, with
+    ``TCP_CONFIG`` and the storage index on. ``n_keys`` keys ``rw/%08d``
+    are loaded by TCP_LOADERS client processes (this script with
+    ``--tcp-loader``), then ``perf --mode tcp-client`` processes run the
+    90_10 mix for ``mix_s`` seconds; ``status json`` through the port's cli
+    must show both resolvers on ``device``, HEALTHY, with no failover and
+    batches dispatched, and both storage indexes on ``device``. Then the
+    process hosting the master is SIGKILLed and restarted, and the wait
+    until a probe write commits is timed; a fresh client reads every key
+    back. Any server that dies but the killed one fails the phase (its
+    output is printed first). Returns the phase's JSON object."""
+    import shutil
+    import tempfile
+
+    from foundationdb_tpu_torch.client.database import Database
+    from foundationdb_tpu_torch.net.tcp import RealWorld
+    from foundationdb_tpu_torch.runtime.futures import spawn
+    from foundationdb_tpu_torch.runtime.loop import set_loop
+    from foundationdb_tpu_torch.tools import perf, tcp_soak
+
+    t_phase = time.perf_counter()
+    datadir = tempfile.mkdtemp(prefix="fdbtpu-smoke-tcp-")
+    clients: list = []
+
+    def check_alive(cluster):
+        """Any dead server fails the phase, its output printed first."""
+        try:
+            cluster.check_alive()
+        except AssertionError as e:
+            log(str(e))
+            raise
+
+    def client_world():
+        world = RealWorld("127.0.0.1:0")
+        world.activate()
+        return world, Database.from_coordinators(world, [cluster.coord])
+
+    out: dict = {"keys": n_keys, "device": device, "config": TCP_CONFIG, "knobs": list(TCP_KNOBS)}
+    cluster = None
+    try:
+        cluster = tcp_soak.TcpCluster(datadir, config=TCP_CONFIG, classes=TCP_CLASSES, knobs=TCP_KNOBS,
+                                      device=device)
+        names = {f"127.0.0.1:{n.rsplit('-', 1)[1]}": n for n in cluster.procs if n != "coord"}
+        names[cluster.coord] = "coord"
+        # formation: the first commit through the port's cli
+        w0 = time.perf_counter()
+        deadline = w0 + TCP_FORM_S
+        while tcp_soak.fdbcli(cluster.coord, "set tcp/formed ok", timeout=60)[0] != 0:
+            check_alive(cluster)
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"the cluster did not form in {TCP_FORM_S} s")
+            time.sleep(1.0)
+        out["form_s"] = time.perf_counter() - w0
+        log(f"real-process cluster formed in {out['form_s']:.1f} s: {len(cluster.procs)} processes [{card}]")
+
+        # the load: TCP_LOADERS client processes, disjoint ranges
+        w0 = time.perf_counter()
+        bounds = [n_keys * i // TCP_LOADERS for i in range(TCP_LOADERS + 1)]
+        clients[:] = [subprocess.Popen(
+            [sys.executable, __file__, "--tcp-loader", cluster.coord, str(lo), str(hi), str(TCP_LOAD_ACTORS)],
+            env=tcp_soak._env(), cwd=tcp_soak.REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for lo, hi in zip(bounds, bounds[1:])]
+        loads = [child_json(p, "a load client") for p in clients]
+        check_alive(cluster)
+        load_s = time.perf_counter() - w0
+        out["load"] = {"wall_s": load_s, "writes_s": n_keys / load_s, "clients": loads}
+        log(f"real-process cluster: {n_keys} keys loaded in {load_s:.1f} s ({n_keys / load_s:.1f} writes/s) "
+            f"by {TCP_LOADERS} client processes [{card}]")
+
+        # every load write durable on both replicas: a read version taken
+        # now covers every acknowledged commit
+        world, db = client_world()
+        w0 = time.perf_counter()
+        try:
+            durable = world.run_until_done(spawn(wait_durable(db, cluster.coord)), 1800.0)
+        finally:
+            world.close()
+            set_loop(None)
+        out["durable"] = {"wall_s": time.perf_counter() - w0, **durable}
+        log(f"real-process cluster: both storage servers durable at the load's last version "
+            f"{out['durable']['wall_s']:.1f} s after it [{card}]")
+
+        # the mix: perf's tcp-client processes on the loaded keyspace
+        w0 = time.perf_counter()
+        clients[:] = [subprocess.Popen(
+            [sys.executable, __file__, "--tcp-mix", "--workload", "90_10",
+             "--mode", "tcp-client", "--coordinators", cluster.coord, "--actors", str(TCP_MIX_ACTORS),
+             "--keyspace", str(n_keys), "--duration", str(mix_s), "--client-procs", str(TCP_MIX_PROCS),
+             "--seed", str(i), "--client-id", str(i)],
+            env=tcp_soak._env(), cwd=tcp_soak.REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i in range(TCP_MIX_PROCS)]
+        lines = [child_lines(p, "a perf tcp-client") for p in clients]
+        mix = perf.aggregate([ls[-2] for ls in lines])
+        check_alive(cluster)
+        out["mix"] = {k: mix.get(k) for k in ("txn_per_s", "ops_per_s", "commits", "conflicts", "reads",
+                                               "writes", "commit_p50_ms", "commit_p95_ms", "read_p50_ms",
+                                               "read_p95_ms", "wall_s", "client_procs")}
+        out["mix"]["process_wall_s"] = time.perf_counter() - w0
+        out["mix"]["processes"] = [ls[-1] for ls in lines]
+        log(f"real-process cluster: mix 90_10 {mix['txn_per_s']:.1f} txn/s, commit p50 {mix['commit_p50_ms']:.3f} "
+            f"ms / p95 {mix['commit_p95_ms']:.3f} ms ({TCP_MIX_PROCS} x {TCP_MIX_ACTORS} actors) [{card}]")
+
+        # status through the port's cli: the resolvers and indexes on the card
+        doc = cli_status(cluster.coord)
+        out["roles"] = roles_by_process(doc, names)
+        out["status"] = check_cluster_kernels(doc, device, names, want_batches=True)
+        out["commit_phases_ms"] = commit_phases(doc, names)
+        master = names.get((doc.get("cluster") or {}).get("master"))
+        if master not in cluster.procs:
+            raise AssertionError(f"no process hosts the master: {out['roles']}")
+        out["card_memory"] = card_memory(doc, names)
+
+        # SIGKILL the master's process, restart it, time a probe commit
+        world, db = client_world()
+
+        async def probe(tr):
+            tr.set(b"tcp/probe", b"after-kill")
+
+        w0 = time.perf_counter()
+        cluster.kill(master)
+        cluster.restart(master)
+        try:
+            world.run_until_done(spawn(db.run(probe)), TCP_RECOVER_S)
+        finally:
+            world.close()
+            set_loop(None)
+        recover_s = time.perf_counter() - w0
+        check_alive(cluster)
+        # read status until the new generation's resolvers show
+        deadline = time.perf_counter() + 60.0
+        while True:
+            after = cli_status(cluster.coord)
+            try:
+                checked = check_cluster_kernels(after, device, names, want_batches=False,
+                                                after=out["status"]["generation"])
+                break
+            except AssertionError:
+                if time.perf_counter() > deadline:
+                    raise
+                time.sleep(2.0)
+        out["recovery"] = {"killed": master, "roles_killed": out["roles"].get(master), "wall_s": recover_s,
+                           "recovery_count": (after.get("cluster") or {}).get("recovery_count"),
+                           "status": checked, "roles": roles_by_process(after, names)}
+        log(f"real-process cluster: killed {master} ({out['recovery']['roles_killed']}), restarted it; a probe "
+            f"write committed {recover_s:.3f} s after the kill [{card}]")
+
+        # every acknowledged key, from a fresh client
+        world, db = client_world()
+        w0 = time.perf_counter()
+
+        async def read_back():
+            seen, bad, begin = 0, [], commit_key(0)
+            while True:
+                async def chunk(tr, begin=begin):
+                    return await tr.get_range(begin, b"rw0", limit=TCP_READ_CHUNK)
+
+                rows = await db.run(chunk)
+                for k, v in rows:
+                    if k != commit_key(seen) or v != TCP_VALUE:
+                        bad.append((k, v))
+                    seen += 1
+                if len(rows) < TCP_READ_CHUNK:
+                    break
+                begin = rows[-1][0] + b"\x00"
+
+            async def extras(tr):
+                return [await tr.get(k) for k in (b"tcp/formed", b"tcp/probe")]
+
+            return seen, bad[:10], await db.run(extras)
+
+        try:
+            seen, bad, extras = world.run_until_done(spawn(read_back()), 1800.0)
+        finally:
+            world.close()
+            set_loop(None)
+        check_alive(cluster)
+        out["read_back"] = {"keys": seen, "wall_s": time.perf_counter() - w0, "extras": extras}
+        if seen != n_keys or bad or extras != [b"ok", b"after-kill"]:
+            raise AssertionError(f"read back {seen} of {n_keys} keys, wrong {bad}, extras {extras}")
+        log(f"real-process cluster: read back all {seen} acknowledged keys in {out['read_back']['wall_s']:.1f} s "
+            f"from a fresh client [{card}]")
+    finally:
+        for p in clients:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+        if cluster is not None:
+            cluster.stop()
+        shutil.rmtree(datadir, ignore_errors=True)
+    out["processes"] = len(cluster.procs)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = card
+    log(json.dumps({"tcp_cluster": out}, default=str))
+    log(card)
+    return out
+
+
+def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
+                   mix_s: float = INPROC_MIX_S, check=True) -> tuple[dict, list[dict]]:
+    """Phase 16 (b): ``perf --mode tcp-inproc`` through ``perf.main``: the
+    same layout as RealWorlds on one RealLoop in this process, ``n_keys``
+    keys and the 90_10 mix for ``mix_s`` seconds, over loopback and then
+    over sockets (``--no-loopback``). Launch counts are set to 0 before the
+    two runs and read after; K1, K2, K3 staging, K3 merge and K5 must have
+    launched, and every resolver's guard must be HEALTHY on ``device`` with
+    no failover. With ``check``, the widest resolver batch (on its
+    resolver's state after the runs) and the widest storage search are
+    held to their plain versions and timed. Returns the JSON object and
+    the kernel rows."""
+    import contextlib
+    import io
+
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    from foundationdb_tpu_torch.device import lanes_to_torch
+    from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    from foundationdb_tpu_torch.server.worker import Worker
+    from foundationdb_tpu_torch.tools import perf
+
+    t_phase = time.perf_counter()
+    capture: dict = {"best": None, "q": None}
+    resolvers: list = []
+    encode, search_codes, make_resolver = TorchConflictSet.encode, TorchRangeIndex._search_codes, Worker._make_resolver
+
+    def captured_encode(self, transactions):
+        enc = encode(self, transactions)
+        size = (len(transactions), enc[0].rb.shape[1] * enc[0].wb.shape[1])
+        if capture["best"] is None or size > capture["best"][0]:
+            capture["best"] = (size, self, enc)
+        return enc
+
+    def captured_search(self, codes):
+        if capture["q"] is None or codes.shape[0] > capture["q"][0]:
+            capture["q"] = (codes.shape[0], self, codes)
+        return search_codes(self, codes)
+
+    def recorded_resolver(self, h, **kw):
+        make_resolver(self, h, **kw)
+        resolvers.append(h.obj)
+
+    legs = {}
+    TorchConflictSet.encode, TorchRangeIndex._search_codes = captured_encode, captured_search
+    Worker._make_resolver = recorded_resolver
+    Knobs.STORAGE_TPU_INDEX = True  # perf builds its own knobs; on a RealLoop the index is off unless asked for
+    gc.collect()
+    gc.freeze()  # this process's earlier objects out of the collector's scans (ROADMAP C3)
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for leg, extra in (("loopback", []), ("sockets", ["--no-loopback"])):
+            argv = ["--mode", "tcp-inproc", "--workload", "90_10", "--keyspace", str(n_keys), "--actors",
+                    str(INPROC_ACTORS), "--duration", str(mix_s), "--tcp-config", TCP_CONFIG,
+                    "--tcp-classes", ",".join(TCP_CLASSES), "--device", device, *extra]
+            w0 = time.perf_counter()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                if perf.main(argv) != 0:
+                    raise AssertionError(f"perf {' '.join(argv)} failed")
+            rep = json.loads(text.getvalue().strip().splitlines()[-1])
+            moved = {k: sum(s.get(k, 0) for s in rep["transport"].values())
+                     for k in ("loopbackMessages", "tcpMessages", "messagesSent", "framesSent")}
+            legs[leg] = {k: rep.get(k) for k in ("txn_per_s", "ops_per_s", "commits", "conflicts",
+                                                   "commit_p50_ms", "commit_p95_ms", "read_p50_ms", "wall_s")}
+            legs[leg].update(process_wall_s=time.perf_counter() - w0, transport=moved,
+                             transport_knobs=rep["transport_knobs"])
+            if (moved["loopbackMessages"] <= 0 if leg == "loopback"
+                    else moved["loopbackMessages"] != 0 or moved["tcpMessages"] <= 0):
+                raise AssertionError(f"{leg}: transport {moved}")
+            # every resolver the leg recruited; a destroyed generation's
+            # guard stays readable, its backend is gone
+            legs[leg]["resolvers"] = list(resolvers)
+            resolvers.clear()
+            log(f"tcp-inproc over {leg}: {n_keys} keys, mix 90_10 {rep['txn_per_s']:.1f} txn/s, commit p50 "
+                f"{rep['commit_p50_ms']:.3f} ms / p95 {rep['commit_p95_ms']:.3f} ms, run {legs[leg]['process_wall_s']:.1f} s "
+                f"[{card}]")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        TorchConflictSet.encode, TorchRangeIndex._search_codes = encode, search_codes
+        Worker._make_resolver = make_resolver
+        Knobs.STORAGE_TPU_INDEX = None
+        gc.unfreeze()
+    bad, recruited = {}, []
+    for name, leg in legs.items():
+        mine = leg.pop("resolvers")
+        recruited += mine
+        # (health, failovers, device or None once destroyed) of each guard
+        leg["guards"] = [(r.cs.health, r.cs.health_snapshot()["failovers"],
+                          None if getattr(r.cs, "_closed", False)
+                          else getattr(getattr(r.cs.primary, "_device", None), "type", None)) for r in mine]
+        live = [g for g in leg["guards"] if g[2] is not None]
+        if len(live) < 2 or any(h != "HEALTHY" or f != 0 for h, f, _d in leg["guards"]) \
+                or any(d != device for _h, _f, d in live):
+            bad[name] = leg["guards"]
+    out = {"keys": n_keys, "device": device, "legs": legs, "launches": {k: v for k, v in launches.items() if v}}
+    rows: list = []
+    try:
+        if bad:
+            raise AssertionError(f"tcp-inproc resolver guards: {bad}")
+        if check:
+            missing = [k for k in RESOLVE_PATH + ("search",) if launches.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"kernels never launched in tcp-inproc: {missing} ({launches})")
+            (_size, cs, (hbatch, n_real, _epoch)) = capture["best"]
+            base = cs._origin[1]
+            old = max(cs.oldest_version - base, 0)
+            vers = (old + Knobs.MAX_READ_TRANSACTION_LIFE_VERSIONS, old, old)
+            T_, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
+            log(f"kernel checks on tcp-inproc's widest batch ({n_real} transactions, T={T_} KR={KR} KW={KW}) "
+                f"and its resolver's state after the runs [{card}]:")
+            rows = check_resolve_kernels(cs._state, hbatch, vers, launches)[0]
+            for r in rows:
+                r["name"] = f"{r['name']} (tcp_inproc, widest batch T={T_} KR={KR} KW={KW})"
+            q_rows, idx, codes = capture["q"]
+            log(f"K5 at tcp-inproc's widest storage search (Q={q_rows} over {idx.n} keys) [{card}]:")
+            k5 = check_search(idx._codes, lanes_to_torch(codes, "cuda"), launches)[0]
+            k5["name"] = f"search (tcp_inproc, widest storage search, Q={q_rows})"
+            rows.append(k5)
+            out["kernel_rows"] = [{k: r[k] for k in ("name", "launches", "ms", "device_ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "max_abs_err")} for r in rows]
+    finally:
+        # the legs' worlds are closed: stop their resolvers' threads and
+        # free their grids (a thread left running at exit aborts the process)
+        for r in recruited:
+            if not getattr(r.cs, "_closed", False):
+                r.close()
+        del recruited, capture
+        collect_all()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = card
+    log(json.dumps({"tcp_inproc": out}, default=str))
+    log(card)
+    return out, rows
+
+
+def binding_run(seed: int, n_ops: int, chaos: bool, device, **cfg) -> tuple:
+    """One bindingtester stream of ``tests/test_bindingtester.py`` through
+    the port's static ``Cluster`` on ``device`` (None: the card): the
+    stream, the final data rows and the logged stack rows."""
+    from foundationdb_tpu_torch.bindings import StackMachine
+    from foundationdb_tpu_torch.bindings.generator import StreamGenerator, store_instructions
+    from foundationdb_tpu_torch.client import Database
+    from foundationdb_tpu_torch.net.sim import Sim
+    from foundationdb_tpu_torch.runtime.buggify import Buggify, set_buggify
+    from foundationdb_tpu_torch.runtime.futures import spawn
+    from foundationdb_tpu_torch.server import Cluster, ClusterConfig
+
+    ins, data, result = BINDING_PREFIXES
+    sim = Sim(seed=seed, chaos=chaos)
+    sim.activate()
+    cluster = Cluster(sim, ClusterConfig(**cfg), device=device)
+    db = Database(sim, cluster.proxy_addrs)
+    stream = StreamGenerator(seed, data_prefix=data).generate(n_ops, result_prefix=result, machine_prefix=ins)
+
+    async def go():
+        await store_instructions(db, ins, stream)
+        await StackMachine(db, ins).run_from_db()
+
+        async def read_all(tr):
+            return (await tr.get_range(data, data + b"\xff"), await tr.get_range(result, result + b"\xff"))
+
+        return await db.run(read_all)
+
+    try:
+        rows, log_rows = sim.run_until_done(spawn(go()), 3600.0)
+    finally:
+        set_buggify(Buggify(None))  # a chaos Sim arms the process's buggify: disarm it for what follows
+    return stream, list(rows), list(log_rows)
+
+
+def binding_model(stream) -> tuple:
+    """The same stream through the port's ``ModelDatabase``."""
+    from foundationdb_tpu_torch.bindings import ModelDatabase, StackMachine
+    from foundationdb_tpu_torch.bindings.generator import store_instructions
+    from foundationdb_tpu_torch.net.sim import Sim
+    from foundationdb_tpu_torch.runtime.futures import spawn
+
+    ins, data, result = BINDING_PREFIXES
+    sim = Sim(seed=0)
+    sim.activate()
+    db = ModelDatabase()
+
+    async def go():
+        await store_instructions(db, ins, stream)
+        await StackMachine(db, ins).run_stream(stream)
+        return (sorted((k, v) for k, v in db.data.items() if k.startswith(data)),
+                sorted((k, v) for k, v in db.data.items() if k.startswith(result)))
+
+    return sim.run_until_done(spawn(go()), 3600.0)
+
+
+def run_bindings(card: str, device=None, seeds=BINDING_SEEDS, chaos=BINDING_CHAOS) -> dict:
+    """Phase 16 (c): the bindingtester streams of
+    ``tests/test_bindingtester.py`` (seeds 0-49, the long stream on 2
+    proxies and 2 resolvers, the four chaos seeds) through the port's
+    ``Cluster`` on the card, each byte-identical, data and stack log, to
+    the port's ``ModelDatabase`` run of the same stream. K1-K3 must launch
+    (counts set to 0 before the streams, read after)."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.runtime.loop import set_loop
+
+    t_phase = time.perf_counter()
+    plan = [(s, BINDING_OPS, False, {}) for s in seeds] + [(99, BINDING_OPS, False, {"n_proxies": 2, "n_resolvers": 2})]
+    plan += [(s, BINDING_CHAOS_OPS, True, {}) for s in chaos]
+    if device is None:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    failed, instructions, rows = [], 0, 0
+    for seed, n_ops, is_chaos, cfg in plan:
+        stream, data, log_rows = binding_run(seed, n_ops, is_chaos, device, **cfg)
+        instructions += len(stream)
+        rows += len(log_rows)
+        if (data, log_rows) != tuple(map(list, binding_model(stream))):
+            failed.append((seed, is_chaos, cfg))
+    set_loop(None)
+    if device is None:
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    collect_all()
+    out = {"streams": len(plan), "identical": len(plan) - len(failed), "failed": failed,
+           "instructions": instructions, "logged_rows": rows, "wall_s": time.perf_counter() - t_phase,
+           "launches": {k: v for k, v in launches.items() if v}, "card": card}
+    log(json.dumps({"bindings": out}, default=str))
+    log(card)
+    if failed:
+        raise AssertionError(f"bindingtester streams differ from the model: {failed}")
+    missing = [k for k in RESOLVE_PATH if launches.get(k, 0) <= 0] if device is None else []
+    if missing:
+        raise AssertionError(f"kernels never launched by the bindingtester streams: {missing}")
+    return out
+
+
+def run_real_process(card: str) -> list[dict]:
+    """Phase 16, the real-process cluster: (a) ``run_tcp_cluster``, (b)
+    ``run_tcp_inproc``, (c) ``run_bindings``. Returns (b)'s kernel rows."""
+    t0 = time.perf_counter()
+    run_tcp_cluster(card)
+    _inproc, rows = run_tcp_inproc(card)
+    run_bindings(card)
+    log(f"real-process phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
 def profile_only(card: str, history: bool = False, reshard: bool = False, rebase: bool = False) -> None:
     """Only the per-batch profile of both resolver paths: each warmed by
     one group of the bench workload, then profiled over the next
@@ -3706,7 +4382,22 @@ def main() -> int:
     ap.add_argument("--rebase-only", action="store_true",
                     help="the profile lines, then the rebase entry point of both paths, glue "
                          "included, beside a copy of the same grid, on CUDA events")
+    ap.add_argument("--tcp-only", action="store_true",
+                    help="phases 1, 2 and 16 alone: the card, the kernels' build and the "
+                         "real-process cluster")
+    ap.add_argument("--tcp-loader", nargs=4, metavar=("COORDINATOR", "LO", "HI", "ACTORS"),
+                    help="(phase 16's load client processes) load keys [LO, HI) and print one JSON line")
+    ap.add_argument("--tcp-mix", nargs=argparse.REMAINDER,
+                    help="(phase 16's mix client processes) run perf with the arguments that follow, "
+                         "then print its timing as one JSON line")
+    if sys.argv[1:2] == ["--tcp-mix"]:  # phase 16's mix client processes: perf's own arguments follow
+        log(json.dumps(tcp_mix(sys.argv[2:])))
+        return 0
     args = ap.parse_args()
+    if args.tcp_loader:
+        coord, lo, hi, actors = args.tcp_loader
+        log(json.dumps(tcp_loader(coord, int(lo), int(hi), int(actors))))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -3736,6 +4427,13 @@ def main() -> int:
         for line in text.splitlines():
             if "Used" in line:
                 log(f"  ptxas {src}: {line.split('info    :')[-1].strip()}")
+    if args.tcp_only:
+        # 16 alone, its server processes booted after the build above
+        rows = run_real_process(card)
+        log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
+        log(json.dumps({"kernels": rows}))
+        log(card)
+        return 0
 
     # 3. workload, warm-up group, CPU plain path, oracle
     # versions start so that group 2 crosses now - base >= 2^30: the int32
@@ -3853,11 +4551,15 @@ def main() -> int:
     # 15. the chaos soak: tools.soak.run_one on the card, seed by seed, each
     # held to its CPU twin
     _soak, soak_rows = run_soak(card)
+    # 16. the real-process cluster: fdbserver processes over TCP with their
+    # resolvers and storage on the card, the same layout in this process,
+    # and the bindingtester streams
+    tcp_rows = run_real_process(card)
 
     # 6. results
     log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
     log(json.dumps({"kernels": rows + index_rows + mesh_rows + storage_rows + commit_rows + dynamic_rows
-                               + soak_rows}))
+                               + soak_rows + tcp_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -10,9 +10,12 @@ tlog (``server.storage``, ``server.tlog``) and the commit path that joins
 them in a static cluster (``server.Cluster``: master, proxies, resolvers,
 tlogs, storage) with its client (``client.Database``), the dynamic
 cluster that recovers from failures (``server.cluster.DynamicCluster``),
-on the deterministic simulator (``net.sim``), and the seeded chaos soak
+on the deterministic simulator (``net.sim``), the seeded chaos soak
 that drives it (``tools.soak`` over ``workloads``, ``backup`` and
-``layers``). The package imports torch and numpy only.
+``layers``), the same cluster as real OS processes over TCP
+(``net.tcp``, ``tools.fdbserver`` with ``--device``, ``tools.cli``,
+``tools.fdbmonitor``, ``tools.tcp_soak``, ``tools.perf``) and the
+bindingtester (``bindings``). The package imports torch and numpy only.
 """
 
 from .device import resolve_device

@@ -74,6 +74,16 @@ class QueueModel:
         )
 
 
+def _entrant(db, coro):
+    """Spawn one replica's attempt of a raced request. The race below reads
+    its error, so the process does not count it as an unhandled actor
+    death (``Task.observed``; loadBalance ignores a losing request's
+    error)."""
+    fut = db.client.spawn(coro)
+    fut._task.observed = True
+    return fut
+
+
 async def load_balanced_request(db, team, token: str, req, hedge: bool = True):
     """One logical request against a replica team: best replica first,
     hedged second request when the first outlives ~2x its expected
@@ -128,14 +138,14 @@ async def load_balanced_request(db, team, token: str, req, hedge: bool = True):
                 last_err = e
                 i += 1
                 continue
-        first = db.client.spawn(one(addr))
+        first = _entrant(db, one(addr))
         second = None
         if hedge and i + 1 < len(order):
             expected = max(model.get(addr).latency * 2.0, 0.002)
             which = await wait_for_any([settled(first), delay(expected)])
             if which != 0 and not first.is_ready():
                 # first is slow: hedge to the next-best replica
-                second = db.client.spawn(one(order[i + 1]))
+                second = _entrant(db, one(order[i + 1]))
         pending = [f for f in (first, second) if f is not None]
         advanced = 2 if second is not None else 1
         while pending:

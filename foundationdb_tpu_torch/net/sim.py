@@ -66,7 +66,7 @@ class SimProcess:
         self.alive = True
         self.reboots = 0
 
-    def _on_actor_error(self, err: BaseException) -> None:
+    def _on_actor_error(self, err: BaseException, observed: bool = False) -> None:
         """Unhandled actor death is LOUD: SevError with traceback (the
         reference's unhandled-error → TraceEvent("...Error") + death path,
         flow/ActorCollection.actor.cpp). BrokenPromise is routine in sim

@@ -121,6 +121,10 @@ class Task:
             name or getattr(coro, "__qualname__", None) or type(coro).__name__
         )
         self._cancelled = False
+        # set by a spawner that reads this actor's outcome itself (a hedged
+        # request's entrant, client/loadbalance.py): its error is passed to
+        # the owning ActorCollection's on_error as observed
+        self.observed = False
         self._waiting_on: Optional[Future] = None
         # home loop: every (re)scheduling of this task goes here, NOT to
         # whatever loop is current at wake time — when an old simulation's
@@ -597,9 +601,13 @@ class ActorCollection:
     ``on_error`` (optional) is invoked synchronously with the exception the
     first time an actor dies unhandled — the hook that makes actor death
     LOUD (the reference turns an unhandled error into a TraceEvent + process
-    death; silence here once hid a cluster-wide boot failure)."""
+    death; silence here once hid a cluster-wide boot failure). Its second
+    argument says whether the actor's spawner reads that error itself
+    (``Task.observed``)."""
 
-    def __init__(self, on_error: Optional[Callable[[BaseException], None]] = None):
+    def __init__(
+        self, on_error: Optional[Callable[[BaseException, bool], None]] = None
+    ):
         self._actors: list[Future] = []
         self.error: Future = Future()
         self.on_error = on_error
@@ -620,7 +628,9 @@ class ActorCollection:
             if f._error is not None and not genuine_cancel:
                 if self.on_error is not None:
                     try:
-                        self.on_error(f._error)
+                        self.on_error(
+                            f._error, f._task is not None and f._task.observed
+                        )
                     except Exception:
                         pass
                 if not self.error.is_ready():

@@ -188,21 +188,24 @@ class LogSystem:
             msgs = {
                 t: ms for t, ms in to_log.items() if t in log.tags or t == TXS_TAG
             }
-            pushes.append(
-                process.spawn(
-                    retransmitting_request(
-                        process,
-                        log.ep("commit"),
-                        TLogCommitRequest(
-                            epoch=self.tlog_set.epoch,
-                            prev_version=prev_version,
-                            version=version,
-                            messages=msgs,
-                            known_committed=known_committed,
-                        ),
-                    )
+            push = process.spawn(
+                retransmitting_request(
+                    process,
+                    log.ep("commit"),
+                    TLogCommitRequest(
+                        epoch=self.tlog_set.epoch,
+                        prev_version=prev_version,
+                        version=version,
+                        messages=msgs,
+                        known_committed=known_committed,
+                    ),
                 )
             )
+            # this push reads each entrant's error (TLogStopped ends the
+            # proxy's epoch in its caller), so a locked tlog's answer is no
+            # unhandled actor death that kills the hosting server process
+            push._task.observed = True
+            pushes.append(push)
         await wait_for_all(pushes)
 
     async def confirm_live(self, process) -> None:

@@ -50,6 +50,42 @@ class _RoleHandle:
     obj: object = None
 
 
+def _note_device(h, snap: dict) -> None:
+    """Name the device a role's kernels run on in its status snapshot: a
+    resolver's conflict backend in its ``kernel`` section (``device``:
+    ``cuda``, ``cpu``, or ``host`` for a backend without one, such as
+    ``native`` after a failover), a storage server's range index as
+    ``indexDevice`` (None while it has no index); and this process's
+    kernel launches since it started (``launches`` of the resolver's
+    section, the K5 ``indexLaunches`` of a storage server), which count
+    only on the card; and, where the role is on the card, the card memory
+    this process's tensors hold (``cardMemory``: the allocator's
+    ``allocated`` and ``reserved`` bytes, without the CUDA context), else
+    None. Only the status pull carries them; the role's counters and trace
+    events are the reference's."""
+    from ..conflict.kernels import launch_counts
+
+    if h.kind == "resolver" and isinstance(snap.get("kernel"), dict):
+        dev = getattr(getattr(h.obj.cs, "primary", None), "_device", None)
+        kind = getattr(dev, "type", "host")
+        snap["kernel"] = dict(snap["kernel"], device=kind, launches=launch_counts(),
+                              cardMemory=_card_memory(kind))
+    elif h.kind == "storage":
+        index = getattr(h.obj, "_range_index", None)
+        snap["indexDevice"] = None if index is None else index._codes.device.type
+        snap["indexLaunches"] = launch_counts()["search"]
+        snap["cardMemory"] = _card_memory(snap["indexDevice"])
+
+
+def _card_memory(device_type) -> dict:
+    """The card memory this process's tensors hold, on ``cuda``; else None."""
+    if device_type != "cuda":
+        return None
+    import torch
+
+    return {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved()}
+
+
 class Worker:
     def __init__(
         self,
@@ -196,6 +232,7 @@ class Worker:
                         elapsed = dt
                 snap = stats.snapshot(elapsed)
                 snap["kind"] = h.kind
+                _note_device(h, snap)
                 out[uid] = snap
         return out
 

@@ -1052,3 +1052,38 @@ def test_soak_seed_on_the_card_equals_its_cpu_twin(cuda):
     set_loop(None)
     assert card["config"]["conflict_backend"] == "torch"
     assert all(launches[k] > 0 for k in ("history", "intra_batch", "stage", "merge", "search")), launches
+
+
+def test_bindingtester_streams_on_the_card_equal_the_model(cuda):
+    """The bindingtester streams through a ``Cluster`` on the card: the
+    same data and stack log as the port's model database, and the
+    resolve path launched."""
+    import gc
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from foundationdb_tpu_torch.runtime.loop import set_loop
+
+    out = chip_smoke.run_bindings("test", device=None, seeds=range(3), chaos=(3,))
+    set_loop(None)
+    gc.collect()
+    assert out["identical"] == out["streams"] == 5
+    assert all(out["launches"].get(k, 0) > 0 for k in ("history", "intra_batch", "stage", "merge"))
+
+
+def test_tcp_inproc_cluster_on_the_card(cuda):
+    """``perf --mode tcp-inproc`` on the card at a small size, over loopback
+    and sockets: the resolvers stay HEALTHY on the card, K1-K3 and K5
+    launch, and each kernel equals its plain version on the widest batch
+    and search."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    out, rows = chip_smoke.run_tcp_inproc("test", device="cuda", n_keys=4000, mix_s=2.0)
+    assert {r["max_abs_err"] for r in rows} == {0} and len(rows) == 5
+    assert all(out["launches"].get(k, 0) > 0 for k in ("history", "intra_batch", "stage", "merge", "search"))

@@ -49,6 +49,19 @@ def _no_loop_left():
     j_loop.set_loop(None)
 
 
+@pytest.fixture(autouse=True)
+def _no_buggify_armed():
+    """The injectors also fire where the process's buggify is armed, and a
+    chaos Sim that ran earlier in this process (any test file's) leaves it
+    armed: each test starts with both packages' disarmed."""
+    from foundationdb_tpu.runtime import buggify as j_buggify
+    from foundationdb_tpu_torch.runtime import buggify as t_buggify
+
+    for b in (j_buggify, t_buggify):
+        b.set_buggify(b.Buggify(None))
+    yield
+
+
 def _sim(seed, loop_mod=t_loop):
     loop = loop_mod.EventLoop(seed)
     loop_mod.set_loop(loop)

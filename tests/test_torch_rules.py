@@ -39,6 +39,29 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def _strings(path):
+    """(line, value) of every string constant in ``path``, f-string parts
+    included."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_spawns_neither_jax_nor_the_jax_package(path):
+    """A tool that spawns ``-m foundationdb_tpu.tools.fdbserver`` passes the
+    import walk above while it runs the JAX package: no string of the port
+    names a module of the JAX package, and none sets ``JAX_PLATFORMS``."""
+    bad = [
+        f"{path.name}:{line} {value[:60]!r}"
+        for line, value in _strings(path)
+        if value.startswith("foundationdb_tpu.") and not value.startswith("foundationdb_tpu_torch")
+    ]
+    assert not bad, bad
+    assert "JAX_PLATFORMS" not in path.read_text(), f"{path.name} names JAX_PLATFORMS"
+
+
 def test_default_device_is_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"

@@ -13,9 +13,7 @@ import random
 import pytest
 
 from foundationdb_tpu.net import wire as j_wire
-from foundationdb_tpu_torch.kv.mutations import Mutation, MutationType
 from foundationdb_tpu_torch.net import wire
-from foundationdb_tpu_torch.server import interfaces as it
 
 from test_wire_codec import GOLDEN, canonical_instance, fields_equal, fuzz_value
 
@@ -31,32 +29,11 @@ def registered_dataclasses(w):
 
 
 def hot_messages():
-    """``tools/perf.py``'s hot message set, built from the port's classes."""
-    muts = [Mutation(MutationType.SET_VALUE, b"key/%06d" % i, b"v" * 64) for i in range(10)]
-    txn = it.TransactionData(
-        read_snapshot=1_000_000,
-        read_conflict_ranges=[(b"key/000000", b"key/000010")],
-        write_conflict_ranges=[(m.param1, m.param1 + b"\x00") for m in muts],
-        mutations=muts,
-    )
-    return [
-        it.GetReadVersionRequest(priority=1, tenant="", count=4),
-        it.GetReadVersionReply(version=1_000_000),
-        it.GetValueRequest(key=b"key/000001", version=1_000_000),
-        it.GetValueReply(value=b"v" * 64),
-        it.MultiGetRequest(keys=[b"key/%06d" % i for i in range(16)], version=1_000_000),
-        it.MultiGetReply(values=[b"v" * 64] * 16),
-        it.CommitRequest(transaction=txn),
-        it.CommitReply(version=1_000_123, versionstamp=b"\x00" * 10),
-        it.ResolveBatchRequest(
-            prev_version=999_000, version=1_000_123, last_receive_version=999_000,
-            requesting_proxy="127.0.0.1:4500", transactions=[txn] * 4,
-        ),
-        it.TLogCommitRequest(
-            prev_version=999_000, version=1_000_123, messages={0: muts, 1: muts[:5]},
-            epoch=2, known_committed=999_000,
-        ),
-    ]
+    """The hot commit and read-path messages, as the port's
+    ``tools/perf.py`` builds them from its own classes."""
+    from foundationdb_tpu_torch.tools.perf import _hot_message_set
+
+    return _hot_message_set()
 
 
 def test_the_port_registers_the_structs_of_the_jax_package():
