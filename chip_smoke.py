@@ -29,10 +29,11 @@ card). Phases, each of which raises on failure:
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
    committed clear spans the whole keyspace;
-6. after phases 7 to 16: print the kernel table (every kernel of the
+6. after phases 7 to 17: print the kernel table (every kernel of the
    paths, K5 also at the storage shapes, K1-K3 and K5 also on the commit
    path, in the dynamic cluster, in the soak and in the in-process TCP
-   cluster), the card line and the result line;
+   cluster, K5 also on the B-tree's index), the card line and the result
+   line;
 7. the partitioned resolver, ``new_conflict_set("torch_mesh", key_width=12,
    capacity=1<<19, n_parts=4)`` (4 partitions × 8192 × 32 × 4 uint32 =
    16 MiB), over the same workload with every key re-encoded
@@ -150,7 +151,7 @@ card). Phases, each of which raises on failure:
 15. the chaos soak: the port's ``tools.soak.run_one`` on the card for
    ``tests/test_soak.py``'s seeds 0, 1, 4 and 7, seed 0 with kernel faults
    and the overload burst forced, then seeds from 8 while the phase has
-   budget (at least four, none past 18). Each seed draws its own cluster
+   run under 40 s (none past 18). Each seed draws its own cluster
    shape, knobs, buggify sites and fault workloads from its seed. Gates a
    seed: the run's own checks (the workloads' oracles, the exact ledger
    under kernel faults, the ConsistencyCheck, the prefilter oracle), a
@@ -189,13 +190,29 @@ card). Phases, each of which raises on failure:
    ``tests/test_bindingtester.py`` (seeds 0-49, the long stream, the four
    chaos seeds) through the port's ``Cluster`` on the card, each
    identical to the port's model database (one ``{"bindings": ...}`` line).
+17. the port's lint and its B-tree engine. (a) ``cli lint --json`` (the
+   ``main`` of ``python -m foundationdb_tpu_torch.tools.cli``) over this
+   checkout must be clean (one ``{"lint": ...}`` line: files, per-rule counts, seconds).
+   (b) ``kv/native_engine.py`` ``KeyValueStoreBTree``, built with g++ at
+   first use: cell 3's draw of random ``b"%012d"`` keys with phase 12's
+   16-byte values, cut to 50,000 sets (the engine writes about 64 KiB of
+   pages a set), committed every 10,000 into a file under ``build/``,
+   closed and reopened; the full scan must equal the host model in count
+   and order, and 4096 point reads too. K5's ``TorchRangeIndex`` is then
+   built on the card from the reopened rows; 10 rounds of 4096 lookups
+   (70 % present) and 4096 of phase 12's ranges must equal ``bisect``,
+   each found point must hold the B-tree's value, and the first 64
+   intervals of a round must count the B-tree's range read; K5 is held
+   against its plain version. One ``{"btree": ...}`` line: writes/s, set,
+   commit, reopen and scan seconds, pages, live and file bytes.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after, and every kernel of the path must have launched.
 
 Exits non-zero, without a result line, when no CUDA card is visible.
 Usage: ``python3 chip_smoke.py``; ``--tcp-only`` runs phases 1, 2 and 16
-alone and prints phase 16's kernel rows but no result line;
+alone and prints phase 16's kernel rows but no result line, and
+``--btree-only`` likewise phases 1, 2 and 17;
 ``python3 chip_smoke.py --profile-only``
 prints only the two resolver paths' profile lines (each path warmed by one
 group first) and no result line, and runs from any checkout of the port;
@@ -3343,8 +3360,7 @@ def run_dynamic_cluster(card: str) -> tuple[dict, list[dict]]:
 SOAK_SEEDS = (0, 1, 4, 7)  # tests/test_soak.py's seeds
 SOAK_FORCED = {"force_kernel_faults": True, "force_overload": True}  # its composition case, on seed 0
 SOAK_MORE_FROM = 8  # then consecutive seeds from here ...
-SOAK_MORE_MIN = 4  # ... at least this many,
-SOAK_BUDGET_S = 90.0  # no more once the phase has run this long,
+SOAK_BUDGET_S = 40.0  # ... while the phase has run less than this (phase 17's time off 90 s),
 SOAK_MORE_LAST = 18  # and none past 18: seed 19 never finishes, in either package (ROADMAP C6)
 SOAK_EVENTS = ("KernelFailover", "KernelPromoted", "MasterFullyRecovered")
 
@@ -3537,8 +3553,8 @@ def run_soak(card: str) -> tuple[dict, list[dict]]:
     """Phase 15: the port's chaos soak (``tools.soak.run_one``) on the card,
     through its own entry point. Seeds 0, 1, 4 and 7, then seed 0 with
     kernel faults and the overload burst forced, then consecutive seeds
-    from 8 (at least four, more while the phase is under its budget, none
-    past 18: seed 19 never finishes in either package, ROADMAP C6). Each
+    from 8 while the phase is under its budget (none past 18: seed 19 never
+    finishes in either package, ROADMAP C6). Each
     seed's gates: the run passes every check of its own; a CPU twin (the
     same call with ``device="cpu"``) gives the identical summary; K5
     launched; on a seed that drew ``torch``, K1-K3 launched and every live
@@ -3567,8 +3583,7 @@ def run_soak(card: str) -> tuple[dict, list[dict]]:
     plan = [(s, {}) for s in SOAK_SEEDS] + [(0, SOAK_FORCED)]
     lines, failures, totals, rows, reshards = [], [], {}, [], {}
     more = SOAK_MORE_FROM
-    while plan or (more <= SOAK_MORE_LAST and (more - SOAK_MORE_FROM < SOAK_MORE_MIN
-                                               or time.perf_counter() - t_phase < SOAK_BUDGET_S)):
+    while plan or (more <= SOAK_MORE_LAST and time.perf_counter() - t_phase < SOAK_BUDGET_S):
         if plan:
             seed, kw = plan.pop(0)
         else:
@@ -4324,6 +4339,193 @@ def run_real_process(card: str) -> list[dict]:
     return rows
 
 
+BTREE_KEYS = 50_000  # cell 3's draw (bench.py:61-120), cut: the engine writes ~64 KiB a set (PERF.md §4)
+BTREE_COMMIT = 10_000  # sets a commit, phase 12's tlog commit
+BTREE_SPOT = 4096  # read_value spot checks after the reopen
+BTREE_ROUNDS = 10  # rounds of INDEX_BATCH lookups and INDEX_BATCH intervals on the card
+BTREE_RANGE_CHECKS = 64  # intervals of each round whose count is read from the B-tree too
+
+
+def run_lint(card: str) -> dict:
+    """Phase 17 (a): the port's ``cli lint --json`` over this checkout,
+    through the function ``python -m foundationdb_tpu_torch.tools.cli``
+    runs (its output captured); it must be clean. One ``{"lint": ...}``
+    line."""
+    import contextlib
+    import io
+
+    from foundationdb_tpu_torch.tools import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["lint", "--json"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli lint exited {rc}:\n{out.getvalue()[-4000:]}")
+    doc = json.loads(out.getvalue())
+    if not doc["clean"] or doc["failing"] or doc["parse_errors"] or doc["stale_baseline"]:
+        raise AssertionError(f"cli lint is not clean: {doc['failing'][:5]} {doc['parse_errors'][:5]} "
+                             f"{doc['stale_baseline'][:5]}")
+    out = {"clean": True, "files": doc["files"], "seconds": doc["seconds"], "wall_s": wall,
+           "disabled": len(doc["disabled"]), "baselined": len(doc["baselined"]),
+           "per_rule": doc["per_rule"], "card": card}
+    log(json.dumps({"lint": out}))
+    return out
+
+
+def run_btree(card: str) -> tuple[dict, list[dict]]:
+    """Phase 17 (b): the port's ``KeyValueStoreBTree`` at cell 3's shape,
+    cut to BTREE_KEYS keys, committed every BTREE_COMMIT sets into a file
+    under the checkout's git-ignored ``build/``, closed and reopened; a
+    full scan and BTREE_SPOT point reads against the host model. Then K5's
+    index is built on the card from the reopened engine's rows, as a
+    rebooted storage server rebuilds it from its recovered engine, and
+    BTREE_ROUNDS rounds of lookups (70 % present) and intervals (phase 12's
+    ranges) are held to ``bisect`` and to the engine. Returns the phase's
+    JSON object and K5's row."""
+    import bisect
+    import os
+    import pathlib
+
+    from foundationdb_tpu_torch.conflict import keys as K
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.device import lanes_to_torch
+    from foundationdb_tpu_torch.kv.native_engine import KeyValueStoreBTree, lib_path
+    from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
+
+    def commit(bt):
+        coro = bt.commit()  # the native commit never suspends
+        try:
+            coro.send(None)
+        except StopIteration:
+            return
+        raise AssertionError("the B-tree's commit suspended")
+
+    t_phase = time.perf_counter()
+    rnd = random.Random(0)
+    draw = [b"%012d" % rnd.randrange(10**12) for _ in range(BTREE_KEYS)]
+    model = {k: storage_value(i) for i, k in enumerate(draw)}
+    path = pathlib.Path(__file__).resolve().parent / "build" / "btree" / "phase17.btree"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    bt = KeyValueStoreBTree(str(path))
+    open_s = time.perf_counter() - t0  # the g++ build of the engine at first use included
+    try:
+        set_s = commit_s = 0.0
+        for lo in range(0, BTREE_KEYS, BTREE_COMMIT):
+            t0 = time.perf_counter()
+            for i in range(lo, min(lo + BTREE_COMMIT, BTREE_KEYS)):
+                bt.set(draw[i], storage_value(i))
+            t1 = time.perf_counter()
+            commit(bt)
+            set_s, commit_s = set_s + t1 - t0, commit_s + time.perf_counter() - t1
+        stats = bt.stats()
+        bt.close()
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        bt = KeyValueStoreBTree(str(path))
+        reopen_s = time.perf_counter() - t0
+        if bt.stats() != stats:
+            raise AssertionError(f"reopened stats {bt.stats()} != committed {stats}")
+        t0 = time.perf_counter()
+        rows = bt.read_range(b"", b"\xff")
+        scan_s = time.perf_counter() - t0
+        want = sorted(model.items())
+        if len(rows) != len(want) or rows != want:
+            raise AssertionError(f"reopened scan: {len(rows)} rows, the host model {len(want)}, "
+                                 f"{sum(a != b for a, b in zip(rows, want))} differ")
+        spot = [rnd.choice(draw) if rnd.random() < 0.7 else b"%012d" % rnd.randrange(10**12)
+                for _ in range(BTREE_SPOT)]
+        t0 = time.perf_counter()
+        got = [bt.read_value(k) for k in spot]
+        spot_s = time.perf_counter() - t0
+        bad = [k for k, v in zip(spot, got) if v != model.get(k)]
+        if bad:
+            raise AssertionError(f"{len(bad)} of {BTREE_SPOT} read_value differ from the host model")
+        log(f"B-tree: {BTREE_KEYS} sets ({len(want)} keys) in {BTREE_KEYS // BTREE_COMMIT} commits, "
+            f"sets {set_s:.2f} s, commits {commit_s:.2f} s, file {file_bytes} B for {stats['live_bytes']} "
+            f"live bytes; reopened in {reopen_s * 1e3:.2f} ms, scanned in {scan_s:.2f} s, "
+            f"{BTREE_SPOT} point reads in {spot_s * 1e3:.1f} ms [{card}]")
+
+        # K5's index on the card, rebuilt from the reopened engine's rows
+        keys = [k for k, _v in rows]
+        t0 = time.perf_counter()
+        idx = TorchRangeIndex(keys)
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+        span = 2 * 10**12 // len(keys) * 10  # phase 12's ranges: 10 keys on average
+        work = []
+        for _ in range(BTREE_ROUNDS):
+            q = [rnd.choice(keys) if rnd.random() < 0.7 else b"%012d" % rnd.randrange(10**12)
+                 for _ in range(INDEX_BATCH)]
+            begins = [b"%012d" % rnd.randrange(10**12) for _ in range(INDEX_BATCH)]
+            ends = [b"%012d" % min(int(b) + rnd.randrange(span), 10**12 - 1) for b in begins]
+            work.append((q, begins, ends))
+        idx.batch_lookup(work[0][0])  # warm
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        answers = [(idx.batch_lookup(q), idx.batch_range(b, e)) for q, b, e in work]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        if launches["search"] != 2 * BTREE_ROUNDS:
+            raise AssertionError(f"search launches {launches['search']} != {2 * BTREE_ROUNDS}")
+        found_points = range_rows = 0
+        for (q, begins, ends), ((pos, found), (los, his)) in zip(work, answers):
+            want_pos = [bisect.bisect_left(keys, k) for k in q]
+            want_found = [i < len(keys) and keys[i] == k for k, i in zip(q, want_pos)]
+            if list(found) != want_found or list(pos) != [i if f else -1 for i, f in zip(want_pos, want_found)]:
+                raise AssertionError("the B-tree index's lookups differ from bisect")
+            for k, i, f in zip(q, pos, found):
+                if f and bt.read_value(k) != rows[i][1]:
+                    raise AssertionError(f"index row {i} of {k!r} does not hold the B-tree's value")
+            found_points += int(sum(found))
+            if list(los) != [bisect.bisect_left(keys, b) for b in begins] or \
+                    list(his) != [bisect.bisect_left(keys, e) for e in ends]:
+                raise AssertionError("the B-tree index's intervals differ from bisect")
+            for b, e, lo, hi in list(zip(begins, ends, los, his))[:BTREE_RANGE_CHECKS]:
+                n = len(bt.read_range(b, e))
+                if n != hi - lo:
+                    raise AssertionError(f"[{b!r}, {e!r}): {hi - lo} index rows, {n} B-tree rows")
+                range_rows += n
+        n_q = BTREE_ROUNDS * INDEX_BATCH
+        log(f"B-tree index on the card: {len(keys)} rows built in {index_s:.2f} s; {n_q} lookups and "
+            f"{n_q} intervals in {wall:.3f} s, equal to bisect; {found_points} found points with the "
+            f"B-tree's value; {BTREE_ROUNDS * BTREE_RANGE_CHECKS} intervals' counts ({range_rows} rows) "
+            f"equal to the B-tree's range reads [{card}]")
+        log("launches on the B-tree index path: " + json.dumps(launches))
+        log(f"B-tree index kernel check [{card}]:")
+        q = lanes_to_torch(K.encode_keys(work[1][0], width=idx.width), "cuda")
+        k5 = check_search(idx._codes, q, launches)
+        k5[0]["name"] = f"search (B-tree index, Q={q.shape[0]})"
+    finally:
+        bt.close()
+        path.unlink(missing_ok=True)
+    out = {"keys": BTREE_KEYS, "distinct_keys": len(want), "commits": BTREE_KEYS // BTREE_COMMIT,
+           "writes_per_s": BTREE_KEYS / (set_s + commit_s), "set_s": set_s, "commit_s": commit_s,
+           "open_s": open_s, "reopen_s": reopen_s, "scan_s": scan_s, "scan_rows_per_s": len(rows) / scan_s,
+           "spot_reads": BTREE_SPOT, "spot_s": spot_s, "pages": stats["pages"],
+           "live_bytes": stats["live_bytes"], "file_bytes": file_bytes, "file_bytes_per_set": file_bytes / BTREE_KEYS,
+           "epoch": stats["epoch"], "library": lib_path().name, "index_rows": len(keys), "index_build_s": index_s,
+           "lookups_per_s": 2 * n_q / wall, "found_points": found_points, "range_checks": BTREE_ROUNDS * BTREE_RANGE_CHECKS,
+           "range_check_rows": range_rows, "launches": {k: v for k, v in launches.items() if v},
+           "wall_s": time.perf_counter() - t_phase, "card": card}
+    log(json.dumps({"btree": out}))
+    return out, k5
+
+
+def run_phase17(card: str) -> list[dict]:
+    """Phase 17: (a) ``run_lint``, (b) ``run_btree``. Returns K5's row."""
+    t0 = time.perf_counter()
+    run_lint(card)
+    _btree, rows = run_btree(card)
+    log(f"lint and B-tree phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
 def profile_only(card: str, history: bool = False, reshard: bool = False, rebase: bool = False) -> None:
     """Only the per-batch profile of both resolver paths: each warmed by
     one group of the bench workload, then profiled over the next
@@ -4385,6 +4587,9 @@ def main() -> int:
     ap.add_argument("--tcp-only", action="store_true",
                     help="phases 1, 2 and 16 alone: the card, the kernels' build and the "
                          "real-process cluster")
+    ap.add_argument("--btree-only", action="store_true",
+                    help="phases 1, 2 and 17 alone: the card, the kernels' build, the port's lint and "
+                         "its B-tree engine with K5's index rebuilt from it")
     ap.add_argument("--tcp-loader", nargs=4, metavar=("COORDINATOR", "LO", "HI", "ACTORS"),
                     help="(phase 16's load client processes) load keys [LO, HI) and print one JSON line")
     ap.add_argument("--tcp-mix", nargs=argparse.REMAINDER,
@@ -4427,9 +4632,9 @@ def main() -> int:
         for line in text.splitlines():
             if "Used" in line:
                 log(f"  ptxas {src}: {line.split('info    :')[-1].strip()}")
-    if args.tcp_only:
-        # 16 alone, its server processes booted after the build above
-        rows = run_real_process(card)
+    if args.tcp_only or args.btree_only:
+        # 16 or 17 alone, after the build above
+        rows = run_real_process(card) if args.tcp_only else run_phase17(card)
         log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
         log(json.dumps({"kernels": rows}))
         log(card)
@@ -4555,11 +4760,14 @@ def main() -> int:
     # resolvers and storage on the card, the same layout in this process,
     # and the bindingtester streams
     tcp_rows = run_real_process(card)
+    # 17. the port's lint over the checkout, and its B-tree engine: load,
+    # commit, reopen, and K5's index rebuilt on the card from its rows
+    btree_rows = run_phase17(card)
 
     # 6. results
     log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
     log(json.dumps({"kernels": rows + index_rows + mesh_rows + storage_rows + commit_rows + dynamic_rows
-                               + soak_rows + tcp_rows}))
+                               + soak_rows + tcp_rows + btree_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

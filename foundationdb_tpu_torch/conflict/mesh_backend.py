@@ -24,6 +24,11 @@ The kernels are not compiled per shape, so the reference's re-warming of
 recently dispatched shapes after a grid-shape change has no counterpart.
 """
 
+# flowlint: disable-file=det-wall-clock — KernelMetrics phase timings
+# measure HOST wall time of device work (encode/dispatch/collect/reshard)
+# on purpose; they are evidence counters, never inputs to sim scheduling
+# (same-seed replay is unaffected: no control flow reads them).
+
 from __future__ import annotations
 
 import time

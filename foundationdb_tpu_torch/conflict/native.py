@@ -3,65 +3,35 @@
 The CPU baseline beside the device backends, and the guard's failover
 target (conflict/failover.py). The port keeps its own copy of the source,
 ``foundationdb_tpu_torch/native/skiplist_conflict.cpp``, and builds it at
-first use with ``g++ -O3 -fPIC -std=c++17 -shared`` into the git-ignored
-``build/native/`` at the repository root. The library's file name carries a
-hash of the source and flags, so an edited source is rebuilt; a build goes
-to a temporary file first, so concurrent processes never load a partial
-library. Nothing is built at import.
+first use into the git-ignored ``build/native/`` at the repository root
+(``foundationdb_tpu_torch/cxx.py``). Nothing is built at import.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
-from pathlib import Path
 
 import numpy as np
 
+from .. import cxx
 from .api import CommitTransaction, ConflictSet, Verdict
 
-_SRC = Path(__file__).resolve().parents[1] / "native" / "skiplist_conflict.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+_SRC = cxx.NATIVE_DIR / "skiplist_conflict.cpp"
+BUILD_DIR = cxx.BUILD_DIR
 _lib = None
 _lock = threading.Lock()
 
 
-def lib_path() -> Path:
-    h = hashlib.sha256()
-    h.update(" ".join(CXX_FLAGS).encode())
-    h.update(_SRC.read_bytes())
-    return BUILD_DIR / f"libskiplist_conflict-{h.hexdigest()[:16]}.so"
-
-
-def _build(out: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cxx = os.environ.get("CXX", "g++")
-    proc = subprocess.run(
-        [cxx, *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"{cxx} failed for {_SRC.name}:\n{proc.stdout.decode(errors='replace')}"
-        )
-    os.replace(tmp, out)
+def lib_path():
+    return cxx.lib_path(_SRC, BUILD_DIR)
 
 
 def _load():
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        path = lib_path()
-        if not path.exists():
-            _build(path)
-        _lib = _bind(ctypes.CDLL(str(path)))
+        if _lib is None:
+            _lib = _bind(cxx.load(_SRC, BUILD_DIR))
         return _lib
 
 

@@ -21,6 +21,11 @@ The state lives on ``device`` (the CUDA card by default); with
 kernel — the deterministic twin the CPU tests use.
 """
 
+# flowlint: disable-file=det-wall-clock — KernelMetrics phase timings
+# measure HOST wall time of device work (encode/dispatch/collect/reshard)
+# on purpose; they are evidence counters, never inputs to sim scheduling
+# (same-seed replay is unaffected: no control flow reads them).
+
 from __future__ import annotations
 
 import time

@@ -8,8 +8,9 @@ and txn-state's local engine seam. Engines here:
   durability from an operation log in a DiskQueue, periodically compacted
   by writing a full snapshot entry and popping everything before it
   (:337 op-log, :580 snapshotting).
-- the native B-tree engine (foundationdb_tpu/native) is its
-  disk-resident sibling for real deployments — same interface.
+- the native B-tree engine (kv/native_engine.py over
+  foundationdb_tpu_torch/native) is its disk-resident sibling for real
+  deployments — same interface.
 
 Writes buffer in memory; ``commit()`` makes everything before it durable.
 """

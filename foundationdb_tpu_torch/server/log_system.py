@@ -159,6 +159,17 @@ async def retransmitting_request(
     raise last
 
 
+def spawn_retransmitting(process, ep, req):
+    """``retransmitting_request`` as an actor of ``process`` whose spawner
+    awaits it and reads its error: the entrant is marked
+    ``Task.observed``, so a typed answer (a locked tlog's TLogStopped, a
+    closed resolver's error) ends the caller's batch or epoch and is no
+    unhandled actor death that kills the hosting server process."""
+    fut = process.spawn(retransmitting_request(process, ep, req))
+    fut._task.observed = True
+    return fut
+
+
 class LogSystem:
     """The proxy's handle on the current tlog generation (ILogSystem::push)."""
 
@@ -188,8 +199,10 @@ class LogSystem:
             msgs = {
                 t: ms for t, ms in to_log.items() if t in log.tags or t == TXS_TAG
             }
-            push = process.spawn(
-                retransmitting_request(
+            # this push reads each entrant's error (TLogStopped ends the
+            # proxy's epoch in its caller)
+            pushes.append(
+                spawn_retransmitting(
                     process,
                     log.ep("commit"),
                     TLogCommitRequest(
@@ -201,11 +214,6 @@ class LogSystem:
                     ),
                 )
             )
-            # this push reads each entrant's error (TLogStopped ends the
-            # proxy's epoch in its caller), so a locked tlog's answer is no
-            # unhandled actor death that kills the hosting server process
-            push._task.observed = True
-            pushes.append(push)
         await wait_for_all(pushes)
 
     async def confirm_live(self, process) -> None:

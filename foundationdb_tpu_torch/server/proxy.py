@@ -93,7 +93,7 @@ from .interfaces import (
     TransactionData,
     Version,
 )
-from .log_system import LogSystem, retransmitting_request
+from .log_system import LogSystem, spawn_retransmitting
 from .tlog import TLogStopped
 from ..runtime.buggify import buggify
 
@@ -665,21 +665,17 @@ class Proxy:
             # whose resolve is lost would leave the very hole it exists
             # to fill
             futs = [
-                self.process.spawn(
-                    retransmitting_request(
-                        self.process,
-                        iface.ep("resolve"),
-                        ResolveBatchRequest(
-                            prev_version=vreq.prev_version,
-                            version=vreq.version,
-                            last_receive_version=lrv,
-                            requesting_proxy=(
-                                f"{self.process.address}#{self.uid}"
-                            ),
-                            transactions=[],
-                            state_txn_indices=[],
-                        ),
-                    )
+                spawn_retransmitting(
+                    self.process,
+                    iface.ep("resolve"),
+                    ResolveBatchRequest(
+                        prev_version=vreq.prev_version,
+                        version=vreq.version,
+                        last_receive_version=lrv,
+                        requesting_proxy=f"{self.process.address}#{self.uid}",
+                        transactions=[],
+                        state_txn_indices=[],
+                    ),
                 )
                 for iface in self._all_resolvers
             ]
@@ -1042,21 +1038,21 @@ class Proxy:
             # retransmitting: a lost resolve tears a hole in the
             # resolver's prev→version chain (wedging every later batch);
             # the resolver caches replies by version precisely so a
-            # retransmit of a delivered-but-unanswered batch is safe
+            # retransmit of a delivered-but-unanswered batch is safe; the
+            # batch reads each entrant's error (a closed resolver's answer
+            # fails the batch, not the process)
             reqs.append(
-                self.process.spawn(
-                    retransmitting_request(
-                        self.process,
-                        iface.ep("resolve"),
-                        ResolveBatchRequest(
-                            prev_version=prev_version,
-                            version=version,
-                            last_receive_version=self.last_resolver_versions,
-                            requesting_proxy=f"{self.process.address}#{self.uid}",
-                            transactions=datas,
-                            state_txn_indices=state_idxs,
-                        ),
-                    )
+                spawn_retransmitting(
+                    self.process,
+                    iface.ep("resolve"),
+                    ResolveBatchRequest(
+                        prev_version=prev_version,
+                        version=version,
+                        last_receive_version=self.last_resolver_versions,
+                        requesting_proxy=f"{self.process.address}#{self.uid}",
+                        transactions=datas,
+                        state_txn_indices=state_idxs,
+                    ),
                 )
             )
             meta.append(idxs)

@@ -7,9 +7,8 @@ works both interactively and from tests/scripts (the sim is the
 deployment environment here, as everywhere in this codebase).
 
 The port's copy of ``foundationdb_tpu/tools/cli.py``: every command and its
-output are the reference's, over the port's client and management API.
-``lint`` runs ``tools/flowlint``, which the port does not have yet
-(ROADMAP A7): it raises ``LintNotPortedError``."""
+output are the reference's, over the port's client and management API;
+``lint`` runs the port's own ``tools/flowlint`` over the port's tree."""
 
 from __future__ import annotations
 
@@ -684,8 +683,8 @@ class FdbCli:
     async def _cmd_lint(self, args) -> str:
         """lint [--json] — run flowlint over this checkout (no cluster
         needed; also available as `python -m foundationdb_tpu_torch.tools.cli
-        lint`). Raises ``LintNotPortedError`` until the port has
-        ``tools/flowlint`` (ROADMAP A7)."""
+        lint`). Prints per-rule fail/baseline/disabled counts and the
+        host-only manifest."""
         return _run_lint(list(args))[1]
 
     async def _cmd_configure(self, args) -> str:
@@ -745,19 +744,21 @@ def _format_run_loop(run_loop: dict) -> list:
     return lines
 
 
-class LintNotPortedError(NotImplementedError):
-    """``lint`` runs the flowlint static analyzer (``tools/flowlint``),
-    which the port does not have yet: it comes with ROADMAP A7."""
-
-
 def _run_lint(args: list) -> tuple:
     """(exit_code, rendered_output) for the flowlint static analyzer —
-    shared by the `lint` subcommand and the in-shell `lint` command. The
-    port has no ``tools/flowlint`` yet (ROADMAP A7), so this raises."""
-    raise LintNotPortedError(
-        "cli lint runs tools/flowlint, which the port does not have yet "
-        "(ROADMAP A7)"
-    )
+    shared by the `lint` subcommand and the in-shell `lint` command."""
+    import json as _json
+
+    from .flowlint import lint, load_config
+    from .flowlint.__main__ import render
+
+    config = load_config()
+    result = lint(config=config)
+    if "--json" in args:
+        out = _json.dumps(result.to_json(), indent=2)
+    else:
+        out = render(result, config)
+    return (0 if result.clean else 1), out
 
 
 def main(argv=None) -> int:
@@ -766,8 +767,7 @@ def main(argv=None) -> int:
       python -m foundationdb_tpu_torch.tools.cli -C 127.0.0.1:4500 --exec "set k v"
 
     Without --exec, reads commands from stdin (one per line). The `lint`
-    subcommand would run the flowlint static analyzer instead (no
-    cluster); in the port it raises ``LintNotPortedError`` (ROADMAP A7):
+    subcommand runs the flowlint static analyzer instead (no cluster):
 
       python -m foundationdb_tpu_torch.tools.cli lint [--json]
     """

@@ -6,9 +6,9 @@ reference's on ``tpu1``, and the transcripts (every cli output and status
 document, with the fields ``cli_slice`` lists taken out) are equal. Then
 the reference case's own checks hold on the port's run, without its
 wall-clock thresholds: where the reference asserts one, the twin holds the
-events and their attribution. ``lint`` raises ``LintNotPortedError`` until
-the port has ``tools/flowlint``; and the TCP personality's profiler case
-runs on the port's RealWorlds."""
+events and their attribution. ``lint`` runs the port's flowlint over the
+port's tree, as a subcommand and in the shell; and the TCP personality's
+profiler case runs on the port's RealWorlds."""
 
 import json
 import socket
@@ -162,13 +162,25 @@ def test_commit_sampling_knob_tags_every_commit():
     assert len(ids) >= 3 and all("Replied" in stages for stages in chains)
 
 
-def test_lint_raises_until_the_port_has_flowlint():
-    from foundationdb_tpu_torch.tools import cli
+def test_lint_subcommand_and_shell_command_run_the_ports_flowlint(capsys):
+    """``cli lint`` prints the port's flowlint table and exits 0 on the
+    clean tree; ``lint --json`` in the shell gives the same document as
+    ``_run_lint``, every rule counted, the port's files and baseline."""
+    import asyncio
 
-    with pytest.raises(cli.LintNotPortedError, match="A7"):
-        cli.main(["lint"])
-    with pytest.raises(NotImplementedError):
-        cli._run_lint(["--json"])
+    from foundationdb_tpu_torch.tools import cli
+    from foundationdb_tpu_torch.tools.flowlint import all_rules
+
+    assert cli.main(["lint"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("flowlint: ") and "clean: no unsuppressed findings" in out
+    assert "foundationdb_tpu_torch/conflict/kernels/build.py" in out  # the host-only manifest
+    shell = cli.FdbCli.__new__(cli.FdbCli)
+    doc = json.loads(asyncio.run(shell._cmd_lint(["--json"])))
+    assert doc["clean"] and doc["files"] > 100
+    assert set(doc["per_rule"]) == {r.id for r in all_rules()}
+    assert {f["path"] for f in doc["baselined"]} == {"foundationdb_tpu_torch/workloads/readwrite.py"}
+    assert all(f["path"].startswith("foundationdb_tpu_torch/") for f in doc["disabled"])
 
 
 def free_ports(n):

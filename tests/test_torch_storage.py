@@ -141,3 +141,81 @@ def test_a_failed_index_fails_the_role_through_register(fault, monkeypatch):
     finally:
         P.set_loop(None)
         P.set_buggify(P.Buggify(None))
+
+
+# -- flowlint: the storage counters the status surfaces read by name ----------
+
+
+def test_flowlint_role_required_counters_guards_surface():
+    """Twin of ``tests/test_storage_engine.py``'s case: the port's config
+    pins the storage engine counters, and a pinned name the port's
+    ``StorageServer`` does not register flags reg-role-metrics on the port's
+    tree."""
+    from foundationdb_tpu_torch.tools.flowlint import lint, load_config
+
+    config = load_config()
+    assert "epochsApplied" in config["role_required_counters"]["storage"]
+    config["role_required_counters"] = {"storage": ["definitelyMissingCtr"]}
+    hits = [f for f in lint(config=config).failing
+            if f.rule == "reg-role-metrics" and "definitelyMissingCtr" in f.detail]
+    assert [f.relpath for f in hits] == ["foundationdb_tpu_torch/server/storage.py"]
+
+
+_WORKER = """\
+class Worker:
+    def _make_widget(self, h):
+        from .widget import Widget
+        w = Widget()
+        return w
+"""
+
+_ROLE = """\
+from ..runtime.stats import CounterCollection
+
+class Widget:
+    def __init__(self):
+        self.stats = CounterCollection("widget")
+        self._c_a = self.stats.counter("bytesSampled")
+        self._c_b = self.stats.counter("waitMetricsFired")
+
+    def register_instance(self, process):
+        process.register(f"widget.metrics#{id(self)}", self._metrics)
+
+    async def _metrics(self, _req):  # flowlint: disable=reg-endpoint-span
+        return self.stats.snapshot()
+"""
+
+
+def test_flowlint_pins_storage_telemetry_counters(tmp_path):
+    """Twin of ``tests/test_storage_metrics.py``'s case: the five telemetry
+    counters are pinned in the port's config, and the port's rule flags a
+    dropped pin with the exact ``<Class>-counter-<name>`` detail."""
+    from foundationdb_tpu_torch.tools.flowlint import lint, load_config
+
+    pinned = set(load_config()["role_required_counters"]["storage"])
+    assert {"bytesSampled", "sampleEntries", "hotRangeChecks", "waitMetricsActive",
+            "waitMetricsFired"} <= pinned, pinned
+
+    def run(role_src):
+        pkg = tmp_path / "foundationdb_tpu_torch" / "server"
+        pkg.mkdir(parents=True, exist_ok=True)
+        (pkg / "worker.py").write_text(_WORKER)
+        (pkg / "widget.py").write_text(role_src)
+        return lint(root=tmp_path, config={
+            "include": ["foundationdb_tpu_torch"],
+            "exclude": [],
+            "sim_scope": [],
+            "host_only": {},
+            "baseline": "baseline.json",
+            "worker_module": "foundationdb_tpu_torch/server/worker.py",
+            "role_exempt": [],
+            "span_roles": [],
+            "role_required_counters": {"widget": ["bytesSampled", "waitMetricsFired"]},
+        })
+
+    res = run(_ROLE)
+    assert not res.failing, [f.format() for f in res.failing]
+    res = run(_ROLE.replace('        self._c_b = self.stats.counter("waitMetricsFired")\n', ""))
+    assert any(f.rule == "reg-role-metrics" and f.detail == "Widget-counter-waitMetricsFired"
+               for f in res.failing), [f.format() for f in res.failing]
+    assert not any(f.detail == "Widget-counter-bytesSampled" for f in res.failing)

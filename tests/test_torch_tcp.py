@@ -458,3 +458,83 @@ def test_a_push_to_locked_tlogs_kills_no_server():
 
     assert run(REFERENCE) == (44, [])
     assert run(PORT) == (0, ["push TLogStopped", "alive after the locked push"])
+
+
+
+_CLOSED_RESOLVER = r"""
+import socket
+import sys
+sys.path.insert(0, {repo!r})
+from {pkg}.net.tcp import RealWorld
+from {pkg}.runtime.futures import spawn, wait_for_all
+from {pkg}.server.interfaces import ResolverInterface
+from {pkg}.server.proxy import Proxy
+
+
+def free_addr():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return f"127.0.0.1:{{port}}"
+
+
+world = RealWorld(free_addr(), die_on_actor_error=True)
+resolver = RealWorld(free_addr(), loop=world.loop)
+iface = ResolverInterface(resolver.node.address, "res-1-0")
+
+
+async def closed(_req):
+    raise RuntimeError("conflict set of resolver 'res-1-0' is closed")
+
+
+resolver.node.register(iface.ep("resolve").token, closed)
+world.activate()
+
+
+class OldProxy:  # what Proxy._send_resolve reads of a proxy with one resolver
+    _all_resolvers = [iface]
+    _resolver_index = {{}}
+    key_resolvers = None
+    process = world.node
+    last_resolver_versions = 0
+    uid = "p0"
+
+
+async def resolve():
+    futs, _meta = Proxy._send_resolve(OldProxy(), 0, 1, [])
+    try:
+        await wait_for_all(futs)
+    except Exception as e:
+        return "resolve " + type(e).__name__
+
+
+print(world.run_until_done(spawn(resolve()), 5.0), flush=True)
+world.run(until=world.loop.now() + 0.3)
+print("alive after the closed resolver's answer", flush=True)
+"""
+
+
+def test_a_resolve_a_closed_resolver_answers_kills_no_server():
+    """A server process (``die_on_actor_error``) that hosts a proxy of a
+    generation whose resolvers were destroyed survives their answer to a
+    resolve in flight (a closed conflict set's error): the batch reads
+    each entrant's error (ROADMAP §C). The JAX package's process dies of
+    it, as a port server did when the real-process cluster on the H100
+    recovered while it formed."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def run(pkg):
+        out = subprocess.run(
+            [sys.executable, "-c", _CLOSED_RESOLVER.format(repo=repo, pkg=pkg)],
+            capture_output=True, text=True, timeout=120,
+        )
+        return out.returncode, out.stdout.splitlines(), out.stderr[-2000:]
+
+    assert run(REFERENCE)[:2] == (44, [])
+    port = run(PORT)
+    assert port[:2] == (0, ["resolve RemoteError", "alive after the closed resolver's answer"]), port[2]

@@ -1,7 +1,6 @@
 """The port's transport v2 held to the JAX package's: the cases of
-``tests/test_transport.py`` (but the two flowlint ones, which wait for the
-port's ``tools/flowlint``) run in both packages with the same outcome and
-counters; the send and receive buffers move the same bytes; and the bytes a
+``tests/test_transport.py`` run in both packages with the same outcome and
+counters (the two flowlint ones on each package's analyzer); the send and receive buffers move the same bytes; and the bytes a
 port world puts on a socket (handshake, gen-6 frames, gen-7 super-frames)
 are the JAX package's for the same messages, byte for byte."""
 
@@ -555,3 +554,47 @@ def test_bindingtester_oracle_with_transport_knob(batching):
     port = run_real(PORT, 47, 300, knob_overrides=knobs)
     assert (port[1], port[2]) == run_model(PORT, port[0])
     assert port == run_real(REFERENCE, 47, 300, knob_overrides=knobs)
+
+
+# -- flowlint: the worker must register transport.metrics ----------------------
+
+
+def _lint_worker(tmp_path, pkg, worker_src):
+    lint = importlib.import_module(f"{pkg}.tools.flowlint").lint
+    d = tmp_path / pkg / "server"
+    d.mkdir(parents=True)
+    (d / "worker.py").write_text(worker_src)
+    config = {
+        "include": [pkg],
+        "exclude": [],
+        "sim_scope": [],
+        "host_only": {},
+        "baseline": "baseline.json",
+        "worker_module": f"{pkg}/server/worker.py",
+        "role_exempt": [],
+        "span_roles": [],
+        "transport_metrics_endpoint": "transport.metrics",
+    }
+    res = lint(root=tmp_path, config=config)
+    return [(f.rule, f.detail, f.line, f.message) for f in res.failing]
+
+
+@pytest.mark.parametrize("pkg", BOTH)
+def test_flowlint_worker_without_transport_metrics_flagged(tmp_path, pkg):
+    failing = _lint_worker(
+        tmp_path, pkg,
+        "class Worker:\n"
+        "    def start(self, process):\n"
+        '        process.register("worker.metrics", self._rm)\n',
+    )
+    assert any(r == "reg-role-metrics" and d == "worker-transport-metrics" for r, d, _l, _m in failing)
+
+
+@pytest.mark.parametrize("pkg", BOTH)
+def test_flowlint_worker_with_transport_metrics_clean(tmp_path, pkg):
+    assert not _lint_worker(
+        tmp_path, pkg,
+        "class Worker:\n"
+        "    def start(self, process):\n"
+        '        process.register("transport.metrics", self._tm)\n',
+    )
