@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
 Drives the resolver's conflict check through the port's entry point,
-``new_conflict_set("torch", key_width=12, capacity=1<<19)``, at the size of
+``new_conflict_set("torch1", key_width=12, capacity=1<<19)`` (the one grid
+that ``"torch"`` is on a host of one card), at the size of
 ``bench.py`` (200 batches × 2500 transactions, one read and one write range
 each over a 1M-key keyspace, a 50-batch MVCC window, groups of 40 batches
 with 3 groups in flight; a 32768 × 32 × 4 uint32 grid = 16 MiB on the
@@ -29,8 +30,8 @@ card). Phases, each of which raises on failure:
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
    committed clear spans the whole keyspace;
-6. after phases 7 to 17: print the kernel table (every kernel of the
-   paths, K5 also at the storage shapes, K1-K3 and K5 also on the commit
+6. after phases 7 to 18: print the kernel table (every kernel of the
+   paths, the spread's resolve kernels, K5 also at the storage shapes, K1-K3 and K5 also on the commit
    path, in the dynamic cluster, in the soak and in the in-process TCP
    cluster, K5 also on the B-tree's index), the card line and the result
    line;
@@ -44,6 +45,21 @@ card). Phases, each of which raises on failure:
    then its kernels (K6 history, also on keyspace-wide reads, staging and
    merge over partitions, K7 reshard and rebase over partitions) are held
    against their plain versions, and its profile line is printed;
+18. right after phase 7, the same partitions spread over the host's cards
+   (``TorchMeshConflictSet(devices=...)``, ``conflict/sharded.py``
+   ``Spread``): (a) ``new_conflict_set("torch")`` must be the one grid on
+   a host of one card and the spread over every card on a host of more;
+   (b) phase 7's workload, reshard and rebase through 4 partitions on
+   ``[cuda:0] * 4`` (and, where there are more cards, one partition a
+   card over all of them): every verdict the oracle's, the gathered final
+   state equal to phase 7's array by array, live rows in every partition,
+   K6 history, K2, K6 staging and K6 merge launched entries x 200 times,
+   K7 reshard and rebase launched, card memory back after ``close()``;
+   txn/s beside phase 7's and the exchange's ms a batch are printed, and
+   the resolve kernels are held to their plain versions on the last
+   entry's state; (c) where more than one card is visible, K6 history and
+   K5 launched on the last card, not the current one, against their plain
+   versions. One ``{"spread": ...}`` line;
 8. the storage range index at ``bench.py``'s shape: 1M random 12-byte
    keys at width 32 (2^20 × 8 lanes = 32 MiB of codes on the card), 50
    rounds of 4096 lookups (70 % hits) and 4096 range queries, every answer
@@ -581,10 +597,12 @@ def stage_work(sk, T: int, KW: int, L: int, B: int, P: int) -> tuple[int, int]:
     return nbytes, ops
 
 
-def merge_case(state, st, vers, n_parts: int, reps: int = 20):
-    """The merge launch (with its floor raise) against its plain version,
-    each on fresh clones of ``state`` since both update it in place:
-    (max abs err, kernel_ms's timing, plain ms, the kernel's state after)."""
+def merge_case(state, st, vers, n_parts: int | None, reps: int = 20):
+    """The merge launch (with its floor raise; K3 on one grid for
+    ``n_parts`` None, else K6 over the flat view of ``n_parts`` partitions)
+    against its plain version, each on fresh clones of ``state`` since both
+    update it in place: (max abs err, kernel_ms's timing, plain ms, the
+    kernel's state after)."""
     from foundationdb_tpu_torch.conflict import grid as G
     from foundationdb_tpu_torch.conflict import kernels
 
@@ -592,16 +610,16 @@ def merge_case(state, st, vers, n_parts: int, reps: int = 20):
 
     def launch(s):
         args = (s.grid, s.count, s.bmax, s.floor, *st[:4], now, old_post)
-        return kernels.merge(*args) if n_parts == 1 else kernels.merge_parts(*args, n_parts)
+        return kernels.merge(*args) if n_parts is None else kernels.merge_parts(*args, n_parts)
 
     ks, ps = G.clone_state(state), G.clone_state(state)
     mk = launch(ks)
-    mp = G.merge_staged_plain(ps, st, now, old_post, n_parts)
+    mp = G.merge_staged_plain(ps, st, now, old_post, n_parts or 1)
     err = max_abs_err((*ks[1:], mk), (*ps[1:], mp))
     it = iter([G.clone_state(state) for _ in range(5 * reps + 2)])  # as many as kernel_ms may call
     timed = kernel_ms(lambda: launch(next(it)), reps)
     pit = iter([G.clone_state(state) for _ in range(5)])
-    plain_ms = cuda_ms(lambda: G.merge_staged_plain(next(pit), st, now, old_post, n_parts), 3)
+    plain_ms = cuda_ms(lambda: G.merge_staged_plain(next(pit), st, now, old_post, n_parts or 1), 3)
     return err, timed, plain_ms, ks
 
 
@@ -786,8 +804,7 @@ def check_resolve_kernels(state, hbatch, vers, launches: dict):
     batch = TB.upload(hbatch, state.grid.device)
     B, S, Lp1 = state.grid.shape
     L = Lp1 - 1
-    T, KR, _ = batch.rb.shape
-    KW = batch.wb.shape[1]
+    T, KW = batch.rb.shape[0], batch.wb.shape[1]
     rows = []
     row = row_maker(rows, launches)
 
@@ -795,17 +812,8 @@ def check_resolve_kernels(state, hbatch, vers, launches: dict):
     rows += check_history(state, batch, launches)[0]
     hk = kernels.history(*state, batch.rb, batch.re, batch.t_snap)
 
-    # K2 intra-batch greedy commit: the kernel from the codes, the plain
-    # version from dense endpoint ranks (which it computes)
-    H = hk | (batch.t_has_reads & (batch.t_snap < old_pre))
-    kargs = (batch.rb, batch.re, batch.wb, batch.we, H)
-    ck = kernels.intra_batch(*kargs)
-    cp = G.intra_batch_commits_plain(*G._endpoint_ranks(batch), H)
-    nbytes, ops = intra_batch_work(T, KR, KW, L)
-    row("intra_batch", "intra_batch.cu", "foundationdb_tpu/conflict/grid.py:297,337", max_abs_err(ck, cp),
-        kernel_ms(lambda: kernels.intra_batch(*kargs), 20),
-        cuda_ms(lambda: G.intra_batch_commits_plain(*G._endpoint_ranks(batch), H), 3),
-        nbytes, ops)
+    # K2 intra-batch greedy commit
+    ck = check_intra_batch(batch, hk | (batch.t_has_reads & (batch.t_snap < old_pre)), row)
 
     # K3 staging: the kernel against _stage_writes
     S2 = G.staging_slots(S)
@@ -818,10 +826,29 @@ def check_resolve_kernels(state, hbatch, vers, launches: dict):
         *stage_work(sk, T, KW, L, B, 1))
 
     # K3 merge with the floor raise
-    err, timed, plain_ms, ks = merge_case(state, st, vers, 1)
+    err, timed, plain_ms, ks = merge_case(state, st, vers, None)
     row("merge", "merge.cu", "foundationdb_tpu/conflict/grid.py:526", err, timed, plain_ms,
         *merge_work(state, ks, st, 1))
     return rows, batch, ck, st
+
+
+def check_intra_batch(batch, H, row) -> torch.Tensor:
+    """K2 against its plain version: the kernel from the codes, the plain
+    version from dense endpoint ranks (which it computes); one row through
+    ``row``. Returns the kernel's commit flags."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import kernels
+
+    T, KR, L = batch.rb.shape
+    kargs = (batch.rb, batch.re, batch.wb, batch.we, H)
+    ck = kernels.intra_batch(*kargs)
+    cp = G.intra_batch_commits_plain(*G._endpoint_ranks(batch), H)
+    nbytes, ops = intra_batch_work(T, KR, batch.wb.shape[1], L)
+    row("intra_batch", "intra_batch.cu", "foundationdb_tpu/conflict/grid.py:297,337", max_abs_err(ck, cp),
+        kernel_ms(lambda: kernels.intra_batch(*kargs), 20),
+        cuda_ms(lambda: G.intra_batch_commits_plain(*G._endpoint_ranks(batch), H), 3),
+        nbytes, ops)
+    return ck
 
 
 def check_reshard(state, n_buckets: int, n_slots: int, row) -> int:
@@ -868,7 +895,7 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     wide = torch.zeros_like(ck)
     wide[0] = True
     sw = G._stage_writes(state, batch._replace(wb=wb, we=we), wide)
-    err, timed, plain_ms, _ = merge_case(state, sw, vers, 1)
+    err, timed, plain_ms, _ = merge_case(state, sw, vers, None)
     if err != 0:
         raise AssertionError(f"merge of a keyspace-wide clear differs from its plain version ({err})")
     log(f"  merge, one keyspace-wide clear ({int(G.spanned_buckets(sw, B).sum())} spanned buckets): "
@@ -894,31 +921,30 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     return rows
 
 
-def check_partition_kernels(states, hbatch, vers, launches: dict) -> list[dict]:
-    """K6 and K7 against their plain versions on the card, on the
-    partitioned resolver's stacked state and a bench batch; exact
-    equality, CUDA-event times."""
+def check_parts_resolve(states, batch, bounds, vers, launches: dict, k2: bool = False) -> list[dict]:
+    """K6 history (also on keyspace-wide reads), with ``k2`` K2, then the
+    K6 staging and merge against their plain versions on the card, on a
+    stacked state of P partitions with their ``bounds`` (plo, phi) and an
+    uploaded batch; exact equality, CUDA-event times."""
     from foundationdb_tpu_torch.conflict import grid as G
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict import sharded as SH
-    from foundationdb_tpu_torch.conflict import torch_backend as TB
 
-    dev = states.grid.device
-    now, old_pre, old_post = vers
-    batch = TB.upload(hbatch, dev)
+    old_pre = vers[1]
     P, B, S, Lp1 = states.grid.shape
     L = Lp1 - 1
     T = batch.rb.shape[0]
-    plo, phi = SH.partition_bounds(L, P, dev)
+    plo, phi = bounds
     rows = []
     row = row_maker(rows, launches)
 
     # K6 history over the partitions, reads clipped in the kernel
     rows += check_history(states, batch, launches, (plo, phi))[0]
     hk = kernels.history_parts(*states, plo, phi, batch.rb, batch.re, batch.t_snap)
+    H = hk | (batch.t_has_reads & (batch.t_snap < old_pre))
+    commit = check_intra_batch(batch, H, row) if k2 else G.intra_batch_commits(batch, H)
 
     # K6 staging of every partition's clipped writes in one launch
-    commit = G.intra_batch_commits(batch, hk | (batch.t_has_reads & (batch.t_snap < old_pre)))
     wb, we = SH.clip(batch.wb, batch.we, plo[:, None, None, :], phi[:, None, None, :])
     sargs = (wb, we, commit, states.pivots, G.staging_slots(S))
     sk = G.Staged(*kernels.stage_parts(*sargs))
@@ -933,6 +959,23 @@ def check_partition_kernels(states, hbatch, vers, launches: dict) -> list[dict]:
     err, timed, plain_ms, ks = merge_case(flat, st, vers, P)
     row("merge_parts", "merge.cu", "foundationdb_tpu/conflict/sharded.py:160", err, timed, plain_ms,
         *merge_work(flat, ks, st, P))
+    return rows
+
+
+def check_partition_kernels(states, hbatch, vers, launches: dict) -> list[dict]:
+    """K6 and K7 against their plain versions on the card, on the
+    partitioned resolver's stacked state and a bench batch; exact
+    equality, CUDA-event times."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict import sharded as SH
+    from foundationdb_tpu_torch.conflict import torch_backend as TB
+
+    dev = states.grid.device
+    now = vers[0]
+    P, B, S, Lp1 = states.grid.shape
+    L = Lp1 - 1
+    rows = check_parts_resolve(states, TB.upload(hbatch, dev), SH.partition_bounds(L, P, dev), vers, launches)
+    row = row_maker(rows, launches)
 
     # K7a reshard of every partition at its grid shape
     used = (torch.arange(S, device=dev) < states.count[..., None]).reshape(P, B * S)
@@ -1000,9 +1043,31 @@ def check_search(codes, q, launches: dict) -> list[dict]:
     return rows
 
 
+def oracle_verdicts(batches, offset: int) -> list:
+    """The independent reference's verdicts over every batch of the
+    workload (those after the rebase and the device reshard too)."""
+    from foundationdb_tpu_torch.conflict.api import new_conflict_set
+
+    t0 = time.perf_counter()
+    oracle = new_conflict_set("oracle")
+    out = [oracle.detect_batch(txs, offset + i + WINDOW, offset + i) for i, txs in enumerate(batches)]
+    log(f"oracle: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def reshard_partition_1(cs) -> None:
+    """A device rebalance of partition 1 between groups (phases 7 and 18)."""
+    from foundationdb_tpu_torch.conflict import sharded as SH
+
+    cs._spread, pressure = SH.reshard_spread_partition(cs._spread, 1, cs._B, cs._S)
+    if pressure > cs._S:
+        raise AssertionError(f"partition reshard overflowed: {pressure}")
+
+
 def run_mesh(want_oracle, offset: int, card: str):
     """Phase 7: the partitioned resolver's main path, then its kernels.
-    Returns the kernel rows and the workload with its spread keys."""
+    Returns the kernel rows, the workload with its spread keys and the
+    path's figures with its final state (numpy) for phase 18."""
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict import sharded as SH
     from foundationdb_tpu_torch.conflict.api import new_conflict_set
@@ -1013,18 +1078,14 @@ def run_mesh(want_oracle, offset: int, card: str):
     log(f"partitioned grid: {tuple(cs._states.grid.shape)} int32 = "
         f"{cs._states.grid.numel() * 4 / 2**20:.1f} MiB")
 
-    def reshard_partition(c):  # a device rebalance of one partition between groups
-        c._states, pressure = SH.reshard_partition(c._states, 1, c._B, c._S)
-        if pressure > c._S:
-            raise AssertionError(f"partition reshard overflowed: {pressure}")
-
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    got, encode_s = drive(cs, batches, offset, force_at=2, force=reshard_partition)
+    got, encode_s = drive(cs, batches, offset, force_at=2, force=reshard_partition_1)
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     snap = cs.metrics.snapshot()
+    phase7 = {"wall_s": wall, "encode_s": encode_s, "state": SH.gather_to_numpy(cs._spread)}
 
     if len(got) != N_BATCHES or any(len(v) != N_TXNS for v in got):
         raise AssertionError("partitioned path returned verdicts of the wrong shape")
@@ -1057,7 +1118,186 @@ def run_mesh(want_oracle, offset: int, card: str):
     rows = check_partition_kernels(cs._states, hbatch, (now, old, old), launches)
     profile_path(cs, make_batches(PROFILE_BATCHES, N_TXNS, offset + N_BATCHES, seed=1, key=spread_key),
                  offset + N_BATCHES, "four partitions", card)
-    return rows, batches
+    cs.close()
+    return rows, batches, phase7
+
+
+def cards_allocated() -> int:
+    """Bytes the allocator holds for live tensors, over every card."""
+    return sum(torch.cuda.memory_allocated(i) for i in range(torch.cuda.device_count()))
+
+
+def check_upgrade(n_cards: int) -> str:
+    """Phase 18 (a): ``new_conflict_set("torch")`` is one grid on a host
+    of one card and the spread mesh over every card on a host of more."""
+    from foundationdb_tpu_torch.conflict.api import new_conflict_set
+    from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+
+    cs = new_conflict_set("torch", key_width=KEY_WIDTH, capacity=CAPACITY)
+    try:
+        if n_cards == 1:
+            ok = type(cs) is TorchConflictSet
+        else:
+            ok = (type(cs) is TorchMeshConflictSet and cs._n_parts == n_cards
+                  and [e.device for e in cs._spread.entries] == [torch.device("cuda", i) for i in range(n_cards)])
+        if not ok:
+            raise AssertionError(f"new_conflict_set('torch') on {n_cards} card(s) built {type(cs).__name__}")
+        return type(cs).__name__
+    finally:
+        cs.close()
+
+
+def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: str) -> dict:
+    """Phase 18 (b), one layout: the spread mesh over ``devices`` on phase
+    7's workload, its gates, its figures and, on the last entry's state,
+    its resolve kernels against their plain versions."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict import sharded as SH
+    from foundationdb_tpu_torch.conflict import torch_backend as TB
+    from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
+
+    label = f"{len(devices)} entries on {', '.join(str(d) for d in dict.fromkeys(devices))}"
+    cs = TorchMeshConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY, n_parts=n_parts, devices=devices)
+    cs.warm_compile()
+    for dev in cs._targets:
+        torch.cuda.synchronize(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, encode_s = drive(cs, batches, offset, force_at=2, force=reshard_partition_1)
+    for dev in cs._targets:
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    snap = cs.metrics.snapshot()
+
+    if len(got) != N_BATCHES or any(len(v) != N_TXNS for v in got):
+        raise AssertionError(f"spread ({label}) returned verdicts of the wrong shape")
+    bad = sum(a != b for vg, vo in zip(got, want_oracle) for a, b in zip(vg, vo))
+    if bad:
+        raise AssertionError(f"{bad} spread verdicts ({label}) differ from the oracle")
+    per_part = snap["occupancy"]["liveRowsPerPartition"]
+    if not all(n > 0 for n in per_part):
+        raise AssertionError(f"a partition of the spread ({label}) holds no live rows: {per_part}")
+    entries = len(cs._spread.entries)
+    want = {k: entries * N_BATCHES for k in ("history_parts", "intra_batch", "stage_parts", "merge_parts")}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"spread ({label}) launches {launches}, want {want}")
+    missing = [k for k in ("maint_reshard_parts", "maint_rebase_parts") if launches[k] <= 0]
+    if missing or snap["rebases"] < 1:
+        raise AssertionError(f"spread ({label}): maintenance never launched: {missing}, {snap['rebases']} rebases")
+    txns = N_BATCHES * N_TXNS
+    out = {"layout": label, "entries": entries, "n_parts": n_parts, "wall_s": wall, "encode_s": encode_s,
+           "txn_s": txns / wall, "txn_s_without_encode": txns / max(wall - encode_s, 1e-9),
+           "live_rows": per_part, "launches": launches, "state": SH.gather_to_numpy(cs._spread)}
+
+    # the exchange of one batch's H (bool[T] a entry), alone, on CUDA events
+    flags = [torch.zeros(N_TXNS, dtype=torch.bool, device=e.device) for e in cs._spread.entries]
+    out["exchange_ms"] = cuda_ms(lambda: SH.exchange(flags), 200)
+
+    # the resolve kernels on the last entry, at the path's shapes
+    last = cs._spread.entries[-1]
+    hbatch, _n, _epoch = cs.encode(batches[-1])
+    now = offset + N_BATCHES + WINDOW - cs._base
+    old = max(cs.oldest_version - cs._base, 0)
+    log(f"spread kernel checks on the final state of entry {entries - 1} ({last.device}) [{card}]:")
+    with torch.cuda.device(last.device):
+        rows = check_parts_resolve(last.states, TB.upload(hbatch, last.device), (last.plo, last.phi),
+                                   (now, old, old), launches, k2=True)
+    for r in rows:
+        r["name"] = f"{r['name']} (spread, {label}; entry {entries - 1}'s {n_parts // entries} partition(s))"
+    out["rows"] = rows
+    out["profile"] = profile_path(
+        cs, make_batches(PROFILE_BATCHES, N_TXNS, offset + N_BATCHES, seed=1, key=spread_key),
+        offset + N_BATCHES, f"spread over {label}", card)
+    cs.close()
+    return out
+
+
+def run_spread(batches, want_oracle, offset: int, phase7: dict, card: str) -> list[dict]:
+    """Phase 18: the partitioned resolver spread over the cards of the
+    host. (a) the upgrade of ``torch``; (b) the spread at phase 7's width
+    over ``[cuda:0] * 4`` and, where there are more cards, over all of
+    them, one partition a card, with every gate of ``spread_path``, the
+    gathered final state of the 4-partition layouts equal to phase 7's,
+    and card memory back after ``close()``; (c) where more than one card
+    is visible, K6 history and K5 on the last card against their plain
+    versions. Returns the kernel rows."""
+    import numpy as np
+
+    from foundationdb_tpu_torch.conflict import grid as G
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    # K2's plain version is a matmul: a card's first one allocates the
+    # cuBLAS workspace (32 MiB on the H100), held for the process's life,
+    # so it goes first where phase 5 did not run before this phase
+    for i in range(n):
+        torch.ones(8, 8, device=torch.device("cuda", i)) @ torch.ones(8, 8, device=torch.device("cuda", i))
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = cards_allocated()
+    built = check_upgrade(n)
+    log(f"spread phase: new_conflict_set('torch') on {n} card(s) is a {built}; card memory "
+        f"{m0} B before the phase, {cards_allocated()} B after the check")
+    layouts = [([torch.device("cuda", 0)] * 4, 4)]
+    if n > 1:
+        layouts.append(([torch.device("cuda", i) for i in range(n)], n))
+    rows, lines = [], []
+    for devices, n_parts in layouts:
+        run = spread_path(devices, n_parts, batches, want_oracle, offset, card)
+        state = run.pop("state")
+        if n_parts == 4:
+            for field, a, b in zip(G.GridState._fields, phase7["state"], state):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"spread ({run['layout']}): final {field} differs from phase 7's")
+        rows += run.pop("rows")
+        run["memory_after"] = cards_allocated()
+        lines.append(run)
+        log(f"spread path ({run['layout']}): {run['wall_s']:.3f} s, {run['txn_s']:.1f} txn/s end to end "
+            f"({run['txn_s_without_encode']:.1f} txn/s without {run['encode_s']:.3f} s of host encode); "
+            f"phase 7's one stack {N_BATCHES * N_TXNS / phase7['wall_s']:.1f} "
+            f"({N_BATCHES * N_TXNS / max(phase7['wall_s'] - phase7['encode_s'], 1e-9):.1f} without encode); "
+            f"the exchange {run['exchange_ms']:.4f} ms a batch (CUDA events) [{card}]")
+    if n > 1:  # (c) the repair of the wrappers, seen: launches on the last card
+        last = torch.device("cuda", n - 1)
+        log(f"kernel checks on the last card ({last}) [{card}]:")
+        rows += check_card_kernels(last, batches, offset, lines[-1]["launches"])
+    gc.collect()
+    for i in range(n):
+        torch.cuda.synchronize(i)
+    m1 = cards_allocated()
+    if m1 != m0:
+        raise AssertionError(f"card memory {m1} B after the spread phase, {m0} B before it")
+    out = {"upgrade": built, "runs": lines, "memory": {"before": m0, "after": m1},
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(json.dumps({"spread": out}))
+    return rows
+
+
+def check_card_kernels(dev, batches, offset: int, launches: dict) -> list[dict]:
+    """Phase 18 (c): K6 history on a 4-partition state resolved on the CPU
+    from the first 8 batches, and K5 on its live codes, launched on card
+    ``dev`` (not the current one) and held to their plain versions; the
+    rows carry ``launches``, the multi-card run's (K5 is not on its path)."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import sharded as SH
+    from foundationdb_tpu_torch.conflict import torch_backend as TB
+    from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
+
+    cpu = TorchMeshConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY, n_parts=4, device="cpu")
+    drive(cpu, batches[:8], offset)
+    hbatch, _n, _epoch = cpu.encode(batches[8])
+    states = G.GridState(*(x.to(dev) for x in cpu._states))
+    P, _B, _S, Lp1 = states.grid.shape
+    with torch.cuda.device(dev):
+        batch = TB.upload(hbatch, dev)
+        rows = check_history(states, batch, launches, SH.partition_bounds(Lp1 - 1, P, dev))[0]
+        codes, _vers = G.live_codes(SH.partition(states, 1))
+        rows += check_search(codes.contiguous(), batch.rb[:, 0].contiguous(), launches)
+    for r in rows:
+        r["name"] = f"{r['name']} (on {dev}, not the current card)"
+    return rows
 
 
 def run_range_index(card: str) -> tuple[list[dict], float]:
@@ -1710,8 +1950,8 @@ def run_limits(card: str) -> None:
         W = (T + 31) // 32
         pt = torch.empty(W * 32 * W, dtype=torch.int32, device="cuda")
         commit = torch.empty(T, dtype=torch.bool, device="cuda")
-        kernels._run("fdb_intra_batch", *(kernels._ptr(x) for x in (rb, re, wb, we, H, pt, commit)),
-                     T, KR, wb.shape[1], L, 8, 0, 0, kernels._stream())
+        kernels._launch("fdb_intra_batch", rb.device, *(kernels._ptr(x) for x in (rb, re, wb, we, H, pt, commit)),
+                        T, KR, wb.shape[1], L, 8, 0, 0)
         return commit
 
     cases = []
@@ -3627,7 +3867,7 @@ def run_soak(card: str) -> tuple[dict, list[dict]]:
                 raise AssertionError(f"a guard failed over on a fault nothing injected: {stray}")
             if launches.get("search", 0) <= 0:
                 raise AssertionError(f"K5 never launched: {launches}")
-            if backend == "torch":
+            if backend in ("torch", "torch1"):  # torch1: the forced seed's pinned grid
                 missing = [k for k in RESOLVE_PATH if launches.get(k, 0) <= 0]
                 if missing:
                     raise AssertionError(f"kernels never launched on a torch seed: {missing}")
@@ -4587,6 +4827,9 @@ def main() -> int:
     ap.add_argument("--tcp-only", action="store_true",
                     help="phases 1, 2 and 16 alone: the card, the kernels' build and the "
                          "real-process cluster")
+    ap.add_argument("--spread-only", action="store_true",
+                    help="phases 1, 2, 7 and 18 alone (with the oracle of phase 3): the card, the "
+                         "kernels' build, the partitioned resolver on one stack and spread")
     ap.add_argument("--btree-only", action="store_true",
                     help="phases 1, 2 and 17 alone: the card, the kernels' build, the port's lint and "
                          "its B-tree engine with K5's index rebuilt from it")
@@ -4632,6 +4875,17 @@ def main() -> int:
         for line in text.splitlines():
             if "Used" in line:
                 log(f"  ptxas {src}: {line.split('info    :')[-1].strip()}")
+    # versions start so that group 2 crosses now - base >= 2^30: the int32
+    # origin is rebased mid-run (K4b) as in a cluster up for ~20 minutes
+    offset = (1 << 30) - 1 - (2 * GROUP + WINDOW)
+    if args.spread_only:
+        want_oracle = oracle_verdicts(make_batches(N_BATCHES, N_TXNS, offset), offset)
+        mesh_rows, spread_batches, phase7 = run_mesh(want_oracle, offset, card)
+        rows = mesh_rows + run_spread(spread_batches, want_oracle, offset, phase7, card)
+        log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
+        log(json.dumps({"kernels": rows}))
+        log(card)
+        return 0
     if args.tcp_only or args.btree_only:
         # 16 or 17 alone, after the build above
         rows = run_real_process(card) if args.tcp_only else run_phase17(card)
@@ -4641,9 +4895,6 @@ def main() -> int:
         return 0
 
     # 3. workload, warm-up group, CPU plain path, oracle
-    # versions start so that group 2 crosses now - base >= 2^30: the int32
-    # origin is rebased mid-run (K4b) as in a cluster up for ~20 minutes
-    offset = (1 << 30) - 1 - (2 * GROUP + WINDOW)
     t0 = time.perf_counter()
     batches = make_batches(N_BATCHES, N_TXNS, offset)
     log(f"workload {N_BATCHES}x{N_TXNS} made in {time.perf_counter() - t0:.1f} s")
@@ -4662,18 +4913,10 @@ def main() -> int:
     cpu = TorchConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY, device="cpu")
     want, _ = drive(cpu, batches, offset)
     log(f"CPU plain path: {time.perf_counter() - t0:.1f} s")
-    # the independent reference, over every batch: those after the rebase
-    # and the device reshard too
-    t0 = time.perf_counter()
-    oracle = new_conflict_set("oracle")
-    want_oracle = [
-        oracle.detect_batch(txs, offset + i + WINDOW, offset + i)
-        for i, txs in enumerate(batches)
-    ]
-    log(f"oracle: {time.perf_counter() - t0:.1f} s")
+    want_oracle = oracle_verdicts(batches, offset)
 
     # 4. the main path on the card; counts set to 0 just before it
-    cs = new_conflict_set("torch", key_width=KEY_WIDTH, capacity=CAPACITY)
+    cs = new_conflict_set("torch1", key_width=KEY_WIDTH, capacity=CAPACITY)
     cs.warm_compile()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -4713,7 +4956,11 @@ def main() -> int:
     rows = check_kernels(state_g1, hbatch, vers, launches)
 
     # 7. the partitioned resolver
-    mesh_rows, spread_batches = run_mesh(want_oracle, offset, card)
+    mesh_rows, spread_batches, phase7 = run_mesh(want_oracle, offset, card)
+    # 18. the partitioned resolver spread over the cards of the host, while
+    # phase 7's workload, final state and the oracle's verdicts are alive
+    spread_rows = run_spread(spread_batches, want_oracle, offset, phase7, card)
+    del phase7
     # 8. the range index
     index_rows, index_lookups_s = run_range_index(card)
     # 9. the shapes past the bench's: many ranges a transaction, wide keys
@@ -4743,7 +4990,7 @@ def main() -> int:
 
     # 12. the storage role: tlog -> storage server on the port's Sim, its
     # reads through K5; the earlier phases' objects go first
-    del batches, spread_batches, want, want_oracle, cs, warm, cpu, oracle, state_g1, hbatch
+    del batches, spread_batches, want, want_oracle, cs, warm, cpu, state_g1, hbatch
     gc.collect()
     _storage, storage_rows = run_storage(card, index_lookups_s)
     # 13. the commit path: client -> proxy -> master -> resolver -> tlog ->
@@ -4766,8 +5013,8 @@ def main() -> int:
 
     # 6. results
     log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
-    log(json.dumps({"kernels": rows + index_rows + mesh_rows + storage_rows + commit_rows + dynamic_rows
-                               + soak_rows + tcp_rows + btree_rows}))
+    log(json.dumps({"kernels": rows + index_rows + mesh_rows + spread_rows + storage_rows + commit_rows
+                               + dynamic_rows + soak_rows + tcp_rows + btree_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

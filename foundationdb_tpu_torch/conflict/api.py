@@ -9,10 +9,13 @@ Mirrors the reference's ``fdbserver/ConflictSet.h:27-60``
   the CPU baseline and the guard's failover target;
 - ``torch`` — the bucket-grid conflict index resident on the CUDA card
   (conflict/torch_backend.py), or its plain PyTorch version on the CPU
-  when built with ``device="cpu"``;
+  when built with ``device="cpu"``; with no ``device`` on a host with more
+  than one card it is ``torch_mesh`` over every card (``mesh_upgrade``),
+  as the reference's ``tpu`` becomes its mesh;
+- ``torch1`` — always the one grid (the reference's ``tpu1``);
 - ``torch_mesh`` — the same index split into ``n_parts`` key-range
-  partitions (conflict/mesh_backend.py), a leading axis of one stacked
-  grid on one card; verdicts equal the ``torch`` backend's.
+  partitions (conflict/mesh_backend.py), one stacked grid on one card, or
+  spread over ``devices``; verdicts equal the ``torch`` backend's.
 
 Transaction semantics (reference ``ConflictBatch::addTransaction``
 SkipList.cpp:979 and ``detectConflicts`` SkipList.cpp:1163):
@@ -86,10 +89,12 @@ def new_conflict_set(
 ) -> ConflictSet:
     """The ``newConflictSet()`` factory seam (ConflictSet.h:28).
 
-    ``device`` selects where the ``torch`` and ``torch_mesh`` backends run:
-    ``None`` means the CUDA card (and raises without one); ``"cpu"`` runs
-    the plain versions. ``torch_mesh`` takes ``n_parts`` (default 4). The
-    host backends (``oracle``, ``native``) ignore it.
+    ``device`` selects where the ``torch``, ``torch1`` and ``torch_mesh``
+    backends run: ``None`` means the CUDA card (and raises without one;
+    ``torch`` spreads over every card where there are several); ``"cpu"``
+    or ``"cuda:N"`` that device. ``torch_mesh`` takes ``n_parts`` (default
+    4, or one a device) and ``devices`` (a list, which overrides
+    ``device``). The host backends (``oracle``, ``native``) ignore it.
 
     ``fault_injector`` (sim-only, conflict/faults.py) wraps the built
     device backend in a ``FaultInjectingConflictSet`` so chaos runs can
@@ -105,6 +110,22 @@ def new_conflict_set(
     return cs
 
 
+def mesh_upgrade(device=None) -> dict | None:
+    """Whether ``torch`` becomes the spread mesh (the reference's ``tpu``
+    on more than one initialized device, ``foundationdb_tpu/conflict/
+    api.py:116-147``): with no explicit ``device`` and more than one card
+    visible, the ``TorchMeshConflictSet`` arguments of one partition on
+    each card; else None."""
+    if device is not None:
+        return None
+    import torch
+
+    n = torch.cuda.device_count()
+    if n <= 1:
+        return None
+    return {"devices": [torch.device("cuda", i) for i in range(n)], "n_parts": n}
+
+
 def _build_conflict_set(backend: str, device, **kwargs) -> ConflictSet:
     if backend == "oracle":
         from .oracle import OracleConflictSet
@@ -114,7 +135,11 @@ def _build_conflict_set(backend: str, device, **kwargs) -> ConflictSet:
         from .native import NativeConflictSet
 
         return NativeConflictSet(**kwargs)
-    if backend == "torch":
+    if backend == "torch" and (spread := mesh_upgrade(device)) is not None:
+        from .mesh_backend import TorchMeshConflictSet
+
+        return TorchMeshConflictSet(**spread, **kwargs)
+    if backend in ("torch", "torch1"):
         from .torch_backend import TorchConflictSet
 
         return TorchConflictSet(device=device, **kwargs)

@@ -68,7 +68,7 @@ from .errors import ConflictSetClosedError, as_kernel_fault
 from .faults import KernelTimeoutError, StaleEncodingError
 
 # the device backends (the resolver's pipelined path)
-DEVICE_BACKENDS = ("torch", "torch_mesh")
+DEVICE_BACKENDS = ("torch", "torch1", "torch_mesh")
 
 HEALTHY = "HEALTHY"
 DEGRADED = "DEGRADED"

@@ -505,23 +505,24 @@ def merge_writes(
     (overflow if > staging_slots(S)), max kept rows in any bucket (overflow
     if > S)]."""
     st = stage_writes(state, batch, commit)
-    max_kept = merge_staged(state, st, now, oldest, 1)
+    max_kept = merge_staged(state, st, now, oldest)
     return state, torch.stack([st.max_staged, max_kept], dim=-1).reshape(2)
 
 
-def merge_staged(state: GridState, st: Staged, now: int, oldest: int, n_parts: int):
+def merge_staged(state: GridState, st: Staged, now: int, oldest: int, n_parts: int | None = None):
     """Merge staged rows into ``state`` IN PLACE — the per-bucket merge and
     the floor raise of buckets a committed write spans: one kernel launch
-    on the card, ``merge_staged_plain`` on the CPU. ``state`` may be the flat [P·B] view of ``n_parts`` stacked
-    partitions. Returns int32[n_parts]: the most rows any bucket of each
-    partition kept."""
+    on the card (K3, or with ``n_parts`` K6 over the flat [P·B] view of
+    ``n_parts`` stacked partitions, one partition included),
+    ``merge_staged_plain`` on the CPU. Returns int32[n_parts or 1]: the
+    most rows any bucket of each partition kept."""
     if state.grid.is_cuda:
         args = (state.grid, state.count, state.bmax, state.floor,
                 st.st_code, st.st_ev, st.tid, st.carry, now, oldest)
-        if n_parts == 1:
+        if n_parts is None:
             return kernels.merge(*args)
         return kernels.merge_parts(*args, n_parts)
-    return merge_staged_plain(state, st, now, oldest, n_parts)
+    return merge_staged_plain(state, st, now, oldest, n_parts or 1)
 
 
 def merge_staged_plain(state: GridState, st: Staged, now: int, oldest: int, n_parts: int = 1):

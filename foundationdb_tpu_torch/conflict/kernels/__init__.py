@@ -1,11 +1,14 @@
 """PyTorch wrappers of the hand-written CUDA kernels of the conflict grid.
 
 Each wrapper checks the device, dtype, shape and contiguity of its inputs,
-allocates its outputs with ``torch.empty``, launches on
-``torch.cuda.current_stream()``, raises when the C entry point reports a
-CUDA error, and counts its launches in ``<wrapper>.launches``. They take
-CUDA tensors only: ``conflict/grid.py`` runs the plain PyTorch versions for
-tensors on the CPU. Lanes are int32 tensors read by the kernels as uint32.
+allocates its outputs with ``torch.empty`` on its inputs' card, launches
+there, under ``torch.cuda.device(<that card>)`` on that card's current
+stream (never the process's current device: a grid on ``cuda:1`` runs on
+``cuda:1``), raises when the C entry point reports a CUDA error, and counts
+its launches in ``<wrapper>.launches``. They take CUDA tensors of one card
+only (``ValueError`` for tensors on two devices): ``conflict/grid.py`` runs
+the plain PyTorch versions for tensors on the CPU. Lanes are int32 tensors
+read by the kernels as uint32.
 """
 
 from __future__ import annotations
@@ -24,19 +27,34 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _device(*tensors: torch.Tensor) -> torch.device:
+    """The one device every tensor of a launch lies on; ``ValueError`` for
+    tensors on two devices, or for a device that is not a CUDA card."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"the tensors of one launch lie on {len(devices)} devices: "
+                         f"{sorted(map(str, devices))}")
+    (dev,) = devices
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, got {dev}")
+    return dev
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape=None) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+
+
+def _launch(fn_name: str, dev: torch.device, *args) -> None:
+    """Launch ``fn_name`` on card ``dev`` under its device guard, on its
+    current stream (the entry points take the stream last; ``search.cu``
+    reads the SM count of the current device)."""
+    with torch.cuda.device(dev):
+        _run(fn_name, *args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
 
 
 def _run(fn_name: str, *args) -> None:
@@ -70,6 +88,7 @@ def _history(fn_name, pivots, grid, count, bmax, floor, bounds, rb, re, t_snap) 
     T, KR, _ = rb.shape
     if B < 1 or B & (B - 1):
         raise ValueError(f"bucket count must be a power of two, got {B}")
+    dev = _device(pivots, grid, count, bmax, floor, *bounds, rb, re, t_snap)
     _check(pivots, "pivots", _I32, (*lead, B, L))
     _check(grid, "grid", _I32)
     for name, t in (("count", count), ("bmax", bmax), ("floor", floor)):
@@ -80,13 +99,13 @@ def _history(fn_name, pivots, grid, count, bmax, floor, bounds, rb, re, t_snap) 
     _check(re, "re", _I32, (T, KR, L))
     _check(t_snap, "t_snap", _I32, (T,))
     B1, B2 = split_factors(B)
-    sup = torch.empty(P * B1, dtype=_I32, device=grid.device)
-    hit = torch.empty(T, dtype=torch.bool, device=grid.device)
-    _run(
-        fn_name,
+    sup = torch.empty(P * B1, dtype=_I32, device=dev)
+    hit = torch.empty(T, dtype=torch.bool, device=dev)
+    _launch(
+        fn_name, dev,
         _ptr(pivots), _ptr(grid), _ptr(count), _ptr(bmax), _ptr(floor),
         *(_ptr(t) for t in bounds), _ptr(rb), _ptr(re), _ptr(t_snap), _ptr(sup),
-        _ptr(hit), *lead, B, S, L, T, KR, B1, B2, _stream(),
+        _ptr(hit), *lead, B, S, L, T, KR, B1, B2,
     )
     return hit
 
@@ -152,6 +171,7 @@ def intra_batch(rb, re, wb, we, H) -> torch.Tensor:
     KW = wb.shape[1]
     if T > MAX_TXNS:
         raise ValueError(f"batch of {T} transactions exceeds the kernel's {MAX_TXNS}")
+    dev = _device(rb, re, wb, we, H)
     _check(rb, "rb", _I32, (T, KR, L))
     _check(re, "re", _I32, (T, KR, L))
     _check(wb, "wb", _I32, (T, KW, L))
@@ -159,12 +179,12 @@ def intra_batch(rb, re, wb, we, H) -> torch.Tensor:
     _check(H, "H", torch.bool, (T,))
     WT, CR, CW = intra_batch_plan(KR, KW, L)
     W = (T + 31) // 32
-    pt = torch.empty(W * 32 * W, dtype=_I32, device=H.device)  # the transposed bitset
-    commit = torch.empty(T, dtype=torch.bool, device=H.device)
-    _run(
-        "fdb_intra_batch",
+    pt = torch.empty(W * 32 * W, dtype=_I32, device=dev)  # the transposed bitset
+    commit = torch.empty(T, dtype=torch.bool, device=dev)
+    _launch(
+        "fdb_intra_batch", dev,
         _ptr(rb), _ptr(re), _ptr(wb), _ptr(we), _ptr(H), _ptr(pt),
-        _ptr(commit), T, KR, KW, L, WT, CR, CW, _stream(),
+        _ptr(commit), T, KR, KW, L, WT, CR, CW,
     )
     intra_batch.launches += 1
     return commit
@@ -178,6 +198,7 @@ MAX_STAGE_ROWS = 1 << 30  # endpoint rows of one partition, padded (int row indi
 def _stage(wb, we, commit, pivots, S2):
     P, T, KW, L = wb.shape
     B = pivots.shape[1]
+    dev = _device(wb, we, commit, pivots)
     _check(wb, "wb", _I32)
     _check(we, "we", _I32, (P, T, KW, L))
     _check(commit, "commit", torch.bool, (T,))
@@ -193,7 +214,6 @@ def _stage(wb, we, commit, pivots, S2):
     # a tile's records of rw words and its sort keys (4-byte bucket, 2-byte index)
     tile = min(n2pad, STAGE_TILE_ROWS, 1 << (fit.bit_length() - 1))
     U = P * min(n2, B)
-    dev = wb.device
     st_code = torch.empty((U, S2, L), dtype=_I32, device=dev)
     st_ev = torch.empty((U, S2), dtype=_I32, device=dev)
     tid = torch.empty(U, dtype=_I32, device=dev)
@@ -205,11 +225,11 @@ def _stage(wb, we, commit, pivots, S2):
     n_rec = P * n2pad * rw
     rec_a = torch.empty(n_rec, dtype=_I32, device=dev)
     rec_b = torch.empty(0 if P == 1 and tile == n2pad else n_rec, dtype=_I32, device=dev)
-    _run(
-        "fdb_stage",
+    _launch(
+        "fdb_stage", dev,
         _ptr(wb), _ptr(we), _ptr(commit), _ptr(pivots), _ptr(st_code), _ptr(st_ev), _ptr(tid),
         _ptr(carry), _ptr(max_staged), _ptr(n_valid), _ptr(rec_a), _ptr(rec_b),
-        P, T, KW, L, B, U, S2, n2pad, tile, _stream(),
+        P, T, KW, L, B, U, S2, n2pad, tile,
     )
     return st_code, st_ev, tid, carry, max_staged
 
@@ -255,6 +275,7 @@ def _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest,
         raise ValueError(f"S = {S}, S2 = {S2}: one warp holds at most 32 rows of each")
     if B % n_parts:
         raise ValueError(f"{B} buckets do not split into {n_parts} partitions")
+    dev = _device(grid, count, bmax, floor, st_code, st_ev, tid, carry_in)
     _check(grid, "grid", _I32)
     for name, t in (("count", count), ("bmax", bmax), ("floor", floor)):
         _check(t, name, _I32, (B,))
@@ -262,17 +283,17 @@ def _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest,
     _check(st_ev, "st_ev", _I32, (U, S2))
     _check(tid, "tid", _I32, (U,))
     _check(carry_in, "carry_in", _I32, (U,))
-    max_kept = torch.zeros(n_parts, dtype=_I32, device=grid.device)
+    max_kept = torch.zeros(n_parts, dtype=_I32, device=dev)
     # a warp's 64 rows of L + 1 words in shared memory, or (L > 112) in
     # global scratch, one plane per staging slot
     rows = None
     if MERGE_WARPS * 64 * Lp1 * 4 > SMEM_OPTIN:
-        rows = torch.empty((U, 64, Lp1), dtype=_I32, device=grid.device)
-    _run(
-        "fdb_merge",
+        rows = torch.empty((U, 64, Lp1), dtype=_I32, device=dev)
+    _launch(
+        "fdb_merge", dev,
         _ptr(grid), _ptr(count), _ptr(bmax), _ptr(floor), _ptr(st_code),
         _ptr(st_ev), _ptr(tid), _ptr(carry_in), int(now), int(oldest),
-        _ptr(max_kept), None if rows is None else _ptr(rows), B, B // n_parts, S, S2, L, U, _stream(),
+        _ptr(max_kept), None if rows is None else _ptr(rows), B, B // n_parts, S, S2, L, U,
     )
     return max_kept
 
@@ -313,12 +334,12 @@ def _scan_words(B: int) -> int:
 def _reshard(grid, count, floor, n_buckets, n_slots):
     P, B, S, Lp1 = grid.shape
     L = Lp1 - 1
+    dev = _device(grid, count, floor)
     _check(grid, "grid", _I32)
     _check(count, "count", _I32, (P, B))
     _check(floor, "floor", _I32, (P, B))
     if n_buckets < 1 or n_slots < 1:
         raise ValueError(f"n_buckets = {n_buckets}, n_slots = {n_slots}: both must be >= 1")
-    dev = grid.device
     scan = torch.empty((P, _scan_words(B)), dtype=_I32, device=dev)  # scratch: the counts' prefix sums
     totals = torch.empty((P, 32), dtype=_I32, device=dev)  # scratch: the scan's chunk totals
     pivots = torch.empty((P, n_buckets, L), dtype=_I32, device=dev)
@@ -327,11 +348,11 @@ def _reshard(grid, count, floor, n_buckets, n_slots):
     bmax = torch.empty((P, n_buckets), dtype=_I32, device=dev)
     floor_out = torch.empty((P, n_buckets), dtype=_I32, device=dev)
     pressure = torch.empty(P, dtype=_I32, device=dev)
-    _run(
-        "fdb_reshard",
+    _launch(
+        "fdb_reshard", dev,
         _ptr(grid), _ptr(count), _ptr(floor), _ptr(scan), _ptr(totals), _ptr(pivots),
         _ptr(out), _ptr(count_out), _ptr(bmax), _ptr(floor_out), _ptr(pressure),
-        P, B, S, L, int(n_buckets), int(n_slots), scan.shape[1], _stream(),
+        P, B, S, L, int(n_buckets), int(n_slots), scan.shape[1],
     )
     return pivots, out, count_out, bmax, floor_out, pressure
 
@@ -357,16 +378,17 @@ def maint_reshard_parts(grid, count, floor, n_buckets: int, n_slots: int):
 
 def _rebase(grid, count, floor, delta):
     B, S, Lp1 = grid.shape
+    dev = _device(grid, count, floor)
     _check(grid, "grid", _I32)
     _check(count, "count", _I32, (B,))
     _check(floor, "floor", _I32, (B,))
     out = torch.empty_like(grid)
-    bmax = torch.empty(B, dtype=_I32, device=grid.device)
-    floor_out = torch.empty(B, dtype=_I32, device=grid.device)
-    _run(
-        "fdb_rebase",
+    bmax = torch.empty(B, dtype=_I32, device=dev)
+    floor_out = torch.empty(B, dtype=_I32, device=dev)
+    _launch(
+        "fdb_rebase", dev,
         _ptr(grid), _ptr(count), _ptr(floor), _ptr(out), _ptr(bmax),
-        _ptr(floor_out), int(delta), B, S, Lp1 - 1, _stream(),
+        _ptr(floor_out), int(delta), B, S, Lp1 - 1,
     )
     return out, bmax, floor_out
 
@@ -405,11 +427,12 @@ def search(codes, q):
     Q = q.shape[0]
     if P < 1:
         raise ValueError("the code array is empty")
+    dev = _device(codes, q)
     _check(codes, "codes", _I32)
     _check(q, "q", _I32, (Q, L))
-    out = torch.empty((2, Q), dtype=_I32, device=codes.device)
+    out = torch.empty((2, Q), dtype=_I32, device=dev)
     if Q:
-        _run("fdb_search", _ptr(codes), _ptr(q), _ptr(out), P, Q, L, _stream())
+        _launch("fdb_search", dev, _ptr(codes), _ptr(q), _ptr(out), P, Q, L)
         search.launches += 1
     return out
 

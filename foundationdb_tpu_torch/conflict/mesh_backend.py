@@ -1,17 +1,18 @@
-"""Key-range partitioned ConflictSet on one CUDA card — port of
+"""Key-range partitioned ConflictSet over a list of CUDA cards — port of
 ``foundationdb_tpu/conflict/mesh_backend.py``.
 
 ``TorchMeshConflictSet`` puts the partitioned resolver (conflict/sharded.py)
-behind the ConflictSet seam: P key-range partitions of the bucket grid live
-as a leading axis of one stacked state on the card, and verdicts are
-bit-identical to the single-grid resolver and to the JAX package's
-``MeshConflictSet`` (tests/test_torch_mesh.py).
+behind the ConflictSet seam: P key-range partitions of the bucket grid are
+spread over ``devices`` (by default one stack on one card; the reference's
+mesh puts one partition on each device), and verdicts are bit-identical to
+the single-grid resolver and to the JAX package's ``MeshConflictSet``
+(tests/test_torch_mesh.py).
 
-The host side mirrors the reference: a group of batches is stacked and
-uploaded once and dispatched without waiting; the pre-group snapshot keeps
-the original tensors while the group works on a clone, so an overflow can
-replay from it. Collected per-partition pressure drives the replay ladder
-(attempt 0: device rebalance of the overflowing partitions; 1+: host
+The host side mirrors the reference: a group of batches is stacked,
+uploaded once to each distinct device and dispatched without waiting; the
+pre-group snapshot keeps the original tensors while the group works on a
+clone, so an overflow can replay from it. Collected per-partition
+pressure drives the replay ladder (attempt 0: device rebalance of the overflowing partitions; 1+: host
 reshard of those partitions from their live rows and the key sample; 3+:
 grow every partition; where those give up, as under a sequential bulk
 load, 6+: repivot on the device among the partition's live rows and the
@@ -79,14 +80,31 @@ class TorchMeshConflictSet(ConflictSet):
         self,
         key_width: int = K.DEFAULT_KEY_WIDTH,
         capacity: int = 1 << 14,
-        n_parts: int = 4,
+        n_parts: int | None = None,
         reshard_pressure: float = DEFAULT_RESHARD_PRESSURE,
         grow_fill: float = DEFAULT_GROW_FILL,
         device=None,
+        devices=None,
     ):
+        """``devices=None`` keeps all partitions (``n_parts``, default 4) in
+        one stack on ``device``. A list of devices (it may name one device
+        more than once) spreads them, n_parts / len(devices) an entry in
+        list order; ``n_parts`` then defaults to ``len(devices)``, one
+        partition a device as in the reference's mesh, and ``device`` is
+        not used. A card that is not visible raises
+        ``DeviceUnavailableError``."""
         super().__init__()
-        self._device = resolve_device(device)
-        self._max_txns = kernels.MAX_TXNS if self._device.type == "cuda" else None
+        if devices is None:
+            devices = [device]
+            n_parts = 4 if n_parts is None else n_parts
+        elif n_parts is None:
+            n_parts = len(devices)
+        devices = [resolve_device(d) for d in devices]
+        if not devices or n_parts % len(devices):
+            raise ValueError(f"{n_parts} partitions do not split over {len(devices)} devices")
+        self._devices = devices
+        self._device = devices[0]
+        self._max_txns = kernels.MAX_TXNS if any(d.type == "cuda" for d in devices) else None
         self._width = key_width
         self._lanes = K.lanes_for_width(key_width)
         self._reshard_pressure = reshard_pressure
@@ -95,8 +113,9 @@ class TorchMeshConflictSet(ConflictSet):
         # per-partition grid: capacity splits across partitions
         self._B = _bucket(max(8, capacity // 16 // n_parts))
         self._S = 32
-        self._bounds = SH.partition_bounds(self._lanes, n_parts, self._device)
-        self._states = self._fresh_states()
+        self._spread = self._fresh_spread()
+        # the entries' distinct devices, each of which gets a group's batches
+        self._targets = self._spread.devices()
         # (epoch, base) in one attribute, so the encode thread reads a pair
         # that belongs together: device versions are (version - base); 0 = never
         self._origin = (0, -1)
@@ -107,14 +126,28 @@ class TorchMeshConflictSet(ConflictSet):
         self._rebalance_parts: set[int] = set()
         self._sample = KeyReservoir()
         self.metrics = KernelMetrics()
-        self.metrics.gauge("occupancy", lambda: SH.stacked_occupancy_stats(self._states))
+        self.metrics.gauge("occupancy", lambda: SH.spread_occupancy_stats(self._spread))
         self.metrics.gauge("stagingSlots", lambda: G.staging_slots(self._S))
         self.metrics.gauge("inflightGroups", lambda: len(self._inflight))
 
-    def _fresh_states(self) -> G.GridState:
-        return SH.make_sharded_states(
-            self._n_parts, self._B, self._S, self._lanes, self._device
-        )
+    def _fresh_spread(self) -> SH.Spread:
+        return SH.make_spread(self._n_parts, self._B, self._S, self._lanes, self._devices)
+
+    @property
+    def _states(self) -> G.GridState | None:
+        """The stacked state of all partitions (gathered onto the first
+        device where the spread has several entries); None once closed."""
+        return None if self._spread is None else self._spread.gather()
+
+    def _upload(self, stacked: G.Batch) -> dict:
+        """A host group on every distinct device of the spread."""
+        return {dev: upload(stacked, dev) for dev in self._targets}
+
+    def _sync(self) -> None:
+        """Wait for the queued work of every card of the spread."""
+        for dev in self._targets:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
     @property
     def _base(self) -> int:
@@ -127,36 +160,36 @@ class TorchMeshConflictSet(ConflictSet):
     # -- ConflictSet interface ------------------------------------------------
 
     def warm_compile(self) -> None:
-        """Build the kernels (on the card) and run one sentinel group at the
-        smoke shape on scratch states; logical state is untouched."""
+        """Build the kernels (once, where any entry is a card) and run one
+        sentinel group at the smoke shape on a scratch spread, which warms
+        every card of it; logical state is untouched."""
         t0 = time.perf_counter()
-        if self._device.type == "cuda":
+        if self._max_txns is not None:
             kernels.build.load()
         b = encode_transactions([], self._width, 0)
-        stacked = upload(stack_batches([b], self._lanes), self._device)
-        _s, verdicts, _p = SH.resolve_many_sharded(
-            self._fresh_states(), stacked, [0], [0], [0], self._bounds
-        )
-        verdicts.cpu()  # wait for the device
+        spread = self._fresh_spread()
+        uploads = self._upload(stack_batches([b], self._lanes))
+        SH.resolve_many_spread(spread, [uploads[e.device] for e in spread.entries], [0], [0], [0])
+        self._sync()
         self.metrics.note_shape((1, b.rb.shape[0], b.rb.shape[1], b.wb.shape[1], self._B), warm=True)
         self.metrics.warm_compiles.add()
         self.metrics.warm_s.add(time.perf_counter() - t0)
 
     def close(self) -> None:
-        """Drop the stacked grids, the partition bounds and the in-flight
+        """Drop every entry's grids and partition bounds and the in-flight
         groups' tensors (see ``TorchConflictSet.close``)."""
-        if self._states is None:
+        if self._spread is None:
             return
-        occupancy = SH.stacked_occupancy_stats(self._states)
+        occupancy = SH.spread_occupancy_stats(self._spread)
         self.metrics.gauge("occupancy", lambda: occupancy)
         for group in self._inflight:
             group.clear()
         self._inflight = []
-        self._states = self._bounds = None
+        self._spread = None
 
     def clear(self, version: int) -> None:
         self._flush()
-        self._states = self._fresh_states()
+        self._spread = self._fresh_spread()
         self._origin = (self._base_epoch + 1, version - 1)
         self._rebase_deltas.clear()
         self.oldest_version = version
@@ -214,21 +247,19 @@ class TorchMeshConflictSet(ConflictSet):
             # or rebalance the flagged partitions — a deliberate bubble
             self._flush()
             self.metrics.reshards_proactive.add()
-            occ = SH.stacked_occupancy_stats(self._states)
+            occ = SH.spread_occupancy_stats(self._spread)
             if occ["fillFraction"] >= self._grow_fill:
                 self._grow()
             else:
                 for p in sorted(self._rebalance_parts):
-                    self._states, pr = SH.reshard_partition(self._states, p, self._B, self._S)
-                    self.metrics.reshards_device.add()
-                    if pr > self._S:
+                    if self._reshard_device(p) > self._S:
                         self._host_reshard_partition(p)
             self._rebalance_parts.clear()
 
         stacked = stack_batches(batches, self._lanes)
-        self.metrics.h2d_bytes.add(batch_nbytes(stacked))
+        self.metrics.h2d_bytes.add(batch_nbytes(stacked) * len(self._targets))
         group = {
-            "stacked": upload(stacked, self._device),
+            "stacked": self._upload(stacked),
             "metas": metas,
             "counts": counts,
             "done": None,
@@ -247,7 +278,7 @@ class TorchMeshConflictSet(ConflictSet):
         t0 = time.perf_counter()
         self.metrics.dispatches.add()
         metas = group["metas"]
-        st = group["stacked"]
+        st = group["stacked"][self._targets[0]]
         shape = (len(metas), st.rb.shape[-3], st.rb.shape[-2], st.wb.shape[-2])
         self.metrics.note_shape(shape + (self._B,))
         nows = [m[0] - self._base for m in metas]
@@ -255,18 +286,22 @@ class TorchMeshConflictSet(ConflictSet):
         olds_post = [max(m[2] - self._base, 0) for m in metas]
         # the snapshot keeps the ORIGINAL tensors (never written) for a
         # replay; the group updates a clone in place
-        group["snapshot"] = self._states
-        states, verdicts, pressures = SH.resolve_many_sharded(
-            G.clone_state(self._states), st, nows, olds_pre, olds_post, self._bounds
+        group["snapshot"] = self._spread
+        spread = self._spread.clone()
+        verdicts, pressures = SH.resolve_many_spread(
+            spread, [group["stacked"][e.device] for e in spread.entries], nows, olds_pre, olds_post
         )
-        self._states = states
-        if self._device.type == "cuda":
+        self._spread = spread
+        if verdicts.is_cuda:
+            # verdicts and pressures are on the first card, behind every
+            # card's part of the group (the exchange and the pressures'
+            # copies order them): one event there covers the group
             v_host = torch.empty(verdicts.shape, dtype=verdicts.dtype, pin_memory=True)
             p_host = torch.empty(pressures.shape, dtype=pressures.dtype, pin_memory=True)
             v_host.copy_(verdicts, non_blocking=True)
             p_host.copy_(pressures, non_blocking=True)
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(verdicts.device))
             group["verdicts"], group["pressures"], group["event"] = v_host, p_host, done
         else:
             group["verdicts"], group["pressures"], group["event"] = verdicts, pressures, None
@@ -297,8 +332,7 @@ class TorchMeshConflictSet(ConflictSet):
             self.metrics.replayed_groups.add(len(self._inflight))
             # the in-flight chain is abandoned: let every queued kernel
             # finish before the snapshot's buffers are read or reused
-            if self._device.type == "cuda":
-                torch.cuda.current_stream(self._device).synchronize()
+            self._sync()
             # rebalance the overflowing partitions from the pre-group
             # snapshot, then replay this group and everything after it.
             # Attempts 0-5 are the reference's: 0: device rebalance; 1+: host
@@ -309,9 +343,9 @@ class TorchMeshConflictSet(ConflictSet):
             # (every partition that overflowed in this ladder), on the
             # device, at the grid size from before the ladder, doubled on
             # each attempt from 7 on
-            self._states = group["snapshot"]
+            self._spread = group["snapshot"]
             if attempt >= 6:
-                self._states, self._B = first_snapshot, first_B
+                self._spread, self._B = first_snapshot, first_B
                 for _ in range(attempt - 6):
                     self._grow()
                 for p in np.nonzero(overflowed)[0]:
@@ -320,11 +354,8 @@ class TorchMeshConflictSet(ConflictSet):
                 if attempt >= 3:
                     self._grow()
                 for p in np.nonzero(over)[0]:
-                    if attempt == 0:
-                        self._states, pr = SH.reshard_partition(self._states, int(p), self._B, self._S)
-                        self.metrics.reshards_device.add()
-                        if pr <= self._S:
-                            continue
+                    if attempt == 0 and self._reshard_device(int(p)) <= self._S:
+                        continue
                     self._host_reshard_partition(int(p))
             for g in self._inflight:
                 self._dispatch(g)
@@ -350,6 +381,13 @@ class TorchMeshConflictSet(ConflictSet):
         self._inflight.pop(0)
         return group["done"]
 
+    def _reshard_device(self, p: int) -> int:
+        """Rebalance partition p on its device; returns the pressure (over
+        S: the partition needs more than a rebalance)."""
+        self._spread, pressure = SH.reshard_spread_partition(self._spread, p, self._B, self._S)
+        self.metrics.reshards_device.add()
+        return pressure
+
     def _host_reshard_partition(self, p: int) -> None:
         """Rebuild partition p's grid under pivots from its live boundaries
         ∪ the key sample clipped to its range; grows every partition when
@@ -357,7 +395,7 @@ class TorchMeshConflictSet(ConflictSet):
         t0 = time.perf_counter()
         self.metrics.reshards_host.add()
         while True:
-            shard = SH.partition(self._states, p)
+            shard = self._spread.partition(p)
             codes, _vers = G.live_rows(shard)
             lo = lanes_to_numpy(shard.pivots[0])  # the partition's lower bound
             cands = codes
@@ -370,7 +408,7 @@ class TorchMeshConflictSet(ConflictSet):
             # the last partition, below the next partition's first pivot
             keep = _lex_gt(cands, lo)
             if p + 1 < self._n_parts:
-                hi = lanes_to_numpy(self._states.pivots[p + 1][0])
+                hi = lanes_to_numpy(self._spread.partition(p + 1).pivots[0])
                 keep &= _lex_gt(np.broadcast_to(hi, cands.shape), cands)
             cands = cands[keep]
             pivots = _pick_pivots(cands, self._B, self._lanes, lo=lo)
@@ -379,7 +417,7 @@ class TorchMeshConflictSet(ConflictSet):
             except OverflowError:
                 self._grow()
                 continue
-            self._states = SH.set_partition(self._states, p, new_shard)
+            self._spread = self._spread.set_partition(p, new_shard)
             self.metrics.reshard_s.add(time.perf_counter() - t0)
             return
 
@@ -390,15 +428,16 @@ class TorchMeshConflictSet(ConflictSet):
         overflows."""
         t0 = time.perf_counter()
         self.metrics.reshards_device.add()
+        dev = self._spread.entries[self._spread.entry_of(p)[0]].device
         extra = torch.cat(
-            [torch.cat([g["stacked"].wb, g["stacked"].we]).reshape(-1, self._lanes)
+            [torch.cat([g["stacked"][dev].wb, g["stacked"][dev].we]).reshape(-1, self._lanes)
              for g in self._inflight]
         )
         if p + 1 < self._n_parts:
-            hi = self._states.pivots[p + 1][0]
+            hi = self._spread.partition(p + 1).pivots[0].to(dev)
             extra = extra[G.lex_lt(ordered(extra), ordered(hi))]
         while True:
-            shard = SH.partition(self._states, p)
+            shard = self._spread.partition(p)
             codes, _vers = G.live_codes(shard)
             pivots = _pick_pivots_among(codes, extra, self._B)
             try:
@@ -406,16 +445,16 @@ class TorchMeshConflictSet(ConflictSet):
             except OverflowError:
                 self._grow()
                 continue
-            self._states = SH.set_partition(self._states, p, new_shard)
+            self._spread = self._spread.set_partition(p, new_shard)
             self.metrics.reshard_s.add(time.perf_counter() - t0)
             return
 
     def _grow(self) -> None:
         """Double every partition's bucket count: an on-device reshard of
-        each partition folds its floors and rebalances it."""
+        each entry's partitions folds their floors and rebalances them."""
         self._B *= 2
         self.metrics.capacity_growths.add()
-        self._states, _pr = SH.reshard_parts(self._states, self._B, self._S)
+        self._spread = SH.reshard_spread(self._spread, self._B, self._S)
 
     def _flush(self) -> None:
         while self._inflight:
@@ -428,7 +467,7 @@ class TorchMeshConflictSet(ConflictSet):
         new_base = self.oldest_version - 1
         delta = new_base - self._base
         if delta > 0:
-            self._states = SH.rebase_parts(self._states, int(delta))
+            self._spread = SH.rebase_spread(self._spread, int(delta))
             self._rebase_deltas[self._base_epoch] = int(delta)
             self._origin = (self._base_epoch + 1, new_base)
             self.metrics.rebases.add()

@@ -1,4 +1,4 @@
-"""Key-range partitioned resolver on one CUDA card — port of
+"""Key-range partitioned resolver over a list of CUDA cards — port of
 ``foundationdb_tpu/conflict/sharded.py``.
 
 The JAX package shards the bucket grid over a device mesh: each device
@@ -6,9 +6,25 @@ owns one key-range partition as its own ``GridState``, clips every
 transaction's conflict ranges to its partition, resolves against its grid,
 and a ``pmax`` over the mesh makes the history verdict H and the
 intra-batch overlap matrix global before the greedy commit, so verdicts
-equal a single grid's bit for bit. Here the P partitions are a leading
-axis of ONE stacked ``GridState`` on one card (fields [P, B, ...],
-contiguous, so ``grid.view(P * B, S, L + 1)`` is the flat view):
+equal a single grid's bit for bit. Here a ``Spread`` holds one entry per
+device of a list (a device may appear more than once); each entry holds a
+contiguous run of the P partitions as the leading axis of ONE stacked
+``GridState`` on its device (fields [k, B, ...], contiguous, so
+``grid.view(k * B, S, L + 1)`` is the flat view). A spread of one entry is
+the whole stack on one card. One batch (``resolve_one_spread``):
+
+- every entry runs K6 history on its partitions; the entries' H are
+  exchanged with plain cross-device copies and OR-ed into one H on every
+  entry (the reference's ``pmax``; one process over several cards, as
+  ``shard_map`` is, so no collective library);
+- every entry runs K2 on the unclipped, replicated batch (below), then
+  stages and merges its clipped writes; the verdicts come from entry 0
+  and the per-partition pressures are gathered there in partition order.
+
+PyTorch orders a copy between two cards behind the current streams of
+both, so the spread adds no streams and no events of its own.
+
+Within one entry:
 
 - history (K6): one launch over all partitions, each read clipped to its
   partition in registers, H OR-ed over the partitions;
@@ -31,6 +47,8 @@ versions, which the CPU tests hold to the JAX package exactly).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -51,6 +69,11 @@ def make_sharded_states(
     """Stacked per-partition GridStates, leading axis [n_parts]. Each
     partition's buckets pre-split its key range uniformly on the first
     uint32 lane; pivot rows carry version 0 (the empty history)."""
+    return states_from_numpy(*_sharded_arrays(n_parts, n_buckets, n_slots, lanes), device)
+
+
+def _sharded_arrays(n_parts: int, n_buckets: int, n_slots: int, lanes: int) -> tuple:
+    """``make_sharded_states``' arrays in numpy (uint32 lanes, int32 words)."""
     step = (1 << 32) // n_parts
     sub = max(step // n_buckets, 1)
     n_sub = min(n_buckets, step // sub)
@@ -68,7 +91,7 @@ def make_sharded_states(
     grid[:, :n_sub, 0, :lanes] = pivots[:, :n_sub]
     count[:, :n_sub] = 1
     zeros = np.zeros((n_parts, n_buckets), np.int32)
-    return states_from_numpy(pivots, grid, count, zeros, zeros, device)
+    return pivots, grid, count, zeros, zeros
 
 
 def partition_bounds(lanes: int, n_parts: int, device):
@@ -117,6 +140,111 @@ def set_partition(states: G.GridState, p: int, shard: G.GridState) -> G.GridStat
     for full, part in zip(out, shard):
         full[p] = part
     return out
+
+
+class Entry(NamedTuple):
+    """One device's share of a spread: its contiguous run of partitions as
+    one stacked state, and their bounds."""
+
+    device: torch.device
+    states: G.GridState  # [k, B, S, L + 1], ...
+    plo: torch.Tensor  # [k, L]
+    phi: torch.Tensor  # [k, L]
+
+
+class Spread:
+    """P key-range partitions spread over a list of devices, one ``Entry``
+    per position in the list; partition p sits on entry p // k, k = P /
+    len(entries). The grids are updated in place by a batch; the other
+    operations return a new spread and leave this one intact, as a group's
+    snapshot may share its tensors."""
+
+    def __init__(self, entries):
+        self.entries = tuple(entries)
+        self.per_entry = self.entries[0].states.grid.shape[0]
+        self.n_parts = self.per_entry * len(self.entries)
+
+    @classmethod
+    def of(cls, states: G.GridState, bounds=None) -> "Spread":
+        """The one-entry spread of a stacked state (no copy)."""
+        P, _B, _S, Lp1 = states.grid.shape
+        dev = states.grid.device
+        plo, phi = bounds if bounds is not None else partition_bounds(Lp1 - 1, P, dev)
+        return cls([Entry(dev, states, plo, phi)])
+
+    def devices(self) -> list:
+        """The distinct devices of the entries, in entry order."""
+        return list(dict.fromkeys(e.device for e in self.entries))
+
+    def entry_of(self, p: int) -> tuple[int, int]:
+        """(entry, partition within the entry) of global partition p."""
+        return divmod(p, self.per_entry)
+
+    def partition(self, p: int) -> G.GridState:
+        """Partition p's GridState: views into its entry's tensors."""
+        e, i = self.entry_of(p)
+        return partition(self.entries[e].states, i)
+
+    def replace(self, e: int, states: G.GridState) -> "Spread":
+        entries = list(self.entries)
+        entries[e] = entries[e]._replace(states=states)
+        return Spread(entries)
+
+    def set_partition(self, p: int, shard: G.GridState) -> "Spread":
+        """A new spread with partition p replaced (its entry's stack is
+        copied; the other entries are shared)."""
+        e, i = self.entry_of(p)
+        return self.replace(e, set_partition(self.entries[e].states, i, shard))
+
+    def map(self, fn) -> "Spread":
+        """A new spread with ``fn`` applied to every entry's stack."""
+        return Spread(e._replace(states=fn(e.states)) for e in self.entries)
+
+    def clone(self) -> "Spread":
+        return self.map(G.clone_state)
+
+    def gather(self, device=None) -> G.GridState:
+        """The one stacked state, in partition order, on ``device`` (entry
+        0's by default): the layout of one stack and of the JAX mesh. A
+        one-entry spread returns its own tensors."""
+        device = self.entries[0].device if device is None else torch.device(device)
+        if len(self.entries) == 1 and self.entries[0].device == device:
+            return self.entries[0].states
+        return G.GridState(*(
+            torch.cat([x.to(device) for x in xs]) for xs in zip(*(e.states for e in self.entries))
+        ))
+
+    def counts(self) -> np.ndarray:
+        """int32[P, B] live rows per bucket, read back from every entry."""
+        return np.concatenate([e.states.count.cpu().numpy() for e in self.entries])
+
+
+def spread_from_numpy(pivots, grid, count, bmax, floor, devices) -> Spread:
+    """A stacked state's numpy arrays ([P, ...], as ``states_from_numpy``
+    takes them) spread over ``devices``: P must be a multiple of their
+    number, and each entry gets the next P / len(devices) partitions."""
+    P = grid.shape[0]
+    if not devices or P % len(devices):
+        raise ValueError(f"{P} partitions do not split over {len(devices)} devices")
+    k = P // len(devices)
+    plo, phi = partition_bounds(grid.shape[-1] - 1, P, None)
+    entries = []
+    for e, device in enumerate(devices):
+        part = slice(e * k, (e + 1) * k)
+        states = states_from_numpy(pivots[part], grid[part], count[part], bmax[part], floor[part], device)
+        dev = states.grid.device
+        entries.append(Entry(dev, states, plo[part].to(dev), phi[part].to(dev)))
+    return Spread(entries)
+
+
+def gather_to_numpy(spread: Spread) -> tuple:
+    """The spread's stacked state as numpy arrays (``states_to_numpy``)."""
+    return states_to_numpy(spread.gather("cpu"))
+
+
+def make_spread(n_parts: int, n_buckets: int, n_slots: int, lanes: int, devices) -> Spread:
+    """``make_sharded_states`` spread over ``devices``."""
+    return spread_from_numpy(*_sharded_arrays(n_parts, n_buckets, n_slots, lanes), devices)
 
 
 # ---------------------------------------------------------------------------
@@ -181,38 +309,61 @@ def merge_writes_sharded(states, batch: G.Batch, commit, now: int, oldest: int, 
     return torch.stack([st.max_staged, max_kept], dim=-1)
 
 
-def resolve_one_sharded(states, batch: G.Batch, now: int, oldest_pre: int,
-                        oldest_post: int, bounds=None):
-    """One batch through all P partitions. Updates ``states`` IN PLACE;
-    returns (states, verdicts int8[T], pressure int32[P, 2])."""
-    P, _B, _S, Lp1 = states.grid.shape
-    plo, phi = bounds if bounds is not None else partition_bounds(Lp1 - 1, P, states.grid.device)
-    too_old = batch.t_has_reads & (batch.t_snap < oldest_pre)
-    H = history_conflicts_sharded(states, batch, plo, phi) | too_old
-    commit = G.intra_batch_commits(batch, H)
-    pressure = merge_writes_sharded(states, batch, commit, now, oldest_post, plo, phi)
-    verdicts = (~commit).to(torch.int8).masked_fill(too_old, G.TOO_OLD)
-    return states, verdicts, pressure
+def exchange(flags: list) -> list:
+    """The reference's ``pmax`` of bool[T] flags over the entries: OR-ed on
+    entry 0's device, then copied back to every entry's device (no copy
+    where entries share a device)."""
+    dev0 = flags[0].device
+    total = flags[0]
+    for f in flags[1:]:
+        total = total | f.to(dev0, non_blocking=True)
+    return [total.to(f.device, non_blocking=True) for f in flags]
+
+
+def resolve_one_spread(spread: Spread, batches: list, now: int, oldest_pre: int, oldest_post: int):
+    """One batch through all P partitions of ``spread``; ``batches`` holds
+    the batch on each entry's device. Updates the grids IN PLACE; returns
+    (verdicts int8[T], pressure int32[P, 2]), both on entry 0's device."""
+    Hs = exchange([
+        history_conflicts_sharded(e.states, b, e.plo, e.phi) for e, b in zip(spread.entries, batches)
+    ])
+    verdicts, pressures = None, []
+    for e, b, H in zip(spread.entries, batches, Hs):
+        too_old = b.t_has_reads & (b.t_snap < oldest_pre)
+        commit = G.intra_batch_commits(b, H | too_old)
+        pressures.append(merge_writes_sharded(e.states, b, commit, now, oldest_post, e.plo, e.phi))
+        if verdicts is None:
+            verdicts = (~commit).to(torch.int8).masked_fill(too_old, G.TOO_OLD)
+    dev0 = spread.entries[0].device
+    return verdicts, torch.cat([p.to(dev0, non_blocking=True) for p in pressures])
+
+
+def resolve_many_spread(spread: Spread, batches: list, nows, oldests_pre, oldests_post):
+    """G batches in order (the reference's on-device scan; a host loop
+    here, as in ``grid.resolve_many``); ``batches`` holds the stacked group
+    on each entry's device. Updates the grids IN PLACE. Returns (verdicts
+    int8[G, T], pressures int32[G, P, 2]) on entry 0's device — the
+    per-batch pressures, not a group max."""
+    verdicts, pressures = [], []
+    for g in range(batches[0].rb.shape[0]):
+        views = {id(b): G.Batch(*(x[g] for x in b)) for b in batches}
+        v, p = resolve_one_spread(
+            spread, [views[id(b)] for b in batches],
+            int(nows[g]), int(oldests_pre[g]), int(oldests_post[g]),
+        )
+        verdicts.append(v)
+        pressures.append(p)
+    return torch.stack(verdicts), torch.stack(pressures)
 
 
 def resolve_many_sharded(states, batches: G.Batch, nows, oldests_pre,
                          oldests_post, bounds=None):
-    """G batches in order (the reference's on-device scan; a host loop
-    here, as in ``grid.resolve_many``). Updates ``states`` IN PLACE.
-    Returns (states, verdicts int8[G, T], pressures int32[G, P, 2]) — the
-    per-batch pressures, not a group max."""
-    if bounds is None:
-        P, _B, _S, Lp1 = states.grid.shape
-        bounds = partition_bounds(Lp1 - 1, P, states.grid.device)
-    verdicts, pressures = [], []
-    for g in range(batches.rb.shape[0]):
-        batch = G.Batch(*(x[g] for x in batches))
-        states, v, p = resolve_one_sharded(
-            states, batch, int(nows[g]), int(oldests_pre[g]), int(oldests_post[g]), bounds
-        )
-        verdicts.append(v)
-        pressures.append(p)
-    return states, torch.stack(verdicts), torch.stack(pressures)
+    """``resolve_many_spread`` on one stacked state. Updates ``states`` IN
+    PLACE. Returns (states, verdicts int8[G, T], pressures int32[G, P, 2])."""
+    verdicts, pressures = resolve_many_spread(
+        Spread.of(states, bounds), [batches], nows, oldests_pre, oldests_post
+    )
+    return states, verdicts, pressures
 
 
 # ---------------------------------------------------------------------------
@@ -273,12 +424,38 @@ def rebase_parts_plain(states, delta: int) -> G.GridState:
     )
 
 
+def reshard_spread(spread: Spread, n_buckets: int, n_slots: int) -> Spread:
+    """``reshard_parts`` on every entry (the capacity growth)."""
+    return spread.map(lambda states: reshard_parts(states, n_buckets, n_slots)[0])
+
+
+def reshard_spread_partition(spread: Spread, p: int, n_buckets: int, n_slots: int):
+    """``reshard_partition`` of global partition p on its entry. Returns
+    (new spread, pressure int)."""
+    e, i = spread.entry_of(p)
+    states, pressure = reshard_partition(spread.entries[e].states, i, n_buckets, n_slots)
+    return spread.replace(e, states), pressure
+
+
+def rebase_spread(spread: Spread, delta: int) -> Spread:
+    """``rebase_parts`` on every entry."""
+    return spread.map(lambda states: rebase_parts(states, delta))
+
+
 def stacked_occupancy_stats(states: G.GridState) -> dict:
     """Per-partition occupancy gauges over a stacked state. Reads only the
     small count array."""
-    counts = states.count.cpu().numpy()  # [n_parts, B]
+    return occupancy_stats(states.count.cpu().numpy(), states.grid.shape[2])
+
+
+def spread_occupancy_stats(spread: Spread) -> dict:
+    """``stacked_occupancy_stats`` of the gathered spread, from the counts."""
+    return occupancy_stats(spread.counts(), spread.entries[0].states.grid.shape[2])
+
+
+def occupancy_stats(counts: np.ndarray, S: int) -> dict:
+    """The gauges from the live rows per bucket, int32[n_parts, B]."""
     n_parts, B = counts.shape
-    S = states.grid.shape[2]
     per_part = counts.sum(axis=1)
     worst = int(counts.max(initial=0))
     return {

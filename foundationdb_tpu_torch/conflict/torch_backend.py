@@ -564,7 +564,7 @@ class TorchConflictSet(ConflictSet):
             v_host.copy_(verdicts, non_blocking=True)
             p_host.copy_(pressure, non_blocking=True)
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(verdicts.device))
             group["verdicts"], group["pressure"], group["event"] = v_host, p_host, done
         else:
             group["verdicts"], group["pressure"], group["event"] = verdicts, pressure, None

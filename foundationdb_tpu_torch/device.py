@@ -29,12 +29,17 @@ INT32_MIN = -(1 << 31)
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card. Raises ``DeviceUnavailableError`` when
-    CUDA is asked for (by default or explicitly) and no card is visible."""
+    CUDA is asked for (by default or explicitly) and no card is visible, or
+    ``cuda:N`` names a card past the visible ones."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise DeviceUnavailableError(
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch versions"
+        )
+    if dev.type == "cuda" and dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise DeviceUnavailableError(
+            f"{dev} requested but {torch.cuda.device_count()} CUDA card(s) are visible"
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")

@@ -66,24 +66,31 @@ def _note_device(h, snap: dict) -> None:
     from ..conflict.kernels import launch_counts
 
     if h.kind == "resolver" and isinstance(snap.get("kernel"), dict):
-        dev = getattr(getattr(h.obj.cs, "primary", None), "_device", None)
+        primary = getattr(h.obj.cs, "primary", None)
+        dev = getattr(primary, "_device", None)
         kind = getattr(dev, "type", "host")
+        devices = getattr(primary, "_devices", [dev] if dev is not None else [])
         snap["kernel"] = dict(snap["kernel"], device=kind, launches=launch_counts(),
-                              cardMemory=_card_memory(kind))
+                              cardMemory=_card_memory(devices))
     elif h.kind == "storage":
         index = getattr(h.obj, "_range_index", None)
         snap["indexDevice"] = None if index is None else index._codes.device.type
         snap["indexLaunches"] = launch_counts()["search"]
-        snap["cardMemory"] = _card_memory(snap["indexDevice"])
+        snap["cardMemory"] = _card_memory([] if index is None else [index._codes.device])
 
 
-def _card_memory(device_type) -> dict:
-    """The card memory this process's tensors hold, on ``cuda``; else None."""
-    if device_type != "cuda":
-        return None
+def _card_memory(devices) -> dict:
+    """The card memory this process's tensors hold on the cards among
+    ``devices`` (a spread resolver's are several), summed over the
+    distinct cards; None where none is a card."""
     import torch
 
-    return {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved()}
+    cards = {torch.device("cuda", torch.cuda.current_device() if d.index is None else d.index)
+             for d in devices if d.type == "cuda"}
+    if not cards:
+        return None
+    return {"allocated": sum(torch.cuda.memory_allocated(d) for d in cards),
+            "reserved": sum(torch.cuda.memory_reserved(d) for d in cards)}
 
 
 class Worker:

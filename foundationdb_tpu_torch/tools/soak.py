@@ -75,9 +75,10 @@ def random_config(rng) -> tuple[ClusterConfig, int, int]:
 
 def port_backend(name: str) -> str:
     """The port's conflict backend for a name the reference's draws give:
-    ``tpu`` and ``tpu1`` are one grid on one card, as the reference builds
-    them on one device."""
-    return "torch" if name in ("tpu", "tpu1") else name
+    ``tpu`` is ``torch`` (the spread mesh on a host with several cards, one
+    grid on one card, as the reference's ``tpu`` on its devices) and
+    ``tpu1`` is ``torch1``, one grid always."""
+    return {"tpu": "torch", "tpu1": "torch1"}.get(name, name)
 
 
 def run_one(

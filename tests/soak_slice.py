@@ -17,8 +17,9 @@ The reference's ``tpu`` draw is its mesh when JAX shows several devices
 and one grid otherwise. ``mesh`` picks one for both packages: the
 reference's mesh on ``tests/conftest.py``'s 8 virtual devices against the
 port's ``torch_mesh`` with 8 partitions (the port's ``tools.soak`` maps
-``tpu`` to one grid, so the run patches its ``port_backend``), or the
-reference's ``tpu1`` against the port's ``torch``. ``mixed_soak`` and ``watch_storm`` build
+``tpu`` to ``torch``, one grid on a CPU run, so the run patches its
+``port_backend``), or the reference's ``tpu1`` against the port's
+``torch`` (``torch1`` where the run pins ``tpu1``). ``mixed_soak`` and ``watch_storm`` build
 their cluster with the default backend, ``torch`` in the port and
 ``oracle`` in the reference: both run ``oracle`` here. Their subject is
 the storage engine and the watches, and with ``tpu1`` the reference's
@@ -56,12 +57,13 @@ def site_name(site) -> str:
 
 
 def backend_name(name: str, mesh: bool = False) -> str:
-    """A conflict backend under the port's name: ``tpu1`` is one grid
-    (``torch``); ``tpu`` is one grid too, or with ``mesh`` the 8-partition
-    ``torch_mesh`` the reference's mesh stands against."""
+    """A conflict backend under the port's name: ``tpu1`` is the pinned
+    one grid (``torch1``); ``tpu`` is ``torch`` (one grid on a host of one
+    card), or with ``mesh`` the 8-partition ``torch_mesh`` the reference's
+    mesh stands against."""
     if name == "tpu" and mesh:
         return "torch_mesh"
-    return "torch" if name in ("tpu", "tpu1") else name
+    return {"tpu": "torch", "tpu1": "torch1"}.get(name, name)
 
 
 @contextlib.contextmanager

@@ -206,6 +206,60 @@ def test_mesh_backend_on_card_matches_cpu_backend(cuda):
         _eq(a, b)
 
 
+def test_spread_over_one_card_equals_the_one_stack(cuda):
+    """The spread mesh over ``[cuda:0] * 4`` (placement, exchange,
+    maintenance, replay) gives the one stack's verdicts and, gathered, its
+    state tensor for tensor; K2 and K6 launch once an entry a batch."""
+    work = _work(11, batches=16, spread=True)
+    kw = dict(key_width=12, capacity=1 << 10, n_parts=4)
+    stack = TorchMeshConflictSet(**kw)
+    spread = TorchMeshConflictSet(devices=[cuda] * 4, **kw)
+    want = [stack.detect_batch(txs, now, old) for txs, now, old in work]
+    kernels.reset_launch_counts()
+    assert [spread.detect_batch(txs, now, old) for txs, now, old in work] == want
+    for a, b in zip(spread._states, stack._states):
+        _eq(a, b)
+    assert len(spread._spread.entries) == 4 and spread._targets == [torch.device("cuda", 0)]
+    counts = kernels.launch_counts()
+    dispatched = spread.metrics.snapshot()["deviceDispatches"]
+    for name in ("history_parts", "intra_batch", "stage_parts", "merge_parts"):
+        assert counts[name] == 4 * dispatched, (name, counts)
+    assert spread.metrics.snapshot()["occupancy"] == stack.metrics.snapshot()["occupancy"]
+
+
+def test_wrappers_launch_on_their_tensors_card(cuda):
+    """K6 history and K5 on the last card, with the current device left at
+    card 0, equal their plain versions; the spread over every card equals
+    the one stack."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs more than one card")
+    last = torch.device("cuda", n - 1)
+    assert torch.cuda.current_device() == 0
+    work = _work(12, batches=8, spread=True)
+    kw = dict(key_width=12, capacity=1 << 10, n_parts=n)
+    stack = TorchMeshConflictSet(device=CPU, **kw)
+    spread = TorchMeshConflictSet(devices=[torch.device("cuda", i) for i in range(n)], **kw)
+    for txs, now, old in work:
+        assert spread.detect_batch(txs, now, old) == stack.detect_batch(txs, now, old)
+    for a, b in zip(spread._states, stack._states):
+        _eq(a, b)
+    states = stack._states
+    hb = TB.encode_transactions(work[-1][0], 12, stack._base)
+    pb = TB.upload(hb, CPU)
+    bounds = SH.partition_bounds(3, n, CPU)
+    _eq(kernels.history_parts(*_to(states, last), *(b.to(last) for b in bounds), *(
+        x.to(last) for x in (pb.rb, pb.re, pb.t_snap))), SH.history_conflicts_sharded_plain(states, pb, *bounds))
+    rnd = np.random.default_rng(1)
+    codes = np.sort(rnd.integers(0, 1 << 40, 5000, dtype=np.uint64))
+    rows = np.stack([codes >> 32, codes & 0xFFFFFFFF], axis=1).astype(np.uint32)
+    q = np.concatenate([rows[rnd.integers(0, 5000, 256)], rnd.integers(0, 300, (256, 2), dtype=np.uint32)])
+    rt, qt = (torch.from_numpy(x.view(np.int32)) for x in (rows, q))
+    for k, p in zip(G.search_both(rt.to(last), qt.to(last)), G.search_both(rt, qt)):
+        assert k.device == last
+        _eq(k, p)
+
+
 def test_range_index_on_card_matches_cpu(cuda):
     rnd = random.Random(1)
     keys = sorted({b"%012d" % rnd.randrange(10**9) for _ in range(5000)})

@@ -1,11 +1,17 @@
 """The port's partitioned backend (TorchMeshConflictSet on the CPU) held
 against the JAX package's MeshConflictSet on a CPU device mesh and against
-the port's oracle: identical verdicts on every batch, identical stacked
-grid state, and the same maintenance (replays, reshards, growth, rebases)
-on the shapes of tests/test_mesh_backend.py and tests/test_sharded_grid.py.
+the port's oracle: identical verdicts and per-batch pressures on every
+batch, identical gathered grid state, occupancy and maintenance (replays,
+reshards, growth, rebases) on the shapes of tests/test_mesh_backend.py and
+tests/test_sharded_grid.py, each in three layouts of the partitions: one
+stack (``devices=None``), one entry a partition (``["cpu"] * n_parts``,
+the reference's mesh) and two partitions an entry.
 """
 
+import gc
+import itertools
 import random
+import weakref
 
 import numpy as np
 import pytest
@@ -13,6 +19,7 @@ import torch
 
 from foundationdb_tpu.conflict.api import CommitTransaction as JTxn
 from foundationdb_tpu.conflict.mesh_backend import MeshConflictSet
+from foundationdb_tpu.conflict.sharded import make_sharded_states as j_make_sharded_states
 from foundationdb_tpu_torch.conflict import sharded as TS
 from foundationdb_tpu_torch.conflict.api import CommitTransaction, Verdict, new_conflict_set
 from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
@@ -33,14 +40,44 @@ def _jtxs(txs):
     ]
 
 
-class Pair:
-    """The port's mesh backend, the JAX mesh backend and the port's
-    oracle, fed the same batches; every call asserts identical verdicts."""
+# the layouts of the port's partitions: one stack, one entry a partition,
+# two partitions an entry
+LAYOUTS = ("stack", "each", "pairs")
 
-    def __init__(self, **kw):
-        self.port = new_conflict_set("torch_mesh", device="cpu", **kw)
+
+def layout_devices(layout, n_parts):
+    return {"stack": None, "each": ["cpu"] * n_parts, "pairs": ["cpu"] * (n_parts // 2)}[layout]
+
+
+def pressure_log(cs) -> dict:
+    """Every group's per-batch pressures [G, P, 2] as its last dispatch
+    left them (a replay dispatches a group again), by dispatch order."""
+    log, order = {}, itertools.count()
+    real = cs._dispatch
+
+    def dispatch(group):
+        real(group)
+        log[group.setdefault("seq", next(order))] = group["pressures"]
+
+    cs._dispatch = dispatch
+    return log
+
+
+def pressures(log) -> np.ndarray:
+    return np.concatenate([np.asarray(log[n]) for n in sorted(log)])
+
+
+class Pair:
+    """The port's mesh backend (its partitions in ``layout``), the JAX mesh
+    backend and the port's oracle, fed the same batches; every call
+    asserts identical verdicts."""
+
+    def __init__(self, layout="stack", **kw):
+        devices = layout_devices(layout, kw["n_parts"])
+        self.port = new_conflict_set("torch_mesh", device="cpu", devices=devices, **kw)
         self.jax = MeshConflictSet(**kw)
         self.oracle = new_conflict_set("oracle")
+        self.logs = (pressure_log(self.port), pressure_log(self.jax))
 
     def batch(self, txs, now, oldest):
         got = self.port.detect_batch(txs, now, oldest)
@@ -51,9 +88,10 @@ class Pair:
 
     def assert_same_state(self):
         for field, a, b in zip(
-            TS.G.GridState._fields, self.jax._states, TS.states_to_numpy(self.port._states)
+            TS.G.GridState._fields, self.jax._states, TS.gather_to_numpy(self.port._spread)
         ):
             np.testing.assert_array_equal(np.asarray(a), b, err_msg=field)
+        np.testing.assert_array_equal(*map(pressures, self.logs))
         pm, jm = self.port.metrics.snapshot(), self.jax.metrics.snapshot()
         assert {k: pm[k] for k in MAINTENANCE} == {k: jm[k] for k in MAINTENANCE}
         assert self.port._B == self.jax._B
@@ -85,20 +123,22 @@ def test_factory_builds_the_mesh_backend():
     assert cs._states.grid.shape == (2, 32, 32, 9)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("n_parts", [2, 4])
-def test_mesh_matches_jax_mesh(n_parts):
+def test_mesh_matches_jax_mesh(n_parts, layout):
     """tests/test_mesh_backend.py:48 — ASCII keys, all in partition 0."""
-    pair = Pair(key_width=12, capacity=1 << 12, n_parts=n_parts)
+    pair = Pair(layout, key_width=12, capacity=1 << 12, n_parts=n_parts)
     for i, txs in enumerate(make_batches(8, 48, seed=3)):
         pair.batch(txs, now=i + 20, oldest=i)
     pair.assert_same_state()
 
 
-def test_mesh_matches_jax_mesh_wide_ranges():
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_mesh_matches_jax_mesh_wide_ranges(layout):
     """tests/test_mesh_backend.py:59 — clears spanning partitions and
     point writes."""
     rnd = random.Random(9)
-    pair = Pair(key_width=12, capacity=1 << 12, n_parts=4)
+    pair = Pair(layout, key_width=12, capacity=1 << 12, n_parts=4)
     for i in range(6):
         txs = []
         for _ in range(24):
@@ -121,13 +161,16 @@ def test_mesh_matches_jax_mesh_wide_ranges():
     pair.assert_same_state()
 
 
-def test_mesh_pipelined_async_and_clear():
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_mesh_pipelined_async_and_clear(layout):
     """tests/test_mesh_backend.py:90 — three groups dispatched before any
     is collected, then clear()."""
     batches = make_batches(6, 32, seed=5)
-    port = TorchMeshConflictSet(key_width=12, capacity=1 << 12, n_parts=2, device="cpu")
+    port = TorchMeshConflictSet(key_width=12, capacity=1 << 12, n_parts=2, device="cpu",
+                                devices=layout_devices(layout, 2))
     jmesh = MeshConflictSet(key_width=12, capacity=1 << 12, n_parts=2)
     oracle = new_conflict_set("oracle")
+    logs = (pressure_log(port), pressure_log(jmesh))
     got, want = [], []
     for cs, out, wrap in ((port, got, list), (jmesh, want, _jtxs)):
         handles = [
@@ -139,6 +182,7 @@ def test_mesh_pipelined_async_and_clear():
         for h in handles:
             out.extend([int(v) for v in vs] for vs in h())
     assert got == want
+    np.testing.assert_array_equal(*map(pressures, logs))
     for i, txs in enumerate(batches):
         assert [Verdict(v) for v in got[i]] == oracle.detect_batch(txs, i + 20, i)
     port.clear(100)
@@ -153,13 +197,14 @@ def _spread_key(i, keyspace):
     return bytes([int(255 * i / (keyspace + 64)) % 256]) + (b"%06d" % i)
 
 
-def test_mesh_reshard_on_overflow_matches_jax():
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_mesh_reshard_on_overflow_matches_jax(layout):
     """tests/test_sharded_grid.py:127 — concentrated traffic over a tiny
     grid overflows the staging planes: the replay ladder (device
     rebalance, host reshard from the key sample, growth) and the
     proactive rebalances must run exactly as in the reference."""
     rnd = random.Random(13)
-    pair = Pair(key_width=8, capacity=1 << 7, n_parts=2)
+    pair = Pair(layout, key_width=8, capacity=1 << 7, n_parts=2)
     ks = 4000
     for i in range(10):
         txs = []
@@ -180,11 +225,12 @@ def test_mesh_reshard_on_overflow_matches_jax():
     assert all(n > 0 for n in snap["occupancy"]["liveRowsPerPartition"])
 
 
-def test_mesh_rebase_across_partitions_matches_jax():
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_mesh_rebase_across_partitions_matches_jax(layout):
     """Versions that cross the int32 rebase threshold: the stacked grid is
     rebased over every partition at once, as the reference's vmap does."""
     rnd = random.Random(21)
-    pair = Pair(key_width=8, capacity=1 << 10, n_parts=4)
+    pair = Pair(layout, key_width=8, capacity=1 << 10, n_parts=4)
     v0 = (1 << 30) - 6
     for i in range(10):
         txs = []
@@ -200,3 +246,89 @@ def test_mesh_rebase_across_partitions_matches_jax():
         pair.batch(txs, now=v0 + i + 5, oldest=v0 + i - 3)
     pair.assert_same_state()
     assert pair.port.metrics.snapshot()["rebases"] >= 1
+
+
+def _spread_batches(n_batches, n_txns, keyspace, seed):
+    """Batches of ranges over the whole first-byte range (every partition
+    gets keys), read at snapshot i, as the overflow case draws them."""
+    rnd = random.Random(seed)
+    out = []
+    for i in range(n_batches):
+        txs = []
+        for _ in range(n_txns):
+            a, c = rnd.randrange(keyspace), rnd.randrange(keyspace)
+            txs.append(CommitTransaction(
+                read_snapshot=i,
+                read_conflict_ranges=[(_spread_key(a, keyspace), _spread_key(a + 2, keyspace))],
+                write_conflict_ranges=[(_spread_key(c, keyspace), _spread_key(c + 1, keyspace))],
+            ))
+        out.append(txs)
+    return out
+
+
+@pytest.mark.parametrize("layout", ["each", "pairs"])
+def test_host_reshard_of_a_partition_whose_neighbour_is_on_another_entry(layout):
+    """The host reshard of partition 1 bounds its candidates by partition
+    2's first pivot: on another entry in both layouts (and a forced one,
+    then batches on top, equal the reference's)."""
+    pair = Pair(layout, key_width=8, capacity=1 << 10, n_parts=4)
+    assert pair.port._spread.entry_of(1)[0] != pair.port._spread.entry_of(2)[0]
+    batches = _spread_batches(8, 64, 3000, seed=17)
+    for i, txs in enumerate(batches[:4]):
+        pair.batch(txs, now=i + 20, oldest=max(i - 3, 0))
+    pair.port._host_reshard_partition(1)
+    pair.jax._host_reshard_partition(1)
+    pair.jax._states = pair.jax._jax.device_put(pair.jax._states, pair.jax._sharding)
+    for i, txs in enumerate(batches[4:], start=4):
+        pair.batch(txs, now=i + 20, oldest=max(i - 3, 0))
+    pair.assert_same_state()
+    assert pair.port.metrics.snapshot()["reshardsHost"] >= 1
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_growth_reshards_every_entry(layout):
+    """Growth doubles every partition's buckets on every entry, the live
+    rows rebalanced as the reference's vmap does; batches on top agree."""
+    pair = Pair(layout, key_width=8, capacity=1 << 10, n_parts=4)
+    batches = _spread_batches(6, 64, 3000, seed=23)
+    for i, txs in enumerate(batches[:3]):
+        pair.batch(txs, now=i + 20, oldest=max(i - 3, 0))
+    pair.port._grow()
+    pair.jax._grow()
+    assert all(e.states.grid.shape[1] == pair.port._B for e in pair.port._spread.entries)
+    for i, txs in enumerate(batches[3:], start=3):
+        pair.batch(txs, now=i + 20, oldest=max(i - 3, 0))
+    pair.assert_same_state()
+    assert pair.port.metrics.snapshot()["capacityGrowths"] == 1
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_close_drops_every_entrys_tensors(layout):
+    cs = TorchMeshConflictSet(key_width=8, capacity=1 << 10, n_parts=4, device="cpu",
+                              devices=layout_devices(layout, 4))
+    for i, txs in enumerate(_spread_batches(3, 32, 3000, seed=29)):
+        cs.detect_batch(txs, i + 20, i)
+    handle = cs.detect_many_encoded_async([(cs.encode(_spread_batches(1, 8, 3000, seed=31)[0]), 30, 3)])
+    refs = [weakref.ref(t) for e in cs._spread.entries for t in (*e.states, e.plo, e.phi)]
+    occupancy = cs.metrics.snapshot()["occupancy"]
+    cs.close()
+    del handle
+    gc.collect()
+    assert cs._spread is None and cs._states is None
+    assert not [r for r in refs if r() is not None]
+    assert cs.metrics.snapshot()["occupancy"] == occupancy
+
+
+@pytest.mark.parametrize("n_entries", [1, 2, 4])
+def test_spread_from_numpy_then_gather_is_the_identity(n_entries):
+    """A JAX mesh state carried into a spread and read back, bit for bit."""
+    jmesh = MeshConflictSet(key_width=8, capacity=1 << 10, n_parts=4)
+    for i, txs in enumerate(_spread_batches(3, 32, 3000, seed=37)):
+        jmesh.detect_batch(_jtxs(txs), i + 20, i)
+    for want in (jmesh._states, j_make_sharded_states(4, 16, 8, 3)):
+        arrays = tuple(np.asarray(x) for x in want)
+        spread = TS.spread_from_numpy(*arrays, ["cpu"] * n_entries)
+        assert len(spread.entries) == n_entries and spread.n_parts == 4
+        for a, b in zip(arrays, TS.gather_to_numpy(spread)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)

@@ -106,7 +106,7 @@ def _reply_tuple(rep):
     return (list(rep.committed), state, rep.committed_ranges, rep.version_floor)
 
 
-def _drive(mods, backend, loop_kind, threads, seed):
+def _drive(mods, backend, loop_kind, threads, seed, **backend_kw):
     """All requests spawned at once (the proxies' pipelining); returns the
     replies in request order, the resolver's kernel snapshot and health."""
     loop_mod, fut_mod, _ifs, knobs_cls, res_cls, _m, _t = mods
@@ -123,6 +123,7 @@ def _drive(mods, backend, loop_kind, threads, seed):
     kw = {"n_parts": 4} if backend in ("torch_mesh", "mesh") else {}
     if mods is PORT:
         kw["device"] = "cpu"
+    kw.update(backend_kw)
     r = res_cls(knobs=knobs, backend=backend, uid="r0", **kw)
     try:
         futs = [fut_mod.spawn(r.resolve(q)) for q in _requests(mods, _workload(seed))]
@@ -155,6 +156,21 @@ def test_resolver_replies_equal_jax_request_for_request(backend, loop_kind, thre
     assert health["backend"] == {"torch": "TorchConflictSet",
                                  "torch_mesh": "TorchMeshConflictSet"}[backend]
     assert j_health["backend"] == _JAX_BACKEND[backend]
+
+
+@pytest.mark.parametrize("backend, devices", [("torch_mesh", ["cpu"] * 4), ("torch1", None)])
+def test_spread_and_pinned_resolvers_equal_jax(backend, devices):
+    """``torch_mesh`` with its 4 partitions spread over 4 CPU entries
+    against the JAX ``mesh``, and the pinned ``torch1`` against ``tpu1``:
+    the guard threads the knobs into both and keeps them HEALTHY."""
+    kw = {"devices": devices} if devices else {}
+    got, kernel, health = _drive(PORT, backend, "sim", 0, 4, **kw)
+    want, j_kernel, j_health = _drive(JAX, {"torch_mesh": "mesh", "torch1": "tpu1"}[backend], "sim", 0, 4)
+    assert got == want
+    assert kernel["rebases"] == j_kernel["rebases"] >= 1
+    assert kernel["occupancy"] == j_kernel["occupancy"]
+    assert health["state"] == j_health["state"] == HEALTHY
+    assert health["backend"] == {"torch_mesh": "TorchMeshConflictSet", "torch1": "TorchConflictSet"}[backend]
 
 
 def test_retransmit_replays_the_cached_reply():

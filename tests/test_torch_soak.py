@@ -36,7 +36,7 @@ def test_soak_seed_4_equals_the_reference_until_its_first_kernel_fault():
 
 
 def test_backend_draws_map_to_the_ports_names():
-    assert [soak.port_backend(n) for n in ("oracle", "tpu", "tpu1")] == ["oracle", "torch", "torch"]
+    assert [soak.port_backend(n) for n in ("oracle", "tpu", "tpu1")] == ["oracle", "torch", "torch1"]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is visible")

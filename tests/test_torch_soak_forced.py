@@ -1,6 +1,6 @@
 """``tests/test_soak.py``'s pinned kernel-fault cases in the port:
 ``run_one(0, force_kernel_faults=True)`` and the composition with the
-overload burst. Both pin the single grid (the port's ``torch``, the JAX
+overload burst. Both pin the single grid (the port's ``torch1``, the JAX
 ``tpu1``) and are held to the reference across their kernel faults
 (``tests/soak_cases.py``); in the port the kernel-fault sites fire, the
 guard fails over and the summary names every fired site."""
