@@ -30,8 +30,8 @@ card). Phases, each of which raises on failure:
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
    committed clear spans the whole keyspace;
-6. after phases 7 to 18: print the kernel table (every kernel of the
-   paths, the spread's resolve kernels, K5 also at the storage shapes, K1-K3 and K5 also on the commit
+6. after phases 7 to 19: print the kernel table (every kernel of the
+   paths, the spread's and the data replicas' resolve kernels, K5 also at the storage shapes, K1-K3 and K5 also on the commit
    path, in the dynamic cluster, in the soak and in the in-process TCP
    cluster, K5 also on the B-tree's index), the card line and the result
    line;
@@ -60,6 +60,21 @@ card). Phases, each of which raises on failure:
    entry's state; (c) where more than one card is visible, K6 history and
    K5 launched on the last card, not the current one, against their plain
    versions. One ``{"spread": ...}`` line;
+19. right after phase 18, the mesh's ``data`` axis (``Spread`` rows of
+   replicas that split the read slots): (a) ``tools.multichip``'s
+   ``dryrun_multichip(8)`` over 8 cards or ``[cuda:0] * 8`` (4 partitions
+   x 2 replicas), its figures equal to its CPU twin's, and
+   ``dryrun_sweep(8, 6, 192)`` with every verdict the native's; (b)
+   phase 7's workload, reshard and rebase through 4 partitions x 2
+   replicas on ``[cuda:0] * 8`` (and in rows of two cards where there is
+   an even number of them): every verdict the oracle's, every replica's
+   final state phase 7's, 8 x 200 launches of K6 history, K2, K6 staging
+   and K6 merge, KR = 1 padded to 2; (c) 40 batches of 8 reads a
+   transaction through 4 x 2 and 4 x 1: verdicts equal to each other and
+   to the oracle (computed in a child process meanwhile), states equal,
+   and the 4 x 2 run's resolve kernels on its last replica (K6 history on
+   its half of the read slots) held to their plain versions; card memory
+   back after ``close()``. One ``{"data_mesh": ...}`` line;
 8. the storage range index at ``bench.py``'s shape: 1M random 12-byte
    keys at width 32 (2^20 × 8 lanes = 32 MiB of codes on the card), 50
    rounds of 4096 lookups (70 % hits) and 4096 range queries, every answer
@@ -75,9 +90,12 @@ card). Phases, each of which raises on failure:
    Every kernel is held against its plain version; one JSON line each;
 10. the resolver role, ``server/resolver.py`` over the guarded conflict
    set, on a RealLoop with all 200 requests of the main workload spawned
-   at once (the proxies' pipelining): ``Resolver(backend="torch")`` and
-   ``"torch_mesh"`` (4 partitions, the spread keys), each with
-   CONFLICT_ENCODE_THREADS 1 and 0, every verdict equal to the oracle's
+   at once (the proxies' pipelining): ``Resolver(backend="torch1")`` (the
+   one grid, pinned) with CONFLICT_ENCODE_THREADS 1, ``"torch"`` (what the
+   host builds: the one grid on one card, the spread over every card on
+   more; the gates follow it, as they do in phases 11 and 13-16) with 0,
+   and ``"torch_mesh"`` (4 partitions, the spread keys) with 1 and 0,
+   every verdict equal to the oracle's
    from phase 3; versions step by 100,000 a batch, so the resolver's
    5,000,000-version MVCC window is the main phase's 50 batches, and they
    cross the int32 rebase. The guard must stay HEALTHY with no fault,
@@ -228,7 +246,8 @@ read just after, and every kernel of the path must have launched.
 Exits non-zero, without a result line, when no CUDA card is visible.
 Usage: ``python3 chip_smoke.py``; ``--tcp-only`` runs phases 1, 2 and 16
 alone and prints phase 16's kernel rows but no result line, and
-``--btree-only`` likewise phases 1, 2 and 17;
+``--btree-only`` likewise phases 1, 2 and 17; ``--spread-only`` and
+``--data-only`` run phases 1, 2, 7 (with phase 3's oracle) and 18 or 19;
 ``python3 chip_smoke.py --profile-only``
 prints only the two resolver paths' profile lines (each path warmed by one
 group first) and no result line, and runs from any checkout of the port;
@@ -268,6 +287,7 @@ INDEX_BATCH = 4096
 INDEX_ROUNDS = 50
 PROFILE_BATCHES = 10  # the steady window of the per-batch launch and time split
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way (900 GB/s all to all)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core rate (used for int ops)
 
 
@@ -921,11 +941,14 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     return rows
 
 
-def check_parts_resolve(states, batch, bounds, vers, launches: dict, k2: bool = False) -> list[dict]:
+def check_parts_resolve(states, batch, bounds, vers, launches: dict, k2: bool = False,
+                        reads=None) -> list[dict]:
     """K6 history (also on keyspace-wide reads), with ``k2`` K2, then the
     K6 staging and merge against their plain versions on the card, on a
     stacked state of P partitions with their ``bounds`` (plo, phi) and an
-    uploaded batch; exact equality, CUDA-event times."""
+    uploaded batch; exact equality, CUDA-event times. ``reads`` (rb, re):
+    a data replica's slice of the read slots, which its K6 history checks
+    (K2 still runs on the whole batch)."""
     from foundationdb_tpu_torch.conflict import grid as G
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict import sharded as SH
@@ -939,8 +962,9 @@ def check_parts_resolve(states, batch, bounds, vers, launches: dict, k2: bool = 
     row = row_maker(rows, launches)
 
     # K6 history over the partitions, reads clipped in the kernel
-    rows += check_history(states, batch, launches, (plo, phi))[0]
-    hk = kernels.history_parts(*states, plo, phi, batch.rb, batch.re, batch.t_snap)
+    hbatch = batch if reads is None else batch._replace(rb=reads[0], re=reads[1])
+    rows += check_history(states, hbatch, launches, (plo, phi))[0]
+    hk = kernels.history_parts(*states, plo, phi, hbatch.rb, hbatch.re, batch.t_snap)
     H = hk | (batch.t_has_reads & (batch.t_snap < old_pre))
     commit = check_intra_batch(batch, H, row) if k2 else G.intra_batch_commits(batch, H)
 
@@ -1122,6 +1146,26 @@ def run_mesh(want_oracle, offset: int, card: str):
     return rows, batches, phase7
 
 
+def exchange_bound(flags: list) -> float:
+    """The least time of ``sharded.exchange`` over these flags (bool[T] an
+    entry), the larger of: the ORs on entry 0's card (each reads two flags
+    and writes one) over its memory rate, and the flags of entries on
+    other cards into entry 0's card over one NVLink direction (the copies
+    back go out the other way at the same time)."""
+    T = flags[0].numel()
+    remote = sum(f.device != flags[0].device for f in flags)
+    return max(3 * T * (len(flags) - 1) / HBM_BYTES_PER_S, remote * T / NVLINK_BYTES_PER_S) * 1e3
+
+
+def warm_cublas(n: int) -> None:
+    """K2's plain version is a matmul: a card's first one allocates the
+    cuBLAS workspace (32 MiB on the H100), held for the process's life, so
+    a phase with a memory gate makes it on each of the ``n`` cards before
+    its baseline, where phase 5 did not run before it."""
+    for i in range(n):
+        torch.ones(8, 8, device=torch.device("cuda", i)) @ torch.ones(8, 8, device=torch.device("cuda", i))
+
+
 def cards_allocated() -> int:
     """Bytes the allocator holds for live tensors, over every card."""
     return sum(torch.cuda.memory_allocated(i) for i in range(torch.cuda.device_count()))
@@ -1148,68 +1192,93 @@ def check_upgrade(n_cards: int) -> str:
         cs.close()
 
 
-def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: str) -> dict:
-    """Phase 18 (b), one layout: the spread mesh over ``devices`` on phase
-    7's workload, its gates, its figures and, on the last entry's state,
-    its resolve kernels against their plain versions."""
+def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: str,
+                maintenance: bool = True, profile: bool = True, checks: bool = True) -> dict:
+    """Phase 18 (b), one layout, and phase 19 (b) and (c): the spread mesh
+    over ``devices`` (a list, or rows of ``data`` replicas) on ``batches``,
+    its gates, its figures and, on the last entry's state, its resolve
+    kernels against their plain versions. With ``maintenance`` (phase 7's
+    200 batches), a partition reshard is forced before group 2 and the
+    versions cross the rebase, and both must have launched."""
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict import sharded as SH
     from foundationdb_tpu_torch.conflict import torch_backend as TB
     from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
 
-    label = f"{len(devices)} entries on {', '.join(str(d) for d in dict.fromkeys(devices))}"
+    rows_of = SH.device_grid(devices)
+    flat = [d for row in rows_of for d in row]
+    shape = f"{len(rows_of)} x {len(rows_of[0])} " if len(rows_of[0]) > 1 else ""
+    label = f"{shape}{len(flat)} entries on {', '.join(str(d) for d in dict.fromkeys(flat))}"
     cs = TorchMeshConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY, n_parts=n_parts, devices=devices)
     cs.warm_compile()
     for dev in cs._targets:
         torch.cuda.synchronize(dev)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    got, encode_s = drive(cs, batches, offset, force_at=2, force=reshard_partition_1)
+    got, encode_s = drive(cs, batches, offset, force_at=2 if maintenance else None, force=reshard_partition_1)
     for dev in cs._targets:
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     snap = cs.metrics.snapshot()
 
-    if len(got) != N_BATCHES or any(len(v) != N_TXNS for v in got):
+    n = len(batches)
+    if len(got) != n or any(len(v) != len(b) for v, b in zip(got, batches)):
         raise AssertionError(f"spread ({label}) returned verdicts of the wrong shape")
     bad = sum(a != b for vg, vo in zip(got, want_oracle) for a, b in zip(vg, vo))
     if bad:
         raise AssertionError(f"{bad} spread verdicts ({label}) differ from the oracle")
     per_part = snap["occupancy"]["liveRowsPerPartition"]
-    if not all(n > 0 for n in per_part):
+    if not all(k > 0 for k in per_part):
         raise AssertionError(f"a partition of the spread ({label}) holds no live rows: {per_part}")
     entries = len(cs._spread.entries)
-    want = {k: entries * N_BATCHES for k in ("history_parts", "intra_batch", "stage_parts", "merge_parts")}
+    want = {k: entries * n for k in SPREAD_PATH}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"spread ({label}) launches {launches}, want {want}")
     missing = [k for k in ("maint_reshard_parts", "maint_rebase_parts") if launches[k] <= 0]
-    if missing or snap["rebases"] < 1:
+    if maintenance and (missing or snap["rebases"] < 1):
         raise AssertionError(f"spread ({label}): maintenance never launched: {missing}, {snap['rebases']} rebases")
-    txns = N_BATCHES * N_TXNS
-    out = {"layout": label, "entries": entries, "n_parts": n_parts, "wall_s": wall, "encode_s": encode_s,
+    if not cs._spread.replicas_equal():
+        raise AssertionError(f"spread ({label}): the data replicas of a row differ")
+    txns = sum(len(b) for b in batches)
+    out = {"layout": label, "entries": entries, "part_rows": cs._spread.n_rows, "data": cs._spread.n_data,
+           "n_parts": n_parts, "batches": n, "wall_s": wall, "encode_s": encode_s,
            "txn_s": txns / wall, "txn_s_without_encode": txns / max(wall - encode_s, 1e-9),
-           "live_rows": per_part, "launches": launches, "state": SH.gather_to_numpy(cs._spread)}
+           "live_rows": per_part, "launches": launches, "replicas_equal": True,
+           "state": SH.gather_to_numpy(cs._spread), "verdicts": got}
+    if cs._spread.n_data > 1:  # every replica's own state, for the phase's gates
+        out["replica_states"] = [(cs._spread.per_entry * (i // cs._spread.n_data), SH.states_to_numpy(e.states))
+                                 for i, e in enumerate(cs._spread.entries)]
 
     # the exchange of one batch's H (bool[T] a entry), alone, on CUDA events
-    flags = [torch.zeros(N_TXNS, dtype=torch.bool, device=e.device) for e in cs._spread.entries]
+    flags = [torch.zeros(len(batches[0]), dtype=torch.bool, device=e.device) for e in cs._spread.entries]
     out["exchange_ms"] = cuda_ms(lambda: SH.exchange(flags), 200)
+    out["exchange_bound_ms"] = exchange_bound(flags)
 
-    # the resolve kernels on the last entry, at the path's shapes
+    # the resolve kernels on the last entry, at the path's shapes: its
+    # history on its own slice of the read slots
+    out["rows"] = []
     last = cs._spread.entries[-1]
     hbatch, _n, _epoch = cs.encode(batches[-1])
-    now = offset + N_BATCHES + WINDOW - cs._base
+    now = offset + n + WINDOW - cs._base
     old = max(cs.oldest_version - cs._base, 0)
-    log(f"spread kernel checks on the final state of entry {entries - 1} ({last.device}) [{card}]:")
+    what = (f"entry {entries - 1}'s {cs._spread.per_entry} partition(s)"
+            + (f", read slice {last.replica} of {cs._spread.n_data}" if cs._spread.n_data > 1 else ""))
+    if checks:
+        log(f"spread kernel checks on the final state of {what} ({last.device}) [{card}]:")
     with torch.cuda.device(last.device):
-        rows = check_parts_resolve(last.states, TB.upload(hbatch, last.device), (last.plo, last.phi),
-                                   (now, old, old), launches, k2=True)
-    for r in rows:
-        r["name"] = f"{r['name']} (spread, {label}; entry {entries - 1}'s {n_parts // entries} partition(s))"
-    out["rows"] = rows
-    out["profile"] = profile_path(
-        cs, make_batches(PROFILE_BATCHES, N_TXNS, offset + N_BATCHES, seed=1, key=spread_key),
-        offset + N_BATCHES, f"spread over {label}", card)
+        batch = TB.upload(hbatch, last.device)
+        reads = SH.split_reads(batch.rb, batch.re, cs._spread.n_data)[last.replica]
+        if checks:
+            out["rows"] = check_parts_resolve(last.states, batch, (last.plo, last.phi), (now, old, old),
+                                              launches, k2=True, reads=reads)
+    for r in out["rows"]:
+        r["kernel"], r["name"] = r["name"], f"{r['name']} (spread, {label}; {what})"
+    out["shape"] = [*batch.rb.shape, batch.wb.shape[1], reads[0].shape[1]]  # T, KR, L, KW, the slice's KR
+    if profile:
+        out["profile"] = profile_path(
+            cs, make_batches(PROFILE_BATCHES, N_TXNS, offset + n, seed=1, key=spread_key),
+            offset + n, f"spread over {label}", card)
     cs.close()
     return out
 
@@ -1229,11 +1298,7 @@ def run_spread(batches, want_oracle, offset: int, phase7: dict, card: str) -> li
 
     t_phase = time.perf_counter()
     n = torch.cuda.device_count()
-    # K2's plain version is a matmul: a card's first one allocates the
-    # cuBLAS workspace (32 MiB on the H100), held for the process's life,
-    # so it goes first where phase 5 did not run before this phase
-    for i in range(n):
-        torch.ones(8, 8, device=torch.device("cuda", i)) @ torch.ones(8, 8, device=torch.device("cuda", i))
+    warm_cublas(n)
     gc.collect()
     torch.cuda.synchronize()
     m0 = cards_allocated()
@@ -1247,6 +1312,7 @@ def run_spread(batches, want_oracle, offset: int, phase7: dict, card: str) -> li
     for devices, n_parts in layouts:
         run = spread_path(devices, n_parts, batches, want_oracle, offset, card)
         state = run.pop("state")
+        del run["verdicts"]
         if n_parts == 4:
             for field, a, b in zip(G.GridState._fields, phase7["state"], state):
                 if not np.array_equal(a, b):
@@ -1297,6 +1363,192 @@ def check_card_kernels(dev, batches, offset: int, launches: dict) -> list[dict]:
         rows += check_search(codes.contiguous(), batch.rb[:, 0].contiguous(), launches)
     for r in rows:
         r["name"] = f"{r['name']} (on {dev}, not the current card)"
+    return rows
+
+
+# phase 19: the mesh's data axis. (a) the multi-card dry runs; (b) phase 7's
+# workload through part x data; (c) a group of wide reads, the commit
+# path's KR = 8 (PERF.md kernel table, "K1, commit path"), split over data
+DATA_ROWS, DATA_REPLICAS = 4, 2  # part x data of (b) and (c): dryrun_multichip(8)'s mesh
+DRY_DEVICES = 8
+SWEEP = (8, 6, 192)  # dryrun_sweep's defaults (__graft_entry__.py:188): parts, batches, txns
+WIDE_BATCHES = 40
+WIDE_READS = 8
+WIDE_SEED = 2
+
+
+def make_wide_batches(n_batches: int, n_txns: int, offset: int, seed: int = WIDE_SEED) -> list:
+    """Phase 19 (c)'s batches: WIDE_READS read ranges and one write range a
+    transaction, phase 7's spread keys, read at snapshot offset + i."""
+    from foundationdb_tpu_torch.conflict.api import CommitTransaction
+
+    rnd = random.Random(seed)
+    batches = []
+    for i in range(n_batches):
+        txs = []
+        for _ in range(n_txns):
+            reads = []
+            for _r in range(WIDE_READS):
+                a = rnd.randrange(KEYSPACE)
+                reads.append((spread_key(a), spread_key(a + 1 + rnd.randrange(10))))
+            c = rnd.randrange(KEYSPACE)
+            txs.append(CommitTransaction(offset + i, reads, [(spread_key(c), spread_key(c + 1 + rnd.randrange(10)))]))
+        batches.append(txs)
+    return batches
+
+
+def wide_oracle(n_batches: int, n_txns: int, offset: int, window: int) -> list:
+    """The oracle's verdicts (ints) over phase 19 (c)'s batches, resolved
+    as ``drive`` does with ``window``; phase 19 runs it in a child process
+    while (a) and (b) hold the card."""
+    from foundationdb_tpu_torch.conflict.api import new_conflict_set
+
+    oracle = new_conflict_set("oracle")
+    return [[int(v) for v in oracle.detect_batch(txs, offset + i + window, offset + i)]
+            for i, txs in enumerate(make_wide_batches(n_batches, n_txns, offset))]
+
+
+def run_dry_runs(card: str) -> dict:
+    """Phase 19 (a): ``tools.multichip.dryrun_multichip(8)`` over the host's
+    8 cards or ``[cuda:0] * 8``, its figures equal to its CPU twin's in this
+    process and K6 history, K2, K6 staging and K6 merge launched; then
+    ``dryrun_sweep(8, 6, 192)`` on the card, every verdict the native's."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.runtime.loop import set_loop
+    from foundationdb_tpu_torch.tools import multichip as MC
+
+    devs = MC.card_devices(DRY_DEVICES)
+    for dev in set(devs):
+        torch.cuda.synchronize(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = MC.dryrun_multichip(DRY_DEVICES, devices=devs, log=log)
+    for dev in set(devs):
+        torch.cuda.synchronize(dev)
+    card_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    twin = MC.dryrun_multichip(DRY_DEVICES, device="cpu", log=log)
+    cpu_s = time.perf_counter() - t0
+    set_loop(None)  # the drills' simulated clusters
+    figures = ("n_part", "n_data", "committed", "txns", "pressure", "parity", "moves", "gained")
+    differ = {k: (on_card[k], twin[k]) for k in figures if on_card[k] != twin[k]}
+    if differ:
+        raise AssertionError(f"dryrun_multichip on the card differs from its CPU twin: {differ}")
+    missing = [k for k in SPREAD_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"dryrun_multichip: kernels never launched: {missing} ({launches})")
+    t0 = time.perf_counter()
+    sweep = MC.dryrun_sweep(*SWEEP, log=log)
+    out = {"dryrun": {**{k: on_card[k] for k in figures}, "devices": on_card["devices"], "card_s": card_s,
+                      "cpu_twin_s": cpu_s, "equal_to_cpu_twin": True,
+                      "launches": {k: v for k, v in launches.items() if v}},
+           "sweep": {**sweep, "s": time.perf_counter() - t0}}
+    log(f"dry runs: dryrun_multichip(8) on {', '.join(dict.fromkeys(on_card['devices']))} in {card_s:.1f} s, "
+        f"equal to its CPU twin ({cpu_s:.1f} s); dryrun_sweep{SWEEP} " + ", ".join(
+            f"{r['parts']}p {r['txn_s']:.1f} txn/s ({r['ratio']:.2f}x)" for r in sweep["rows"]) + f" [{card}]")
+    return out
+
+
+def same_state(label: str, want: tuple, got: tuple, lo: int = 0) -> None:
+    """``got`` (numpy arrays of k partitions) equals partitions lo … lo + k - 1
+    of ``want``, array by array."""
+    import numpy as np
+
+    from foundationdb_tpu_torch.conflict import grid as G
+
+    for field, a, b in zip(G.GridState._fields, want, got):
+        if not np.array_equal(a[lo : lo + b.shape[0]], b):
+            raise AssertionError(f"{label}: {field} of partitions {lo}.. differs")
+
+
+def run_data(batches, want_oracle, offset: int, phase7: dict, card: str) -> list[dict]:
+    """Phase 19: the mesh's data axis. (a) ``run_dry_runs``; (b) phase 7's
+    workload, reshard and rebase through 4 partitions x 2 replicas on
+    ``[cuda:0] * 8`` (and in rows of two cards where there is an even
+    number of them): every verdict the oracle's, the final state in every
+    replica equal to phase 7's, the replicas equal, entries x 200 launches
+    of K6 history, K2, K6 staging and K6 merge, KR = 1 padded to 2; (c)
+    WIDE_BATCHES groups of WIDE_READS reads through 4 x 2 and phase 18's
+    4 x 1: verdicts equal to each other and to the oracle, states equal,
+    and the resolve kernels of the 4 x 2 run on its last replica held to
+    their plain versions. Card memory back after ``close()``. Returns the
+    kernel rows (those of (c))."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    cuda0 = torch.device("cuda", 0)
+    grid_of = [[cuda0] * DATA_REPLICAS for _ in range(DATA_ROWS)]
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        oracle_wide = pool.submit(wide_oracle, WIDE_BATCHES, N_TXNS, offset, WINDOW)
+        out = run_dry_runs(card)
+
+        warm_cublas(n)
+        gc.collect()
+        torch.cuda.synchronize()
+        m0 = cards_allocated()
+
+        # (b) phase 7's workload through part x data
+        layouts = [grid_of]
+        if n > 1 and n % 2 == 0:
+            layouts.append([[torch.device("cuda", 2 * r), torch.device("cuda", 2 * r + 1)] for r in range(n // 2)])
+        out["runs"] = []
+        for devices in layouts:
+            n_parts = 4 if 4 % len(devices) == 0 else len(devices)
+            run = spread_path(devices, n_parts, batches, want_oracle, offset, card, checks=False)
+            del run["verdicts"], run["rows"]
+            state = run.pop("state")
+            replicas = run.pop("replica_states")
+            if n_parts == 4:
+                same_state(f"data ({run['layout']}) gathered", phase7["state"], state)
+                for i, (lo, st) in enumerate(replicas):
+                    same_state(f"data ({run['layout']}) entry {i}", phase7["state"], st, lo)
+            out["runs"].append(run)
+            log(f"data path ({run['layout']}): {run['wall_s']:.3f} s, {run['txn_s']:.1f} txn/s end to end "
+                f"({run['txn_s_without_encode']:.1f} txn/s without {run['encode_s']:.3f} s of host encode); "
+                f"phase 7's one stack {N_BATCHES * N_TXNS / phase7['wall_s']:.1f}; every replica's state phase 7's; "
+                f"the exchange {run['exchange_ms']:.4f} ms a batch (CUDA events) [{card}]")
+
+        # (c) a group of wide reads, split over data, beside phase 18's 4 x 1
+        wide = make_wide_batches(WIDE_BATCHES, N_TXNS, offset)
+        t0 = time.perf_counter()
+        want_wide = oracle_wide.result()
+        oracle_wait_s = time.perf_counter() - t0
+    wide_runs = {}
+    for name, devices in (("4 x 2", grid_of), ("4 x 1", [cuda0] * DATA_ROWS)):
+        wide_runs[name] = spread_path(devices, 4, wide, want_wide, offset, card, maintenance=False, profile=False,
+                                      checks=name == "4 x 2")
+    a, b = wide_runs["4 x 2"], wide_runs["4 x 1"]
+    if a["verdicts"] != b["verdicts"]:
+        raise AssertionError("wide group: the 4 x 2 and 4 x 1 verdicts differ")
+    same_state("wide group, 4 x 2 against 4 x 1", b["state"], a["state"])
+    for i, (lo, st) in enumerate(a["replica_states"]):
+        same_state(f"wide group, 4 x 2 entry {i}", b["state"], st, lo)
+    rows = a["rows"]
+    T, KR, _L, KW, KRd = a["shape"]
+    for r in rows:
+        r["name"] = f"{r['kernel']} (data, 4 x 2 on cuda:0; wide group T={T} KR={KR} KW={KW}, " \
+                    f"entry 7's read slice of KR={KRd})"
+    out["wide"] = {name: {k: r[k] for k in ("layout", "entries", "batches", "wall_s", "encode_s", "txn_s",
+                                           "txn_s_without_encode", "exchange_ms", "live_rows", "shape")}
+                   for name, r in wide_runs.items()}
+    out["wide"]["oracle_wait_s"] = oracle_wait_s
+    for name, r in wide_runs.items():
+        log(f"wide group ({r['layout']}, {WIDE_BATCHES} x {N_TXNS}, KR={KR}): {r['wall_s']:.3f} s, "
+            f"{r['txn_s']:.1f} txn/s end to end ({r['txn_s_without_encode']:.1f} txn/s without "
+            f"{r['encode_s']:.3f} s of host encode); the exchange {r['exchange_ms']:.4f} ms a batch [{card}]")
+    del wide_runs, a, b
+    gc.collect()
+    for i in range(n):
+        torch.cuda.synchronize(i)
+    m1 = cards_allocated()
+    if m1 != m0:
+        raise AssertionError(f"card memory {m1} B after the data phase, {m0} B before it")
+    out.update(memory={"before": m0, "after": m1}, phase_s=time.perf_counter() - t_phase, card=card)
+    log(json.dumps({"data_mesh": out}))
+    log(f"data phase: {out['phase_s']:.1f} s [{card}]")
     return rows
 
 
@@ -1890,7 +2142,7 @@ def run_limits(card: str) -> None:
     from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
 
     t_phase = time.perf_counter()
-    paths = (("one grid", "torch", {}, ("history", "intra_batch", "stage", "merge")),
+    paths = (("one grid", "torch1", {}, ("history", "intra_batch", "stage", "merge")),
              ("four partitions", "torch_mesh", {"n_parts": 4},
               ("history_parts", "intra_batch", "stage_parts", "merge_parts")))
     for width in LIMIT_WIDTHS:
@@ -2131,16 +2383,15 @@ def run_resolver(backend: str, reqs, want, card: str, threads: int = 1, **backen
         n = sum(int(a) != int(b) for i in bad for a, b in zip(got[i], want[i]))
         raise AssertionError(f"{label}: {n} verdicts differ from the oracle, in batches {bad[:10]} "
                              f"(of {len(bad)})")
-    want_backend = {"torch": "TorchConflictSet", "torch_mesh": "TorchMeshConflictSet",
-                    "native": "NativeConflictSet"}[backend]
+    want_backend = "NativeConflictSet" if backend == "native" else torch_built(backend)["name"]
     if (health["state"] != "HEALTHY" or health["faults"] or health["failovers"]
             or health["deadlineHits"] or health["backend"] != want_backend):
         raise AssertionError(f"{label}: the guard left its healthy path: {health}")
     if device:
         if rebases < 1 or health["retries"] > rebases:
             raise AssertionError(f"{label}: {health['retries']} retries over {rebases} rebases")
-        path = (("history", "intra_batch", "stage", "merge", "maint_rebase") if backend == "torch"
-                else ("history_parts", "intra_batch", "stage_parts", "merge_parts", "maint_rebase_parts"))
+        built = torch_built(backend)
+        path = built["path"] + (built["rebase"],)
         missing = [k for k in path if launches[k] <= 0]
         if missing:
             raise AssertionError(f"{label}: kernels never launched: {missing}")
@@ -2307,11 +2558,11 @@ def run_failover(card: str, pipelined: bool) -> dict:
         raise AssertionError(f"{mode} failover: {referee.false_commits} false commits, "
                              f"{wrong} verdicts off the oracle's")
     if not (health["failovers"] >= 1 and health["promotions"] >= 1 and health["state"] == "HEALTHY"
-            and health["backend"] == "TorchConflictSet"):
+            and health["backend"] == torch_built()["name"]):
         raise AssertionError(f"{mode}: the guard did not fail over and promote back: {health}")
     if pipelined and not (health["deadlineHits"] >= 1 and in_order >= 1):
         raise AssertionError(f"pipelined failover: no deadline recovery under pipelining: {health}")
-    log(f"{mode} failover phase: resolved on NativeConflictSet, promoted back to TorchConflictSet, "
+    log(f"{mode} failover phase: resolved on NativeConflictSet, promoted back to {torch_built()['name']}, "
         f"0 false commits, every verdict equal to the oracle's, {in_order} in-order resolves [{card}]")
     return out
 
@@ -2417,7 +2668,6 @@ def commit_path_run(card: str, device, n_keys: int, measure: bool) -> dict:
     from foundationdb_tpu_torch.client import Database
     from foundationdb_tpu_torch.client.read_coalescer import ReadCoalescer
     from foundationdb_tpu_torch.conflict import kernels
-    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
     from foundationdb_tpu_torch.net.sim import Sim
     from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
     from foundationdb_tpu_torch.runtime.futures import delay, spawn, wait_for_all
@@ -2445,8 +2695,10 @@ def commit_path_run(card: str, device, n_keys: int, measure: bool) -> dict:
     # to collected verdicts) and of each index search; and the widest batch
     # a resolver encodes while ``capture`` is on
     mg_sizes, spans, capture = [], {"on": False, "pairs": []}, {"on": False, "best": None}
-    send, detect_async = ReadCoalescer._send, TorchConflictSet.detect_many_encoded_async
-    encode, search_codes = TorchConflictSet.encode, TorchRangeIndex._search_codes
+    # the class the cluster's resolvers build (a spread on a multi-card host)
+    Built = torch_built()["cls"] if on_card else torch_built("torch1")["cls"]
+    send, detect_async = ReadCoalescer._send, Built.detect_many_encoded_async
+    encode, search_codes = Built.encode, TorchRangeIndex._search_codes
 
     async def sized_send(self, team, token, req, batch, size_tags):
         if token == Tokens.MULTI_GET:
@@ -2682,13 +2934,13 @@ def commit_path_run(card: str, device, n_keys: int, measure: bool) -> dict:
                 "own": [(where(fn), tt, nc) for fn, (_cc, nc, tt, _ct, _c) in top],
                 "cumulative": [(where(fn), ct, nc) for fn, (_cc, nc, _tt, ct, _c) in cum]}
 
-    ReadCoalescer._send, TorchConflictSet.detect_many_encoded_async = sized_send, spanned_detect
-    TorchConflictSet.encode, TorchRangeIndex._search_codes = captured_encode, spanned_search
+    ReadCoalescer._send, Built.detect_many_encoded_async = sized_send, spanned_detect
+    Built.encode, TorchRangeIndex._search_codes = captured_encode, spanned_search
     try:
         read_back = sim.run_until_done(spawn(main()), limit=1e6)
     finally:
-        ReadCoalescer._send, TorchConflictSet.detect_many_encoded_async = send, detect_async
-        TorchConflictSet.encode, TorchRangeIndex._search_codes = encode, search_codes
+        ReadCoalescer._send, Built.detect_many_encoded_async = send, detect_async
+        Built.encode, TorchRangeIndex._search_codes = encode, search_codes
     out["referee"] = referee.check()
 
     # gate: every acknowledged write read back
@@ -2716,7 +2968,8 @@ def commit_path_run(card: str, device, n_keys: int, measure: bool) -> dict:
         "collect_s": s["kernel"].get("collectSeconds"),
         "capacityGrowths": s["kernel"]["capacityGrowths"], "reshardsDevice": s["kernel"]["reshardsDevice"],
         "overflowReplays": s["kernel"]["overflowReplays"], "reshard_s": s["kernel"].get("reshardSeconds"),
-        "grid": list(r.cs._cs._state.grid.shape[:2]), "health": h["state"],
+        "grid": list(r.cs._cs._states.grid.shape[:3] if hasattr(r.cs._cs, "_spread")
+                     else r.cs._cs._state.grid.shape[:2]), "health": h["state"],
     } for s, r, h in zip(snaps, cluster.resolvers, health)]
     out["balancer_moves"] = balancer.moves
     out["resolver_map"] = [(b.decode("latin-1"), None if e is None else e.decode("latin-1"), r.address)
@@ -2747,7 +3000,7 @@ def run_commit_path(card: str) -> tuple[dict, list[dict]]:
     cluster, capture = run.pop("cluster"), run.pop("capture")
     transcript = run.pop("transcript")
     launches = run["launches"]
-    path = ("history", "intra_batch", "stage", "merge", "search")
+    path = torch_built()["path"] + ("search",)
     missing = [k for k in path if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched in the mixes: {missing} ({launches})")
@@ -2761,8 +3014,8 @@ def run_commit_path(card: str) -> tuple[dict, list[dict]]:
     vers = (old + window, old, old)
     T, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
     log(f"kernel checks on the widest mix-A batch ({n_real} transactions, T={T} KR={KR} KW={KW}) "
-        f"and the resolver's state after the mixes [{card}]:")
-    rows = check_resolve_kernels(cs._state, hbatch, vers, launches)[0]
+        f"and the resolver's state after the mixes ({type(cs).__name__}) [{card}]:")
+    rows = check_built_resolve(resolver_state(cs), hbatch, vers, launches)
     for r in rows:
         r["name"] = f"{r['name']} (commit path, mix A batch T={T} KR={KR} KW={KW})"
     q_rows, idx, codes = capture["q"]
@@ -2806,7 +3059,50 @@ DYN_COORDINATORS = 3
 DYN_ATTEMPTS = 100  # a transaction's retry budget (db.run retries without one)
 DYN_READ_CHUNK = 10_000  # rows a range read of the final read-back
 DYN_REBOOT_S = 1.0  # the storage worker's reboot delay
-RESOLVE_PATH = ("history", "intra_batch", "stage", "merge")
+RESOLVE_PATH = ("history", "intra_batch", "stage", "merge")  # the one grid's
+SPREAD_PATH = ("history_parts", "intra_batch", "stage_parts", "merge_parts")
+
+
+def torch_built(backend: str = "torch") -> dict:
+    """What ``new_conflict_set(backend)`` with no device builds on this
+    host: ``torch1`` is always the one grid; ``torch`` is the one grid on a
+    host of one card and the spread over every card on a host of more
+    (``api.mesh_upgrade``). Its class, the class's name, the kernels of a
+    batch's resolve and its rebase kernel."""
+    from foundationdb_tpu_torch.conflict.api import mesh_upgrade
+    from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+
+    if backend == "torch_mesh" or (backend == "torch" and mesh_upgrade() is not None):
+        return {"cls": TorchMeshConflictSet, "name": "TorchMeshConflictSet", "path": SPREAD_PATH,
+                "rebase": "maint_rebase_parts"}
+    return {"cls": TorchConflictSet, "name": "TorchConflictSet", "path": RESOLVE_PATH, "rebase": "maint_rebase"}
+
+
+def resolver_state(cs):
+    """A snapshot of a device conflict set's state for the kernel rows: the
+    one grid's state, or the first entry's stacked partitions of a spread
+    with their bounds (cloned, so later batches leave it as it was)."""
+    from foundationdb_tpu_torch.conflict import grid as G
+
+    spread = getattr(cs, "_spread", None)
+    if spread is None:
+        return {"state": G.clone_state(cs._state)}
+    e = spread.entries[0]
+    return {"state": G.clone_state(e.states), "bounds": (e.plo, e.phi)}
+
+
+def check_built_resolve(snap: dict, hbatch, vers, launches: dict) -> list[dict]:
+    """The resolve kernels of one batch held to their plain versions on
+    ``resolver_state``'s snapshot: K1-K3 on the one grid, K6 history, K2,
+    the K6 staging and merge on a spread's first entry."""
+    from foundationdb_tpu_torch.conflict import torch_backend as TB
+
+    if "bounds" not in snap:
+        return check_resolve_kernels(snap["state"], hbatch, vers, launches)[0]
+    dev = snap["state"].grid.device
+    with torch.cuda.device(dev):
+        return check_parts_resolve(snap["state"], TB.upload(hbatch, dev), snap["bounds"], vers, launches, k2=True)
 # trace events of the transcript: the recovery's, the roles' and data
 # distribution's (none carries a host value)
 DYN_EVENTS = ("MasterRecoveryState", "MasterFullyRecovered", "RoleRecruited", "RoleDestroyed",
@@ -2883,7 +3179,6 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
 
     from foundationdb_tpu_torch.client import Database
     from foundationdb_tpu_torch.conflict import kernels
-    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
     from foundationdb_tpu_torch.net.sim import Endpoint, Sim
     from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
     from foundationdb_tpu_torch.runtime import trace as T
@@ -2939,7 +3234,11 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
     current = {"ss": None}
     tagged: dict = {}  # (key, value) -> (epoch, cv, batch index)
     make_resolver, make_storage, destroy = Worker._make_resolver, Worker._make_storage, Worker._destroy
-    detect_async, encode = TorchConflictSet.detect_many_encoded_async, TorchConflictSet.encode
+    # the class the resolvers build (a spread on a multi-card host) and its
+    # resolve kernels
+    built = torch_built() if on_card else torch_built("torch1")
+    Built, path = built["cls"], built["path"]
+    detect_async, encode = Built.detect_many_encoded_async, Built.encode
     search_codes = TorchRangeIndex._search_codes
     ss_reads = {n: getattr(StorageServer, n) for n in ("_multi_get_at", "_multi_engine_bounds", "_engine_range")}
     substitute = proxy_mod.substitute_versionstamps
@@ -2975,7 +3274,7 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
         collect = detect_async(self, work)
         c1 = counts()
         mine = by_cs.setdefault(id(self), {})
-        for k in RESOLVE_PATH:
+        for k in path:
             mine[k] = mine.get(k, 0) + c1.get(k, 0) - c0.get(k, 0)
         if e0 is None:
             return collect
@@ -3402,7 +3701,7 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
         return got, replicas
 
     Worker._make_resolver, Worker._make_storage, Worker._destroy = recorded_resolver, recorded_storage, summarized_destroy
-    TorchConflictSet.detect_many_encoded_async, TorchConflictSet.encode = counted_detect, captured_encode
+    Built.detect_many_encoded_async, Built.encode = counted_detect, captured_encode
     TorchRangeIndex._search_codes = spanned_search
     for n in ss_reads:
         setattr(StorageServer, n, counted_read(n))
@@ -3411,7 +3710,7 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
         got, replicas = sim.run_until_done(spawn(main()), limit=1e6)
     finally:
         Worker._make_resolver, Worker._make_storage, Worker._destroy = make_resolver, make_storage, destroy
-        TorchConflictSet.detect_many_encoded_async, TorchConflictSet.encode = detect_async, encode
+        Built.detect_many_encoded_async, Built.encode = detect_async, encode
         TorchRangeIndex._search_codes = search_codes
         for n, fn in ss_reads.items():
             setattr(StorageServer, n, fn)
@@ -3468,7 +3767,7 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
             summarize(uid, epoch, ref())
     gens: dict = {}
     for uid, (epoch, h, snap, device_type, launched) in sorted(resolved_by.items()):
-        if (h["state"], h["faults"], h["failovers"], h["backend"]) != ("HEALTHY", 0, 0, "TorchConflictSet"):
+        if (h["state"], h["faults"], h["failovers"], h["backend"]) != ("HEALTHY", 0, 0, built["name"]):
             raise AssertionError(f"resolver {uid}: the guard left its healthy path: {h}")
         if device_type != ("cuda" if on_card else "cpu"):
             raise AssertionError(f"resolver {uid} runs on {device_type}")
@@ -3483,7 +3782,7 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
     for epoch, g in gens.items():
         if g["resolvers"] != DYN_SHAPE["n_resolvers"]:
             raise AssertionError(f"generation {epoch} recruited {g['resolvers']} resolvers")
-        if on_card and any(g["launches"].get(k, 0) <= 0 for k in RESOLVE_PATH):
+        if on_card and any(g["launches"].get(k, 0) <= 0 for k in path):
             raise AssertionError(f"generation {epoch}: the resolve kernels did not all launch: {g['launches']}")
     out["generations"] = {str(e): g for e, g in sorted(gens.items())}
     transcript.append(("generations", sorted((e, g["batches"], g["transactions"], g["grid_growths"])
@@ -3545,7 +3844,7 @@ def run_dynamic_cluster(card: str) -> tuple[dict, list[dict]]:
     cluster, capture = run.pop("cluster"), run.pop("capture")
     run.pop("transcript")
     launches = run["launches"]
-    missing = [k for k in RESOLVE_PATH + ("search",) if launches.get(k, 0) <= 0]
+    missing = [k for k in torch_built()["path"] + ("search",) if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched in the dynamic cluster: {missing} ({launches})")
 
@@ -3560,7 +3859,7 @@ def run_dynamic_cluster(card: str) -> tuple[dict, list[dict]]:
     T_, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
     log(f"kernel checks on generation {newest}'s widest batch of the last round ({n_real} transactions, "
         f"T={T_} KR={KR} KW={KW}; version origin {base}) [{card}]:")
-    rows = check_resolve_kernels(cs._state, hbatch, vers, gen_launches)[0]
+    rows = check_built_resolve(resolver_state(cs), hbatch, vers, gen_launches)
     for r in rows:
         r["name"] = f"{r['name']} (dynamic cluster, generation {newest} batch T={T_} KR={KR} KW={KW})"
     # K5 on the rebooted server's index and on the filled server that
@@ -3643,6 +3942,7 @@ def soak_once(seed: int, device, kw: dict, capture: dict | None = None,
     it), the bucket and slot counts and the seed."""
     from foundationdb_tpu_torch.conflict import grid as G
     from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
     from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
     from foundationdb_tpu_torch.runtime import trace as T
@@ -3659,7 +3959,9 @@ def soak_once(seed: int, device, kw: dict, capture: dict | None = None,
                 counted[event_type] += 1
 
     sims: list = []
-    make_sim, encode, search_codes = soak.Sim, TorchConflictSet.encode, TorchRangeIndex._search_codes
+    # torch is a spread on a multi-card host; the forced seed pins torch1
+    encodes = {cls: cls.encode for cls in (TorchConflictSet, TorchMeshConflictSet)}
+    make_sim, search_codes = soak.Sim, TorchRangeIndex._search_codes
     reshard = G.reshard_device
 
     def recorded_sim(*a, **k):
@@ -3667,13 +3969,13 @@ def soak_once(seed: int, device, kw: dict, capture: dict | None = None,
         return sims[-1]
 
     def captured_encode(self, transactions):
-        enc = encode(self, transactions)
+        enc = encodes[type(self)](self, transactions)
         size = (len(transactions), enc[0].rb.shape[1] * enc[0].wb.shape[1])
         if size > capture.get("size", (0, 0)):
             base = self._origin[1]
             old = max(self.oldest_version - base, 0)
             window = sims[-1].knobs.MAX_READ_TRANSACTION_LIFE_VERSIONS
-            capture.update(size=size, state=G.clone_state(self._state), enc=enc, vers=(old + window, old, old))
+            capture.update(size=size, snap=resolver_state(self), enc=enc, vers=(old + window, old, old))
         return enc
 
     def captured_search(self, codes):
@@ -3710,7 +4012,8 @@ def soak_once(seed: int, device, kw: dict, capture: dict | None = None,
     T.set_trace_log(CountingLog())
     soak.Sim = recorded_sim
     if capture is not None:
-        TorchConflictSet.encode, TorchRangeIndex._search_codes = captured_encode, captured_search
+        TorchConflictSet.encode = TorchMeshConflictSet.encode = captured_encode
+        TorchRangeIndex._search_codes = captured_search
     if reshards is not None:
         G.reshard_device = captured_reshard
     try:
@@ -3720,7 +4023,9 @@ def soak_once(seed: int, device, kw: dict, capture: dict | None = None,
         # actors run their ``finally`` blocks when the collector frees
         # them, into whatever run is current (its RNG draws, its trace)
         soak.Sim = make_sim
-        TorchConflictSet.encode, TorchRangeIndex._search_codes = encode, search_codes
+        for cls, fn in encodes.items():
+            cls.encode = fn
+        TorchRangeIndex._search_codes = search_codes
         G.reshard_device = reshard
         T.set_trace_log(saved_log)
         sims.clear()
@@ -3738,10 +4043,10 @@ def soak_kernel_rows(capture: dict, card: str) -> list[dict]:
         raise AssertionError(f"the forced seed captured no batch or search: {sorted(capture)}")
     hbatch, n_real, _epoch = capture["enc"]
     T_, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
-    counts = {k: 0 for k in RESOLVE_PATH + ("search",)}
+    counts = {k: 0 for k in RESOLVE_PATH + SPREAD_PATH + ("search",)}
     log(f"kernel checks on the forced soak seed's widest batch ({n_real} transactions, T={T_} KR={KR} "
         f"KW={KW}) [{card}]:")
-    rows = check_resolve_kernels(capture["state"], hbatch, capture["vers"], counts)[0]
+    rows = check_built_resolve(capture["snap"], hbatch, capture["vers"], counts)
     for r in rows:
         r["kernel"], r["name"] = r["name"], f"{r['name']} (chaos soak, forced seed's widest batch T={T_} KR={KR} KW={KW})"
     log(f"K5 on the forced soak seed's widest search (Q={capture['q_rows']} over "
@@ -3868,12 +4173,13 @@ def run_soak(card: str) -> tuple[dict, list[dict]]:
             if launches.get("search", 0) <= 0:
                 raise AssertionError(f"K5 never launched: {launches}")
             if backend in ("torch", "torch1"):  # torch1: the forced seed's pinned grid
-                missing = [k for k in RESOLVE_PATH if launches.get(k, 0) <= 0]
+                built = torch_built(backend)
+                missing = [k for k in built["path"] if launches.get(k, 0) <= 0]
                 if missing:
                     raise AssertionError(f"kernels never launched on a torch seed: {missing}")
                 # a guard fails over only on a kernel fault: with the
                 # injection armed, the run may end before it promotes back
-                off = [g for g in card_run["guards"] if g[1:3] != ("TorchConflictSet", "cuda")
+                off = [g for g in card_run["guards"] if g[1:3] != (built["name"], "cuda")
                        and not (s["kernel_faults_armed"] and g[0] == "FAILED_OVER")]
                 if off or not card_run["guards"]:
                     raise AssertionError(f"a live guard is off the card at the end: {card_run['guards']}")
@@ -4562,7 +4868,7 @@ def run_bindings(card: str, device=None, seeds=BINDING_SEEDS, chaos=BINDING_CHAO
     log(card)
     if failed:
         raise AssertionError(f"bindingtester streams differ from the model: {failed}")
-    missing = [k for k in RESOLVE_PATH if launches.get(k, 0) <= 0] if device is None else []
+    missing = [k for k in torch_built()["path"] if launches.get(k, 0) <= 0] if device is None else []
     if missing:
         raise AssertionError(f"kernels never launched by the bindingtester streams: {missing}")
     return out
@@ -4830,6 +5136,10 @@ def main() -> int:
     ap.add_argument("--spread-only", action="store_true",
                     help="phases 1, 2, 7 and 18 alone (with the oracle of phase 3): the card, the "
                          "kernels' build, the partitioned resolver on one stack and spread")
+    ap.add_argument("--data-only", action="store_true",
+                    help="phases 1, 2, 7 and 19 alone (with the oracle of phase 3): the card, the "
+                         "kernels' build, the partitioned resolver on one stack and over part x data, "
+                         "and the multi-card dry runs")
     ap.add_argument("--btree-only", action="store_true",
                     help="phases 1, 2 and 17 alone: the card, the kernels' build, the port's lint and "
                          "its B-tree engine with K5's index rebuilt from it")
@@ -4878,10 +5188,11 @@ def main() -> int:
     # versions start so that group 2 crosses now - base >= 2^30: the int32
     # origin is rebased mid-run (K4b) as in a cluster up for ~20 minutes
     offset = (1 << 30) - 1 - (2 * GROUP + WINDOW)
-    if args.spread_only:
+    if args.spread_only or args.data_only:
         want_oracle = oracle_verdicts(make_batches(N_BATCHES, N_TXNS, offset), offset)
         mesh_rows, spread_batches, phase7 = run_mesh(want_oracle, offset, card)
-        rows = mesh_rows + run_spread(spread_batches, want_oracle, offset, phase7, card)
+        then = run_spread if args.spread_only else run_data
+        rows = mesh_rows + then(spread_batches, want_oracle, offset, phase7, card)
         log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
         log(json.dumps({"kernels": rows}))
         log(card)
@@ -4960,6 +5271,9 @@ def main() -> int:
     # 18. the partitioned resolver spread over the cards of the host, while
     # phase 7's workload, final state and the oracle's verdicts are alive
     spread_rows = run_spread(spread_batches, want_oracle, offset, phase7, card)
+    # 19. the mesh's data axis: the multi-card dry runs, phase 7's workload
+    # through part x data, and a group of wide reads split over data
+    data_rows = run_data(spread_batches, want_oracle, offset, phase7, card)
     del phase7
     # 8. the range index
     index_rows, index_lookups_s = run_range_index(card)
@@ -4975,8 +5289,10 @@ def main() -> int:
     gc.collect()
     gc.freeze()
     device_kw = {"key_width": KEY_WIDTH, "capacity": CAPACITY}
-    for threads in (1, 0):
-        run_resolver("torch", reqs, want_oracle, card, threads, **device_kw)
+    # the one grid pinned (torch1), then what torch builds on this host
+    # (the spread over every card where there are more than one)
+    for backend, threads in (("torch1", 1), ("torch", 0)):
+        run_resolver(backend, reqs, want_oracle, card, threads, **device_kw)
     run_resolver("native", reqs, want_oracle, card)
     reqs = resolver_requests(spread_batches, offset)
     for threads in (1, 0):
@@ -5013,7 +5329,7 @@ def main() -> int:
 
     # 6. results
     log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
-    log(json.dumps({"kernels": rows + index_rows + mesh_rows + spread_rows + storage_rows + commit_rows
+    log(json.dumps({"kernels": rows + index_rows + mesh_rows + spread_rows + data_rows + storage_rows + commit_rows
                                + dynamic_rows + soak_rows + tcp_rows + btree_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

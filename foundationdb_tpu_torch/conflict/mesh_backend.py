@@ -37,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from ..device import lanes_to_numpy, ordered, resolve_device
+from ..device import lanes_to_numpy, lanes_to_torch, ordered, resolve_device
 from . import grid as G
 from . import keys as K
 from . import kernels
@@ -58,6 +58,7 @@ from .torch_backend import (
     check_batch_sizes,
     encode_transactions,
     stack_batches,
+    to_device,
     upload,
 )
 
@@ -91,20 +92,25 @@ class TorchMeshConflictSet(ConflictSet):
         more than once) spreads them, n_parts / len(devices) an entry in
         list order; ``n_parts`` then defaults to ``len(devices)``, one
         partition a device as in the reference's mesh, and ``device`` is
-        not used. A card that is not visible raises
-        ``DeviceUnavailableError``."""
+        not used. A list of lists is the reference's ``("part", "data")``
+        mesh: each inner list is a row of ``data`` replicas that hold the
+        same partitions and split the read slots (``sharded.Spread``);
+        ``n_parts`` then defaults to the number of rows. A card that is not
+        visible raises ``DeviceUnavailableError``."""
         super().__init__()
         if devices is None:
             devices = [device]
             n_parts = 4 if n_parts is None else n_parts
-        elif n_parts is None:
-            n_parts = len(devices)
-        devices = [resolve_device(d) for d in devices]
-        if not devices or n_parts % len(devices):
-            raise ValueError(f"{n_parts} partitions do not split over {len(devices)} devices")
-        self._devices = devices
-        self._device = devices[0]
-        self._max_txns = kernels.MAX_TXNS if any(d.type == "cuda" for d in devices) else None
+        rows = [[resolve_device(d) for d in row] for row in SH.device_grid(devices)]
+        if n_parts is None:
+            n_parts = len(rows)
+        if n_parts % len(rows):
+            raise ValueError(f"{n_parts} partitions do not split over {len(rows)} devices")
+        self._rows = rows  # rows of data replicas
+        self._devices = [d for row in rows for d in row]
+        self._n_data = len(rows[0])
+        self._device = self._devices[0]
+        self._max_txns = kernels.MAX_TXNS if any(d.type == "cuda" for d in self._devices) else None
         self._width = key_width
         self._lanes = K.lanes_for_width(key_width)
         self._reshard_pressure = reshard_pressure
@@ -131,7 +137,7 @@ class TorchMeshConflictSet(ConflictSet):
         self.metrics.gauge("inflightGroups", lambda: len(self._inflight))
 
     def _fresh_spread(self) -> SH.Spread:
-        return SH.make_spread(self._n_parts, self._B, self._S, self._lanes, self._devices)
+        return SH.make_spread(self._n_parts, self._B, self._S, self._lanes, self._rows)
 
     @property
     def _states(self) -> G.GridState | None:
@@ -140,8 +146,27 @@ class TorchMeshConflictSet(ConflictSet):
         return None if self._spread is None else self._spread.gather()
 
     def _upload(self, stacked: G.Batch) -> dict:
-        """A host group on every distinct device of the spread."""
-        return {dev: upload(stacked, dev) for dev in self._targets}
+        """A host group on every distinct device of the spread, and where
+        the rows have several replicas, each replica's slice of the read
+        slots (contiguous, cut on the host) on each device that holds that
+        replica: {"batch": {device: batch}, "reads": [(rb, re) an entry]}."""
+        out = {"batch": {dev: upload(stacked, dev) for dev in self._targets}, "reads": None}
+        if self._n_data > 1:
+            slices = SH.split_reads(lanes_to_torch(stacked.rb), lanes_to_torch(stacked.re), self._n_data)
+            moved = {}
+            for e in self._spread.entries:
+                key = (e.device, e.replica)
+                if key not in moved:
+                    moved[key] = tuple(to_device(x, e.device) for x in slices[e.replica])
+            out["reads"] = [moved[(e.device, e.replica)] for e in self._spread.entries]
+            self.metrics.h2d_bytes.add(sum(x.numel() * 4 for r in moved.values() for x in r))
+        return out
+
+    def _resolve(self, spread: SH.Spread, uploaded: dict, nows, olds_pre, olds_post):
+        return SH.resolve_many_spread(
+            spread, [uploaded["batch"][e.device] for e in spread.entries], nows, olds_pre, olds_post,
+            uploaded["reads"],
+        )
 
     def _sync(self) -> None:
         """Wait for the queued work of every card of the spread."""
@@ -168,8 +193,7 @@ class TorchMeshConflictSet(ConflictSet):
             kernels.build.load()
         b = encode_transactions([], self._width, 0)
         spread = self._fresh_spread()
-        uploads = self._upload(stack_batches([b], self._lanes))
-        SH.resolve_many_spread(spread, [uploads[e.device] for e in spread.entries], [0], [0], [0])
+        self._resolve(spread, self._upload(stack_batches([b], self._lanes)), [0], [0], [0])
         self._sync()
         self.metrics.note_shape((1, b.rb.shape[0], b.rb.shape[1], b.wb.shape[1], self._B), warm=True)
         self.metrics.warm_compiles.add()
@@ -278,7 +302,7 @@ class TorchMeshConflictSet(ConflictSet):
         t0 = time.perf_counter()
         self.metrics.dispatches.add()
         metas = group["metas"]
-        st = group["stacked"][self._targets[0]]
+        st = group["stacked"]["batch"][self._targets[0]]
         shape = (len(metas), st.rb.shape[-3], st.rb.shape[-2], st.wb.shape[-2])
         self.metrics.note_shape(shape + (self._B,))
         nows = [m[0] - self._base for m in metas]
@@ -288,9 +312,7 @@ class TorchMeshConflictSet(ConflictSet):
         # replay; the group updates a clone in place
         group["snapshot"] = self._spread
         spread = self._spread.clone()
-        verdicts, pressures = SH.resolve_many_spread(
-            spread, [group["stacked"][e.device] for e in spread.entries], nows, olds_pre, olds_post
-        )
+        verdicts, pressures = self._resolve(spread, group["stacked"], nows, olds_pre, olds_post)
         self._spread = spread
         if verdicts.is_cuda:
             # verdicts and pressures are on the first card, behind every
@@ -430,7 +452,7 @@ class TorchMeshConflictSet(ConflictSet):
         self.metrics.reshards_device.add()
         dev = self._spread.entries[self._spread.entry_of(p)[0]].device
         extra = torch.cat(
-            [torch.cat([g["stacked"][dev].wb, g["stacked"][dev].we]).reshape(-1, self._lanes)
+            [torch.cat([g["stacked"]["batch"][dev].wb, g["stacked"]["batch"][dev].we]).reshape(-1, self._lanes)
              for g in self._inflight]
         )
         if p + 1 < self._n_parts:

@@ -21,6 +21,21 @@ the whole stack on one card. One batch (``resolve_one_spread``):
   stages and merges its clipped writes; the verdicts come from entry 0
   and the per-partition pressures are gathered there in partition order.
 
+The entries form a grid of rows × ``n_data`` (the reference's ``("part",
+"data")`` mesh): row r holds partitions r·k … r·k + k − 1, and each of its
+``n_data`` entries holds a replica of them. Replica d of a row reads only
+the read slots [d·KR'/D, (d+1)·KR'/D) of every batch (``split_reads``: KR
+padded with inactive sentinel rows to KR', a multiple of D; the reference
+refuses a KR that is not one), so its K6 history covers its partitions and
+its read slice, and the exchange ORs H over all rows × D entries (the
+reference's ``pmax(("part", "data"))``). K2 still runs on the whole
+unclipped batch on every entry. That equals the reference's ``pmax`` of the
+per-slice overlap matrices over both axes because every read slot lies in
+exactly one data slice: the OR over the slices of their overlap matrices is
+the matrix of all the slots. Every replica merges the same clipped writes
+into its copy; the pressures come from replica 0 of each row, as the
+reference's ``P("part")`` output reads one replica.
+
 PyTorch orders a copy between two cards behind the current streams of
 both, so the spread adds no streams and no events of its own.
 
@@ -52,7 +67,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import lanes_to_torch, ordered
+from ..device import SENTINEL, lanes_to_torch, ordered
 from . import grid as G
 from . import kernels
 
@@ -144,25 +159,29 @@ def set_partition(states: G.GridState, p: int, shard: G.GridState) -> G.GridStat
 
 class Entry(NamedTuple):
     """One device's share of a spread: its contiguous run of partitions as
-    one stacked state, and their bounds."""
+    one stacked state, their bounds, and which replica of its row it is
+    (the data slice of the read slots it checks)."""
 
     device: torch.device
     states: G.GridState  # [k, B, S, L + 1], ...
     plo: torch.Tensor  # [k, L]
     phi: torch.Tensor  # [k, L]
+    replica: int = 0
 
 
 class Spread:
-    """P key-range partitions spread over a list of devices, one ``Entry``
-    per position in the list; partition p sits on entry p // k, k = P /
-    len(entries). The grids are updated in place by a batch; the other
-    operations return a new spread and leave this one intact, as a group's
-    snapshot may share its tensors."""
+    """P key-range partitions spread over a grid of devices: ``entries``
+    in row-major order, ``n_data`` replicas a row; partition p sits on row
+    p // k, k = P / rows, in every replica of it. The grids are updated in
+    place by a batch; the other operations return a new spread and leave
+    this one intact, as a group's snapshot may share its tensors."""
 
-    def __init__(self, entries):
+    def __init__(self, entries, n_data: int = 1):
         self.entries = tuple(entries)
+        self.n_data = n_data
+        self.n_rows = len(self.entries) // n_data
         self.per_entry = self.entries[0].states.grid.shape[0]
-        self.n_parts = self.per_entry * len(self.entries)
+        self.n_parts = self.per_entry * self.n_rows
 
     @classmethod
     def of(cls, states: G.GridState, bounds=None) -> "Spread":
@@ -177,64 +196,103 @@ class Spread:
         return list(dict.fromkeys(e.device for e in self.entries))
 
     def entry_of(self, p: int) -> tuple[int, int]:
-        """(entry, partition within the entry) of global partition p."""
-        return divmod(p, self.per_entry)
+        """(entry of replica 0 of p's row, partition within the entry) of
+        global partition p."""
+        row, i = divmod(p, self.per_entry)
+        return row * self.n_data, i
+
+    def leads(self) -> list:
+        """Replica 0 of every row, in partition order."""
+        return list(self.entries[:: self.n_data])
 
     def partition(self, p: int) -> G.GridState:
-        """Partition p's GridState: views into its entry's tensors."""
+        """Partition p's GridState (replica 0's): views into its tensors."""
         e, i = self.entry_of(p)
         return partition(self.entries[e].states, i)
 
-    def replace(self, e: int, states: G.GridState) -> "Spread":
+    def replace_row(self, p: int, fn) -> "Spread":
+        """A new spread with ``fn`` applied to the stack of every replica of
+        partition p's row (the other rows are shared)."""
+        e0, _i = self.entry_of(p)
         entries = list(self.entries)
-        entries[e] = entries[e]._replace(states=states)
-        return Spread(entries)
+        for e in range(e0, e0 + self.n_data):
+            entries[e] = entries[e]._replace(states=fn(entries[e].states))
+        return Spread(entries, self.n_data)
 
     def set_partition(self, p: int, shard: G.GridState) -> "Spread":
-        """A new spread with partition p replaced (its entry's stack is
-        copied; the other entries are shared)."""
-        e, i = self.entry_of(p)
-        return self.replace(e, set_partition(self.entries[e].states, i, shard))
+        """A new spread with partition p replaced in every replica (its
+        row's stacks are copied; the other rows are shared)."""
+        _e, i = self.entry_of(p)
+
+        def put(states):
+            dev = states.grid.device
+            return set_partition(states, i, G.GridState(*(x.to(dev) for x in shard)))
+
+        return self.replace_row(p, put)
 
     def map(self, fn) -> "Spread":
         """A new spread with ``fn`` applied to every entry's stack."""
-        return Spread(e._replace(states=fn(e.states)) for e in self.entries)
+        return Spread((e._replace(states=fn(e.states)) for e in self.entries), self.n_data)
 
     def clone(self) -> "Spread":
         return self.map(G.clone_state)
 
     def gather(self, device=None) -> G.GridState:
-        """The one stacked state, in partition order, on ``device`` (entry
-        0's by default): the layout of one stack and of the JAX mesh. A
-        one-entry spread returns its own tensors."""
+        """The one stacked state (replica 0 of every row), in partition
+        order, on ``device`` (entry 0's by default): the layout of one stack
+        and of the JAX mesh. A one-entry spread returns its own tensors."""
         device = self.entries[0].device if device is None else torch.device(device)
         if len(self.entries) == 1 and self.entries[0].device == device:
             return self.entries[0].states
         return G.GridState(*(
-            torch.cat([x.to(device) for x in xs]) for xs in zip(*(e.states for e in self.entries))
+            torch.cat([x.to(device) for x in xs]) for xs in zip(*(e.states for e in self.leads()))
         ))
 
     def counts(self) -> np.ndarray:
-        """int32[P, B] live rows per bucket, read back from every entry."""
-        return np.concatenate([e.states.count.cpu().numpy() for e in self.entries])
+        """int32[P, B] live rows per bucket, read back from replica 0 of
+        every row."""
+        return np.concatenate([e.states.count.cpu().numpy() for e in self.leads()])
+
+    def replicas_equal(self) -> bool:
+        """Whether every replica of every row holds its row's replica 0's
+        state, array by array (read back to the host; a check, not on the
+        path)."""
+        for e0 in range(0, len(self.entries), self.n_data):
+            lead = [x.cpu() for x in self.entries[e0].states]
+            for e in self.entries[e0 + 1 : e0 + self.n_data]:
+                if not all(torch.equal(a, b.cpu()) for a, b in zip(lead, e.states)):
+                    return False
+        return True
+
+
+def device_grid(devices) -> list:
+    """``devices`` as rows of replicas: a flat list is one replica a row
+    (``data`` = 1); a list of lists is rows × ``data``, every row as long."""
+    rows = [list(r) if isinstance(r, (list, tuple)) else [r] for r in devices]
+    if not rows or any(len(r) != len(rows[0]) for r in rows) or not rows[0]:
+        raise ValueError(f"devices {devices!r} are not rows of one length")
+    return rows
 
 
 def spread_from_numpy(pivots, grid, count, bmax, floor, devices) -> Spread:
     """A stacked state's numpy arrays ([P, ...], as ``states_from_numpy``
-    takes them) spread over ``devices``: P must be a multiple of their
-    number, and each entry gets the next P / len(devices) partitions."""
+    takes them) spread over ``devices`` (``device_grid``): P must be a
+    multiple of the number of rows, and each row gets the next P / rows
+    partitions, a copy in each of its replicas."""
     P = grid.shape[0]
-    if not devices or P % len(devices):
-        raise ValueError(f"{P} partitions do not split over {len(devices)} devices")
-    k = P // len(devices)
+    rows = device_grid(devices) if devices else []
+    if not rows or P % len(rows):
+        raise ValueError(f"{P} partitions do not split over {len(rows)} rows of devices")
+    k = P // len(rows)
     plo, phi = partition_bounds(grid.shape[-1] - 1, P, None)
     entries = []
-    for e, device in enumerate(devices):
-        part = slice(e * k, (e + 1) * k)
-        states = states_from_numpy(pivots[part], grid[part], count[part], bmax[part], floor[part], device)
-        dev = states.grid.device
-        entries.append(Entry(dev, states, plo[part].to(dev), phi[part].to(dev)))
-    return Spread(entries)
+    for r, row in enumerate(rows):
+        part = slice(r * k, (r + 1) * k)
+        for d, device in enumerate(row):
+            states = states_from_numpy(pivots[part], grid[part], count[part], bmax[part], floor[part], device)
+            dev = states.grid.device
+            entries.append(Entry(dev, states, plo[part].to(dev), phi[part].to(dev), d))
+    return Spread(entries, len(rows[0]))
 
 
 def gather_to_numpy(spread: Spread) -> tuple:
@@ -320,36 +378,69 @@ def exchange(flags: list) -> list:
     return [total.to(f.device, non_blocking=True) for f in flags]
 
 
-def resolve_one_spread(spread: Spread, batches: list, now: int, oldest_pre: int, oldest_post: int):
+def split_reads(rb: torch.Tensor, re: torch.Tensor, n_data: int) -> list:
+    """The read slots (the axis before the lanes) of ``rb``/``re`` cut into
+    ``n_data`` contiguous slices, one a replica: the slots are first padded
+    with inactive sentinel ranges (begin = end = the all-0xFF code) to the
+    next multiple of ``n_data``, so no slice is empty and no verdict
+    changes. Returns [(rb_d, re_d)] in replica order."""
+    if n_data == 1:
+        return [(rb, re)]
+    KR = rb.shape[-2]
+    pad = -KR % n_data
+    if pad:
+        fill = rb.new_full((*rb.shape[:-2], pad, rb.shape[-1]), SENTINEL)
+        rb, re = torch.cat([rb, fill], dim=-2), torch.cat([re, fill], dim=-2)
+    w = (KR + pad) // n_data
+    return [(rb[..., d * w : (d + 1) * w, :].contiguous(), re[..., d * w : (d + 1) * w, :].contiguous())
+            for d in range(n_data)]
+
+
+def resolve_one_spread(spread: Spread, batches: list, now: int, oldest_pre: int, oldest_post: int,
+                       reads: list | None = None):
     """One batch through all P partitions of ``spread``; ``batches`` holds
-    the batch on each entry's device. Updates the grids IN PLACE; returns
-    (verdicts int8[T], pressure int32[P, 2]), both on entry 0's device."""
+    the whole batch on each entry's device and ``reads`` (where the spread
+    has ``n_data`` > 1) each entry's slice of its read slots
+    (``split_reads``), as (rb, re) on its device. Updates the grids IN
+    PLACE; returns (verdicts int8[T], pressure int32[P, 2]), both on entry
+    0's device."""
+    if reads is None:
+        if spread.n_data > 1:
+            raise ValueError(f"a spread of {spread.n_data} replicas a row needs each entry's read slice")
+        reads = [(b.rb, b.re) for b in batches]
     Hs = exchange([
-        history_conflicts_sharded(e.states, b, e.plo, e.phi) for e, b in zip(spread.entries, batches)
+        history_conflicts_sharded(e.states, b._replace(rb=rb, re=re), e.plo, e.phi)
+        for e, b, (rb, re) in zip(spread.entries, batches, reads)
     ])
     verdicts, pressures = None, []
     for e, b, H in zip(spread.entries, batches, Hs):
         too_old = b.t_has_reads & (b.t_snap < oldest_pre)
         commit = G.intra_batch_commits(b, H | too_old)
-        pressures.append(merge_writes_sharded(e.states, b, commit, now, oldest_post, e.plo, e.phi))
+        pressure = merge_writes_sharded(e.states, b, commit, now, oldest_post, e.plo, e.phi)
+        if e.replica == 0:
+            pressures.append(pressure)
         if verdicts is None:
             verdicts = (~commit).to(torch.int8).masked_fill(too_old, G.TOO_OLD)
     dev0 = spread.entries[0].device
     return verdicts, torch.cat([p.to(dev0, non_blocking=True) for p in pressures])
 
 
-def resolve_many_spread(spread: Spread, batches: list, nows, oldests_pre, oldests_post):
+def resolve_many_spread(spread: Spread, batches: list, nows, oldests_pre, oldests_post,
+                        reads: list | None = None):
     """G batches in order (the reference's on-device scan; a host loop
     here, as in ``grid.resolve_many``); ``batches`` holds the stacked group
-    on each entry's device. Updates the grids IN PLACE. Returns (verdicts
+    on each entry's device and ``reads`` each entry's stacked read slice
+    (``resolve_one_spread``). Updates the grids IN PLACE. Returns (verdicts
     int8[G, T], pressures int32[G, P, 2]) on entry 0's device — the
     per-batch pressures, not a group max."""
     verdicts, pressures = [], []
     for g in range(batches[0].rb.shape[0]):
         views = {id(b): G.Batch(*(x[g] for x in b)) for b in batches}
+        slices = None if reads is None else {id(r): (r[0][g], r[1][g]) for r in reads}
         v, p = resolve_one_spread(
             spread, [views[id(b)] for b in batches],
             int(nows[g]), int(oldests_pre[g]), int(oldests_post[g]),
+            None if reads is None else [slices[id(r)] for r in reads],
         )
         verdicts.append(v)
         pressures.append(p)
@@ -430,11 +521,19 @@ def reshard_spread(spread: Spread, n_buckets: int, n_slots: int) -> Spread:
 
 
 def reshard_spread_partition(spread: Spread, p: int, n_buckets: int, n_slots: int):
-    """``reshard_partition`` of global partition p on its entry. Returns
-    (new spread, pressure int)."""
-    e, i = spread.entry_of(p)
-    states, pressure = reshard_partition(spread.entries[e].states, i, n_buckets, n_slots)
-    return spread.replace(e, states), pressure
+    """``reshard_partition`` of global partition p in every replica of its
+    row. Returns (new spread, pressure int): replica 0's, which every
+    replica equals."""
+    _e, i = spread.entry_of(p)
+    pressures = []
+
+    def one(states):
+        states, pressure = reshard_partition(states, i, n_buckets, n_slots)
+        pressures.append(pressure)
+        return states
+
+    spread = spread.replace_row(p, one)
+    return spread, pressures[0]
 
 
 def rebase_spread(spread: Spread, delta: int) -> Spread:

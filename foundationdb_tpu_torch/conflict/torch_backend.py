@@ -305,13 +305,16 @@ def sentinel_batch(T: int, KR: int, KW: int, lanes: int) -> G.Batch:
 def upload(batch: G.Batch, device: torch.device) -> G.Batch:
     """Host numpy Batch → tensors on ``device``. To a CUDA card the copies
     go through pinned memory and do not block the host."""
-    out = []
-    for a in batch:
-        t = lanes_to_torch(a) if a.dtype != bool else torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out.append(t)
-    return G.Batch(*out)
+    return G.Batch(*(
+        to_device(lanes_to_torch(a) if a.dtype != bool else torch.from_numpy(np.ascontiguousarray(a)), device)
+        for a in batch
+    ))
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``: to a card through pinned memory,
+    without blocking the host."""
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
 
 
 def _quantiles(n_cands: int, n_buckets: int) -> np.ndarray:

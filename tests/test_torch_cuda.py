@@ -227,6 +227,46 @@ def test_spread_over_one_card_equals_the_one_stack(cuda):
     assert spread.metrics.snapshot()["occupancy"] == stack.metrics.snapshot()["occupancy"]
 
 
+@pytest.mark.parametrize("rows,n_data", [(4, 2), (2, 4)])
+def test_data_spread_over_one_card_equals_the_one_stack(cuda, rows, n_data):
+    """The ``part`` × ``data`` spread over ``[[cuda:0] * data] * rows`` (the
+    read slots split and padded, every replica merging) gives the one
+    stack's verdicts and state; every replica stays equal; K2 and K6 launch
+    once an entry a batch."""
+    work = _work(13, batches=16, spread=True)
+    kw = dict(key_width=12, capacity=1 << 10, n_parts=4)
+    stack = TorchMeshConflictSet(**kw)
+    spread = TorchMeshConflictSet(devices=[[cuda] * n_data for _ in range(rows)], **kw)
+    want = [stack.detect_batch(txs, now, old) for txs, now, old in work]
+    kernels.reset_launch_counts()
+    assert [spread.detect_batch(txs, now, old) for txs, now, old in work] == want
+    for a, b in zip(spread._states, stack._states):
+        _eq(a, b)
+    assert spread._spread.replicas_equal()
+    counts = kernels.launch_counts()
+    dispatched = spread.metrics.snapshot()["deviceDispatches"]
+    for name in ("history_parts", "intra_batch", "stage_parts", "merge_parts"):
+        assert counts[name] == rows * n_data * dispatched, (name, counts)
+
+
+def test_data_spread_over_every_card_equals_the_one_stack(cuda):
+    """One partition a row over pairs of cards (``part`` = cards / 2 ×
+    ``data`` = 2): the stack's verdicts and state, every replica equal."""
+    n = torch.cuda.device_count()
+    if n < 2 or n % 2:
+        pytest.skip("needs an even number of cards, more than one")
+    devs = [torch.device("cuda", i) for i in range(n)]
+    work = _work(14, batches=8, spread=True)
+    kw = dict(key_width=12, capacity=1 << 10, n_parts=n // 2)
+    stack = TorchMeshConflictSet(device=CPU, **kw)
+    spread = TorchMeshConflictSet(devices=[devs[r * 2 : r * 2 + 2] for r in range(n // 2)], **kw)
+    for txs, now, old in work:
+        assert spread.detect_batch(txs, now, old) == stack.detect_batch(txs, now, old)
+    for a, b in zip(spread._states, stack._states):
+        _eq(a, b)
+    assert spread._spread.replicas_equal() and spread._targets == devs
+
+
 def test_wrappers_launch_on_their_tensors_card(cuda):
     """K6 history and K5 on the last card, with the current device left at
     card 0, equal their plain versions; the spread over every card equals
