@@ -18,9 +18,11 @@ card). Phases, each of which raises on failure:
    just before it; versions start just below 2^30, so the run crosses the
    int32 rebase threshold as a long-running cluster does (K4b), and one
    device reshard is forced between groups (K4a). Every verdict must equal
-   the CPU path's and the oracle's, and every kernel must have launched.
-   Then 10 more batches under ``torch.profiler``: one line of CUDA kernels
-   launched per batch and the encode / glue dispatch / kernel time split;
+   the CPU path's and the oracle's, and every kernel must have launched:
+   the group scan (``csrc/scan.cu``) once a dispatched group and no
+   per-batch resolve kernel. Then 10 more batches under
+   ``torch.profiler``: one line of CUDA kernels launched per batch and the
+   encode / glue dispatch / kernel time split;
 5. hold each kernel against its plain version on the card at the main
    path's shapes (exact equality: outputs are integers and bools), time
    both with CUDA events (the table's ``ms`` and ``plain_ms``) and the
@@ -29,9 +31,15 @@ card). Phases, each of which raises on failure:
    more with every read of the batch keyspace-wide (the stress case), K2
    from the codes, the K3 staging launch, the K3 merge launch with the
    floor raise, K4a, K4b; then the merge launch once more when a single
-   committed clear spans the whole keyspace;
+   committed clear spans the whole keyspace. Then the group scan, exactly
+   against the loop of those standalone kernels and against the plain
+   loop, both timed beside it: (a) the bench group (40 batches after the
+   first), (b) the commit path's widest batch shape (T = 64, KR = 8,
+   KW = 1, L = 8), (c) four stacked partitions, (d) a group whose middle
+   batch overflows staging, (e) three batches of phase 13's bulk load
+   (KW = 2048);
 6. after phases 7 to 19: print the kernel table (every kernel of the
-   paths, the spread's and the data replicas' resolve kernels, K5 also at the storage shapes, K1-K3 and K5 also on the commit
+   paths that its path launched, the spread's and the data replicas' resolve kernels, K5 also at the storage shapes, K1-K3 and K5 also on the commit
    path, in the dynamic cluster, in the soak and in the in-process TCP
    cluster, K5 also on the B-tree's index), the card line and the result
    line;
@@ -42,7 +50,8 @@ card). Phases, each of which raises on failure:
    keys would all land in partition 0): every verdict must equal the
    oracle's from phase 3; versions cross the int32 rebase; one partition
    reshard is forced between groups; every partition must hold live rows;
-   then its kernels (K6 history, also on keyspace-wide reads, staging and
+   the scan launched once a group over the 4 stacked partitions; then the
+   standalone kernels (K6 history, also on keyspace-wide reads, staging and
    merge over partitions, K7 reshard and rebase over partitions) are held
    against their plain versions, and its profile line is printed;
 18. right after phase 7, the same partitions spread over the host's cards
@@ -142,13 +151,13 @@ card). Phases, each of which raises on failure:
    "write" (100 × 20 of 10 sets), retried through ``on_error``. Gates: a
    serializability referee over every committed transaction (reads, read
    and commit versions, batch order), every written key read back through
-   a multiGet, K1, K2, K3 staging, K3 merge and K5 launched in the mixes
+   a multiGet, the scan and K5 launched in the mixes
    with no multiGet fallback, both resolvers' guards HEALTHY with no fault,
    both resolvers given transactions in mix A (the balancer moved the
    boundary) (its CPU twin at 100,000 keys, identical transcripts on the
-   CPU and on the card, is cut for phase 16's budget). K1, K2
-   and K3 are then held against their plain versions on mix A's widest
-   batch and K5 at its widest multiGet search. One ``{"commit_path": ...}``
+   CPU and on the card, is cut for phase 16's budget). K1, K2,
+   K3 and the scan are then held against their plain versions on mix A's
+   widest batch and K5 at its widest multiGet search. One ``{"commit_path": ...}``
    JSON line: load and durable seconds, per mix committed txn/s and ops/s,
    NotCommitted, commit and GRV latency (sim and wall), per resolver
    batches, transactions, resolveLatency and the encode / dispatch /
@@ -169,9 +178,9 @@ card). Phases, each of which raises on failure:
    read-back equals the referee's model, the serializability referee
    (unknown results count where their proxy logged them within their
    generation), every generation's guards HEALTHY on ``torch`` on the
-   card with K1-K3 launched, K5 launched on the rebooted and the filled
+   card with the scan launched, K5 launched on the rebooted and the filled
    servers, no multiGet fallback, and a CPU twin at 50,000 keys with an
-   identical transcript. Then K1-K3 against their plain versions on the
+   identical transcript. Then K1-K3 and the scan against their plain versions on the
    newest generation's widest batch and K5 on the rebooted and the filled
    indexes. One ``{"dynamic_cluster": ...}`` JSON line: per step the
    times and mix figures, time to recover and to the new generation's
@@ -185,15 +194,15 @@ card). Phases, each of which raises on failure:
 15. the chaos soak: the port's ``tools.soak.run_one`` on the card for
    ``tests/test_soak.py``'s seeds 0, 1, 4 and 7, seed 0 with kernel faults
    and the overload burst forced, then seeds from 8 while the phase has
-   run under 40 s (none past 18). Each seed draws its own cluster
+   run under 30 s (none past 18). Each seed draws its own cluster
    shape, knobs, buggify sites and fault workloads from its seed. Gates a
    seed: the run's own checks (the workloads' oracles, the exact ledger
    under kernel faults, the ConsistencyCheck, the prefilter oracle), a
-   CPU twin with the identical summary, K5 launched, K1-K3 on a ``torch``
+   CPU twin with the identical summary, K5 launched, the scan on a ``torch``
    seed with every live guard on the card (or failed over by an injected
    fault), the forced seed's failover to ``native`` and promotion back,
    and ``torch.cuda.memory_allocated()`` back at its value before the
-   phase. K1-K3 on the forced seed's widest batch and K5 on its widest
+   phase. K1-K3 and the scan on the forced seed's widest batch and K5 on its widest
    search against their plain versions. One ``{"soak": ...}`` line a seed
    and one ``{"soak_summary": ...}`` line.
 16. the real-process cluster. (a) The port's ``TcpCluster``
@@ -207,7 +216,7 @@ card). Phases, each of which raises on failure:
    20 s from 2 ``tcp-client`` processes (this script with ``--tcp-mix``,
    which times them). Then ``status json`` through the port's cli: both
    resolvers HEALTHY on the card with 0 failovers, batches dispatched and
-   K1-K3 launched in their processes, both indexes on the card with K5
+   the scan launched in their processes, both indexes on the card with K5
    launched and no multiGet fallback. The process
    hosting the master is SIGKILLed and restarted, a probe write is timed
    until it commits, the new resolvers are checked the same way, and a
@@ -218,7 +227,7 @@ card). Phases, each of which raises on failure:
    its status pull reports it. (b) ``perf --mode tcp-inproc`` through ``perf.main``: the same
    layout as RealWorlds on one RealLoop in this process at 100,000 keys
    and a 10 s mix, over loopback and then over sockets; every resolver's
-   guard HEALTHY on the card, K1-K3 on the widest batch and K5 on the
+   guard HEALTHY on the card, K1-K3 and the scan on the widest batch and K5 on the
    widest search held to their plain versions and timed (one ``{"tcp_inproc":
    ...}`` line). (c) The 55 bindingtester streams of
    ``tests/test_bindingtester.py`` (seeds 0-49, the long stream, the four
@@ -371,7 +380,7 @@ def drive(cs, batches, offset: int, force_at: int | None = None, force=None):
 PORT_KERNELS = re.compile(
     r"\b(superblock_max|history_kernel|build_overlap|greedy_chain|greedy_commit|stage_records"
     r"|stage_sort|stage_merge|stage_aggregate|merge_buckets|compact_live|build_buckets"
-    r"|reshard_scan|reshard_build|rebase_kernel|search_both|search_warp)\b"
+    r"|reshard_scan|reshard_build|rebase_kernel|search_both|search_warp|resolve_many_kernel)\b"
 )
 
 
@@ -505,6 +514,17 @@ def max_abs_err(a, b) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     return int((a.long().cpu() - b.long().cpu()).abs().max()) if a.numel() else 0
+
+
+def path_rows(rows: list[dict]) -> list[dict]:
+    """The rows of the kernels line: the kernels held to their plain
+    versions that their phase's path launched. One checked but launched
+    nowhere on its path (the standalone K1-K3 beside the scan, which does
+    their work in one launch a group) stays in the log only."""
+    off = [r["name"] for r in rows if not r["launches"]]
+    if off:
+        log("held to their plain versions but not launched on their phase's path: " + json.dumps(off))
+    return [r for r in rows if r["launches"]]
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -655,7 +675,7 @@ def row_maker(rows: list, launches: dict):
         rows.append({
             "name": name, "route": "cuda",
             "source": "foundationdb_tpu_torch/conflict/kernels/csrc/" + source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches.get(name, 0),
             "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
@@ -941,6 +961,235 @@ def check_kernels(state, hbatch, vers, launches: dict) -> list[dict]:
     return rows
 
 
+def scan_group(cs, batches, first: int):
+    """``batches`` (read snapshots first, first + 1, ...) encoded by the warm
+    resolver ``cs`` as one group at its version base, as its dispatch
+    would: (the stacked group on its card, the version columns now /
+    oldest before / oldest after)."""
+    from foundationdb_tpu_torch.conflict import torch_backend as TB
+
+    base, horizon = cs._base, cs.oldest_version
+    hbs, cols = [], [[], [], []]
+    for i, txs in enumerate(batches):
+        now, old = first + i + WINDOW, first + i
+        post = max(horizon, old)
+        for c, v in zip(cols, (now - base, max(horizon - base, 0), max(post - base, 0))):
+            c.append(v)
+        horizon = post
+        hbs.append(cs.encode(txs)[0])
+    return TB.upload(TB.stack_batches(hbs, cs._lanes), cs._device), cols
+
+
+def scan_bound(state, batches, cols, bounds=None) -> tuple[float, str]:
+    """The least time of a group's work on this card: each batch's phases
+    (K1 or K6 history, K2, K3 staging, K3 merge) bounded as the standalone
+    kernels' rows bound them (``history_work``, ``intra_batch_work``,
+    ``stage_work``, ``merge_work`` on this group's data, from the plain
+    steps on a clone), summed over phases and batches. ``bound_by`` names
+    the limit of the larger share of the sum."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import sharded as SH
+
+    state = G.clone_state(state)
+    stacked = state.grid.dim() == 4
+    P = state.grid.shape[0] if stacked else 1
+    B = state.grid.shape[-3]
+    flat = SH.flat_view(state) if stacked else state
+    share = {"bytes": 0.0, "operations": 0.0}
+
+    def add(nbytes, ops):
+        ms, by = bound(nbytes, ops)
+        share[by] += ms
+
+    for g in range(batches.rb.shape[0]):
+        batch = G.Batch(*(x[g] for x in batches))
+        T, KR, L = batch.rb.shape
+        KW = batch.wb.shape[1]
+        now, old_pre, old_post = (int(c[g]) for c in cols)
+        nbytes, ops = (2 * T * KR * L + T) * CELL + T, 0  # the reads and snapshots in, H out
+        if stacked:
+            for p in range(P):
+                rb, re = SH.clip(batch.rb, batch.re, bounds[0][p], bounds[1][p])
+                nb, no = history_work(SH.partition(state, p), rb, re)
+                nbytes, ops = nbytes + nb, ops + no
+            H = SH.history_conflicts_sharded_plain(state, batch, *bounds)
+        else:
+            nb, no = history_work(state, batch.rb, batch.re)
+            nbytes, ops = nbytes + nb, ops + no
+            H = G.history_conflicts_plain(state, batch)
+        add(nbytes, ops)
+        add(*intra_batch_work(T, KR, KW, L))
+        commit = G.intra_batch_commits_plain(*G._endpoint_ranks(batch), H | (batch.t_has_reads & (batch.t_snap < old_pre)))
+        if stacked:
+            wb, we = SH.clip(batch.wb, batch.we, bounds[0][:, None, None, :], bounds[1][:, None, None, :])
+            st = SH._stage_clipped_plain(state, wb, we, commit)
+        else:
+            st = G._stage_writes(state, batch, commit)
+        add(*stage_work(st, T, KW, L, B, P))
+        before = G.clone_state(flat)
+        G.merge_staged_plain(flat, st, now, old_post, P)
+        add(*merge_work(before, flat, st, P))
+    total = share["bytes"] + share["operations"]
+    return total, max(share, key=share.get)
+
+
+def check_scan(label: str, state, batches, cols, launches: dict, bounds=None, reps: int = 5,
+               plain_time: bool = True) -> dict:
+    """The group scan (``kernels.resolve_many``, one launch) on a clone of
+    ``state`` against the loop of the standalone kernels
+    (``grid.resolve_many_loop``) and the plain loop
+    (``grid.resolve_many_plain``, on the card), each on its own clone:
+    verdicts, per-batch pressures, group maxima and every state array
+    exactly. Then the scan timed on fresh clones (CUDA events around the
+    calls, and their device time queued behind a sleeping kernel; it is
+    one kernel, so no profiler pass names its parts), the loop beside it
+    the same way (the yardstick), the plain loop once, and the bound
+    (``scan_bound``). Returns (the kernel-table row, the per-batch
+    pressures)."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import kernels
+
+    n_batches = batches.rb.shape[0]
+    S2 = G.staging_slots(state.grid.shape[-2])
+    vers = G.version_rows(*cols, state.grid.device)
+
+    def scan(s):
+        return kernels.resolve_many(*s, bounds, *batches, vers, S2)
+
+    def loop(s):
+        return G.resolve_many_loop(s, batches, *cols, bounds)
+
+    def plain(s):
+        return G.resolve_many_plain(s, batches, *cols, bounds)
+
+    got = G.clone_state(state)
+    verdicts, pressures, gmax = scan(got)
+    errs = {}
+    for name, fn in (("loop", loop), ("plain", plain)):
+        want = G.clone_state(state)
+        wv, wp = fn(want)
+        errs[name] = max_abs_err((verdicts, pressures, gmax, *got[1:]), (wv, wp, wp.amax(dim=0), *want[1:]))
+    if any(errs.values()):
+        raise AssertionError(f"the scan ({label}) differs from the loop of kernels or the plain loop: {errs}")
+
+    def clones(n):
+        return iter([G.clone_state(state) for _ in range(n)])
+
+    it = clones(4 * reps + 2)  # as many as cuda_ms and queued_ms may call
+    ms = cuda_ms(lambda: scan(next(it)), reps)
+    device_ms = queued_ms(lambda: scan(next(it)), reps, ms)
+    lit = clones(reps + 5)
+    loop_ms = cuda_ms(lambda: loop(next(lit)), reps)
+    # one call queued: a bench group's 8 launches a batch fill the launch
+    # queue behind the sleeping kernel when more calls are
+    loop_device_ms = queued_ms(lambda: loop(next(lit)), 1, loop_ms)
+    plain_ms = None
+    if plain_time:
+        pit = clones(1)
+        plain_ms = cuda_ms(lambda: plain(next(pit)), 1, warmup=0)
+    b_ms, b_by = scan_bound(state, batches, cols, bounds)
+    T, KR, L = batches.rb.shape[1:]
+    P = state.grid.shape[0] if state.grid.dim() == 4 else 1
+    row = {
+        "name": "resolve_many", "route": "cuda",
+        "source": "foundationdb_tpu_torch/conflict/kernels/csrc/scan.cu",
+        "replaces": "foundationdb_tpu/conflict/grid.py:681; foundationdb_tpu/conflict/sharded.py:220",
+        "launches": launches.get("resolve_many", 0), "max_abs_err": max(errs.values()),
+        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "loop_ms": loop_ms, "loop_device_ms": loop_device_ms,
+        "group": [n_batches, T, KR, batches.wb.shape[2], L, P],
+        "max_pressure": [int(x) for x in gmax.amax(dim=0)],
+    }
+    log(f"  resolve_many, {label} (G={n_batches} T={T} KR={KR} KW={batches.wb.shape[2]} L={L} P={P}): "
+        f"one launch {ms:.4f} ms (CUDA events; on the device {fmt_ms(device_ms)}), "
+        f"{ms / n_batches:.4f} ms a batch; the loop of standalone kernels {loop_ms:.4f} ms (on the "
+        f"device {fmt_ms(loop_device_ms)}); plain loop {fmt_ms(plain_ms)}; bound {b_ms:.5f} ms ({b_by}); "
+        f"max pressure {row['max_pressure']}; max_abs_err {row['max_abs_err']}")
+    return row, pressures
+
+
+def check_scans(state_g1, batches, offset: int, warm, launches: dict, card: str) -> list[dict]:
+    """Phase 5's scan cases, each against the loop of standalone kernels
+    and the plain loop (``check_scan``): (a) the bench group, the 40
+    batches after the first, on the state after it (the row of the main
+    path); (b) the commit path's widest batch shape (T = 64, KR = 8,
+    KW = 1, L = 8) on a grid of width 32 after one such group; (c) four
+    stacked partitions after one group of the bench's spread keys (its row
+    takes phase 7's launches); (d) a group whose middle batch overflows
+    staging (40 ranges of consecutive keys, into one or two buckets); (e)
+    three batches of phase 13's bulk load (8 transactions of 2000 writes,
+    KW = 2048) on (b)'s grid. Returns the rows of (a) and (c)."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict.api import CommitTransaction
+    from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+
+    rows = []
+    # (a) the bench group
+    group, cols = scan_group(warm, batches[GROUP : 2 * GROUP], offset + GROUP)
+    rows.append(check_scan("the bench group", state_g1, group, cols, launches)[0])
+
+    # (b) the commit path's widest batch shape, a group of GROUP
+    rnd = random.Random(3)
+
+    def wide(i0, n):
+        out = []
+        for i in range(n):
+            txs = []
+            for _ in range(64):
+                reads = [(b"rw/%08d" % k, b"rw/%08d\x00" % k) for k in rnd.sample(range(KEYSPACE), 8)]
+                c = rnd.randrange(KEYSPACE)
+                txs.append(CommitTransaction(read_snapshot=i0 + i, read_conflict_ranges=reads,
+                                             write_conflict_ranges=[(b"rw/%08d" % c, b"rw/%08d\x00" % c)]))
+            out.append(txs)
+        return out
+
+    cs = TorchConflictSet(key_width=32, capacity=1 << 14)
+    drive(cs, wide(1, GROUP), 1)
+    group, cols = scan_group(cs, wide(1 + GROUP, GROUP), 1 + GROUP)
+    check_scan("the commit path's widest batch shape", cs._state, group, cols, launches, plain_time=False)
+
+    # (e) the commit path's bulk load (phase 13): 8 transactions of
+    # COMMIT_LOAD_SETS consecutive keys a batch (KW = 2048), on the same grid
+    k0 = KEYSPACE // 2
+
+    def load(b):
+        return [CommitTransaction(1 + 2 * GROUP, [], [(b"rw/%08d" % k, b"rw/%08d\x00" % k) for k in
+                                                      range(k0 + (8 * b + j) * COMMIT_LOAD_SETS,
+                                                            k0 + (8 * b + j + 1) * COMMIT_LOAD_SETS)])
+                for j in range(8)]
+
+    group, cols = scan_group(cs, [load(b) for b in range(3)], 1 + 2 * GROUP)
+    check_scan("three batches of the bulk load", cs._state, group, cols, launches, reps=3, plain_time=False)
+    cs.close()
+
+    # (c) four stacked partitions after one group of the spread keys
+    spread = make_batches(2 * GROUP, N_TXNS, offset, key=spread_key)
+    cs = TorchMeshConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY, n_parts=4)
+    drive(cs, spread[:GROUP], offset)
+    e = cs._spread.entries[0]
+    group, cols = scan_group(cs, spread[GROUP:], offset + GROUP)
+    row = check_scan("four stacked partitions", e.states, group, cols, launches, bounds=(e.plo, e.phi))[0]
+    row["name"] = "resolve_many (four stacked partitions)"
+    rows.append(row)
+    cs.close()
+
+    # (d) the middle batch of three overflows staging: 40 ranges of
+    # consecutive keys, no reads (they commit)
+    c = KEYSPACE // 3
+    run = [CommitTransaction(offset + GROUP + 1, [], [(ascii_key(c + i), ascii_key(c + i + 1))]) for i in range(40)]
+    three = [batches[GROUP], run, batches[GROUP + 2]]
+    group, cols = scan_group(warm, three, offset + GROUP)
+    _row, per_batch = check_scan("a group whose middle batch overflows staging", state_g1, group, cols,
+                                 launches, reps=3)
+    staged = [int(x) for x in per_batch[:, 0, 0]]
+    if not staged[1] > G.staging_slots(state_g1.grid.shape[1]) >= max(staged[0], staged[2]):
+        raise AssertionError(f"the overflow group staged {staged} rows in a bucket")
+    log(f"  the overflow group's most staged rows in a bucket, batch by batch: {staged}")
+    torch.cuda.synchronize()
+    return rows
+
+
 def check_parts_resolve(states, batch, bounds, vers, launches: dict, k2: bool = False,
                         reads=None) -> list[dict]:
     """K6 history (also on keyspace-wide reads), with ``k2`` K2, then the
@@ -1109,7 +1358,8 @@ def run_mesh(want_oracle, offset: int, card: str):
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     snap = cs.metrics.snapshot()
-    phase7 = {"wall_s": wall, "encode_s": encode_s, "state": SH.gather_to_numpy(cs._spread)}
+    phase7 = {"wall_s": wall, "encode_s": encode_s, "state": SH.gather_to_numpy(cs._spread),
+              "launches": launches}
 
     if len(got) != N_BATCHES or any(len(v) != N_TXNS for v in got):
         raise AssertionError("partitioned path returned verdicts of the wrong shape")
@@ -1121,11 +1371,11 @@ def run_mesh(want_oracle, offset: int, card: str):
     per_part = snap["occupancy"]["liveRowsPerPartition"]
     if not all(n > 0 for n in per_part):
         raise AssertionError(f"a partition holds no live rows: {per_part}")
-    path = ("history_parts", "intra_batch", "stage_parts", "merge_parts", "maint_reshard_parts",
-            "maint_rebase_parts")
+    path = RESOLVE_PATH + ("maint_reshard_parts", "maint_rebase_parts")
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the partitioned path: {missing}")
+    one_launch_a_group(launches, snap, N_BATCHES // GROUP, "the partitioned path")
     txns = N_BATCHES * N_TXNS
     log(f"partitioned path: {wall:.3f} s, {txns / wall:.1f} txn/s end to end "
         f"({txns / max(wall - encode_s, 1e-9):.1f} txn/s without {encode_s:.3f} s "
@@ -2142,9 +2392,7 @@ def run_limits(card: str) -> None:
     from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
 
     t_phase = time.perf_counter()
-    paths = (("one grid", "torch1", {}, ("history", "intra_batch", "stage", "merge")),
-             ("four partitions", "torch_mesh", {"n_parts": 4},
-              ("history_parts", "intra_batch", "stage_parts", "merge_parts")))
+    paths = (("one grid", "torch1", {}, RESOLVE_PATH), ("four partitions", "torch_mesh", {"n_parts": 4}, RESOLVE_PATH))
     for width in LIMIT_WIDTHS:
         work = limit_batches(width, width)
         oracle = new_conflict_set("oracle")
@@ -3059,22 +3307,40 @@ DYN_COORDINATORS = 3
 DYN_ATTEMPTS = 100  # a transaction's retry budget (db.run retries without one)
 DYN_READ_CHUNK = 10_000  # rows a range read of the final read-back
 DYN_REBOOT_S = 1.0  # the storage worker's reboot delay
-RESOLVE_PATH = ("history", "intra_batch", "stage", "merge")  # the one grid's
+# a group's kernels: one launch of the scan on one grid and on one stack of
+# partitions; a batch at a time on each entry of a spread of several
+RESOLVE_PATH = ("resolve_many",)
 SPREAD_PATH = ("history_parts", "intra_batch", "stage_parts", "merge_parts")
+
+
+LOOP_KERNELS = ("history", "history_parts", "intra_batch", "stage", "stage_parts", "merge", "merge_parts")
+
+
+def one_launch_a_group(launches: dict, snap: dict, groups: int, label: str) -> None:
+    """The gate of a path that runs the scan: one launch a dispatched group
+    (replays included), at least ``groups``, and no per-batch resolve
+    kernel."""
+    loop = {k: launches[k] for k in LOOP_KERNELS if launches[k]}
+    if launches["resolve_many"] != snap["deviceDispatches"] or launches["resolve_many"] < groups or loop:
+        raise AssertionError(f"{label}: {launches['resolve_many']} launches of the scan for "
+                             f"{snap['deviceDispatches']} dispatched groups, per-batch kernels {loop}")
 
 
 def torch_built(backend: str = "torch") -> dict:
     """What ``new_conflict_set(backend)`` with no device builds on this
     host: ``torch1`` is always the one grid; ``torch`` is the one grid on a
     host of one card and the spread over every card on a host of more
-    (``api.mesh_upgrade``). Its class, the class's name, the kernels of a
-    batch's resolve and its rebase kernel."""
+    (``api.mesh_upgrade``); ``torch_mesh`` is one stack. Its class, the
+    class's name, the kernels of its resolve and its rebase kernel."""
     from foundationdb_tpu_torch.conflict.api import mesh_upgrade
     from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
 
-    if backend == "torch_mesh" or (backend == "torch" and mesh_upgrade() is not None):
+    if backend == "torch" and mesh_upgrade() is not None:
         return {"cls": TorchMeshConflictSet, "name": "TorchMeshConflictSet", "path": SPREAD_PATH,
+                "rebase": "maint_rebase_parts"}
+    if backend == "torch_mesh":
+        return {"cls": TorchMeshConflictSet, "name": "TorchMeshConflictSet", "path": RESOLVE_PATH,
                 "rebase": "maint_rebase_parts"}
     return {"cls": TorchConflictSet, "name": "TorchConflictSet", "path": RESOLVE_PATH, "rebase": "maint_rebase"}
 
@@ -3094,12 +3360,18 @@ def resolver_state(cs):
 
 def check_built_resolve(snap: dict, hbatch, vers, launches: dict) -> list[dict]:
     """The resolve kernels of one batch held to their plain versions on
-    ``resolver_state``'s snapshot: K1-K3 on the one grid, K6 history, K2,
-    the K6 staging and merge on a spread's first entry."""
+    ``resolver_state``'s snapshot: on the one grid K1-K3 and the scan
+    (the batch as a group of one, against the loop of those kernels and
+    the plain loop); K6 history, K2, the K6 staging and merge on a
+    spread's first entry."""
     from foundationdb_tpu_torch.conflict import torch_backend as TB
 
     if "bounds" not in snap:
-        return check_resolve_kernels(snap["state"], hbatch, vers, launches)[0]
+        rows, batch, _ck, _st = check_resolve_kernels(snap["state"], hbatch, vers, launches)
+        group = type(batch)(*(x[None] for x in batch))
+        row, _p = check_scan("the batch as a group of one", snap["state"], group, [[v] for v in vers],
+                             launches)
+        return rows + [row]
     dev = snap["state"].grid.device
     with torch.cuda.device(dev):
         return check_parts_resolve(snap["state"], TB.upload(hbatch, dev), snap["bounds"], vers, launches, k2=True)
@@ -3899,7 +4171,7 @@ def run_dynamic_cluster(card: str) -> tuple[dict, list[dict]]:
 SOAK_SEEDS = (0, 1, 4, 7)  # tests/test_soak.py's seeds
 SOAK_FORCED = {"force_kernel_faults": True, "force_overload": True}  # its composition case, on seed 0
 SOAK_MORE_FROM = 8  # then consecutive seeds from here ...
-SOAK_BUDGET_S = 40.0  # ... while the phase has run less than this (phase 17's time off 90 s),
+SOAK_BUDGET_S = 30.0  # ... while the phase has run less than this (90 s, then 40 s for phase 17, 30 s for phase 5's scan checks),
 SOAK_MORE_LAST = 18  # and none past 18: seed 19 never finishes, in either package (ROADMAP C6)
 SOAK_EVENTS = ("KernelFailover", "KernelPromoted", "MasterFullyRecovered")
 
@@ -4034,16 +4306,17 @@ def soak_once(seed: int, device, kw: dict, capture: dict | None = None,
 
 
 def soak_kernel_rows(capture: dict, card: str) -> list[dict]:
-    """K1-K3 on the forced seed's widest batch and K5 on its widest
-    search, against their plain versions (launch counts filled in by the
-    caller)."""
+    """K1-K3 and the scan on the forced seed's widest batch and K5 on its
+    widest search, against their plain versions (launch counts filled in
+    by the caller)."""
+    from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.device import lanes_to_torch
 
     if "size" not in capture or "q" not in capture:
         raise AssertionError(f"the forced seed captured no batch or search: {sorted(capture)}")
     hbatch, n_real, _epoch = capture["enc"]
     T_, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
-    counts = {k: 0 for k in RESOLVE_PATH + SPREAD_PATH + ("search",)}
+    counts = dict.fromkeys(kernels.WRAPPERS, 0)
     log(f"kernel checks on the forced soak seed's widest batch ({n_real} transactions, T={T_} KR={KR} "
         f"KW={KW}) [{card}]:")
     rows = check_built_resolve(capture["snap"], hbatch, capture["vers"], counts)
@@ -4102,7 +4375,7 @@ def run_soak(card: str) -> tuple[dict, list[dict]]:
     finishes in either package, ROADMAP C6). Each
     seed's gates: the run passes every check of its own; a CPU twin (the
     same call with ``device="cpu"``) gives the identical summary; K5
-    launched; on a seed that drew ``torch``, K1-K3 launched and every live
+    launched; on a seed that drew ``torch``, the scan launched and every live
     guard on the card at the end (or failed over, where kernel faults are
     armed); on the forced seed, a ``kernel-*`` site fired and the guard
     failed over and promoted back (the run's ``KernelChaosWorkload`` holds
@@ -4345,7 +4618,7 @@ def check_cluster_kernels(doc: dict, device: str, names: dict, want_batches: boo
     """Every resolver of the status document on ``device``, HEALTHY, with 0
     failovers; at least two of the newest generation (its recovery count,
     above ``after``), and with ``want_batches`` at least two of them with
-    batches dispatched, and on the card each busy one's process with K1-K3
+    batches dispatched, and on the card each busy one's process with the scan
     launched. A master attempt that a newer one fenced leaves its resolvers
     recruited, idle. Each storage server's index on ``device``, with no
     multiGet fallback and, on the card, K5 launched in its process.
@@ -4374,7 +4647,7 @@ def check_cluster_kernels(doc: dict, device: str, names: dict, want_batches: boo
            if r["device"] != device or r["state"] != "HEALTHY" or r["failovers"] != 0
            or r["backend"] != "TorchConflictSet"]
     busy = [r for r in current if (r["batches"] or 0) > 0]
-    # on the card, a busy resolver's process launched K1-K3 (the counts are
+    # on the card, a busy resolver's process launched the scan (the counts are
     # the process's; off it nothing launches)
     unlaunched = [r for r in busy if device == "cuda" and any(r["launches"].get(k, 0) <= 0 for k in RESOLVE_PATH)]
     if bad or unlaunched or newest <= after or len(current) < 2 or (want_batches and len(busy) < 2):
@@ -4642,7 +4915,7 @@ def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
     same layout as RealWorlds on one RealLoop in this process, ``n_keys``
     keys and the 90_10 mix for ``mix_s`` seconds, over loopback and then
     over sockets (``--no-loopback``). Launch counts are set to 0 before the
-    two runs and read after; K1, K2, K3 staging, K3 merge and K5 must have
+    two runs and read after; the scan and K5 must have
     launched, and every resolver's guard must be HEALTHY on ``device`` with
     no failover. With ``check``, the widest resolver batch (on its
     resolver's state after the runs) and the widest storage search are
@@ -4752,7 +5025,7 @@ def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
             T_, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
             log(f"kernel checks on tcp-inproc's widest batch ({n_real} transactions, T={T_} KR={KR} KW={KW}) "
                 f"and its resolver's state after the runs [{card}]:")
-            rows = check_resolve_kernels(cs._state, hbatch, vers, launches)[0]
+            rows = check_built_resolve({"state": cs._state}, hbatch, vers, launches)
             for r in rows:
                 r["name"] = f"{r['name']} (tcp_inproc, widest batch T={T_} KR={KR} KW={KW})"
             q_rows, idx, codes = capture["q"]
@@ -5194,14 +5467,14 @@ def main() -> int:
         then = run_spread if args.spread_only else run_data
         rows = mesh_rows + then(spread_batches, want_oracle, offset, phase7, card)
         log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
-        log(json.dumps({"kernels": rows}))
+        log(json.dumps({"kernels": path_rows(rows)}))
         log(card)
         return 0
     if args.tcp_only or args.btree_only:
         # 16 or 17 alone, after the build above
         rows = run_real_process(card) if args.tcp_only else run_phase17(card)
         log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
-        log(json.dumps({"kernels": rows}))
+        log(json.dumps({"kernels": path_rows(rows)}))
         log(card)
         return 0
 
@@ -5247,10 +5520,11 @@ def main() -> int:
         raise AssertionError(f"{bad} verdicts differ from the oracle")
     if snap["rebases"] < 1 or snap["reshardsDevice"] < 1:
         raise AssertionError(f"rebase/device reshard not exercised: {snap}")
-    path = ("history", "intra_batch", "stage", "merge", "maint_reshard", "maint_rebase")
+    path = RESOLVE_PATH + ("maint_reshard", "maint_rebase")
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    one_launch_a_group(launches, snap, N_BATCHES // GROUP, "the main path")
     txns = N_BATCHES * N_TXNS
     aborts = sum(v != 0 for vg in got for v in vg)
     log(f"main path: {wall:.3f} s, {txns / wall:.1f} txn/s end to end "
@@ -5265,9 +5539,14 @@ def main() -> int:
     # 5. each kernel against its plain version, at the main path's shapes
     log(f"kernel checks on the state after the first group [{card}]:")
     rows = check_kernels(state_g1, hbatch, vers, launches)
+    log(f"the group scan against the loop of standalone kernels and the plain loop [{card}]:")
+    scan_rows = check_scans(state_g1, batches, offset, warm, launches, card)
+    rows += scan_rows[:1]
 
     # 7. the partitioned resolver
     mesh_rows, spread_batches, phase7 = run_mesh(want_oracle, offset, card)
+    scan_rows[1]["launches"] = phase7["launches"]["resolve_many"]
+    mesh_rows += scan_rows[1:]
     # 18. the partitioned resolver spread over the cards of the host, while
     # phase 7's workload, final state and the oracle's verdicts are alive
     spread_rows = run_spread(spread_batches, want_oracle, offset, phase7, card)
@@ -5329,8 +5608,8 @@ def main() -> int:
 
     # 6. results
     log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
-    log(json.dumps({"kernels": rows + index_rows + mesh_rows + spread_rows + data_rows + storage_rows + commit_rows
-                               + dynamic_rows + soak_rows + tcp_rows + btree_rows}))
+    log(json.dumps({"kernels": path_rows(rows + index_rows + mesh_rows + spread_rows + data_rows + storage_rows
+                                         + commit_rows + dynamic_rows + soak_rows + tcp_rows + btree_rows)}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -16,7 +16,11 @@ The MVCC write history is the step function V(key) = version of the gap
 containing key. Per batch: the history check (K1, ``history_conflicts``),
 the intra-batch greedy commit (K2, ``intra_batch_commits``) and the merge
 of committed writes with GC (K3, ``merge_writes``: a staging launch, then
-the merge launch); maintenance is
+the merge launch). A group of batches (``resolve_many``, the JAX
+``lax.scan``) is ONE launch of the group scan on the card, which runs
+those phases batch after batch with the state kept on the device; the
+per-batch launches stay as its yardstick (``resolve_many_loop``) and as
+the steps of a spread over several cards (``sharded.py``). Maintenance is
 ``reshard_device`` (K4a) and ``rebase`` (K4b). ``search_both`` (K5) is the
 storage range index's binary search over a sorted code array. The
 partitioned resolver (``sharded.py``) reuses the staging and merge steps
@@ -28,9 +32,10 @@ raises if it cannot; a CPU tensor runs the plain PyTorch version
 (``*_plain``) beside it. The plain versions repeat the JAX package's
 arithmetic step for step, so the CPU tests hold them to it exactly.
 
-``merge_writes`` updates the state's grid/count/bmax/floor IN PLACE (JAX
-returned fresh arrays); callers that must keep a state intact (the
-backend's pre-group snapshot) hand it a clone.
+``merge_writes`` and ``resolve_many`` update the state's
+grid/count/bmax/floor IN PLACE (JAX returned fresh arrays, donating the
+state to its scan); callers that must keep a state intact (the backend's
+pre-group snapshot) hand them a clone.
 """
 
 from __future__ import annotations
@@ -642,32 +647,99 @@ def _merge_buckets_plain(
 # Full resolver step
 
 
-def resolve_one(state, batch, now: int, oldest_pre: int, oldest_post: int):
-    """One batch end-to-end. Returns (state, verdicts int8[T], pressure)."""
-    too_old = batch.t_has_reads & (batch.t_snap < oldest_pre)
-    H = history_conflicts(state, batch) | too_old
-    commit = intra_batch_commits(batch, H)
-    state, pressure = merge_writes(state, batch, commit, now, oldest_post)
-    # COMMITTED = 0, CONFLICT = 1, TOO_OLD = 2
-    verdicts = (~commit).to(torch.int8).masked_fill(too_old, TOO_OLD)
-    return state, verdicts, pressure
+def version_rows(nows, oldests_pre, oldests_post, device) -> torch.Tensor:
+    """The group's versions as the scan reads them: int32 [3, G] (each
+    batch's now, oldest version before it, oldest after it) on ``device``,
+    one pinned copy to a card."""
+    rows = torch.from_numpy(np.asarray([nows, oldests_pre, oldests_post], dtype=np.int32))
+    device = torch.device(device)
+    return rows.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else rows
+
+
+def resolve_one(state, batch: Batch, now: int, oldest_pre: int, oldest_post: int):
+    """One batch end-to-end (the JAX ``_resolve_one``): ``resolve_many`` on
+    a group of one, so one launch of the scan on the card. Returns (state,
+    verdicts int8[T], pressure int32[2])."""
+    group = Batch(*(x[None] for x in batch))
+    state, verdicts, pressure = resolve_many(state, group, [now], [oldest_pre], [oldest_post])
+    return state, verdicts[0], pressure
 
 
 def resolve_many(state, batches: Batch, nows, oldests_pre, oldests_post):
     """G batches in order with the state kept on the device (the JAX
     ``lax.scan``). ``batches`` carries a leading group axis G on every
-    field; the version lists are host ints. Updates ``state`` in place.
+    field; the version lists are host ints. On the card the whole group is
+    ONE launch of the group scan (``kernels.resolve_many``, the versions
+    one pinned copy, ``version_rows``), with no torch op between its
+    batches; on the CPU ``resolve_many_plain``. Updates ``state`` in place.
     Returns (state, verdicts int8[G, T], pressure int32[2] = max over the
     group)."""
+    if state.grid.is_cuda:
+        vers = version_rows(nows, oldests_pre, oldests_post, state.grid.device)
+        verdicts, _pressures, gmax = kernels.resolve_many(
+            *state, None, *batches, vers, staging_slots(state.grid.shape[1])
+        )
+        return state, verdicts, gmax.reshape(2)
+    verdicts, pressures = resolve_many_plain(state, batches, nows, oldests_pre, oldests_post)
+    return state, verdicts, pressures.amax(dim=0).reshape(2)
+
+
+def resolve_many_plain(state, batches: Batch, nows, oldests_pre, oldests_post, bounds=None):
+    """Plain version of the group scan: the loop of the plain versions,
+    batch by batch — on one grid, or with ``bounds`` (plo, phi) [P, L] over
+    the P partitions stacked in ``state`` (history of each read clipped to
+    each partition, K2 on the unclipped batch, the writes clipped and
+    staged over the flat [P·B] view). Updates ``state`` IN PLACE; returns
+    (verdicts int8[G, T], pressures int32[G, P, 2])."""
+    return _resolve_loop(state, batches, (nows, oldests_pre, oldests_post), bounds, plain=True)
+
+
+def resolve_many_loop(state, batches: Batch, nows, oldests_pre, oldests_post, bounds=None):
+    """``resolve_many_plain``'s loop through the per-batch dispatchers: on
+    the card the standalone kernels, eight launches a batch (K1 or K6
+    history, K2, K3 or K6 staging and merge) with the torch glue between
+    them — the path before the group scan, kept as its yardstick
+    (``chip_smoke.py`` phase 5, the card tests). Same returns."""
+    return _resolve_loop(state, batches, (nows, oldests_pre, oldests_post), bounds, plain=False)
+
+
+def _resolve_loop(state, batches: Batch, versions, bounds, plain: bool):
+    from . import sharded as SH  # sharded builds on this module
+
     verdicts, pressures = [], []
     for g in range(batches.rb.shape[0]):
         batch = Batch(*(x[g] for x in batches))
-        state, v, p = resolve_one(
-            state, batch, int(nows[g]), int(oldests_pre[g]), int(oldests_post[g])
-        )
-        verdicts.append(v)
-        pressures.append(p)
-    return state, torch.stack(verdicts), torch.stack(pressures).amax(dim=0)
+        now, old_pre, old_post = (int(v[g]) for v in versions)
+        too_old = batch.t_has_reads & (batch.t_snap < old_pre)
+        if bounds is None:
+            hist = history_conflicts_plain if plain else history_conflicts
+            H = hist(state, batch) | too_old
+        else:
+            hist = SH.history_conflicts_sharded_plain if plain else SH.history_conflicts_sharded
+            H = hist(state, batch, *bounds) | too_old
+        if plain:
+            commit = intra_batch_commits_plain(*_endpoint_ranks(batch), H)
+        else:
+            commit = intra_batch_commits(batch, H)
+        if bounds is None:
+            st = _stage_writes(state, batch, commit) if plain else stage_writes(state, batch, commit)
+            flat, n_parts = state, None
+        else:
+            plo, phi = bounds
+            if plain:
+                wb, we = SH.clip(batch.wb, batch.we, plo[:, None, None, :], phi[:, None, None, :])
+                st = SH._stage_clipped_plain(state, wb, we, commit)
+            else:
+                st = SH.stage_writes_sharded(state, batch, commit, plo, phi)
+            flat, n_parts = SH.flat_view(state), plo.shape[0]
+        if plain:
+            max_kept = merge_staged_plain(flat, st, now, old_post, n_parts or 1)
+        else:
+            max_kept = merge_staged(flat, st, now, old_post, n_parts)
+        # COMMITTED = 0, CONFLICT = 1, TOO_OLD = 2
+        verdicts.append((~commit).to(torch.int8).masked_fill(too_old, TOO_OLD))
+        pressures.append(torch.stack([st.max_staged, max_kept], dim=-1))
+    return torch.stack(verdicts), torch.stack(pressures)
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,15 @@ stream (never the process's current device: a grid on ``cuda:1`` runs on
 its launches in ``<wrapper>.launches``. They take CUDA tensors of one card
 only (``ValueError`` for tensors on two devices): ``conflict/grid.py`` runs
 the plain PyTorch versions for tensors on the CPU. Lanes are int32 tensors
-read by the kernels as uint32.
+read by the kernels as uint32. ``resolve_many`` is the group scan: a whole
+group of batches through K1/K6 history, K2 and K3 in one cooperative
+launch (``csrc/scan.cu``), planned by ``scan_plan``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -132,25 +135,29 @@ MAX_TXNS = 65536  # intra_batch: a 32·ceil(T/32)²-word bitset (512 MiB at the 
 SMEM_OPTIN = 232448  # bytes of shared memory one block may opt into (H100)
 
 
-def intra_batch_plan(KR: int, KW: int, L: int) -> tuple[int, int, int]:
-    """K2's overlap tiling for KR read and KW write slots of L lanes: (WT,
-    CR, CW) — WT writer words per CTA (32·WT threads), and the read and
-    write slots staged in shared memory at a time. Where 32 readers' KR
-    slots and 32·WT writers' KW slots fit one block, that is the plan (the
-    largest WT of 8, 4, 2, 1 that fits, CR = KR, CW = KW). Otherwise WT = 8
-    and the larger of the two staged parts is halved until they fit, then
-    WT; CR = CW = 0 where not even one slot of each fits: the kernel then
+def overlap_words(WT: int, CR: int, CW: int, L: int) -> int:
+    """Shared-memory words of one K2 overlap tile: 32 readers' CR slots at
+    an odd stride and 32·WT writers' CW slots, both ends of L lanes."""
+    return 32 * ((CR * 2 * L) | 1) + 32 * WT * CW * 2 * L
+
+
+def intra_batch_plan(KR: int, KW: int, L: int, smem: int = SMEM_OPTIN,
+                     widths=(8, 4, 2, 1)) -> tuple[int, int, int]:
+    """K2's overlap tiling for KR read and KW write slots of L lanes in
+    ``smem`` bytes of shared memory: (WT, CR, CW) — WT writer words per
+    tile (32·WT threads compute it), and the read and write slots staged
+    in shared memory at a time. Where 32 readers' KR slots and 32·WT
+    writers' KW slots fit one block, that is the plan (the largest WT of
+    ``widths`` that fits, CR = KR, CW = KW). Otherwise WT = widths[0] and
+    the larger of the two staged parts is halved until they fit, then WT;
+    CR = CW = 0 where not even one slot of each fits: the kernel then
     reads the endpoints from global memory."""
-
-    def words(wt, cr, cw):
-        return 32 * ((cr * 2 * L) | 1) + 32 * wt * cw * 2 * L
-
-    cap = SMEM_OPTIN // 4
-    for wt in (8, 4, 2, 1):
-        if words(wt, KR, KW) <= cap:
+    cap = smem // 4
+    for wt in widths:
+        if overlap_words(wt, KR, KW, L) <= cap:
             return wt, KR, KW
-    wt, cr, cw = 8, KR, KW
-    while words(wt, cr, cw) > cap:
+    wt, cr, cw = widths[0], KR, KW
+    while overlap_words(wt, cr, cw, L) > cap:
         if cr > 1 and cr >= wt * cw:
             cr = -(-cr // 2)
         elif cw > 1:
@@ -442,6 +449,159 @@ def search_steps(n: int) -> int:
     return max(1, (n - 1).bit_length() + 1)
 
 
+SCAN_THREADS = 1024  # threads of a scan CTA: the chain's and the tile sort's (csrc/scan.cu)
+SCAN_SMEM = STAGE_TILE_BYTES  # dynamic shared memory a scan CTA may take; its aggregation keeps 1,056 static bytes
+SCAN_OVERLAP_WIDTHS = (32, 16, 8, 4, 2, 1)  # writer words of a scan CTA's overlap tile: its 32 warps at most
+CHAIN_WORDS = 2048  # the chain's commit words in shared memory (csrc/intra_batch.cuh kMaxWords)
+
+
+class ScanPlan(NamedTuple):
+    """How one group goes through the scan: the cooperative grid, a CTA's
+    dynamic shared memory (the largest phase's), each phase's tiling and
+    the scratch, one int32 buffer cut into 16-byte aligned pieces."""
+
+    blocks: int  # CTAs of the cooperative grid, all co-resident
+    smem: int  # dynamic shared memory of a CTA, bytes
+    overlap: tuple  # K2's tiling (WT, CR, CW), intra_batch_plan's in SCAN_SMEM, WT < 2·⌈T/32⌉
+    S2: int  # staging slots a touched bucket
+    U: int  # staging planes: touched buckets a batch may have
+    n2pad: int  # a partition's staging rows, 2·T·KW padded to a power of two
+    tile: int  # rows one sort tile holds (csrc/stage.cu)
+    rows_in_smem: bool  # the merge's 64 rows a warp in shared memory, else in scratch
+    offsets: dict  # scratch piece -> (offset, words)
+    words: int  # the scratch in int32 words
+
+
+# the scan's scratch pieces in order (their int32 words: ``scan_plan``)
+SCAN_PIECES = ("bmax_sup", "H", "commit", "pt", "st_code", "st_ev", "tid", "carry", "rec_a", "rec_b",
+               "rows", "counters")
+
+
+def scan_plan(G: int, T: int, KR: int, KW: int, L: int, P: int, B: int, S: int, S2: int,
+              n_sms: int, blocks_per_sm: int = 1) -> ScanPlan:
+    """The launch of one group of G batches (T transactions of KR reads
+    and KW writes, L lanes) over P stacked partitions of B buckets × S
+    slots on ``n_sms`` SMs with ``blocks_per_sm`` scan CTAs co-resident on
+    each (the occupancy query's answer). Raises ValueError for a shape the
+    kernels refuse, as their standalone wrappers do."""
+    if T > MAX_TXNS:
+        raise ValueError(f"batch of {T} transactions exceeds the kernel's {MAX_TXNS}")
+    if B < 1 or B & (B - 1):
+        raise ValueError(f"bucket count must be a power of two, got {B}")
+    if S > 32 or S2 > 32:
+        raise ValueError(f"S = {S}, S2 = {S2}: one warp holds at most 32 rows of each")
+    n2 = 2 * T * KW
+    n2pad = 1 << (n2 - 1).bit_length()
+    if n2pad > MAX_STAGE_ROWS:
+        raise ValueError(f"{n2pad} endpoint rows a partition exceed the kernel's {MAX_STAGE_ROWS}")
+    rw = L + 2
+    fit = STAGE_TILE_BYTES // (rw * 4 + 6)
+    if fit < 1:
+        raise ValueError(f"{L} lanes: one staging record exceeds a block's shared memory")
+    tile = min(n2pad, STAGE_TILE_ROWS, 1 << (fit.bit_length() - 1))
+    W = -(-T // 32)
+    # a tile no wider than the batch's writer words, padded to a power of
+    # two: wider ones stage padding (and, chunked, take more passes)
+    overlap = intra_batch_plan(KR, KW, L, SCAN_SMEM,
+                               tuple(w for w in SCAN_OVERLAP_WIDTHS if w < 2 * W) or (1,))
+    rows_smem = SCAN_THREADS // 32 * 64 * (L + 1) * 4
+    rows_in_smem = rows_smem <= SCAN_SMEM
+    smem = max(overlap_words(*overlap, L) * 4 if overlap[1] else 0, CHAIN_WORDS * 4,
+               tile * (rw * 4 + 6), rows_smem if rows_in_smem else 0)
+    smem = -(-smem // 16) * 16
+    blocks = n_sms * blocks_per_sm
+    U = P * min(n2, B)
+    B1, _B2 = split_factors(B)
+    rec = P * n2pad * rw
+    sizes = {
+        "bmax_sup": P * B1, "H": -(-T // 4), "commit": -(-T // 4), "pt": 32 * W * W,
+        "st_code": U * S2 * L, "st_ev": U * S2, "tid": U, "carry": U,
+        "rec_a": rec, "rec_b": 0 if P == 1 and tile == n2pad else rec,
+        "rows": 0 if rows_in_smem else min(U, blocks * SCAN_THREADS // 32) * 64 * (L + 1),
+        "counters": 3 * G * P,
+    }
+    offsets, at = {}, 0
+    for name in SCAN_PIECES:
+        offsets[name] = (at, sizes[name])
+        at += -(-sizes[name] // 4) * 4
+    return ScanPlan(blocks, smem, overlap, S2, U, n2pad, tile, rows_in_smem, offsets, at)
+
+
+_scan_occupancy: dict = {}  # (device, L, smem) -> (CTAs an SM, SMs): the card's answer, asked once
+
+
+def _plan_on(dev: torch.device, G, T, KR, KW, L, P, B, S, S2) -> ScanPlan:
+    """``scan_plan`` on card ``dev``, its grid sized by the occupancy query
+    there."""
+    smem = scan_plan(G, T, KR, KW, L, P, B, S, S2, n_sms=0).smem
+    occ = _scan_occupancy.get((dev, L, smem))
+    if occ is None:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(dev):
+            _run("fdb_scan_occupancy", L, smem, ctypes.c_void_p(ctypes.addressof(out)))
+        occ = _scan_occupancy[(dev, L, smem)] = (out[0], out[1])
+    return scan_plan(G, T, KR, KW, L, P, B, S, S2, n_sms=occ[1], blocks_per_sm=occ[0])
+
+
+@_counted
+def resolve_many(pivots, grid, count, bmax, floor, bounds, rb, re, wb, we, t_snap, t_has_reads, vers,
+                 S2: int):
+    """The group scan: G batches (``rb``/``re`` [G, T, KR, L], ``wb``/``we``
+    [G, T, KW, L], ``t_snap`` int32 and ``t_has_reads`` bool [G, T]; ``vers``
+    int32 [3, G]: each batch's now, oldest version before it and after it)
+    through K1 → K2 → K3 staging → K3 merge in ONE cooperative launch,
+    updating the state IN PLACE: one grid ([B, ...], ``bounds`` None) or P
+    stacked partitions ([P, B, ...]) with ``bounds`` = (plo, phi) [P, L],
+    each read and write clipped to its partitions in the kernel. Returns
+    (verdicts int8 [G, T], the per-batch pressures int32 [G, P, 2] — most
+    staged and most kept rows in a bucket of each partition —, their
+    maxima over the group int32 [P, 2]). A grid that cannot be co-resident
+    and a refused launch raise; nothing falls back to the per-batch
+    kernels."""
+    *lead, B, S, Lp1 = grid.shape
+    P = lead[0] if lead else 1
+    L = Lp1 - 1
+    G, T, KR, _ = rb.shape
+    KW = wb.shape[2]
+    if bool(lead) != (bounds is not None):
+        raise ValueError("the scan takes partition bounds with a stacked state, and none with one grid")
+    bounds = tuple(bounds or ())
+    dev = _device(pivots, grid, count, bmax, floor, *bounds, rb, re, wb, we, t_snap, t_has_reads, vers)
+    _check(pivots, "pivots", _I32, (*lead, B, L))
+    _check(grid, "grid", _I32)
+    for name, t in (("count", count), ("bmax", bmax), ("floor", floor)):
+        _check(t, name, _I32, (*lead, B))
+    for name, t in zip(("plo", "phi"), bounds):
+        _check(t, name, _I32, (P, L))
+    for name, t in (("rb", rb), ("re", re)):
+        _check(t, name, _I32, (G, T, KR, L))
+    for name, t in (("wb", wb), ("we", we)):
+        _check(t, name, _I32, (G, T, KW, L))
+    _check(t_snap, "t_snap", _I32, (G, T))
+    _check(t_has_reads, "t_has_reads", torch.bool, (G, T))
+    _check(vers, "vers", _I32, (3, G))
+    plan = _plan_on(dev, G, T, KR, KW, L, P, B, S, S2)
+    scratch = torch.empty(plan.words, dtype=_I32, device=dev)
+    base = scratch.data_ptr()
+    pieces = [ctypes.c_void_p(base + 4 * off) if n else None for off, n in
+              (plan.offsets[name] for name in SCAN_PIECES)]
+    verdicts = torch.empty((G, T), dtype=torch.int8, device=dev)
+    pressures = torch.empty((G, P, 2), dtype=_I32, device=dev)
+    gmax = torch.empty((P, 2), dtype=_I32, device=dev)
+    B1, B2 = split_factors(B)
+    _launch(
+        "fdb_resolve_many", dev,
+        _ptr(pivots), _ptr(grid), _ptr(count), _ptr(bmax), _ptr(floor),
+        *([_ptr(t) for t in bounds] or [None, None]),
+        _ptr(rb), _ptr(re), _ptr(wb), _ptr(we), _ptr(t_snap), _ptr(t_has_reads), _ptr(vers),
+        _ptr(verdicts), _ptr(pressures), _ptr(gmax), *pieces,
+        G, P, B, S, L, T, KR, KW, B1, B2, *plan.overlap, S2, plan.U, plan.n2pad, plan.tile,
+        plan.smem, plan.blocks,
+    )
+    resolve_many.launches += 1
+    return verdicts, pressures, gmax
+
+
 WRAPPERS = {
     "history": history,
     "intra_batch": intra_batch,
@@ -455,6 +615,7 @@ WRAPPERS = {
     "merge_parts": merge_parts,
     "maint_reshard_parts": maint_reshard_parts,
     "maint_rebase_parts": maint_rebase_parts,
+    "resolve_many": resolve_many,
 }
 
 

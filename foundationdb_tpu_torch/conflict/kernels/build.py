@@ -5,7 +5,11 @@ shared library with a plain C interface under ``build/kernels/`` at the
 repository root (git-ignored), and loaded with ``ctypes``. All sources are
 compiled in parallel, at first use: importing this module builds nothing,
 so the CPU tests import it on a machine with no ``nvcc``. A library's file
-name carries a hash of its sources, so an edited kernel is rebuilt.
+name carries a hash of its source and of the headers (``csrc/*.cuh``, the
+phases' device code that ``scan.cu`` shares with the standalone kernels),
+so an edited kernel is rebuilt. ``scan.cu``'s grid-wide barrier
+(``cooperative_groups`` ``grid.sync()``) needs no relocatable device code
+(``-rdc``) since CUDA 11, so it builds with the same flags.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from ..errors import KernelBuildError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("history", "intra_batch", "stage", "merge", "maint", "search")
+SOURCES = ("history", "intra_batch", "stage", "merge", "maint", "search", "scan")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -31,7 +35,8 @@ NVCC_FLAGS = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name → (library, argtypes); every one returns the
-# cudaError_t of cudaGetLastError() after its launches
+# cudaError_t of cudaGetLastError() after its launches (the occupancy
+# query, that of its queries)
 SIGNATURES = {
     "fdb_history": ("history", [_P] * 10 + [_I] * 7 + [_P]),
     "fdb_history_parts": ("history", [_P] * 12 + [_I] * 8 + [_P]),
@@ -41,6 +46,8 @@ SIGNATURES = {
     "fdb_reshard": ("maint", [_P] * 11 + [_I] * 7 + [_P]),
     "fdb_rebase": ("maint", [_P] * 6 + [_I] * 4 + [_P]),
     "fdb_search": ("search", [_P] * 3 + [_I] * 3 + [_P]),
+    "fdb_resolve_many": ("scan", [_P] * 29 + [_I] * 19 + [_P]),
+    "fdb_scan_occupancy": ("scan", [_I] * 2 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -64,7 +71,8 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the phases' device code, which scan.cu shares
+        h.update(header.read_bytes())
     h.update((CSRC / f"{name}.cu").read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -31,11 +31,29 @@ __device__ __forceinline__ bool is_sentinel(const uint32_t* a, int L) {
     return true;
 }
 
+// a load of a word no thread of the launch writes, through the read-only
+// cache; or, with CG, of a word an earlier phase of the same launch may have
+// written (the group scan's state and scratch, scan.cu): through L2, which
+// every SM sees, never the non-coherent read-only path
+template <bool CG, typename T>
+__device__ __forceinline__ T ld_in(const T* p) {
+    if constexpr (CG) return __ldcg(p);
+    else return __ldg(p);
+}
+
+// a plain load, or with CG one through L2 (as ld_in), for a word the
+// standalone kernel itself may write
+template <bool CG, typename T>
+__device__ __forceinline__ T ld_rw(const T* p) {
+    if constexpr (CG) return __ldcg(p);
+    else return *p;
+}
+
 // the code lanes of one key in registers; lanes >= L are never compared
-template <int LM>
+template <int LM, bool CG = false>
 __device__ __forceinline__ void load_code(const uint32_t* p, int L, uint32_t (&x)[LM]) {
 #pragma unroll
-    for (int i = 0; i < LM; ++i) x[i] = i < L ? __ldg(p + i) : 0u;
+    for (int i = 0; i < LM; ++i) x[i] = i < L ? ld_in<CG>(p + i) : 0u;
 }
 
 // -1 / 0 / +1: lexicographic compare of two register codes of L <= LM lanes
@@ -61,18 +79,19 @@ struct Code<0> {
     const uint32_t* p;
 };
 
-template <int LM>
+template <int LM, bool CG = false>
 __device__ __forceinline__ void load(Code<LM>& c, const uint32_t* p, int L) {
     if constexpr (LM == 0) c.p = p;
-    else load_code<LM>(p, L, c.x);
+    else load_code<LM, CG>(p, L, c.x);
 }
 
-// -1 / 0 / +1: lexicographic compare of two codes of L lanes
-template <int LM>
+// -1 / 0 / +1: lexicographic compare of two codes of L lanes (CG: codes in
+// memory are read as ld_in<CG> reads them)
+template <int LM, bool CG = false>
 __device__ __forceinline__ int cmp(const Code<LM>& a, const Code<LM>& b, int L) {
     if constexpr (LM == 0) {
         for (int i = 0; i < L; ++i) {
-            const uint32_t x = __ldg(a.p + i), y = __ldg(b.p + i);
+            const uint32_t x = ld_in<CG>(a.p + i), y = ld_in<CG>(b.p + i);
             if (x != y) return x < y ? -1 : 1;
         }
         return 0;

@@ -163,6 +163,15 @@ class TorchMeshConflictSet(ConflictSet):
         return out
 
     def _resolve(self, spread: SH.Spread, uploaded: dict, nows, olds_pre, olds_post):
+        """The group through ``spread``: one stack on one device is the
+        group scan (one launch on a card); several entries keep the loop,
+        which exchanges H between them inside every batch."""
+        if len(spread.entries) == 1:
+            e = spread.entries[0]
+            _states, verdicts, pressures = SH.resolve_many_sharded(
+                e.states, uploaded["batch"][e.device], nows, olds_pre, olds_post, (e.plo, e.phi)
+            )
+            return verdicts, pressures
         return SH.resolve_many_spread(
             spread, [uploaded["batch"][e.device] for e in spread.entries], nows, olds_pre, olds_post,
             uploaded["reads"],

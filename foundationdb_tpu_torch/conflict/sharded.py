@@ -11,7 +11,10 @@ device of a list (a device may appear more than once); each entry holds a
 contiguous run of the P partitions as the leading axis of ONE stacked
 ``GridState`` on its device (fields [k, B, ...], contiguous, so
 ``grid.view(k * B, S, L + 1)`` is the flat view). A spread of one entry is
-the whole stack on one card. One batch (``resolve_one_spread``):
+the whole stack on one card, and it resolves a group in one launch of the
+group scan (``resolve_many_sharded``: the steps below, batch after batch,
+with every read and write clipped in the kernel). A spread of several
+entries takes one batch at a time (``resolve_one_spread``):
 
 - every entry runs K6 history on its partitions; the entries' H are
   exchanged with plain cross-device copies and OR-ed into one H on every
@@ -182,14 +185,6 @@ class Spread:
         self.n_rows = len(self.entries) // n_data
         self.per_entry = self.entries[0].states.grid.shape[0]
         self.n_parts = self.per_entry * self.n_rows
-
-    @classmethod
-    def of(cls, states: G.GridState, bounds=None) -> "Spread":
-        """The one-entry spread of a stacked state (no copy)."""
-        P, _B, _S, Lp1 = states.grid.shape
-        dev = states.grid.device
-        plo, phi = bounds if bounds is not None else partition_bounds(Lp1 - 1, P, dev)
-        return cls([Entry(dev, states, plo, phi)])
 
     def devices(self) -> list:
         """The distinct devices of the entries, in entry order."""
@@ -428,7 +423,9 @@ def resolve_one_spread(spread: Spread, batches: list, now: int, oldest_pre: int,
 def resolve_many_spread(spread: Spread, batches: list, nows, oldests_pre, oldests_post,
                         reads: list | None = None):
     """G batches in order (the reference's on-device scan; a host loop
-    here, as in ``grid.resolve_many``); ``batches`` holds the stacked group
+    here: the entries exchange H inside every batch, which one launch on
+    one card cannot do; a spread of one entry takes the group scan,
+    ``resolve_many_sharded``); ``batches`` holds the stacked group
     on each entry's device and ``reads`` each entry's stacked read slice
     (``resolve_one_spread``). Updates the grids IN PLACE. Returns (verdicts
     int8[G, T], pressures int32[G, P, 2]) on entry 0's device — the
@@ -449,11 +446,23 @@ def resolve_many_spread(spread: Spread, batches: list, nows, oldests_pre, oldest
 
 def resolve_many_sharded(states, batches: G.Batch, nows, oldests_pre,
                          oldests_post, bounds=None):
-    """``resolve_many_spread`` on one stacked state. Updates ``states`` IN
-    PLACE. Returns (states, verdicts int8[G, T], pressures int32[G, P, 2])."""
-    verdicts, pressures = resolve_many_spread(
-        Spread.of(states, bounds), [batches], nows, oldests_pre, oldests_post
-    )
+    """A group through the P partitions stacked in ``states`` on one device
+    (a spread of one entry), with their ``bounds`` (plo, phi) (by default
+    the even split of ``partition_bounds``): on the card ONE launch of the
+    group scan (``kernels.resolve_many``, each read and write clipped to its
+    partitions in the kernel, the versions one pinned copy), on the CPU
+    ``grid.resolve_many_plain``. Updates ``states`` IN PLACE. Returns
+    (states, verdicts int8[G, T], pressures int32[G, P, 2])."""
+    P, _B, S, Lp1 = states.grid.shape
+    dev = states.grid.device
+    bounds = tuple(bounds) if bounds is not None else partition_bounds(Lp1 - 1, P, dev)
+    if states.grid.is_cuda:
+        vers = G.version_rows(nows, oldests_pre, oldests_post, dev)
+        verdicts, pressures, _gmax = kernels.resolve_many(
+            *states, bounds, *batches, vers, G.staging_slots(S)
+        )
+        return states, verdicts, pressures
+    verdicts, pressures = G.resolve_many_plain(states, batches, nows, oldests_pre, oldests_post, bounds)
     return states, verdicts, pressures
 
 

@@ -971,9 +971,8 @@ def test_commit_path_on_the_card_equals_its_cpu_run(cuda, backend):
     launches = kernels.launch_counts()
     want = run_commit("foundationdb_tpu_torch", device="cpu", **kw)
     assert got == want
-    path = (("history", "intra_batch", "stage", "merge") if backend == "torch"
-            else ("history_parts", "intra_batch", "stage_parts", "merge_parts"))
-    assert all(launches[k] > 0 for k in path + ("search",)), launches
+    # one card: either backend resolves a group in one launch of the scan
+    assert launches["resolve_many"] > 0 and launches["search"] > 0, launches
     assert sum(dict(s)["multiGetIndexKeys"] for s in got["storages"]) > 0
 
 
@@ -1056,9 +1055,7 @@ def test_dynamic_cluster_on_the_card_survives_a_master_kill(cuda, backend):
     for part in ("client", "recoveries", "shards", "now"):
         assert card[part] == oracle[part], part
     assert max(rc for _a, _i, rc, _rv in card["recoveries"]) >= 2
-    path = (("history", "intra_batch", "stage", "merge") if backend == "torch"
-            else ("history_parts", "intra_batch", "stage_parts", "merge_parts"))
-    assert all(launches[k] > 0 for k in path + ("search",)), launches
+    assert launches["resolve_many"] > 0 and launches["search"] > 0, launches  # one card: the scan
     want = "TorchMeshConflictSet" if backend == "torch_mesh" else "TorchConflictSet"
     assert card["guards"] and all(g[2:] == ("HEALTHY", 0, 0, want) for g in card["guards"])
 
@@ -1145,7 +1142,7 @@ def test_soak_seed_on_the_card_equals_its_cpu_twin(cuda):
     assert card == run_one(0, device="cpu")
     set_loop(None)
     assert card["config"]["conflict_backend"] == "torch"
-    assert all(launches[k] > 0 for k in ("history", "intra_batch", "stage", "merge", "search")), launches
+    assert all(launches[k] > 0 for k in ("resolve_many", "search")), launches
 
 
 def test_bindingtester_streams_on_the_card_equal_the_model(cuda):
@@ -1164,14 +1161,14 @@ def test_bindingtester_streams_on_the_card_equal_the_model(cuda):
     set_loop(None)
     gc.collect()
     assert out["identical"] == out["streams"] == 5
-    assert all(out["launches"].get(k, 0) > 0 for k in ("history", "intra_batch", "stage", "merge"))
+    assert out["launches"].get("resolve_many", 0) > 0
 
 
 def test_tcp_inproc_cluster_on_the_card(cuda):
     """``perf --mode tcp-inproc`` on the card at a small size, over loopback
-    and sockets: the resolvers stay HEALTHY on the card, K1-K3 and K5
-    launch, and each kernel equals its plain version on the widest batch
-    and search."""
+    and sockets: the resolvers stay HEALTHY on the card, the scan and K5
+    launch, and K1-K3, the scan and K5 equal their plain versions on the
+    widest batch and search."""
     import os
     import sys
 
@@ -1179,5 +1176,135 @@ def test_tcp_inproc_cluster_on_the_card(cuda):
     import chip_smoke
 
     out, rows = chip_smoke.run_tcp_inproc("test", device="cuda", n_keys=4000, mix_s=2.0)
-    assert {r["max_abs_err"] for r in rows} == {0} and len(rows) == 5
-    assert all(out["launches"].get(k, 0) > 0 for k in ("history", "intra_batch", "stage", "merge", "search"))
+    assert {r["max_abs_err"] for r in rows} == {0} and len(rows) == 6
+    assert all(out["launches"].get(k, 0) > 0 for k in ("resolve_many", "search"))
+
+
+# ---------------------------------------------------------------------------
+# The group scan (csrc/scan.cu) against the loop of the standalone kernels
+# and against the plain loop, on groups built in code space
+
+# (name, G, T, KR, KW, L, P, B): one grid (P = 1) or stacked partitions
+SCAN_CASES = [
+    ("one_txn", 1, 1, 1, 1, 3, 1, 64),
+    ("bench_group", 40, 2500, 1, 1, 3, 1, 32768),
+    ("many_small", 40, 33, 1, 1, 3, 1, 1024),
+    ("reads_8", 3, 33, 8, 1, 8, 1, 1024),
+    ("writes_16", 3, 33, 1, 16, 3, 4, 256),
+    ("slots_100_130", 1, 33, 100, 130, 8, 1, 1024),
+    ("keys_512_bytes", 3, 33, 1, 1, 128, 1, 256),
+    ("bench_parts", 3, 2500, 1, 1, 3, 4, 8192),
+    ("commit_path_parts", 3, 2500, 8, 1, 8, 4, 8192),
+    ("above_one_tile", 3, 2500, 2, 4, 3, 1, 32768),
+    ("staging_overflow_mid", 3, 33, 1, 2, 3, 1, 64),
+    ("bucket_overflow_mid", 3, 33, 1, 1, 3, 4, 64),
+    ("too_old", 3, 2500, 1, 1, 8, 1, 4096),
+    ("txn_limit", 1, kernels.MAX_TXNS, 1, 1, 3, 1, 4096),
+]
+
+
+def _scan_inputs(case, dev):
+    """(state on ``dev`` after a warm-up group through the plain loop,
+    bounds or None, the group as a Batch on ``dev``, its version columns)
+    of a SCAN_CASES case. Codes are uniform over the first lane (every
+    partition and bucket gets rows), ranges a few buckets wide; the
+    overflow cases aim the middle batch's writes at one bucket."""
+    name, G_, T, KR, KW, L, P, B = case
+    rnd = np.random.default_rng(zlib.crc32(name.encode()))
+    S = 32
+    arrays = SH._sharded_arrays(P, B, S, L)
+    width = (1 << 32) // (P * B) * 3
+    if P == 1:
+        state = G.state_from_numpy(*(a[0] for a in arrays), dev)
+        bounds = None
+    else:
+        state = SH.states_from_numpy(*arrays, dev)
+        bounds = SH.partition_bounds(L, P, dev)
+
+    def group(n_groups, v0):
+        rb, re = _ranges(rnd, (n_groups, T, KR), L, span=1 << 32, width=width)
+        wb, we = _ranges(rnd, (n_groups, T, KW), L, span=1 << 32, width=width)
+        if name in ("staging_overflow_mid", "bucket_overflow_mid") and n_groups > 1:
+            # one bucket of the first partition: 40 distinct codes in the
+            # middle batch (past S2), or 16 in each of the first two (past S)
+            lo = int(arrays[0][0, 5, 0])
+            wb[:2], we[:2] = SENT, SENT
+            k = np.arange(T, dtype=np.uint32)
+            if name == "staging_overflow_mid":
+                wb[1, :20, 0, 0], we[1, :20, 0, 0] = lo + 2 * k[:20] + 1, lo + 2 * k[:20] + 2
+            else:
+                for g in range(2):
+                    wb[g, :8, 0, 0], we[g, :8, 0, 0] = lo + 4 * k[:8] + 2 * g + 1, lo + 4 * k[:8] + 2 * g + 2
+            for x in (wb, we):
+                x[:2, :20, 0, 1:] = 0
+            rb[:2, :20], re[:2, :20] = SENT, SENT  # read nothing: they commit
+        nows = v0 + 10 * np.arange(1, n_groups + 1)
+        snap = (nows[:, None] - rnd.integers(5, 60, (n_groups, T))).astype(np.int32)
+        has_reads = ((rb != SENT).any(axis=-1).any(axis=-1))
+        olds = np.maximum(nows - (30 if name == "too_old" else 200), 0)
+        cols = [nows.astype(np.int32), np.r_[0, olds[:-1]].astype(np.int32), olds.astype(np.int32)]
+        batch = G.Batch(*(_i32(x).to(dev) for x in (rb, re, wb, we)), torch.from_numpy(snap).to(dev),
+                        torch.from_numpy(has_reads).to(dev))
+        return batch, cols
+
+    warm, warm_cols = group(min(G_, 3), 100)
+    if T == kernels.MAX_TXNS:  # the plain K2's [T, T] matrices: the loop of kernels warms it
+        G.resolve_many_loop(state, warm, *warm_cols, bounds)
+    else:
+        G.resolve_many_plain(state, warm, *warm_cols, bounds)
+    batch, cols = group(G_, 100 + 10 * min(G_, 3))
+    cols[1][0] = warm_cols[2][-1]
+    return state, bounds, batch, cols
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: c[0])
+def test_scan_matches_the_loop_of_kernels_and_the_plain_loop(cuda, case):
+    """One launch of the scan a group: its verdicts, per-batch pressures,
+    group maxima and every state array equal the loop of the standalone
+    kernels' and the plain loop's (run on the card; at T = 65,536 the
+    standalone K2 stands for the plain one, which is held to it at that
+    size by test_intra_batch_kernel_at_its_limit)."""
+    name, G_, T, KR, KW, L, P, B = case
+    state, bounds, batch, cols = _scan_inputs(case, cuda)
+    vers = G.version_rows(*cols, cuda)
+    got = G.clone_state(state)
+    kernels.reset_launch_counts()
+    v, p, gm = kernels.resolve_many(*got, bounds, *batch, vers, G.staging_slots(32))
+    assert kernels.launch_counts()["resolve_many"] == 1
+    assert v.shape == (G_, T) and p.shape == (G_, P, 2) and gm.shape == (P, 2)
+    runs = [G.resolve_many_loop]
+    if T < kernels.MAX_TXNS:
+        runs.append(G.resolve_many_plain)
+    for run in runs:
+        want = G.clone_state(state)
+        wv, wp = run(want, batch, *cols, bounds)
+        _eq(v, wv)
+        _eq(p, wp)
+        _eq(gm, wp.amax(dim=0))
+        for a, b in zip(got, want):
+            _eq(a, b)
+    S2 = G.staging_slots(32)
+    if name == "staging_overflow_mid":
+        assert int(p[1, :, 0].max()) > S2 >= int(p[0, :, 0].max())
+    if name == "bucket_overflow_mid":
+        assert int(p[1, :, 1].max()) > 32 and int(p[:2, :, 0].max()) <= S2
+    if name == "too_old":
+        assert (v == G.TOO_OLD).any() and (v == G.COMMITTED).any()
+
+
+@pytest.mark.parametrize("backend", ["torch1", "torch_mesh"])
+def test_backends_resolve_a_group_in_one_launch(cuda, backend):
+    """Through the backends: every group (and every replay of one) is one
+    launch of the scan, and no standalone resolve kernel runs."""
+    work = _work(21, batches=12, spread=backend == "torch_mesh")
+    kw = {"n_parts": 4} if backend == "torch_mesh" else {}
+    on_card = new_conflict_set(backend, key_width=12, capacity=1 << 10, **kw)
+    on_cpu = new_conflict_set(backend, key_width=12, capacity=1 << 10, device=CPU, **kw)
+    kernels.reset_launch_counts()
+    for g in range(0, len(work), 3):
+        group = work[g : g + 3]
+        assert on_card.detect_many(group) == on_cpu.detect_many(group)
+    counts = kernels.launch_counts()
+    assert counts["resolve_many"] == on_card.metrics.snapshot()["deviceDispatches"] >= 4
+    assert not any(counts[k] for k in ("history", "history_parts", "intra_batch", "stage", "stage_parts",
+                                       "merge", "merge_parts")), counts

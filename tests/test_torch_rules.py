@@ -133,6 +133,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.maint_rebase_parts(g4, b2, b2, 1)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.search(torch.zeros((8, 3), dtype=torch.int32), torch.zeros((4, 3), dtype=torch.int32))
+    # the group scan, one grid and partitions
+    gx = x[None].repeat(2, 1, 1, 1)
+    snap, reads = torch.zeros((2, 8), dtype=torch.int32), torch.zeros((2, 8), dtype=torch.bool)
+    vers = torch.zeros((3, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.resolve_many(torch.zeros((8, 3), dtype=torch.int32), grid, b, b, b, None,
+                             gx, gx, gx, gx, snap, reads, vers, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.resolve_many(torch.zeros((2, 8, 3), dtype=torch.int32), g4, b2, b2, b2, (bounds, bounds),
+                             gx, gx, gx, gx, snap, reads, vers, 16)
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
 
 
