@@ -37,7 +37,10 @@ card). Phases, each of which raises on failure:
    first), (b) the commit path's widest batch shape (T = 64, KR = 8,
    KW = 1, L = 8), (c) four stacked partitions, (d) a group whose middle
    batch overflows staging, (e) three batches of phase 13's bulk load
-   (KW = 2048);
+   (KW = 2048); each case, and each group of one of phases 13-15, also
+   prints one ``{"scan_phases": ...}`` line: the per-phase timer inside
+   the launch (``kernels.resolve_many(..., phase_ns=)``), ms a group a
+   phase;
 6. after phases 7 to 19: print the kernel table (every kernel of the
    paths that its path launched, the spread's and the data replicas' resolve kernels, K5 also at the storage shapes, K1-K3 and K5 also on the commit
    path, in the dynamic cluster, in the soak and in the in-process TCP
@@ -216,11 +219,16 @@ card). Phases, each of which raises on failure:
    20 s from 2 ``tcp-client`` processes (this script with ``--tcp-mix``,
    which times them). Then ``status json`` through the port's cli: both
    resolvers HEALTHY on the card with 0 failovers, batches dispatched and
-   the scan launched in their processes, both indexes on the card with K5
-   launched and no multiGet fallback. The process
+   the scan launched in their processes, both indexes on the card,
+   current with their engines, with K5 launched and no multiGet key
+   answered from the engine since a status read that showed every index
+   current (taken once the load was durable). The process
    hosting the master is SIGKILLed and restarted, a probe write is timed
-   until it commits, the new resolvers are checked the same way, and a
-   fresh client reads every key back. A server that dies (but the killed
+   until it commits, the new resolvers are checked the same way; once
+   every index has caught up again (the restarted server rebuilds its
+   index at its first durability advance), a fresh client reads every
+   key back and makes 1,000 point reads, and the storage gate holds over
+   those reads. A server that dies (but the killed
    one) fails the phase, its output printed. One ``{"tcp_cluster": ...}``
    line: processes and roles, load and mix figures, the proxies' commit
    phases, recovery seconds, the read-back, each process's card memory as
@@ -264,7 +272,10 @@ group first) and no result line, and runs from any checkout of the port;
 and on keyspace-wide reads (one JSON line), ``--reshard-only`` the reshard
 entry point of both paths with its glue and ``--rebase-only`` the rebase
 entry point of both paths with its glue beside a copy of the same grid (one
-JSON line each), for comparisons of two checkouts in one call.
+JSON line each), for comparisons of two checkouts in one call;
+``--scan-only`` runs phases 1, 2, phase 5's standalone kernels and scan
+cases, then synthetic groups of one at phases 13-15's widest shapes, each
+scan case with its timer line (no result line).
 """
 
 from __future__ import annotations
@@ -1042,10 +1053,10 @@ def check_scan(label: str, state, batches, cols, launches: dict, bounds=None, re
     verdicts, per-batch pressures, group maxima and every state array
     exactly. Then the scan timed on fresh clones (CUDA events around the
     calls, and their device time queued behind a sleeping kernel; it is
-    one kernel, so no profiler pass names its parts), the loop beside it
-    the same way (the yardstick), the plain loop once, and the bound
-    (``scan_bound``). Returns (the kernel-table row, the per-batch
-    pressures)."""
+    one kernel, so no profiler pass names its parts: its own per-phase
+    timer does, one ``scan_phases`` line), the loop beside it the same way
+    (the yardstick), the plain loop once, and the bound (``scan_bound``).
+    Returns (the kernel-table row, the per-batch pressures)."""
     from foundationdb_tpu_torch.conflict import grid as G
     from foundationdb_tpu_torch.conflict import kernels
 
@@ -1090,6 +1101,8 @@ def check_scan(label: str, state, batches, cols, launches: dict, bounds=None, re
     b_ms, b_by = scan_bound(state, batches, cols, bounds)
     T, KR, L = batches.rb.shape[1:]
     P = state.grid.shape[0] if state.grid.dim() == 4 else 1
+    scan_phases(label, state, batches, vers, S2, bounds, reps, device_ms,
+                [n_batches, T, KR, batches.wb.shape[2], L, P])
     row = {
         "name": "resolve_many", "route": "cuda",
         "source": "foundationdb_tpu_torch/conflict/kernels/csrc/scan.cu",
@@ -1106,6 +1119,79 @@ def check_scan(label: str, state, batches, cols, launches: dict, bounds=None, re
         f"device {fmt_ms(loop_device_ms)}); plain loop {fmt_ms(plain_ms)}; bound {b_ms:.5f} ms ({b_by}); "
         f"max pressure {row['max_pressure']}; max_abs_err {row['max_abs_err']}")
     return row, pressures
+
+
+def scan_phases(label: str, state, batches, vers, S2: int, bounds, reps: int, device_ms, group: list) -> None:
+    """The per-phase timer inside the scan's launch: ``reps`` launches on
+    fresh clones of ``state``, each writing the card's clock at every phase
+    boundary of every batch (``resolve_many(..., phase_ns=)``), printed as
+    one ``{"scan_phases": ...}`` line of ms a group a phase, beside the
+    launch's device time without the timer."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import kernels
+
+    stamps = torch.zeros((reps, group[0], len(kernels.SCAN_PHASES) + 1), dtype=torch.int64,
+                         device=state.grid.device)
+    for r in range(reps):
+        kernels.resolve_many(*G.clone_state(state), bounds, *batches, vers, S2, phase_ns=stamps[r])
+    out = {"case": label, "group": group, **kernels.scan_phase_ms(stamps), "device_ms": device_ms,
+           "card": card_line()}
+    log(json.dumps({"scan_phases": out}))
+
+
+def scan_groups_of_one(launches: dict) -> None:
+    """The scan on synthetic groups of one at the widest batch shapes of
+    phases 13-15 (the commit path's T = 64, KR = 8, KW = 1; the dynamic
+    cluster's T = 64, KR = 16; the soak's T = 8, KW = 16), each on a
+    resolver's grid (key width 32, capacity 2^14, the resolver's knobs)
+    after one group of its shape: the same check as ``check_scan``, for an
+    A/B of two checkouts without phases 13-15."""
+    from foundationdb_tpu_torch.conflict.api import CommitTransaction
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+
+    for label, T, KR, KW in (("commit path", 64, 8, 1), ("dynamic cluster", 64, 16, 1), ("chaos soak", 8, 1, 16)):
+        rnd = random.Random(T * KR * KW)
+
+        def rng():
+            k = rnd.randrange(KEYSPACE)
+            return b"rw/%08d" % k, b"rw/%08d\x00" % k
+
+        def batch(i):
+            return [CommitTransaction(read_snapshot=i, read_conflict_ranges=[rng() for _ in range(KR)],
+                                      write_conflict_ranges=[rng() for _ in range(KW)]) for _ in range(T)]
+
+        cs = TorchConflictSet(key_width=32, capacity=1 << 14)
+        drive(cs, [batch(1 + i) for i in range(GROUP)], 1)
+        group, cols = scan_group(cs, [batch(1 + GROUP)], 1 + GROUP)
+        check_scan(f"a group of one at the {label}'s widest shape", cs._state, group, cols, launches,
+                   reps=20, plain_time=False)
+        cs.close()
+
+
+def scan_only(card: str) -> None:
+    """Phase 5's standalone kernels (``check_kernels``, whose device code
+    the scan shares) and its scan cases (``check_scans``) on the bench's
+    warm-up state, then ``scan_groups_of_one``: every case held to its
+    plain version (the scan to the loop of standalone kernels and the
+    plain loop), timed, with the scan's per-phase timer lines."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+
+    offset = (1 << 30) - 1 - (2 * GROUP + WINDOW)
+    batches = make_batches(2 * GROUP, N_TXNS, offset)
+    warm = TorchConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY)
+    warm.warm_compile()
+    drive(warm, batches[:GROUP], offset)
+    launches = kernels.launch_counts()
+    hbatch = warm.encode(batches[GROUP])[0]
+    vers = (offset + GROUP + WINDOW - warm._base, max(warm.oldest_version - warm._base, 0),
+            max(max(warm.oldest_version, offset + GROUP) - warm._base, 0))
+    log(f"the standalone kernels against their plain versions [{card}]:")
+    check_kernels(warm._state, hbatch, vers, launches)
+    log(f"the group scan against the loop of standalone kernels and the plain loop [{card}]:")
+    check_scans(warm._state, batches, offset, warm, launches, card)
+    scan_groups_of_one(launches)
+    warm.close()
 
 
 def check_scans(state_g1, batches, offset: int, warm, launches: dict, card: str) -> list[dict]:
@@ -2294,9 +2380,8 @@ LIMIT_WIDTHS = (32, 128)  # the default key width (L = 8) and one past 64 bytes 
 LIMIT_BATCHES = 3
 LIMIT_TXNS = 64
 LIMIT_KEYS = 20_000
-# (KR, KW, L) K2 is held at: the shapes whose staged endpoints outgrow one
-# block before the chunked plan (all but (256, 1, 3), the widest one-chunk
-# plan at the bench's L), T = 512
+# (KR, KW, L) K2 is held at, T = 512: many read and write slots, and key
+# widths whose codes K2 holds in registers (L <= 16) or compares in memory
 K2_LIMIT_SHAPES = ((128, 1, 8), (64, 64, 8), (64, 32, 16), (256, 1, 3), (512, 2, 3), (16, 16, 32))
 
 
@@ -2374,7 +2459,7 @@ def run_limits(card: str) -> None:
     backend's plain path on the CPU and to the oracle, every kernel of the
     path launched (counts set to 0 just before each run); K1, K6 history and
     K2 then held against their plain versions on the final state and the
-    last batch. Then K2 at ``K2_LIMIT_SHAPES`` (its chunk plan and device
+    last batch. Then K2 at ``K2_LIMIT_SHAPES`` (its plan and device
     time), the staging of 2^23 endpoint rows (P = 4, T = 4096, KW = 256,
     L = 8), and the range index at width 128 against ``bisect`` with K5
     held against its plain version. One JSON line each."""
@@ -2442,33 +2527,20 @@ def run_limits(card: str) -> None:
                 "card_s": card_s, "cpu_s": cpu_s, "launches": {k: launches[k] for k in path},
                 "max_abs_err": errs, "card": card}))
 
-    # K2 at its chunked shapes: the plan, kernel against plain, device
-    # time; beside it the same launch with every endpoint read from global
-    # memory (the plan's last resort, CR = CW = 0), the alternative to chunks
-    def k2_global(rb, re, wb, we, H):
-        T, KR, L = rb.shape
-        W = (T + 31) // 32
-        pt = torch.empty(W * 32 * W, dtype=torch.int32, device="cuda")
-        commit = torch.empty(T, dtype=torch.bool, device="cuda")
-        kernels._launch("fdb_intra_batch", rb.device, *(kernels._ptr(x) for x in (rb, re, wb, we, H, pt, commit)),
-                        T, KR, wb.shape[1], L, 8, 0, 0)
-        return commit
-
+    # K2 at its widest shapes: the plan, kernel against plain, device time
     cases = []
     for KR, KW, L in K2_LIMIT_SHAPES:
         args = k2_codes(512, KR, KW, L, seed=KR * 1000 + KW + L)
         batch = G.Batch(*args[:4], torch.zeros(512, dtype=torch.int32, device="cuda"), args[4])
         got = kernels.intra_batch(*args)
-        err = max(max_abs_err(got, G.intra_batch_commits_plain(*G._endpoint_ranks(batch), args[4])),
-                  max_abs_err(got, k2_global(*args)))
+        err = max_abs_err(got, G.intra_batch_commits_plain(*G._endpoint_ranks(batch), args[4]))
         if err:
             raise AssertionError(f"intra_batch at KR = {KR}, KW = {KW}, L = {L} differs from its plain version")
         ms = cuda_ms(lambda: kernels.intra_batch(*args), 5)
-        gms = cuda_ms(lambda: k2_global(*args), 5)
-        cases.append({"kernel": "intra_batch", "T": 512, "KR": KR, "KW": KW, "L": L,
-                      "plan": list(kernels.intra_batch_plan(KR, KW, L)), "ms": ms,
-                      "device_ms": queued_ms(lambda: kernels.intra_batch(*args), 5, ms),
-                      "global_device_ms": queued_ms(lambda: k2_global(*args), 5, gms), "max_abs_err": err})
+        plan = kernels.intra_batch_plan(512, KR, KW, torch.cuda.get_device_properties(0).multi_processor_count)
+        cases.append({"kernel": "intra_batch", "T": 512, "KR": KR, "KW": KW, "L": L, "plan": list(plan),
+                      "ms": ms, "device_ms": queued_ms(lambda: kernels.intra_batch(*args), 5, ms),
+                      "max_abs_err": err})
 
     # the staging of 2^23 endpoint rows over four partitions
     P, T, KW, L, B = 4, 4096, 256, 8, 8192
@@ -3263,7 +3335,7 @@ def run_commit_path(card: str) -> tuple[dict, list[dict]]:
     T, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
     log(f"kernel checks on the widest mix-A batch ({n_real} transactions, T={T} KR={KR} KW={KW}) "
         f"and the resolver's state after the mixes ({type(cs).__name__}) [{card}]:")
-    rows = check_built_resolve(resolver_state(cs), hbatch, vers, launches)
+    rows = check_built_resolve(resolver_state(cs), hbatch, vers, launches, " (commit path)")
     for r in rows:
         r["name"] = f"{r['name']} (commit path, mix A batch T={T} KR={KR} KW={KW})"
     q_rows, idx, codes = capture["q"]
@@ -3358,7 +3430,7 @@ def resolver_state(cs):
     return {"state": G.clone_state(e.states), "bounds": (e.plo, e.phi)}
 
 
-def check_built_resolve(snap: dict, hbatch, vers, launches: dict) -> list[dict]:
+def check_built_resolve(snap: dict, hbatch, vers, launches: dict, label: str = "") -> list[dict]:
     """The resolve kernels of one batch held to their plain versions on
     ``resolver_state``'s snapshot: on the one grid K1-K3 and the scan
     (the batch as a group of one, against the loop of those kernels and
@@ -3369,7 +3441,7 @@ def check_built_resolve(snap: dict, hbatch, vers, launches: dict) -> list[dict]:
     if "bounds" not in snap:
         rows, batch, _ck, _st = check_resolve_kernels(snap["state"], hbatch, vers, launches)
         group = type(batch)(*(x[None] for x in batch))
-        row, _p = check_scan("the batch as a group of one", snap["state"], group, [[v] for v in vers],
+        row, _p = check_scan(f"the batch as a group of one{label}", snap["state"], group, [[v] for v in vers],
                              launches)
         return rows + [row]
     dev = snap["state"].grid.device
@@ -4131,7 +4203,7 @@ def run_dynamic_cluster(card: str) -> tuple[dict, list[dict]]:
     T_, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
     log(f"kernel checks on generation {newest}'s widest batch of the last round ({n_real} transactions, "
         f"T={T_} KR={KR} KW={KW}; version origin {base}) [{card}]:")
-    rows = check_built_resolve(resolver_state(cs), hbatch, vers, gen_launches)
+    rows = check_built_resolve(resolver_state(cs), hbatch, vers, gen_launches, " (dynamic cluster)")
     for r in rows:
         r["name"] = f"{r['name']} (dynamic cluster, generation {newest} batch T={T_} KR={KR} KW={KW})"
     # K5 on the rebooted server's index and on the filled server that
@@ -4319,7 +4391,7 @@ def soak_kernel_rows(capture: dict, card: str) -> list[dict]:
     counts = dict.fromkeys(kernels.WRAPPERS, 0)
     log(f"kernel checks on the forced soak seed's widest batch ({n_real} transactions, T={T_} KR={KR} "
         f"KW={KW}) [{card}]:")
-    rows = check_built_resolve(capture["snap"], hbatch, capture["vers"], counts)
+    rows = check_built_resolve(capture["snap"], hbatch, capture["vers"], counts, " (chaos soak)")
     for r in rows:
         r["kernel"], r["name"] = r["name"], f"{r['name']} (chaos soak, forced seed's widest batch T={T_} KR={KR} KW={KW})"
     log(f"K5 on the forced soak seed's widest search (Q={capture['q_rows']} over "
@@ -4491,7 +4563,9 @@ def run_soak(card: str) -> tuple[dict, list[dict]]:
 
 # 16. the real-process cluster: the port's fdbserver processes over TCP,
 # the same layout as RealWorlds in this process, and the bindingtester
-TCP_KEYS = COMMIT_KEYS  # BASELINE.json's YCSB "uniform 1M keys", phase 13's b"rw/%08d" keys
+# phase 13's b"rw/%08d" keys, cut to half of BASELINE.json's YCSB "uniform
+# 1M keys" as phase 14's are: the script's time limit
+TCP_KEYS = COMMIT_KEYS // 2
 TCP_VALUE = b"v" * 16  # workloads/readwrite.py's value, which the mix writes too
 TCP_CLASSES = ("storage",) * 3 + ("transaction",) * 2 + ("stateless",) * 2
 # FoundationDB's "double" redundancy, cell 9's shape on two storage servers
@@ -4505,6 +4579,8 @@ TCP_MIX_ACTORS = 20  # perf.py's default actors
 TCP_MIX_S = 20.0  # the mix's steady-state seconds (perf --duration)
 TCP_READ_CHUNK = 10_000  # rows a range read of the read-back
 TCP_FORM_S = 240.0
+TCP_SPOT_TXNS = 20  # transactions of point reads after the read-back (the storage gate's multiGet reads)
+TCP_SPOT_GETS = 50
 TCP_RECOVER_S = 180.0
 INPROC_KEYS = 100_000  # bench_e2e's keyspace, phase 13's twin
 INPROC_ACTORS = 20
@@ -4614,16 +4690,93 @@ def roles_by_process(doc: dict, names: dict) -> dict:
     return {names.get(a, a): sorted(w.get("roles") or []) for a, w in sorted(workers.items())}
 
 
+def storage_snapshots(doc: dict, names: dict) -> dict:
+    """Each storage server's index figures in a status document, by uid."""
+    out = {}
+    for addr, w in sorted(((doc.get("cluster") or {}).get("workers") or {}).items()):
+        for uid, snap in sorted((w.get("metrics") or {}).items()):
+            if snap.get("kind") == "storage":
+                out[uid] = {"process": names.get(addr, addr), "indexDevice": snap.get("indexDevice"),
+                            "indexCurrent": snap.get("indexCurrent"), "indexLaunches": snap.get("indexLaunches"),
+                            "multiGetIndexKeys": snap.get("multiGetIndexKeys"),
+                            "multiGetFallbackKeys": snap.get("multiGetFallbackKeys"),
+                            "durableVersion": snap.get("durableVersion")}
+    return out
+
+
+def storage_addresses(doc: dict) -> dict:
+    """Each storage server's process address in a status document, by uid."""
+    return {uid: addr for addr, w in sorted(((doc.get("cluster") or {}).get("workers") or {}).items())
+            for uid, snap in sorted((w.get("metrics") or {}).items()) if snap.get("kind") == "storage"}
+
+
+def indexes_current(doc: dict, device: str, names: dict) -> bool:
+    """Has the index of each of the two storage servers (TCP_CONFIG's)
+    caught up with its engine, on ``device``, as ``doc`` shows it? A
+    restarted server answers multiGet from its engine until its first
+    durability advance rebuilds its index (``server/storage.py``
+    ``_multi_get_at``, as the reference does)."""
+    storages = storage_snapshots(doc, names)
+    return len(storages) == 2 and all(s["indexDevice"] == device and s["indexCurrent"] is True
+                                      for s in storages.values())
+
+
+def check_storage_indexes(base: dict, doc: dict, device: str, names: dict) -> dict:
+    """The storage half of phase 16's gate, on two status documents:
+    ``base``, read once every index had caught up with its engine
+    (``indexes_current``), and ``doc``, read after the reads that the gate
+    covers. Both storage servers (TCP_CONFIG's two) of ``doc`` are in
+    ``base`` in the same process, their counters not behind it (a restart
+    between them resets them, so it fails), each index on ``device`` and
+    current, on the card with K5 launched in
+    its process, and it answered no multiGet key from its engine in
+    between: its ``multiGetFallbackKeys`` grew by 0, and its index answered
+    reads in between (``multiGetIndexKeys`` grew), so neither half of the
+    gate passes over a server no read reached. A fallback while the index
+    is current fails; one during a restarted server's rebuild, before
+    ``base``, does not count. Returns the per-server figures with the
+    deltas; raises AssertionError otherwise."""
+    if not indexes_current(base, device, names):
+        raise AssertionError(f"the base status shows an index behind its engine: {storage_snapshots(base, names)}")
+    before, after = storage_snapshots(base, names), storage_snapshots(doc, names)
+    bad = {}
+    for uid, s in after.items():
+        b = before.get(uid)
+        if b is not None:
+            s["fallbackDelta"] = (s["multiGetFallbackKeys"] or 0) - (b["multiGetFallbackKeys"] or 0)
+            s["indexKeysDelta"] = (s["multiGetIndexKeys"] or 0) - (b["multiGetIndexKeys"] or 0)
+        if (b is None or b["process"] != s["process"] or s["indexDevice"] != device or s["indexCurrent"] is not True
+                or s["fallbackDelta"] != 0 or s["indexKeysDelta"] <= 0
+                or (device == "cuda" and (s["indexLaunches"] or 0) <= 0)):
+            bad[uid] = s
+    if len(after) != 2 or bad:
+        raise AssertionError(f"storage indexes: {after} (at the base: {before})")
+    return after
+
+
+def wait_indexes_current(coord: str, device: str, names: dict, seconds: float = 60.0) -> dict:
+    """``status json`` until every storage server's index is current
+    (``indexes_current``); that document. Raises after ``seconds``."""
+    deadline = time.perf_counter() + seconds
+    while True:
+        doc = cli_status(coord)
+        if indexes_current(doc, device, names):
+            return doc
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"the storage indexes did not catch up in {seconds} s: "
+                                 f"{storage_snapshots(doc, names)}")
+        time.sleep(1.0)
+
+
 def check_cluster_kernels(doc: dict, device: str, names: dict, want_batches: bool, after: int = 0) -> dict:
     """Every resolver of the status document on ``device``, HEALTHY, with 0
     failovers; at least two of the newest generation (its recovery count,
     above ``after``), and with ``want_batches`` at least two of them with
     batches dispatched, and on the card each busy one's process with the scan
     launched. A master attempt that a newer one fenced leaves its resolvers
-    recruited, idle. Each storage server's index on ``device``, with no
-    multiGet fallback and, on the card, K5 launched in its process.
-    Returns the per-resolver and per-storage figures and the generation."""
-    resolvers, storages = {}, {}
+    recruited, idle. (The storage half is ``check_storage_indexes``.)
+    Returns the per-resolver figures and the generation."""
+    resolvers = {}
     for uid, snap in sorted((doc.get("resolvers") or {}).items()):
         k = snap.get("kernel") or {}
         h = k.get("health") or {}
@@ -4634,13 +4787,6 @@ def check_cluster_kernels(doc: dict, device: str, names: dict, want_batches: boo
                           "state": h.get("state"), "failovers": h.get("failovers"),
                           "deadlineHits": h.get("deadlineHits"), "backend": h.get("backend"),
                           "launches": {n: c for n, c in (k.get("launches") or {}).items() if c}}
-    for addr, w in sorted(((doc.get("cluster") or {}).get("workers") or {}).items()):
-        for uid, snap in sorted((w.get("metrics") or {}).items()):
-            if snap.get("kind") == "storage":
-                storages[uid] = {"process": names.get(addr, addr), "indexDevice": snap.get("indexDevice"),
-                                 "indexLaunches": snap.get("indexLaunches"),
-                                 "multiGetFallbackKeys": snap.get("multiGetFallbackKeys"),
-                                 "durableVersion": snap.get("durableVersion")}
     newest = max((r["generation"] for r in resolvers.values()), default=0)
     current = [r for r in resolvers.values() if r["generation"] == newest]
     bad = [(u, r) for u, r in resolvers.items()
@@ -4652,11 +4798,7 @@ def check_cluster_kernels(doc: dict, device: str, names: dict, want_batches: boo
     unlaunched = [r for r in busy if device == "cuda" and any(r["launches"].get(k, 0) <= 0 for k in RESOLVE_PATH)]
     if bad or unlaunched or newest <= after or len(current) < 2 or (want_batches and len(busy) < 2):
         raise AssertionError(f"resolvers (generation {newest}, after {after}): {resolvers}")
-    if len(storages) != 2 or any(s["indexDevice"] != device or s["multiGetFallbackKeys"] != 0
-                                 or (device == "cuda" and (s["indexLaunches"] or 0) <= 0)
-                                 for s in storages.values()):
-        raise AssertionError(f"storage indexes: {storages}")
-    return {"resolvers": resolvers, "storage": storages, "generation": newest}
+    return {"resolvers": resolvers, "generation": newest}
 
 
 def commit_phases(doc: dict, names: dict) -> dict:
@@ -4718,18 +4860,25 @@ def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix
     ``--tcp-loader``), then ``perf --mode tcp-client`` processes run the
     90_10 mix for ``mix_s`` seconds; ``status json`` through the port's cli
     must show both resolvers on ``device``, HEALTHY, with no failover and
-    batches dispatched, and both storage indexes on ``device``. Then the
+    batches dispatched, and both storage indexes on ``device`` with no
+    fallback since they were current (``check_storage_indexes``). Then the
     process hosting the master is SIGKILLed and restarted, and the wait
-    until a probe write commits is timed; a fresh client reads every key
-    back. Any server that dies but the killed one fails the phase (its
-    output is printed first). Returns the phase's JSON object."""
+    until a probe write commits is timed; once every index is current
+    again, a fresh client reads every key back and makes point reads, and
+    the storage gate holds over them. Before each gate every storage server
+    answers point reads sent to it directly (``read_each_storage``), so
+    each index must have answered reads. Any server that dies but the killed
+    one fails the phase (its output is printed first). Returns the
+    phase's JSON object."""
     import shutil
     import tempfile
 
     from foundationdb_tpu_torch.client.database import Database
+    from foundationdb_tpu_torch.net.sim import Endpoint
     from foundationdb_tpu_torch.net.tcp import RealWorld
     from foundationdb_tpu_torch.runtime.futures import spawn
     from foundationdb_tpu_torch.runtime.loop import set_loop
+    from foundationdb_tpu_torch.server import interfaces as I
     from foundationdb_tpu_torch.tools import perf, tcp_soak
 
     t_phase = time.perf_counter()
@@ -4748,6 +4897,34 @@ def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix
         world = RealWorld("127.0.0.1:0")
         world.activate()
         return world, Database.from_coordinators(world, [cluster.coord])
+
+    def read_each_storage(doc: dict, seed: int) -> dict:
+        """TCP_SPOT_GETS point reads sent to every storage server of
+        ``doc`` itself (one multiGet RPC each, at one read version), not
+        through the client's load balancer, which may send every read to
+        one replica: each index answers reads the storage gate counts.
+        Raises on a wrong value; returns the keys each server answered."""
+        world, db = client_world()
+        rnd = random.Random(seed)
+        keys = [commit_key(rnd.randrange(n_keys)) for _ in range(TCP_SPOT_GETS)]
+        addrs = storage_addresses(doc)
+
+        async def reads():
+            version = await db.transaction().get_read_version()
+            return {uid: await db.client.request(Endpoint(addr, I.Tokens.MULTI_GET),
+                                                 I.MultiGetRequest(keys=keys, version=version))
+                    for uid, addr in addrs.items()}
+
+        try:
+            replies = world.run_until_done(spawn(reads()), 120.0)
+        finally:
+            world.close()
+            set_loop(None)
+        for uid, rep in replies.items():
+            if rep.errors or rep.values != [TCP_VALUE] * len(keys):
+                raise AssertionError(f"storage server {uid} at {addrs[uid]}: errors {rep.errors[:5]}, "
+                                     f"{sum(v != TCP_VALUE for v in rep.values)} wrong values")
+        return {uid: len(keys) for uid in replies}
 
     out: dict = {"keys": n_keys, "device": device, "config": TCP_CONFIG, "knobs": list(TCP_KNOBS)}
     cluster = None
@@ -4793,6 +4970,8 @@ def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix
         out["durable"] = {"wall_s": time.perf_counter() - w0, **durable}
         log(f"real-process cluster: both storage servers durable at the load's last version "
             f"{out['durable']['wall_s']:.1f} s after it [{card}]")
+        # the storage gate's base: every index caught up with its engine
+        base = wait_indexes_current(cluster.coord, device, names)
 
         # the mix: perf's tcp-client processes on the loaded keyspace
         w0 = time.perf_counter()
@@ -4814,10 +4993,13 @@ def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix
         log(f"real-process cluster: mix 90_10 {mix['txn_per_s']:.1f} txn/s, commit p50 {mix['commit_p50_ms']:.3f} "
             f"ms / p95 {mix['commit_p95_ms']:.3f} ms ({TCP_MIX_PROCS} x {TCP_MIX_ACTORS} actors) [{card}]")
 
-        # status through the port's cli: the resolvers and indexes on the card
+        # status through the port's cli: the resolvers and indexes on the
+        # card, after point reads that reach every storage server
+        out["direct_reads"] = read_each_storage(base, 1)
         doc = cli_status(cluster.coord)
         out["roles"] = roles_by_process(doc, names)
         out["status"] = check_cluster_kernels(doc, device, names, want_batches=True)
+        out["status"]["storage"] = check_storage_indexes(base, doc, device, names)
         out["commit_phases_ms"] = commit_phases(doc, names)
         master = names.get((doc.get("cluster") or {}).get("master"))
         if master not in cluster.procs:
@@ -4852,11 +5034,20 @@ def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix
                 if time.perf_counter() > deadline:
                     raise
                 time.sleep(2.0)
+        # the restarted process's storage server answers multiGet from its
+        # engine until its first durability advance rebuilds its index: the
+        # gate counts the reads after every index caught up
+        w1 = time.perf_counter()
+        base = wait_indexes_current(cluster.coord, device, names)
         out["recovery"] = {"killed": master, "roles_killed": out["roles"].get(master), "wall_s": recover_s,
                            "recovery_count": (after.get("cluster") or {}).get("recovery_count"),
-                           "status": checked, "roles": roles_by_process(after, names)}
+                           "status": checked, "roles": roles_by_process(after, names),
+                           "indexes_current_s": time.perf_counter() - w1,
+                           "fallback_before_current": {u: s["multiGetFallbackKeys"] for u, s in
+                                                       storage_snapshots(base, names).items()}}
         log(f"real-process cluster: killed {master} ({out['recovery']['roles_killed']}), restarted it; a probe "
-            f"write committed {recover_s:.3f} s after the kill [{card}]")
+            f"write committed {recover_s:.3f} s after the kill; every index current "
+            f"{out['recovery']['indexes_current_s']:.1f} s after that [{card}]")
 
         # every acknowledged key, from a fresh client
         world, db = client_world()
@@ -4880,6 +5071,15 @@ def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix
             async def extras(tr):
                 return [await tr.get(k) for k in (b"tcp/formed", b"tcp/probe")]
 
+            # point reads through multiGet, for the storage gate below
+            rnd = random.Random(16)
+            for _ in range(TCP_SPOT_TXNS):
+                keys = [rnd.randrange(n_keys) for _ in range(TCP_SPOT_GETS)]
+
+                async def spot(tr, keys=keys):
+                    return [await tr.get(commit_key(k)) for k in keys]
+
+                bad += [(commit_key(k), v) for k, v in zip(keys, await db.run(spot)) if v != TCP_VALUE]
             return seen, bad[:10], await db.run(extras)
 
         try:
@@ -4888,9 +5088,12 @@ def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix
             world.close()
             set_loop(None)
         check_alive(cluster)
-        out["read_back"] = {"keys": seen, "wall_s": time.perf_counter() - w0, "extras": extras}
+        out["read_back"] = {"keys": seen, "point_reads": TCP_SPOT_TXNS * TCP_SPOT_GETS,
+                            "wall_s": time.perf_counter() - w0, "extras": extras}
         if seen != n_keys or bad or extras != [b"ok", b"after-kill"]:
             raise AssertionError(f"read back {seen} of {n_keys} keys, wrong {bad}, extras {extras}")
+        out["read_back"]["direct_reads"] = read_each_storage(base, 2)
+        out["recovery"]["storage"] = check_storage_indexes(base, cli_status(cluster.coord), device, names)
         log(f"real-process cluster: read back all {seen} acknowledged keys in {out['read_back']['wall_s']:.1f} s "
             f"from a fresh client [{card}]")
     finally:
@@ -5025,7 +5228,7 @@ def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
             T_, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
             log(f"kernel checks on tcp-inproc's widest batch ({n_real} transactions, T={T_} KR={KR} KW={KW}) "
                 f"and its resolver's state after the runs [{card}]:")
-            rows = check_built_resolve({"state": cs._state}, hbatch, vers, launches)
+            rows = check_built_resolve({"state": cs._state}, hbatch, vers, launches, " (tcp_inproc)")
             for r in rows:
                 r["name"] = f"{r['name']} (tcp_inproc, widest batch T={T_} KR={KR} KW={KW})"
             q_rows, idx, codes = capture["q"]
@@ -5403,6 +5606,10 @@ def main() -> int:
     ap.add_argument("--rebase-only", action="store_true",
                     help="the profile lines, then the rebase entry point of both paths, glue "
                          "included, beside a copy of the same grid, on CUDA events")
+    ap.add_argument("--scan-only", action="store_true",
+                    help="phases 1, 2 and phase 5's group scan cases alone, then groups of one at the "
+                         "commit path's, the dynamic cluster's and the soak's widest shapes, each with "
+                         "its per-phase timer line")
     ap.add_argument("--tcp-only", action="store_true",
                     help="phases 1, 2 and 16 alone: the card, the kernels' build and the "
                          "real-process cluster")
@@ -5469,6 +5676,10 @@ def main() -> int:
         log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
         log(json.dumps({"kernels": path_rows(rows)}))
         log(card)
+        return 0
+    if args.scan_only:
+        scan_only(card)
+        log(f"script: {time.perf_counter() - t_script:.1f} s [{card}]")
         return 0
     if args.tcp_only or args.btree_only:
         # 16 or 17 alone, after the build above

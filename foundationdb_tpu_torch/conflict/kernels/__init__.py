@@ -135,38 +135,31 @@ MAX_TXNS = 65536  # intra_batch: a 32·ceil(T/32)²-word bitset (512 MiB at the 
 SMEM_OPTIN = 232448  # bytes of shared memory one block may opt into (H100)
 
 
-def overlap_words(WT: int, CR: int, CW: int, L: int) -> int:
-    """Shared-memory words of one K2 overlap tile: 32 readers' CR slots at
-    an odd stride and 32·WT writers' CW slots, both ends of L lanes."""
-    return 32 * ((CR * 2 * L) | 1) + 32 * WT * CW * 2 * L
+def intra_batch_plan(T: int, KR: int, KW: int, n_sms: int) -> tuple[int, int]:
+    """K2's overlap items (R, NS) for a batch of T transactions with KR read
+    and KW write slots on a card of ``n_sms`` SMs: the scan's
+    (``overlap_items`` over one scan CTA's warps an SM), so the standalone
+    K2 and the scan's phase split the work alike. Any KR, KW and L: a
+    warp stages at most 2·32·16 lanes of readers (``overlap_smem``)."""
+    return overlap_items(T, KR, KW, n_sms * SCAN_THREADS // 32)
 
 
-def intra_batch_plan(KR: int, KW: int, L: int, smem: int = SMEM_OPTIN,
-                     widths=(8, 4, 2, 1)) -> tuple[int, int, int]:
-    """K2's overlap tiling for KR read and KW write slots of L lanes in
-    ``smem`` bytes of shared memory: (WT, CR, CW) — WT writer words per
-    tile (32·WT threads compute it), and the read and write slots staged
-    in shared memory at a time. Where 32 readers' KR slots and 32·WT
-    writers' KW slots fit one block, that is the plan (the largest WT of
-    ``widths`` that fits, CR = KR, CW = KW). Otherwise WT = widths[0] and
-    the larger of the two staged parts is halved until they fit, then WT;
-    CR = CW = 0 where not even one slot of each fits: the kernel then
-    reads the endpoints from global memory."""
-    cap = smem // 4
-    for wt in widths:
-        if overlap_words(wt, KR, KW, L) <= cap:
-            return wt, KR, KW
-    wt, cr, cw = widths[0], KR, KW
-    while overlap_words(wt, cr, cw, L) > cap:
-        if cr > 1 and cr >= wt * cw:
-            cr = -(-cr // 2)
-        elif cw > 1:
-            cw = -(-cw // 2)
-        elif wt > 1:
-            wt //= 2
-        else:
-            return 1, 0, 0
-    return wt, cr, cw
+def overlap_smem(n_warps: int, L: int) -> int:
+    """Bytes of shared memory ``n_warps`` warps of K2's overlap items
+    stage their readers in: both ends of 32 readers in the kernel's
+    register width (4, 8 or 16 lanes; none past 16, compared in memory)."""
+    lanes = next((m for m in (4, 8, 16) if L <= m), 0)
+    return n_warps * 64 * lanes * 4
+
+
+_sm_counts: dict = {}  # device -> its SMs
+
+
+def _sms(dev: torch.device) -> int:
+    n = _sm_counts.get(dev)
+    if n is None:
+        n = _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 @_counted
@@ -184,14 +177,14 @@ def intra_batch(rb, re, wb, we, H) -> torch.Tensor:
     _check(wb, "wb", _I32, (T, KW, L))
     _check(we, "we", _I32, (T, KW, L))
     _check(H, "H", torch.bool, (T,))
-    WT, CR, CW = intra_batch_plan(KR, KW, L)
+    R, NS = intra_batch_plan(T, KR, KW, _sms(dev))
     W = (T + 31) // 32
     pt = torch.empty(W * 32 * W, dtype=_I32, device=dev)  # the transposed bitset
     commit = torch.empty(T, dtype=torch.bool, device=dev)
     _launch(
         "fdb_intra_batch", dev,
         _ptr(rb), _ptr(re), _ptr(wb), _ptr(we), _ptr(H), _ptr(pt),
-        _ptr(commit), T, KR, KW, L, WT, CR, CW,
+        _ptr(commit), T, KR, KW, L, R, NS,
     )
     intra_batch.launches += 1
     return commit
@@ -199,6 +192,7 @@ def intra_batch(rb, re, wb, we, H) -> torch.Tensor:
 
 STAGE_TILE_BYTES = SMEM_OPTIN - 2048  # shared memory of one sort tile (the scans take the rest)
 STAGE_TILE_ROWS = 8192  # rows one CTA sorts (16-bit indices); more go through merge passes
+STAGE_THREADS = 1024  # threads of a sort tile's and an aggregation chunk's CTA (csrc/stage.cu)
 MAX_STAGE_ROWS = 1 << 30  # endpoint rows of one partition, padded (int row indices)
 
 
@@ -232,10 +226,13 @@ def _stage(wb, we, commit, pivots, S2):
     n_rec = P * n2pad * rw
     rec_a = torch.empty(n_rec, dtype=_I32, device=dev)
     rec_b = torch.empty(0 if P == 1 and tile == n2pad else n_rec, dtype=_I32, device=dev)
+    # the aggregation's chunk totals, four (head, value) pairs a chunk of
+    # STAGE_THREADS records (csrc/stage.cu)
+    agg = torch.empty(P * -(-n2pad // STAGE_THREADS) * 8, dtype=_I32, device=dev)
     _launch(
         "fdb_stage", dev,
         _ptr(wb), _ptr(we), _ptr(commit), _ptr(pivots), _ptr(st_code), _ptr(st_ev), _ptr(tid),
-        _ptr(carry), _ptr(max_staged), _ptr(n_valid), _ptr(rec_a), _ptr(rec_b),
+        _ptr(carry), _ptr(max_staged), _ptr(n_valid), _ptr(rec_a), _ptr(rec_b), _ptr(agg),
         P, T, KW, L, B, U, S2, n2pad, tile,
     )
     return st_code, st_ev, tid, carry, max_staged
@@ -291,11 +288,11 @@ def _merge(grid, count, bmax, floor, st_code, st_ev, tid, carry_in, now, oldest,
     _check(tid, "tid", _I32, (U,))
     _check(carry_in, "carry_in", _I32, (U,))
     max_kept = torch.zeros(n_parts, dtype=_I32, device=dev)
-    # a warp's 64 rows of L + 1 words in shared memory, or (L > 112) in
-    # global scratch, one plane per staging slot
+    # a warp's 64 rows of L words, their payloads and their order in
+    # shared memory, or (L > 111) in global scratch, one plane per staging slot
     rows = None
-    if MERGE_WARPS * 64 * Lp1 * 4 > SMEM_OPTIN:
-        rows = torch.empty((U, 64, Lp1), dtype=_I32, device=dev)
+    if MERGE_WARPS * 64 * (L + 2) * 4 > SMEM_OPTIN:
+        rows = torch.empty((U, 64, L + 2), dtype=_I32, device=dev)
     _launch(
         "fdb_merge", dev,
         _ptr(grid), _ptr(count), _ptr(bmax), _ptr(floor), _ptr(st_code),
@@ -449,10 +446,11 @@ def search_steps(n: int) -> int:
     return max(1, (n - 1).bit_length() + 1)
 
 
-SCAN_THREADS = 1024  # threads of a scan CTA: the chain's and the tile sort's (csrc/scan.cu)
-SCAN_SMEM = STAGE_TILE_BYTES  # dynamic shared memory a scan CTA may take; its aggregation keeps 1,056 static bytes
-SCAN_OVERLAP_WIDTHS = (32, 16, 8, 4, 2, 1)  # writer words of a scan CTA's overlap tile: its 32 warps at most
+SCAN_THREADS = 512  # threads of a scan CTA: 128 registers a thread at one CTA an SM (csrc/scan.cu)
+SCAN_SMEM = STAGE_TILE_BYTES  # dynamic shared memory a scan CTA may take (1,056 static bytes beside it)
+SCAN_TILE_ROWS = 1024  # rows of a scan sort tile: CTAs sort tiles side by side, then merge passes
 CHAIN_WORDS = 2048  # the chain's commit words in shared memory (csrc/intra_batch.cuh kMaxWords)
+SCAN_SLICE_WORK = 8  # read x write slot pairs a lane of an overlap item tests before the write slots are sliced
 
 
 class ScanPlan(NamedTuple):
@@ -462,11 +460,11 @@ class ScanPlan(NamedTuple):
 
     blocks: int  # CTAs of the cooperative grid, all co-resident
     smem: int  # dynamic shared memory of a CTA, bytes
-    overlap: tuple  # K2's tiling (WT, CR, CW), intra_batch_plan's in SCAN_SMEM, WT < 2·⌈T/32⌉
+    overlap: tuple  # K2's overlap items (R, NS): readers an item, slices of the write slots
     S2: int  # staging slots a touched bucket
     U: int  # staging planes: touched buckets a batch may have
     n2pad: int  # a partition's staging rows, 2·T·KW padded to a power of two
-    tile: int  # rows one sort tile holds (csrc/stage.cu)
+    tile: int  # rows one sort tile holds
     rows_in_smem: bool  # the merge's 64 rows a warp in shared memory, else in scratch
     offsets: dict  # scratch piece -> (offset, words)
     words: int  # the scratch in int32 words
@@ -474,7 +472,28 @@ class ScanPlan(NamedTuple):
 
 # the scan's scratch pieces in order (their int32 words: ``scan_plan``)
 SCAN_PIECES = ("bmax_sup", "H", "commit", "pt", "st_code", "st_ev", "tid", "carry", "rec_a", "rec_b",
-               "rows", "counters")
+               "rows", "agg", "counters")
+
+
+def overlap_items(T: int, KR: int, KW: int, n_warps: int) -> tuple[int, int]:
+    """K2's overlap items in the scan, (R, NS): a warp an item of R
+    readers (a power of two up to 32) × one writer word × one of NS slices
+    of the KW write slots. R grows while the (reader, word) pairs at or
+    below the diagonal still give every warp of the grid an item; where
+    they give fewer than one a warp (a batch of a few transactions) and a
+    lane would test more than SCAN_SLICE_WORK slot pairs, the write slots
+    are sliced, NS a power of two up to KW."""
+    W = -(-T // 32)
+    pairs = sum((k + 1) * min(32, T - 32 * k) for k in range(W))  # (reader j, word w <= j / 32)
+    n_warps = max(n_warps, 1)
+    R = 1
+    while R < 32 and pairs >= 2 * R * n_warps:
+        R *= 2
+    NS = 1
+    if R == 1 and KR * KW > SCAN_SLICE_WORK:
+        cap = min(KW, max(n_warps // pairs, 1))
+        NS = 1 << (cap.bit_length() - 1)
+    return R, NS
 
 
 def scan_plan(G: int, T: int, KR: int, KW: int, L: int, P: int, B: int, S: int, S2: int,
@@ -498,26 +517,24 @@ def scan_plan(G: int, T: int, KR: int, KW: int, L: int, P: int, B: int, S: int, 
     fit = STAGE_TILE_BYTES // (rw * 4 + 6)
     if fit < 1:
         raise ValueError(f"{L} lanes: one staging record exceeds a block's shared memory")
-    tile = min(n2pad, STAGE_TILE_ROWS, 1 << (fit.bit_length() - 1))
-    W = -(-T // 32)
-    # a tile no wider than the batch's writer words, padded to a power of
-    # two: wider ones stage padding (and, chunked, take more passes)
-    overlap = intra_batch_plan(KR, KW, L, SCAN_SMEM,
-                               tuple(w for w in SCAN_OVERLAP_WIDTHS if w < 2 * W) or (1,))
-    rows_smem = SCAN_THREADS // 32 * 64 * (L + 1) * 4
-    rows_in_smem = rows_smem <= SCAN_SMEM
-    smem = max(overlap_words(*overlap, L) * 4 if overlap[1] else 0, CHAIN_WORDS * 4,
-               tile * (rw * 4 + 6), rows_smem if rows_in_smem else 0)
-    smem = -(-smem // 16) * 16
+    tile = min(n2pad, SCAN_TILE_ROWS, 1 << (fit.bit_length() - 1))
     blocks = n_sms * blocks_per_sm
+    overlap = overlap_items(T, KR, KW, blocks * SCAN_THREADS // 32)
+    rows_smem = SCAN_THREADS // 32 * 64 * (L + 2) * 4  # a warp's merge rows, their payloads and order
+    rows_in_smem = rows_smem <= SCAN_SMEM
+    readers_smem = overlap_smem(SCAN_THREADS // 32, L)  # a warp's 32 staged readers of K2's overlap items
+    smem = max(CHAIN_WORDS * 4, tile * (rw * 4 + 6), rows_smem if rows_in_smem else 0, readers_smem)
+    smem = -(-smem // 16) * 16
     U = P * min(n2, B)
     B1, _B2 = split_factors(B)
+    W = -(-T // 32)
     rec = P * n2pad * rw
     sizes = {
         "bmax_sup": P * B1, "H": -(-T // 4), "commit": -(-T // 4), "pt": 32 * W * W,
         "st_code": U * S2 * L, "st_ev": U * S2, "tid": U, "carry": U,
         "rec_a": rec, "rec_b": 0 if P == 1 and tile == n2pad else rec,
-        "rows": 0 if rows_in_smem else min(U, blocks * SCAN_THREADS // 32) * 64 * (L + 1),
+        "rows": 0 if rows_in_smem else min(U, blocks * SCAN_THREADS // 32) * 64 * (L + 2),
+        "agg": P * -(-n2pad // SCAN_THREADS) * 8,  # a chunk's scan total: four (head, value) pairs
         "counters": 3 * G * P,
     }
     offsets, at = {}, 0
@@ -543,9 +560,31 @@ def _plan_on(dev: torch.device, G, T, KR, KW, L, P, B, S, S2) -> ScanPlan:
     return scan_plan(G, T, KR, KW, L, P, B, S, S2, n_sms=occ[1], blocks_per_sm=occ[0])
 
 
+SCAN_PHASES = ("superblock maxima", "history + K2 overlap", "K2 chain", "verdicts + staging records",
+               "sort tiles", "merge passes", "aggregation", "K3 merge + floor raise")  # csrc/scan.cu kScanPhases
+
+
+def scan_phase_ms(stamps: torch.Tensor) -> dict:
+    """The per-phase timer's stamps (int64 [G, len(SCAN_PHASES) + 1] of
+    ``resolve_many(..., phase_ns=)``: the card's nanosecond clock at each
+    phase boundary of each batch, or several such runs stacked [R, G, ...])
+    as ms a group: each phase's time summed over the group's batches (the
+    mean over the runs), and their total."""
+    s = stamps.detach().cpu()
+    if s.dim() == 2:
+        s = s[None]
+    if s.dim() != 3 or s.shape[-1] != len(SCAN_PHASES) + 1:
+        raise ValueError(f"stamps must be [G, {len(SCAN_PHASES) + 1}] or [R, G, {len(SCAN_PHASES) + 1}], "
+                         f"got {tuple(stamps.shape)}")
+    # differences in int64 first: a stamp (ns since the epoch) needs 61 bits
+    ms = (s[..., 1:] - s[..., :-1]).sum(dim=1).to(torch.float64).mean(dim=0) / 1e6
+    phases = dict(zip(SCAN_PHASES, ms.tolist()))
+    return {"phases": phases, "total_ms": float(ms.sum()), "batches": int(s.shape[1])}
+
+
 @_counted
 def resolve_many(pivots, grid, count, bmax, floor, bounds, rb, re, wb, we, t_snap, t_has_reads, vers,
-                 S2: int):
+                 S2: int, phase_ns: torch.Tensor | None = None):
     """The group scan: G batches (``rb``/``re`` [G, T, KR, L], ``wb``/``we``
     [G, T, KW, L], ``t_snap`` int32 and ``t_has_reads`` bool [G, T]; ``vers``
     int32 [3, G]: each batch's now, oldest version before it and after it)
@@ -557,7 +596,9 @@ def resolve_many(pivots, grid, count, bmax, floor, bounds, rb, re, wb, we, t_sna
     staged and most kept rows in a bucket of each partition —, their
     maxima over the group int32 [P, 2]). A grid that cannot be co-resident
     and a refused launch raise; nothing falls back to the per-batch
-    kernels."""
+    kernels. ``phase_ns`` (int64 [G, len(SCAN_PHASES) + 1] on the card,
+    None on every path of the system) receives the per-phase timer's
+    stamps (``scan_phase_ms``)."""
     *lead, B, S, Lp1 = grid.shape
     P = lead[0] if lead else 1
     L = Lp1 - 1
@@ -566,7 +607,8 @@ def resolve_many(pivots, grid, count, bmax, floor, bounds, rb, re, wb, we, t_sna
     if bool(lead) != (bounds is not None):
         raise ValueError("the scan takes partition bounds with a stacked state, and none with one grid")
     bounds = tuple(bounds or ())
-    dev = _device(pivots, grid, count, bmax, floor, *bounds, rb, re, wb, we, t_snap, t_has_reads, vers)
+    timer = () if phase_ns is None else (phase_ns,)
+    dev = _device(pivots, grid, count, bmax, floor, *bounds, rb, re, wb, we, t_snap, t_has_reads, vers, *timer)
     _check(pivots, "pivots", _I32, (*lead, B, L))
     _check(grid, "grid", _I32)
     for name, t in (("count", count), ("bmax", bmax), ("floor", floor)):
@@ -580,6 +622,8 @@ def resolve_many(pivots, grid, count, bmax, floor, bounds, rb, re, wb, we, t_sna
     _check(t_snap, "t_snap", _I32, (G, T))
     _check(t_has_reads, "t_has_reads", torch.bool, (G, T))
     _check(vers, "vers", _I32, (3, G))
+    if phase_ns is not None:
+        _check(phase_ns, "phase_ns", torch.int64, (G, len(SCAN_PHASES) + 1))
     plan = _plan_on(dev, G, T, KR, KW, L, P, B, S, S2)
     scratch = torch.empty(plan.words, dtype=_I32, device=dev)
     base = scratch.data_ptr()
@@ -595,8 +639,8 @@ def resolve_many(pivots, grid, count, bmax, floor, bounds, rb, re, wb, we, t_sna
         *([_ptr(t) for t in bounds] or [None, None]),
         _ptr(rb), _ptr(re), _ptr(wb), _ptr(we), _ptr(t_snap), _ptr(t_has_reads), _ptr(vers),
         _ptr(verdicts), _ptr(pressures), _ptr(gmax), *pieces,
-        G, P, B, S, L, T, KR, KW, B1, B2, *plan.overlap, S2, plan.U, plan.n2pad, plan.tile,
-        plan.smem, plan.blocks,
+        None if phase_ns is None else _ptr(phase_ns),
+        G, P, B, S, L, T, KR, KW, B1, B2, *plan.overlap, S2, plan.U, plan.n2pad, plan.tile, plan.smem, plan.blocks,
     )
     resolve_many.launches += 1
     return verdicts, pressures, gmax

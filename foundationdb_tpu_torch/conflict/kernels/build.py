@@ -40,13 +40,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "fdb_history": ("history", [_P] * 10 + [_I] * 7 + [_P]),
     "fdb_history_parts": ("history", [_P] * 12 + [_I] * 8 + [_P]),
-    "fdb_intra_batch": ("intra_batch", [_P] * 7 + [_I] * 7 + [_P]),
-    "fdb_stage": ("stage", [_P] * 12 + [_I] * 9 + [_P]),
+    "fdb_intra_batch": ("intra_batch", [_P] * 7 + [_I] * 6 + [_P]),
+    "fdb_stage": ("stage", [_P] * 13 + [_I] * 9 + [_P]),
     "fdb_merge": ("merge", [_P] * 8 + [_I] * 2 + [_P] * 2 + [_I] * 6 + [_P]),
     "fdb_reshard": ("maint", [_P] * 11 + [_I] * 7 + [_P]),
     "fdb_rebase": ("maint", [_P] * 6 + [_I] * 4 + [_P]),
     "fdb_search": ("search", [_P] * 3 + [_I] * 3 + [_P]),
-    "fdb_resolve_many": ("scan", [_P] * 29 + [_I] * 19 + [_P]),
+    "fdb_resolve_many": ("scan", [_P] * 31 + [_I] * 18 + [_P]),
     "fdb_scan_occupancy": ("scan", [_I] * 2 + [_P]),
 }
 

@@ -16,19 +16,20 @@
 // commit[i], i < j. The overlap test is T²/2·KR·KW range pairs (3.3 M at
 // the bench shape, microseconds on 132 SMs); the chain is what is left.
 //
-// Design. Pass 1 (build_overlap, many CTAs) writes the lower triangle of
+// Design. Pass 1 (build_overlap, every SM) writes the lower triangle of
 // the bitset, transposed: PT[w][j], bit b = txn j reads what txn 32w+b < j
-// writes. A CTA takes 32 readers × WT words; it stages the readers' and
-// the 32·WT writers' endpoints in shared memory, so every (j, i) test
-// reads shared memory; warp w builds word w of the 32 rows, a lane a row,
-// and stores the 32 words side by side. CTAs wholly above the diagonal
-// exit at once. When the KR read and KW write slots do not fit one block's
-// shared memory (at L = 8: 65 reads, or 33 of each), the CTA stages them
-// in chunks of CR read and CW write slots, one (read chunk, write chunk)
-// pair at a time, and ORs each row's bits over the pairs in registers; a
-// bit already set skips its writer. kernels.intra_batch_plan picks WT, CR
-// and CW; where not even one slot of each fits (L > 453), the endpoints
-// are read from global memory (CR = 0).
+// writes. Its work comes in items a warp each: R readers (a power of two up
+// to 32) × one writer word × one of NS slices of the write slots. Lane b
+// takes writer 32w + b, its codes in registers, and tests it against the
+// item's readers, which the warp stages in its shared memory one read slot
+// at a time and every lane reads back as one broadcast; the codes compare
+// as 64-bit words (above 16 lanes in memory, any L). One ballot a reader
+// forms its word. kernels.intra_batch_plan (kernels.overlap_items) grows R
+// while the items still give every warp of the card one, so a batch of 64
+// transactions spreads over the card as one of 2500 does, and slices the
+// write slots (the slices' words ORed into a zeroed bitset) where a batch
+// of a few transactions gives fewer items than warps and each lane would
+// test many slot pairs. Items wholly above the diagonal return at once.
 // Pass 2 (greedy_chain, ONE CTA of 1024 threads) resolves the chain 32
 // transactions at a time: ceil(T/32) dependent steps (80 at the bench
 // shape) instead of T. Thread t owns row t of each panel of 1024 rows
@@ -61,63 +62,56 @@
 
 namespace {
 
-template <int LC>
-__global__ void build_overlap(
-    const uint32_t* __restrict__ rb, const uint32_t* __restrict__ re,
-    const uint32_t* __restrict__ wb, const uint32_t* __restrict__ we,
-    uint32_t* __restrict__ pt, int T, int KR, int KW, int L_, int Tp, int WT) {
-    extern __shared__ uint32_t sm[];
-    overlap_tile<LC>(rb, re, wb, we, pt, T, KR, KW, L_, Tp, WT, blockIdx.x, blockIdx.y, sm);
-}
+constexpr int kChainThreads = 1024;  // the chain's CTA
+constexpr int kOverlapThreads = 256;  // 8 warps, an overlap item each at a time
 
-template <int LC, bool STAGED>
-__global__ void build_overlap_chunks(
-    const uint32_t* __restrict__ rb, const uint32_t* __restrict__ re,
-    const uint32_t* __restrict__ wb, const uint32_t* __restrict__ we,
-    uint32_t* __restrict__ pt, int T, int KR, int KW, int L_, int Tp, int WT, int CR, int CW) {
-    extern __shared__ uint32_t sm[];
-    overlap_tile_chunks<LC, STAGED>(rb, re, wb, we, pt, T, KR, KW, L_, Tp, WT, CR, CW, blockIdx.x,
-                                    blockIdx.y, sm);
+// K2's overlap items over the grid's warps in turn. LM: the code lanes in
+// registers (4, 8 or 16), 0 in memory
+template <int LM>
+__global__ void __launch_bounds__(kOverlapThreads) build_overlap(const OverlapArgs A) {
+    extern __shared__ __align__(16) uint32_t sm[];  // a warp's staged readers: 64·LM words
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = kOverlapThreads / 32;
+    const int n = overlap_count(A);
+    for (int v = blockIdx.x * n_warps + warp; v < n; v += gridDim.x * n_warps)
+        overlap_item<LM>(A, v, lane, sm + warp * 64 * LM);
 }
 
 __global__ void __launch_bounds__(kChainThreads) greedy_chain(
     const uint32_t* __restrict__ pt, const uint8_t* __restrict__ H,
     uint8_t* __restrict__ commit, int T, int W, int Tp) {
     __shared__ uint32_t cbits[kMaxWords];
-    greedy_chain_block<false>(pt, H, commit, T, W, Tp, cbits);
+    greedy_chain_block<kChainThreads, false>(pt, H, commit, T, W, Tp, cbits);
 }
 
 }  // namespace
 
+// R readers an overlap item, NS slices of the write slots
+// (kernels.intra_batch_plan)
 extern "C" int fdb_intra_batch(
     const void* rb, const void* re, const void* wb, const void* we,
     const void* H, void* pt, void* commit,
-    int T, int KR, int KW, int L, int WT, int CR, int CW, void* stream) {
+    int T, int KR, int KW, int L, int R, int NS, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int W = (T + 31) / 32;
-    if (W > kMaxWords || CR < 0 || CR > KR || CW < 0 || CW > KW || (CR > 0) != (CW > 0)) {
+    if (T < 1 || W > kMaxWords || R < 1 || R > 32 || (32 % R) || NS < 1 || NS > KW) {
         return (int)cudaErrorInvalidValue;
     }
     const int Tp = 32 * W;  // PT row pitch: 128-byte aligned rows
-    size_t smem1 = CR ? ((size_t)kRowsPerCta * ((CR * 2 * L) | 1) + (size_t)32 * WT * CW * 2 * L) * sizeof(uint32_t) : 0;
-    dim3 grid1((W + WT - 1) / WT, W);
+    const OverlapArgs A = {(const uint32_t*)rb, (const uint32_t*)re, (const uint32_t*)wb, (const uint32_t*)we,
+                           (uint32_t*)pt, T, KR, KW, L, R, NS};
     cudaError_t err;
-    if (CR == KR && CW == KW) {  // the one-chunk plan (the bench's)
-        auto build = L == 3 ? build_overlap<3> : build_overlap<0>;  // 12-byte keys: the bench's
-        err = cudaFuncSetAttribute(build, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+    if (NS > 1) {  // the slices' words are ORed together
+        err = cudaMemsetAsync(pt, 0, (size_t)W * Tp * sizeof(uint32_t), st);
         if (err != cudaSuccess) return (int)err;
-        build<<<grid1, 32 * WT, smem1, st>>>(
-            (const uint32_t*)rb, (const uint32_t*)re, (const uint32_t*)wb, (const uint32_t*)we,
-            (uint32_t*)pt, T, KR, KW, L, Tp, WT);
-    } else {
-        auto build = !CR ? build_overlap_chunks<0, false>
-                         : L == 3 ? build_overlap_chunks<3, true> : build_overlap_chunks<0, true>;
-        err = cudaFuncSetAttribute(build, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-        if (err != cudaSuccess) return (int)err;
-        build<<<grid1, 32 * WT, smem1, st>>>(
-            (const uint32_t*)rb, (const uint32_t*)re, (const uint32_t*)wb, (const uint32_t*)we,
-            (uint32_t*)pt, T, KR, KW, L, Tp, WT, CR, CW);
     }
+    // register codes as the scan's: 4 lanes at the bench's 12 bytes;
+    // above FDB_MAX_LANES the codes are compared in memory
+    const int LM = L <= 4 ? 4 : L <= 8 ? 8 : L <= FDB_MAX_LANES ? 16 : 0;
+    auto build = LM == 4 ? build_overlap<4> : LM == 8 ? build_overlap<8> : LM == 16 ? build_overlap<16>
+                                                                                    : build_overlap<0>;
+    const int n_items = (T + R - 1) / R * W * NS;
+    const int blocks = min((n_items + kOverlapThreads / 32 - 1) / (kOverlapThreads / 32), 65536);
+    build<<<blocks, kOverlapThreads, (size_t)kOverlapThreads / 32 * 64 * LM * sizeof(uint32_t), st>>>(A);
     greedy_chain<<<1, kChainThreads, 0, st>>>(
         (const uint32_t*)pt, (const uint8_t*)H, (uint8_t*)commit, T, W, Tp);
     return (int)cudaGetLastError();

@@ -1,195 +1,136 @@
-// The device code of K2 (the overlap bitset's tiles and the greedy chain),
+// The device code of K2 (the overlap bitset's items and the greedy chain),
 // shared by the standalone kernels of intra_batch.cu and by the group scan
 // (scan.cu). The design and what bounds it are described in intra_batch.cu.
-//
-// A tile is the work of one CTA of the standalone build: reader block jb
-// (32 readers) against writer words bx·WT .. bx·WT + WT - 1. Its endpoints
-// are staged by every thread of the block that runs it; the bits are
-// computed by the block's first 32·WT threads (all of them in the
-// standalone kernel; the scan's blocks of 1024 threads take any WT <= 32).
 #pragma once
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kRowsPerCta = 32;
-constexpr int kChainThreads = 1024;
 constexpr int kAhead = 16;       // words loaded ahead of the chain
 constexpr int kMaxWords = 2048;  // commit words: T <= 65536
 
-// a < b on L uint32 lanes
-__device__ __forceinline__ bool lex_lt(const uint32_t* a, const uint32_t* b, int L) {
-    return lex_cmp(a, b, L) < 0;
+// a < b for two codes of LM lanes (lanes past L zero in both), compared
+// as LM / 2 big-endian 64-bit words
+template <int LM>
+__device__ __forceinline__ bool lt64(const uint32_t (&a)[LM], const uint32_t (&b)[LM]) {
+    bool lt = false, eq = true;
+#pragma unroll
+    for (int k = 0; k < LM / 2; ++k) {
+        const uint64_t x = ((uint64_t)a[2 * k] << 32) | a[2 * k + 1];
+        const uint64_t y = ((uint64_t)b[2 * k] << 32) | b[2 * k + 1];
+        lt = lt || (eq && x < y);
+        eq = eq && x == y;
+    }
+    return lt;
 }
 
-// one tile of the overlap bitset with every endpoint of its readers and
-// writers staged in shared memory ``sm``. LC: the lane count when it is
-// known at compile time (the compares then unroll), 0 for any L
-template <int LC>
-__device__ void overlap_tile(
-    const uint32_t* rb, const uint32_t* re, const uint32_t* wb, const uint32_t* we,
-    uint32_t* pt, int T, int KR, int KW, int L_, int Tp, int WT, int bx, int jb, uint32_t* sm) {
-    const int L = LC ? LC : L_;
-    const int w0 = bx * WT;
-    if (w0 > jb) return;  // every word strictly above the diagonal
-    const int j0 = jb * kRowsPerCta;
-    const int i0 = w0 * 32;
-    const int n_w = 32 * WT;  // writers staged
-    // readers: [32][KR][2][L] (begin, end) at an odd stride, since the
-    // lanes of a warp read 32 different readers; writers: [32·WT][KW][2][L],
-    // each read by a whole warp at once
-    const int rrec = (KR * 2 * L) | 1;
-    uint32_t* rd = sm;
-    uint32_t* wr = sm + kRowsPerCta * rrec;
-    const int wrec = KW * 2 * L;
-    const int rd_words = kRowsPerCta * KR * L;
-    for (int k = threadIdx.x; k < rd_words; k += blockDim.x) {
-        int r = k / (KR * L), rest = k % (KR * L);
-        int j = j0 + r;
-        size_t src = (size_t)j * KR * L + rest;
-        int ar = rest / L, l = rest % L;
-        uint32_t* dst = rd + r * rrec + ar * 2 * L + l;
-        dst[0] = j < T ? rb[src] : FDB_SENTINEL;
-        dst[L] = j < T ? re[src] : FDB_SENTINEL;
-    }
-    const int wr_words = n_w * KW * L;
-    for (int k = threadIdx.x; k < wr_words; k += blockDim.x) {
-        int r = k / (KW * L), rest = k % (KW * L);
-        int i = i0 + r;
-        size_t src = (size_t)i * KW * L + rest;
-        int aw = rest / L, l = rest % L;
-        uint32_t* dst = wr + r * wrec + aw * 2 * L + l;
-        dst[0] = i < T ? wb[src] : FDB_SENTINEL;
-        dst[L] = i < T ? we[src] : FDB_SENTINEL;
-    }
-    __syncthreads();
+// the batch's codes and K2's overlap items: R readers an item (a power of
+// two up to 32), NS slices of the KW write slots (kernels.overlap_items)
+struct OverlapArgs {
+    const uint32_t* rb;  // [T, KR, L]
+    const uint32_t* re;
+    const uint32_t* wb;  // [T, KW, L]
+    const uint32_t* we;
+    uint32_t* pt;  // [W, 32 W]: the transposed bitset (zeroed first where NS > 1)
+    int T, KR, KW, L, R, NS;
+};
 
-    const int r = threadIdx.x & 31, wi = threadIdx.x >> 5, w = w0 + wi;
-    const int j = j0 + r;
-    if (wi >= WT || w > jb) return;  // only the tile's words at or below the diagonal
-    uint32_t bits = 0;
-    for (int b = 0; b < 32; ++b) {
-        int i = w * 32 + b;
-        if (i >= j) break;  // strictly earlier writers only
-        const uint32_t* wrow = wr + (i - i0) * wrec;
-        bool o = false;
-        for (int ar = 0; ar < KR && !o; ++ar) {
-            const uint32_t* rbj = rd + r * rrec + ar * 2 * L;
-            const uint32_t* rej = rbj + L;
-            for (int aw = 0; aw < KW; ++aw) {
-                const uint32_t* wbi = wrow + aw * 2 * L;
-                const uint32_t* wei = wbi + L;
-                // read j overlaps write i: rb_j < we_i and wb_i < re_j
-                if (lex_lt(rbj, wei, L) && lex_lt(wbi, rej, L)) { o = true; break; }
+// K2's overlap items of a batch: reader groups × writer words × write-slot
+// slices
+__device__ __forceinline__ int overlap_count(const OverlapArgs& A) {
+    const int W = (A.T + 31) / 32;
+    return (A.T + A.R - 1) / A.R * W * A.NS;
+}
+
+// overlap item v (reader group jg of R readers, writer word w, write-slot
+// slice c of NS) by one warp: lane b takes writer i = 32w + b and each
+// reader j > i of the group; reader j's word w gets bit b where a read of j
+// overlaps a write of i (rb_j < we_i and wb_i < re_j). Items wholly above
+// the diagonal return at once. Read slot by read slot, the group's
+// readers are staged in the warp's ``ws`` (2·32·LM words of shared
+// memory) and every lane reads each reader back as one broadcast, its
+// writer's codes in registers; the codes compare as 64-bit words. Lane r
+// stores reader j0 + r's word (ORed in where the write slots are sliced).
+// The codes are read-only inputs; LM = 0 compares them in memory (any L).
+template <int LM>
+__device__ __forceinline__ void overlap_item(const OverlapArgs& A, int v, int lane, uint32_t* ws) {
+    const int T = A.T, L = A.L, KR = A.KR, KW = A.KW, R = A.R;
+    const int W = (T + 31) / 32, Tp = 32 * W;
+    const int c = v % A.NS, jw = v / A.NS, jg = jw / W, w = jw % W;
+    if (w > jg * R / 32) return;  // every word above the diagonal
+    const int j0 = jg * R, i = 32 * w + lane, n_r = min(R, T - j0);
+    const int per = (KW + A.NS - 1) / A.NS, a0 = c * per, a1 = min(KW, a0 + per);
+    const int im = min(i, T - 1);
+    uint32_t m = 0;  // bit r: reader j0 + r overlaps writer i
+    for (int ar = 0; ar < KR; ++ar) {
+        if constexpr (LM > 0) {  // lane r stages reader j0 + r's read slot ar
+            if (lane < n_r) {
+                Code<LM> mb, me;
+                load(mb, A.rb + ((size_t)(j0 + lane) * KR + ar) * L, L);
+                load(me, A.re + ((size_t)(j0 + lane) * KR + ar) * L, L);
+#pragma unroll
+                for (int k = 0; k < LM; ++k) {
+                    ws[lane * 2 * LM + k] = mb.x[k];
+                    ws[lane * 2 * LM + LM + k] = me.x[k];
+                }
+            }
+            __syncwarp();
+        }
+        for (int aw = a0; aw < a1; ++aw) {
+            Code<LM> wbi, wei;
+            load(wbi, A.wb + ((size_t)im * KW + aw) * L, L);
+            load(wei, A.we + ((size_t)im * KW + aw) * L, L);
+            for (int r = 0; r < n_r; ++r) {
+                if (i >= j0 + r || ((m >> r) & 1u)) continue;  // strictly earlier writers; found already
+                bool o;
+                if constexpr (LM == 0) {
+                    Code<0> rbj, rej;
+                    load(rbj, A.rb + ((size_t)(j0 + r) * KR + ar) * L, L);
+                    load(rej, A.re + ((size_t)(j0 + r) * KR + ar) * L, L);
+                    o = cmp(rbj, wei, L) < 0 && cmp(wbi, rej, L) < 0;
+                } else {
+                    uint32_t rbj[LM], rej[LM];
+#pragma unroll
+                    for (int q = 0; q < LM / 4; ++q) {
+                        const uint4 x = reinterpret_cast<const uint4*>(ws + r * 2 * LM)[q];
+                        const uint4 y = reinterpret_cast<const uint4*>(ws + r * 2 * LM + LM)[q];
+                        rbj[4 * q] = x.x, rbj[4 * q + 1] = x.y, rbj[4 * q + 2] = x.z, rbj[4 * q + 3] = x.w;
+                        rej[4 * q] = y.x, rej[4 * q + 1] = y.y, rej[4 * q + 2] = y.z, rej[4 * q + 3] = y.w;
+                    }
+                    o = lt64<LM>(rbj, wei.x) && lt64<LM>(wbi.x, rej);
+                }
+                if (o) m |= 1u << r;
             }
         }
-        if (o) bits |= 1u << b;
+        if constexpr (LM > 0) __syncwarp();  // the next read slot restages ws
     }
-    if (j < T) pt[(size_t)w * Tp + j] = bits;
+    uint32_t mine = 0;
+    for (int r = 0; r < R; ++r) {
+        const uint32_t word = __ballot_sync(FULL, (m >> r) & 1u);
+        if (lane == r) mine = word;
+    }
+    const int j = j0 + lane;
+    if (lane < R && j < T) {
+        uint32_t* dst = A.pt + (size_t)w * Tp + j;
+        if (A.NS == 1) *dst = mine;
+        else if (mine) atomicOr(dst, mine);
+    }
 }
 
-// overlap_tile where the endpoints do not fit one block: STAGED, they
-// come in chunks of CR read slots and CW write slots, one (read chunk,
-// write chunk) pair at a time, each row's bits ORed over the pairs; else
-// straight from global memory
-template <int LC, bool STAGED>
-__device__ void overlap_tile_chunks(
-    const uint32_t* rb, const uint32_t* re, const uint32_t* wb, const uint32_t* we,
-    uint32_t* pt, int T, int KR, int KW, int L_, int Tp, int WT, int CR, int CW, int bx, int jb,
-    uint32_t* sm) {
-    const int L = LC ? LC : L_;
-    const int w0 = bx * WT;
-    if (w0 > jb) return;  // every word strictly above the diagonal
-    const int j0 = jb * kRowsPerCta;
-    const int i0 = w0 * 32;
-    const int n_w = 32 * WT;  // writers staged
-    const int cr = STAGED ? CR : KR, cw = STAGED ? CW : KW;
-    // readers: [32][CR][2][L] (begin, end) at an odd stride, since the
-    // lanes of a warp read 32 different readers; writers: [32·WT][CW][2][L],
-    // each read by a whole warp at once
-    const int rrec = (cr * 2 * L) | 1;
-    uint32_t* rd = sm;
-    uint32_t* wr = sm + kRowsPerCta * rrec;
-    const int wrec = cw * 2 * L;
-
-    const int r = threadIdx.x & 31, wi = threadIdx.x >> 5, w = w0 + wi;
-    const int j = j0 + r;
-    const bool active = wi < WT && w <= jb && j < T;  // only the tile's words at or below the diagonal
-    uint32_t bits = 0;
-    for (int r0 = 0; r0 < KR; r0 += cr) {
-        const int nr = min(cr, KR - r0);
-        for (int a0 = 0; a0 < KW; a0 += cw) {
-            const int na = min(cw, KW - a0);
-            if (STAGED) {
-                if (r0 | a0) __syncthreads();  // every thread is done with the last chunk
-                if (a0 == 0) {
-                    const int rd_words = kRowsPerCta * nr * L;
-                    for (int k = threadIdx.x; k < rd_words; k += blockDim.x) {
-                        int rr = k / (nr * L), rest = k % (nr * L);
-                        int jj = j0 + rr;
-                        size_t src = ((size_t)jj * KR + r0) * L + rest;
-                        int ar = rest / L, l = rest % L;
-                        uint32_t* dst = rd + rr * rrec + ar * 2 * L + l;
-                        dst[0] = jj < T ? rb[src] : FDB_SENTINEL;
-                        dst[L] = jj < T ? re[src] : FDB_SENTINEL;
-                    }
-                }
-                if (r0 == 0 || cw < KW) {  // one write chunk stays staged
-                    const int wr_words = n_w * na * L;
-                    for (int k = threadIdx.x; k < wr_words; k += blockDim.x) {
-                        int rr = k / (na * L), rest = k % (na * L);
-                        int i = i0 + rr;
-                        size_t src = ((size_t)i * KW + a0) * L + rest;
-                        int aw = rest / L, l = rest % L;
-                        uint32_t* dst = wr + rr * wrec + aw * 2 * L + l;
-                        dst[0] = i < T ? wb[src] : FDB_SENTINEL;
-                        dst[L] = i < T ? we[src] : FDB_SENTINEL;
-                    }
-                }
-                __syncthreads();
-            }
-            if (!active) continue;
-            // reader j's read slots r0 .. r0 + nr - 1: begin at rbj, end at
-            // rej, slot s at s·rs
-            const uint32_t* rbj = STAGED ? rd + r * rrec : rb + ((size_t)j * KR + r0) * L;
-            const uint32_t* rej = STAGED ? rbj + L : re + ((size_t)j * KR + r0) * L;
-            const int rs = STAGED ? 2 * L : L;
-            for (int b = 0; b < 32; ++b) {
-                const int i = w * 32 + b;
-                if (i >= j) break;              // strictly earlier writers only
-                if ((bits >> b) & 1u) continue;  // found in an earlier chunk
-                const uint32_t* wbi = STAGED ? wr + (i - i0) * wrec : wb + ((size_t)i * KW + a0) * L;
-                const uint32_t* wei = STAGED ? wbi + L : we + ((size_t)i * KW + a0) * L;
-                bool o = false;
-                for (int ar = 0; ar < nr && !o; ++ar) {
-                    for (int aw = 0; aw < na; ++aw) {
-                        // read j overlaps write i: rb_j < we_i and wb_i < re_j
-                        if (lex_lt(rbj + ar * rs, wei + aw * rs, L) && lex_lt(wbi + aw * rs, rej + ar * rs, L)) {
-                            o = true;
-                            break;
-                        }
-                    }
-                }
-                if (o) bits |= 1u << b;
-            }
-        }
-    }
-    if (active) pt[(size_t)w * Tp + j] = bits;
-}
-
-// the greedy chain by one CTA of kChainThreads threads, its commit words in
-// ``cbits`` (shared memory, kMaxWords words). CG: the bitset and H were
-// written by earlier phases of the same launch (the scan)
-template <bool CG>
+// the greedy chain by one CTA of NT threads, its commit words in ``cbits``
+// (shared memory, kMaxWords words), panels of NT / 32 blocks. CG: the
+// bitset and H were written by earlier phases of the same launch (the
+// scan)
+template <int NT, bool CG>
 __device__ void greedy_chain_block(const uint32_t* pt, const uint8_t* H, uint8_t* commit, int T, int W,
                                    int Tp, uint32_t* cbits) {
+    constexpr int NW = NT / 32, D = NW < kAhead ? NW : kAhead;
     const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-    constexpr int D = kAhead;
-    for (int j0 = 0; j0 < T; j0 += kChainThreads) {
-        // a panel: blocks k0 .. k0 + 31; this thread's row j is in block kb
+    for (int j0 = 0; j0 < T; j0 += NT) {
+        // a panel: blocks k0 .. k0 + NW - 1; this thread's row j is in block kb
         const int k0 = j0 >> 5, j = j0 + t, kb = k0 + warp;
-        const int n_blocks = min(W - k0, 32);
+        const int n_blocks = min(W - k0, NW);
         const bool in = j < T;
         // the row's words below the panel against the earlier commit
         // words, and its words k0 .. k0 + D - 1 into the ring
@@ -201,7 +142,7 @@ __device__ void greedy_chain_block(const uint32_t* pt, const uint8_t* H, uint8_t
         const bool ok = in && !ld_in<CG>(H + j);
 #pragma unroll
         for (int d = 0; d < D; ++d) pf[d] = (in && k0 + d <= kb) ? ld_in<CG>(pt + (size_t)(k0 + d) * Tp + j) : 0u;
-        for (int s0 = 0; s0 < 32; s0 += D) {
+        for (int s0 = 0; s0 < NW; s0 += D) {
 #pragma unroll
             for (int d = 0; d < D; ++d) {
                 const int s = s0 + d, k = k0 + s;  // block k, warp s
@@ -209,9 +150,9 @@ __device__ void greedy_chain_block(const uint32_t* pt, const uint8_t* H, uint8_t
                 if (warp == s) {
                     const bool okr = ok && acc == 0;
                     const uint32_t diag = pf[d];  // word k of row 32k + lane
-                    uint32_t c = __ballot_sync(0xffffffffu, okr);
+                    uint32_t c = __ballot_sync(FULL, okr);
                     while (true) {
-                        const uint32_t nc = __ballot_sync(0xffffffffu, okr && (diag & c) == 0);
+                        const uint32_t nc = __ballot_sync(FULL, okr && (diag & c) == 0);
                         if (nc == c) break;
                         c = nc;
                     }

@@ -1,5 +1,5 @@
 // The device code of K3 merge (one touched bucket by one warp, and the
-// floor raise of one spanned bucket), shared by the standalone kernel of
+// floor raise of the untouched buckets before it that a write spans), shared by the standalone kernel of
 // merge.cu and by the group scan (scan.cu). The design and what bounds it
 // are described in merge.cu.
 #pragma once
@@ -9,12 +9,6 @@
 #define EV_OFF (1 << 20)
 
 namespace {
-
-// (code, index) order of two elements held as indices into the rows
-__device__ __forceinline__ bool elem_lt(const uint32_t* code, int a, int b, int L) {
-    int c = lex_cmp(code + a * L, code + b * L, L);
-    return c < 0 || (c == 0 && a < b);
-}
 
 __device__ __forceinline__ unsigned lanemask_le(int lane) {
     return lane == 31 ? 0xffffffffu : (2u << lane) - 1u;
@@ -38,10 +32,13 @@ __device__ __forceinline__ int warp_incl_sum(int v, int lane) {
 }
 
 // one warp merges touched bucket u (= tid[u] < B) with its staged rows,
-// ``code`` its 64·(L + 1) words of shared memory or global scratch. No
+// ``code`` its 64·(L + 2) words of shared memory or global scratch. No
 // pointer is __restrict__: in the scan the staging rows were written by an
 // earlier phase of the same launch and must not be read through the
-// non-coherent cache
+// non-coherent cache. The 64 elements are put in order by ranks: the
+// bucket's live rows and its staged rows are each sorted already, so
+// element i of one list lands at i plus its rank in the other, found by a
+// binary search (5 compares); the last 64 words of ``code`` hold the order
 __device__ __forceinline__ void merge_bucket(
     uint32_t* grid, int* count, int* bmax, int* floor_, const uint32_t* st_code,
     const int* st_ev, const int* carry_in, int now, int oldest,
@@ -76,29 +73,29 @@ __device__ __forceinline__ void merge_bucket(
     }
     __syncwarp();
 
-    // warp bitonic sort of the 64 element indices; position p = h·32 + lane
-    int idx[2] = {lane, 32 + lane};
-    for (int k = 2; k <= 64; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            if (j == 32) {  // partner in the other half, same lane
-                if (elem_lt(code, idx[1], idx[0], L)) {
-                    int t = idx[0];
-                    idx[0] = idx[1];
-                    idx[1] = t;
-                }
-                continue;
-            }
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int p = h * 32 + lane;
-                const int other = __shfl_xor_sync(0xffffffffu, idx[h], j);
-                const bool asc = (p & k) == 0;
-                const bool lower = (lane & j) == 0;
-                const bool other_lt = elem_lt(code, other, idx[h], L);
-                // the lower position keeps the min when ascending
-                if (lower == asc ? other_lt : !other_lt) idx[h] = other;
-            }
+    // the 64 element indices in (code, index) order: a live row precedes
+    // a staged row of its code, so a row counts the staged codes below it
+    // and a staged row the row codes at or below it; position p = h·32 + lane
+    int idx[2];
+    {
+        int* order = pk + 64;
+        int lo = 0, hi = 32;  // staged codes < row lane
+        while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (lex_cmp(code + (32 + mid) * L, code + lane * L, L) < 0) lo = mid + 1;
+            else hi = mid;
         }
+        order[lane + lo] = lane;
+        lo = 0, hi = 32;  // row codes <= staged code lane
+        while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (lex_cmp(code + mid * L, code + (32 + lane) * L, L) <= 0) lo = mid + 1;
+            else hi = mid;
+        }
+        order[lane + lo] = 32 + lane;
+        __syncwarp();
+        idx[0] = order[lane];
+        idx[1] = order[32 + lane];
     }
 
     // the scan over sorted positions: half 0, then half 1 from its end
@@ -185,21 +182,35 @@ __device__ __forceinline__ void merge_bucket(
     }
 }
 
-// the floor raise of bucket x when it is untouched and a committed write
-// spans it: it takes the carry of the next touched bucket of its partition
-__device__ __forceinline__ void raise_spanned(int* bmax, int* floor_, const int* tid, const int* carry_in,
-                                              int now, int B, int B_part, int U, int x) {
-    int lo = 0, hi = U;  // first slot with tid >= x
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (tid[mid] < x) lo = mid + 1;
-        else hi = mid;
-    }
-    if (lo == U) return;
-    const int nb = tid[lo];
-    if (nb < B && nb != x && nb / B_part == x / B_part && carry_in[lo] > 0) {
-        floor_[x] = max(floor_[x], now);
-        bmax[x] = max(bmax[x], now);
+// the floor raise by the warp of touched bucket u (= tid[u] = b) of the
+// untouched buckets before it in its partition, back to the touched bucket
+// before it: a committed write spans them exactly when the event prefix at
+// b (carry_in[u]) is positive. Each partition's events sum to 0, so the
+// buckets after its last touched bucket are never spanned. Touched
+// buckets are not written, so it runs beside the merge of every bucket.
+// A lane loads kRaiseAhead buckets' words before it stores any, so a long
+// gap (a keyspace-wide clear) is not one memory round trip a bucket. Not
+// inlined: its registers stay out of the scan's other phases (inlined,
+// the scan's chain took twice as long)
+constexpr int kRaiseAhead = 16;
+
+__device__ __noinline__ void raise_spanned(int* bmax, int* floor_, const int* tid, const int* carry_in,
+                                              int now, int B_part, int u, int b, int lane) {
+    if (carry_in[u] <= 0) return;
+    int lo = b / B_part * B_part;
+    if (u > 0) lo = max(lo, tid[u - 1] + 1);
+    for (int x0 = lo + lane; x0 < b; x0 += 32 * kRaiseAhead) {
+        int f[kRaiseAhead], m[kRaiseAhead];
+#pragma unroll
+        for (int k = 0; k < kRaiseAhead; ++k) {
+            const int x = x0 + 32 * k;
+            if (x < b) f[k] = floor_[x], m[k] = bmax[x];
+        }
+#pragma unroll
+        for (int k = 0; k < kRaiseAhead; ++k) {
+            const int x = x0 + 32 * k;
+            if (x < b) floor_[x] = max(f[k], now), bmax[x] = max(m[k], now);
+        }
     }
 }
 

@@ -14,35 +14,61 @@
 //
 // What bounds it on the H100: the chain of dependent phases. Each batch
 // needs the state its predecessor merged, and each phase of a batch needs
-// all of the one before it: the superblock maxima, the history check, K2's
-// bitset, K2's chain (one CTA), the staging records, the tile sort (one CTA
-// for the bench's 8192 rows), the merge passes above one tile, the
-// aggregation (one CTA), the merge. The bytes are the phases' own (about
-// 3 MB a batch at the bench shape, under 1 µs at 3.35 TB/s); what a batch
-// costs is the phases' serial parts and one grid-wide barrier between each
-// two (7 a batch at the bench shape).
+// all of the one before it. The bytes are the phases' own (about 3 MB a
+// batch at the bench shape, under 1 µs at 3.35 TB/s); what a batch costs
+// is each phase's longest serial path — one warp's or one CTA's work — and
+// one grid-wide barrier between each two phases. The per-phase timer
+// (``phase_ns``: thread 0 of CTA 0 reads %globaltimer after each barrier)
+// names the phases' share.
 //
-// Design. One CTA of 1024 threads a resident slot (the chain and the tile
-// sort are written for 1024; at that size a thread has at most 64
-// registers, and the occupancy query gives one CTA an SM), the grid as
-// large as is co-resident, launched by cudaLaunchCooperativeKernel.
-// The CTAs walk the phases of batch g = 0 .. G - 1 in order, with
-// cooperative_groups' grid.sync() between phases. Every phase is the body
-// of the standalone kernel (history.cuh, intra_batch.cuh, stage.cuh,
-// merge.cuh): a warp's work (a transaction's history, a touched bucket's
-// merge) goes to the grid's warps in turn, a CTA's (an overlap tile, a
-// sort tile) to its CTAs in turn, and a one-CTA pass (the chain, the
-// aggregation) to CTA 0 while the others wait at the next barrier. One
-// dynamic shared buffer serves every phase: the largest phase's need, up
-// to the tile sort's 230,400 bytes. What an earlier phase of the launch
-// wrote is read as coherent loads after the barrier (no non-coherent
-// read-only loads of it: history reads the state through L2, ld_in<true>).
-// Over partitions the history check clips each read and the staging clips
-// each write to [plo[p], phi[p]) in registers, so nothing of the batch is
-// clipped or copied on the host side. The verdicts (COMMITTED 0, CONFLICT 1,
-// TOO_OLD 2) are written beside the staging records; the per-batch
-// pressures [G, P, 2] and the group's maxima [P, 2] after the last batch.
-// Scratch (K2's bitset, the staging planes and records, H and commit, the
+// Design. Every phase hands the grid's warps or CTAs work items small
+// enough that the longest one is short, so no phase leaves the card to one
+// SM unless its work is one CTA's by nature (the chain):
+//  1. the superblock maxima (a warp a superblock), and H seeded with the
+//     too-old test (a thread a transaction);
+//  2. the history check and K2's overlap bitset, in one phase: a warp a
+//     (transaction, read slot) — a hit sets H — and a warp a (group of R
+//     readers, writer word w, slice of the write slots): lane b tests
+//     writer 32w + b against the group's readers, staged in the warp's
+//     shared memory, and one ballot a reader forms the word, so a batch of
+//     64 transactions spreads over the card (R and the write-slot slices
+//     NS from kernels.scan_plan; with NS > 1 the words are ORed into the
+//     bitset phase 1 zeroed);
+//  3. K2's greedy chain on CTA 0 (the chain's steps are serial by nature);
+//  4. the verdicts, K3 staging's records (each write clipped to its
+//     partition where P > 1) and its cleared planes;
+//  5. the records sorted in tiles of at most kernels.SCAN_TILE_ROWS, a tile
+//     a CTA in turn, only the tiles that hold valid records; where one
+//     tile holds one grid's batch, its CTA also aggregates (phases 6 and 7
+//     take no time);
+//  6. merge passes over the grid, over the valid records only, until one
+//     run holds every partition's (none where one tile does);
+//  7. the aggregation over the sorted records in chunks of a CTA's
+//     threads: each CTA its chunks' scan totals, then each its chunks'
+//     scan from the totals before them, so no CTA walks the batch alone;
+//  8. K3 merge, a touched bucket a warp in turn (its rows and staged rows
+//     put in order by their ranks), and the floor raise of the untouched
+//     buckets a committed write spans, walked from the touched bucket
+//     after them (not a pass over every bucket).
+// Each phase's device code is the standalone kernels' own (history.cuh,
+// intra_batch.cuh, stage.cuh, merge.cuh); the scan adds the history check a
+// warp a read slot (history_read), the split of the work over its
+// resident grid and the barriers.
+// One CTA of kScanThreads threads a resident slot, the grid as large as is
+// co-resident, launched by cudaLaunchCooperativeKernel; a CTA of 512
+// threads leaves a thread 128 registers (at 1024 a thread has 64, and
+// every phase spilled), and no phase needs more threads. One dynamic
+// shared buffer serves every phase: the largest phase's need. What an
+// earlier phase of the launch wrote is read as coherent loads after the
+// barrier (no non-coherent read-only loads of it: history reads the state
+// through L2, ld_in<true>); the group's inputs, which nothing writes, go
+// through the read-only cache. Over partitions the history check clips
+// each read and the staging clips each write to [plo[p], phi[p]) in
+// registers, so nothing of the batch is clipped or copied on the host
+// side. The verdicts (COMMITTED 0, CONFLICT 1, TOO_OLD 2) are written beside
+// the staging records; the per-batch pressures [G, P, 2] and the group's
+// maxima [P, 2] after the last batch. Scratch (K2's bitset, the staging
+// planes and records, the aggregation's chunk totals, H and commit, the
 // superblock maxima, the counters) is allocated once a group by the
 // wrapper, sized by kernels.scan_plan.
 #include <cooperative_groups.h>
@@ -56,8 +82,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kScanThreads = 1024;  // threads of a CTA (the chain's and the tile sort's)
-constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kScanThreads = 512;  // threads of a CTA: 128 registers a thread at one CTA an SM
+constexpr int kScanPhases = 8;  // the phases a batch's stamps delimit (kernels.SCAN_PHASES)
+
+// the card's nanosecond clock, which every SM reads alike
+__device__ __forceinline__ long long globaltimer() {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
 
 struct ScanArgs {
     // the state, updated in place: [P, B, ...] (one grid: P = 1)
@@ -91,15 +124,51 @@ struct ScanArgs {
     int* carry;         // [U]
     uint32_t* rec_a;    // [P, N2pad, L + 2]
     uint32_t* rec_b;    // the same, or nullptr where one tile holds every row
-    uint32_t* rows;     // merge rows in global memory, [warps of the grid, 64, L + 1]; nullptr: shared
+    uint32_t* rows;     // merge rows in global memory, [warps of the grid, 64, L + 2]; nullptr: shared
+    Scan4* agg;         // [P, N2pad / kScanThreads]: the aggregation's chunk totals
     int* counters;      // [3, G, P]: most staged rows, most kept rows, valid rows, per batch and partition
+    long long* stamps;  // [G, kScanPhases + 1]: the clock at each phase boundary of each batch; nullptr: none
     int G, P, B, S, L, T, KR, KW, B1, B2, lgB2, vec;
-    int WT, CR, CW;  // K2's overlap tiling
+    int R, NS;  // K2's overlap items: readers an item, slices of the write slots
     int S2, U, N2pad, tile;
 };
 
+// read r of transaction t against the state (HistArgs as history_txn
+// takes it), by one warp: does it, clipped to each partition it touches,
+// overlap a gap with a version above t's snapshot? Warp-uniform.
 template <int LM>
-__global__ void __launch_bounds__(kScanThreads, 1) resolve_many_kernel(ScanArgs A) {
+__device__ __forceinline__ bool history_read(const HistArgs& A, int t, int r, int lane) {
+    const int B = A.B, S = A.S, L = A.L;
+    const int snap = __ldg(A.t_snap + t);
+    const auto part = [&](int p) {
+        return Grid{A.pivots + (size_t)p * B * L, A.grid + (size_t)p * B * S * (L + 1),
+                    A.count + (size_t)p * B, A.bmax + (size_t)p * B, A.floor_ + (size_t)p * B,
+                    A.bmax_sup + (size_t)p * A.B1};
+    };
+    Code<LM> a, e;
+    load(a, A.rb + ((size_t)t * A.KR + r) * L, L);
+    load(e, A.re + ((size_t)t * A.KR + r) * L, L);
+    if (A.plo == nullptr)  // inactive (or empty) ranges are skipped
+        return cmp(a, e, L) < 0 && range_hits<LM, true>(part(0), a, e, snap, B, S, L, A.B1, A.lgB2, A.vec, lane);
+    bool any = false;
+    for (int p0 = 0; p0 < A.P && !any; p0 += 32) {
+        Code<LM> a2, e2;
+        bool touch = false;
+        if (p0 + lane < A.P) {
+            clip<LM>(a, e, A.plo + (size_t)(p0 + lane) * L, A.phi + (size_t)(p0 + lane) * L, L, a2, e2);
+            touch = cmp(a2, e2, L) < 0;
+        }
+        for (unsigned m = __ballot_sync(FULL, touch); m && !any; m &= m - 1) {
+            const int p = p0 + __ffs(m) - 1;
+            clip<LM>(a, e, A.plo + (size_t)p * L, A.phi + (size_t)p * L, L, a2, e2);
+            any = range_hits<LM, true>(part(p), a2, e2, snap, B, S, L, A.B1, A.lgB2, A.vec, lane);
+        }
+    }
+    return any;
+}
+
+template <int LM>
+__global__ void __launch_bounds__(kScanThreads, 1) resolve_many_kernel(const __grid_constant__ ScanArgs A) {
     extern __shared__ __align__(16) uint32_t smem[];
     cg::grid_group grid = cg::this_grid();
     const int lane = threadIdx.x & 31;
@@ -115,14 +184,24 @@ __global__ void __launch_bounds__(kScanThreads, 1) resolve_many_kernel(ScanArgs 
     const size_t n_rows = (size_t)P * A.N2pad;  // staging rows of a batch, padded
     const int tiles = A.N2pad / A.tile;
     const int fused = P == 1 && tiles == 1;  // one CTA sorts and aggregates
-    const size_t row_words = (size_t)64 * (L + 1);
+    const int chunks = (A.N2pad + kScanThreads - 1) / kScanThreads;  // aggregation chunks a partition
+    const size_t row_words = (size_t)64 * (L + 2);  // a warp's merge rows, payloads and order
     uint32_t* merge_rows = A.rows ? A.rows + (size_t)gwarp * row_words
                                   : smem + (size_t)(threadIdx.x >> 5) * row_words;
+    const int n_hist = T * A.KR;  // the history check's items
+
+    // the clock after the barrier that ends phase k of batch g (k = 0: the
+    // batch's start), by one thread where the caller asked for stamps
+    const auto stamp = [&](int g, int k) {
+        if (A.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+            A.stamps[(size_t)g * (kScanPhases + 1) + k] = globaltimer();
+    };
 
     for (size_t x = gtid; x < (size_t)3 * G * P; x += nthreads) A.counters[x] = 0;
     grid.sync();
 
     for (int g = 0; g < G; ++g) {
+        stamp(g, 0);
         const int now = A.vers[g], old_pre = A.vers[G + g], old_post = A.vers[2 * G + g];
         const uint32_t* rb = A.rb + (size_t)g * T * A.KR * L;
         const uint32_t* re = A.re + (size_t)g * T * A.KR * L;
@@ -131,44 +210,37 @@ __global__ void __launch_bounds__(kScanThreads, 1) resolve_many_kernel(ScanArgs 
         const int* t_snap = A.t_snap + (size_t)g * T;
         const uint8_t* has_reads = A.t_has_reads + (size_t)g * T;
 
-        // 1. K1 / K6 history: the superblock maxima, then a warp a
-        // transaction; H = a history conflict or too old
+        // 1. the superblock maxima; H seeded with the too-old test; the
+        // bitset zeroed where its words are ORed together
         for (int w = gwarp; w < P * A.B1; w += nwarps) superblock_warp<true>(A.bmax, A.bmax_sup, w, lane, A.B2);
+        for (size_t t = gtid; t < (size_t)T; t += nthreads) A.H[t] = has_reads[t] && t_snap[t] < old_pre;
+        if (A.NS > 1)
+            for (size_t x = gtid; x < (size_t)W * Tp; x += nthreads) A.pt[x] = 0;
         grid.sync();
+        stamp(g, 1);
+
+        // 2. the history check, a warp a (transaction, read slot), and
+        // K2's overlap bitset, a warp an item, in turn over the grid's warps
         const HistArgs HA = {A.pivots, A.grid, A.count, A.bmax, A.floor_, A.bmax_sup, rb, re, t_snap,
                              A.plo, A.phi, P, A.B, A.S, L, A.KR, A.B1, A.lgB2, A.vec != 0};
-        for (int t = gwarp; t < T; t += nwarps) {
-            const bool hit = history_txn<LM, true>(HA, t, lane);
-            if (lane == 0) A.H[t] = hit || (has_reads[t] && t_snap[t] < old_pre);
-        }
-        grid.sync();
-
-        // 2. K2's overlap bitset, a tile a CTA in turn (on the unclipped
-        // ranges, as the loop's K2 runs)
-        const int nbx = (W + A.WT - 1) / A.WT;
-        for (int v = blockIdx.x; v < nbx * W; v += gridDim.x) {
-            const int bx = v % nbx, jb = v / nbx;
-            if (bx * A.WT > jb) continue;  // every word above the diagonal (block-uniform)
-            if (A.CR == A.KR && A.CW == A.KW) {
-                if (L == 3) overlap_tile<3>(rb, re, wb, we, A.pt, T, A.KR, A.KW, L, Tp, A.WT, bx, jb, smem);
-                else overlap_tile<0>(rb, re, wb, we, A.pt, T, A.KR, A.KW, L, Tp, A.WT, bx, jb, smem);
-            } else if (A.CR == 0) {
-                overlap_tile_chunks<0, false>(rb, re, wb, we, A.pt, T, A.KR, A.KW, L, Tp, A.WT, A.CR, A.CW,
-                                              bx, jb, smem);
-            } else if (L == 3) {
-                overlap_tile_chunks<3, true>(rb, re, wb, we, A.pt, T, A.KR, A.KW, L, Tp, A.WT, A.CR, A.CW,
-                                             bx, jb, smem);
-            } else {
-                overlap_tile_chunks<0, true>(rb, re, wb, we, A.pt, T, A.KR, A.KW, L, Tp, A.WT, A.CR, A.CW,
-                                             bx, jb, smem);
+        const OverlapArgs OA = {rb, re, wb, we, A.pt, T, A.KR, A.KW, L, A.R, A.NS};
+        const int n_items = n_hist + overlap_count(OA);
+        for (int v = gwarp; v < n_items; v += nwarps) {
+            if (v < n_hist) {
+                const int t = v / A.KR;
+                if (__shfl_sync(FULL, (int)__ldcg(A.H + t), 0)) continue;  // too old, or a read of t hit already
+                if (history_read<LM>(HA, t, v % A.KR, lane) && lane == 0) A.H[t] = 1;
+                continue;
             }
-            __syncthreads();  // the next tile restages the shared memory
+            overlap_item<LM>(OA, v - n_hist, lane, smem + (threadIdx.x >> 5) * 64 * LM);
         }
         grid.sync();
+        stamp(g, 2);
 
         // 3. K2's greedy chain on CTA 0
-        if (blockIdx.x == 0) greedy_chain_block<true>(A.pt, A.H, A.commit, T, W, Tp, smem);
+        if (blockIdx.x == 0) greedy_chain_block<kScanThreads, true>(A.pt, A.H, A.commit, T, W, Tp, smem);
         grid.sync();
+        stamp(g, 3);
 
         // 4. the verdicts; K3 staging's records (each write clipped to its
         // partition where P > 1) and its cleared planes
@@ -182,40 +254,65 @@ __global__ void __launch_bounds__(kScanThreads, 1) resolve_many_kernel(ScanArgs 
         for (size_t e0 = gtid - lane; e0 < n_rows; e0 += nthreads) stage_record_at(SA, A.rec_a, e0 + lane, lane);
         stage_clear_at(SA, gtid, nthreads);
         grid.sync();
+        stamp(g, 4);
 
-        // 5. the sort tiles, a tile a CTA in turn (one CTA also aggregates
-        // where one tile holds one grid's rows); then the merge passes and
-        // the aggregation on CTA 0
+        // 5. the sort tiles that hold valid records, a tile a CTA in turn
+        // (one CTA also aggregates where one tile holds one grid's rows)
+        int nv_max = 0;  // the most valid records of a partition: as every CTA reads it
+        for (int p = 0; p < P; ++p) nv_max = max(nv_max, __ldcg(n_valid + (size_t)g * P + p));
         for (int v = blockIdx.x; v < tiles * P; v += gridDim.x) {
+            if (!fused && v % tiles * A.tile >= __ldcg(n_valid + (size_t)g * P + v / tiles)) continue;
             sort_tile(SA, A.tile, A.rec_a, A.rec_b, fused, v % tiles, v / tiles, smem);
             __syncthreads();  // the next tile reloads the shared memory
         }
         grid.sync();
+        stamp(g, 5);
+
+        // 6. the merge passes, over the valid records, until one run holds
+        // every partition's
+        const uint32_t* sorted = A.rec_b;
         if (!fused) {
             uint32_t* a = A.rec_a;
             uint32_t* b = A.rec_b;
-            for (int w = A.tile; w < A.N2pad; w <<= 1) {  // sorted runs b -> a -> b ...
-                for (size_t e = gtid; e < n_rows; e += nthreads) merge_pass_at(b, a, A.N2pad, w, L, e);
+            for (int w = A.tile; w < nv_max; w <<= 1) {  // sorted runs b -> a -> b ...
+                for (size_t e = gtid; e < n_rows; e += nthreads)
+                    merge_pass_at(b, a, A.N2pad, w, L, e, __ldcg(n_valid + (size_t)g * P + e / A.N2pad));
                 grid.sync();
                 uint32_t* t = a;
                 a = b;
                 b = t;
             }
-            if (blockIdx.x == 0) aggregate(SA, b, (size_t)A.N2pad * (L + 2), SA.n_valid, nullptr);
-            grid.sync();
+            sorted = b;
         }
+        stamp(g, 6);
 
-        // 6. K3 merge, a touched bucket a warp in turn, and the floor raise
+        // 7. the aggregation: each chunk's scan total, then each chunk's
+        // scan from the totals before it
+        if (!fused) {
+            Scan4* warp_tot = reinterpret_cast<Scan4*>(smem);  // [32], then the carry
+            for (int pass = 0; pass < 2; ++pass) {
+                for (int v = blockIdx.x; v < P * chunks; v += gridDim.x) {
+                    aggregate_chunk(SA, A.agg, sorted, v / chunks, v % chunks, chunks, pass, warp_tot, warp_tot + 32);
+                    __syncthreads();  // the next chunk resets the carry
+                }
+                grid.sync();
+            }
+        }
+        stamp(g, 7);
+
+        // 8. K3 merge, a touched bucket a warp in turn, and the floor raise
+        // of the untouched buckets below it that a committed write spans
+        // (carry > 0), back to the touched bucket before it in its partition
         for (int u = gwarp; u < A.U; u += nwarps) {
             const int b = A.tid[u];  // warp-uniform; PB marks an unused staging slot
-            if (b < PB)
-                merge_bucket(A.grid, A.count, A.bmax, A.floor_, A.st_code, A.st_ev, A.carry, now, old_post,
-                             max_kept + (size_t)g * P, A.B, A.S, A.S2, L, u, b, merge_rows, lane);
+            if (b >= PB) continue;
+            merge_bucket(A.grid, A.count, A.bmax, A.floor_, A.st_code, A.st_ev, A.carry, now, old_post,
+                         max_kept + (size_t)g * P, A.B, A.S, A.S2, L, u, b, merge_rows, lane);
+            raise_spanned(A.bmax, A.floor_, A.tid, A.carry, now, A.B, u, b, lane);
             __syncwarp();  // the warp's rows are rewritten by its next bucket
         }
-        for (size_t x = gtid; x < (size_t)PB; x += nthreads)
-            raise_spanned(A.bmax, A.floor_, A.tid, A.carry, now, PB, A.B, A.U, (int)x);
         grid.sync();
+        stamp(g, 8);
     }
 
     // the per-batch pressures, and their maxima over the group
@@ -271,21 +368,22 @@ extern "C" int fdb_scan_occupancy(int L, int smem, void* out) {
 // one group through the scan on ``blocks`` CTAs, which must all be
 // co-resident: the cooperative launch itself refuses a larger grid
 // (cudaErrorCooperativeLaunchTooLarge); plo/phi nullptr for one grid.
-// Scratch as ScanArgs lists it (kernels.scan_plan)
+// Scratch as ScanArgs lists it (kernels.scan_plan); phase_ns int64
+// [G, kScanPhases + 1] for the per-phase timer, nullptr on every path
 extern "C" int fdb_resolve_many(
     const void* pivots, void* grid, void* count, void* bmax, void* floor_,
     const void* plo, const void* phi, const void* rb, const void* re, const void* wb, const void* we,
     const void* t_snap, const void* t_has_reads, const void* vers,
     void* verdicts, void* pressures, void* gmax,
     void* bmax_sup, void* H, void* commit, void* pt, void* st_code, void* st_ev, void* tid, void* carry,
-    void* rec_a, void* rec_b, void* rows, void* counters,
+    void* rec_a, void* rec_b, void* rows, void* agg, void* counters, void* phase_ns,
     int G, int P, int B, int S, int L, int T, int KR, int KW, int B1, int B2,
-    int WT, int CR, int CW, int S2, int U, int N2pad, int tile, int smem, int blocks,
+    int R, int NS, int S2, int U, int N2pad, int tile, int smem, int blocks,
     void* stream) {
     const int W = (T + 31) / 32;
-    if (G < 1 || P < 1 || L < 1 || T < 1 || B < 1 || B1 * B2 != B || (B2 & (B2 - 1)) || S > 32 || S2 > 32
-        || W > kMaxWords || WT < 1 || WT > kScanWarps || CR < 0 || CR > KR || CW < 0 || CW > KW
-        || (CR > 0) != (CW > 0) || tile < 1 || N2pad % tile || (rec_b == nullptr && (P > 1 || tile < N2pad))
+    if (G < 1 || P < 1 || L < 1 || T < 1 || KR < 1 || KW < 1 || B < 1 || B1 * B2 != B || (B2 & (B2 - 1))
+        || S > 32 || S2 > 32 || W > kMaxWords || R < 1 || R > 32 || (32 % R) || NS < 1 || NS > KW
+        || tile < 1 || N2pad % tile || (rec_b == nullptr && (P > 1 || tile < N2pad))
         || (P > 1 && plo == nullptr) || blocks < 1) {
         return (int)cudaErrorInvalidValue;
     }
@@ -299,10 +397,10 @@ extern "C" int fdb_resolve_many(
         (const int*)t_snap, (const uint8_t*)t_has_reads, (const int*)vers,
         (int8_t*)verdicts, (int*)pressures, (int*)gmax,
         (int*)bmax_sup, (uint8_t*)H, (uint8_t*)commit, (uint32_t*)pt, (uint32_t*)st_code, (int*)st_ev,
-        (int*)tid, (int*)carry, (uint32_t*)rec_a, (uint32_t*)rec_b, (uint32_t*)rows, (int*)counters,
-        G, P, B, S, L, T, KR, KW, B1, B2, __builtin_ctz((unsigned)B2),
+        (int*)tid, (int*)carry, (uint32_t*)rec_a, (uint32_t*)rec_b, (uint32_t*)rows, (Scan4*)agg, (int*)counters,
+        (long long*)phase_ns, G, P, B, S, L, T, KR, KW, B1, B2, __builtin_ctz((unsigned)B2),
         (L + 1) % 4 == 0 && (uintptr_t)grid % 16 == 0,
-        WT, CR, CW, S2, U, N2pad, tile,
+        R, NS, S2, U, N2pad, tile,
     };
     void* args[] = {&A};
     err = (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kScanThreads), args,

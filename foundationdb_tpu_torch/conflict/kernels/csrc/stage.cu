@@ -37,21 +37,23 @@
 //      same CTA then aggregates from shared memory: two launches in all.
 //   3. Otherwise the sorted tiles (valid rows first, padding after) go to
 //      global memory and stage_merge merges sorted runs pairwise (each
-//      record finds its place by a binary search of the sibling run: a
-//      stable merge), doubling the run width up to the partition's row
-//      count. Partitions are never merged with each other: each one's
-//      region is sorted, with its padding at its end.
-//   4. stage_aggregate (one CTA, or the tail of stage_sort) walks each
-//      partition's sorted valid records in chunks of blockDim with one
-//      block-wide scan of
-//      four sums: touched-bucket ordinal, distinct-code slot within the
-//      bucket (segmented at bucket starts), event sum of each equal-code
-//      run (segmented at run starts) and the event prefix. A run's last
-//      row writes staging slot (u, slot) if slot < S2; a bucket's first
-//      row writes tid[u] and the event prefix before it (the carry at
-//      that bucket: each partition's events sum to 0, since both ends of
-//      a range land in the same partition, so the global prefix is the
-//      partition's). Per-partition max_staged is a max over run ends.
+//      valid record finds its place by a binary search of the sibling
+//      run's valid records: a stable merge), doubling the run width up to
+//      the partition's row count. Partitions are never merged with each
+//      other: each one's valid records stay at the front of its region.
+//   4. stage_aggregate (two launches, or the tail of stage_sort) walks
+//      each partition's sorted valid records in chunks of blockDim, a CTA
+//      a chunk, with one block-wide scan of four sums: touched-bucket
+//      ordinal, distinct-code slot within the bucket (segmented at bucket
+//      starts), event sum of each equal-code run (segmented at run starts)
+//      and the event prefix. The first launch writes each chunk's total,
+//      the second scans each chunk from the totals before it, so no CTA
+//      walks the batch alone. A run's last row writes staging slot
+//      (u, slot) if slot < S2; a bucket's first row writes tid[u] and the
+//      event prefix before it (the carry at that bucket: each partition's
+//      events sum to 0, since both ends of a range land in the same
+//      partition, so the global prefix is the partition's). Per-partition
+//      max_staged is a max over run ends.
 // The carry of an untouched bucket follows from the sorted touched list
 // (the carry at the next touched bucket of its partition), so no dense
 // [B] sum is formed; merge.cu reads it so.
@@ -78,14 +80,17 @@ __global__ void __launch_bounds__(1024) stage_sort(StageArgs A, int tile, const 
 }
 
 __global__ void stage_merge(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
-                            int P, int N2pad, int w, int L) {
+                            const int* __restrict__ n_valid, int P, int N2pad, int w, int L) {
     const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= (size_t)P * N2pad) return;
-    merge_pass_at(src, dst, N2pad, w, L, e);
+    merge_pass_at(src, dst, N2pad, w, L, e, n_valid[e / N2pad]);
 }
 
-__global__ void stage_aggregate(StageArgs A, const uint32_t* rec) {
-    aggregate(A, rec, (size_t)A.N2pad * (A.L + 2), A.n_valid, nullptr);
+// pass ``pass`` of the aggregation, a CTA a chunk of a partition's records
+__global__ void stage_aggregate(StageArgs A, Scan4* agg, const uint32_t* rec, int chunks, int pass) {
+    __shared__ Scan4 warp_tot[33];  // [32], then the carry
+    aggregate_chunk(A, agg, rec, blockIdx.x / chunks, blockIdx.x % chunks, chunks, pass, warp_tot,
+                    warp_tot + 32);
 }
 
 }  // namespace
@@ -93,7 +98,7 @@ __global__ void stage_aggregate(StageArgs A, const uint32_t* rec) {
 extern "C" int fdb_stage(
     const void* wb, const void* we, const void* commit, const void* pivots,
     void* st_code, void* st_ev, void* tid, void* carry, void* max_staged, void* n_valid,
-    void* scratch_a, void* scratch_b,
+    void* scratch_a, void* scratch_b, void* agg,
     int P, int T, int KW, int L, int B, int U, int S2, int N2pad, int tile,
     void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
@@ -117,11 +122,13 @@ extern "C" int fdb_stage(
     stage_sort<<<dim3(tiles, P), threads, smem, st>>>(A, tile, a, b, fused);
     if (fused) return (int)cudaGetLastError();
     for (int w = tile; w < N2pad; w <<= 1) {  // sorted runs b -> a -> b ...
-        stage_merge<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(b, a, P, N2pad, w, L);
+        stage_merge<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(b, a, (const int*)n_valid, P, N2pad, w, L);
         uint32_t* t = a;
         a = b;
         b = t;
     }
-    stage_aggregate<<<1, threads, 0, st>>>(A, b);
+    const int chunks = (N2pad + threads - 1) / threads;
+    for (int pass = 0; pass < 2; ++pass)
+        stage_aggregate<<<P * chunks, threads, 0, st>>>(A, (Scan4*)agg, b, chunks, pass);
     return (int)cudaGetLastError();
 }

@@ -125,71 +125,154 @@ __device__ void block_scan4(Scan4& x, Scan4* warp_tot, Scan4* carry) {
     __syncthreads();  // warp_tot is rewritten by the next chunk
 }
 
-// ---- the aggregation over sorted records (one CTA) ------------------------
+// ---- the aggregation over sorted records ---------------------------------
 
-__device__ void aggregate(const StageArgs& A, const uint32_t* rec, size_t part_words,
-                          const int* n_valid, const uint16_t* order) {
+// write the staging planes for the aggregation's scanned element of record
+// ``me`` (bucket, code, event ev), which ends its code run and/or starts
+// its bucket; the run's slot count goes into ``run_max``
+__device__ __forceinline__ void agg_write(const StageArgs& A, const Scan4& x, const uint32_t* me, int ev,
+                                          bool code_last, bool bkt_new, int& run_max) {
+    const int L = A.L;
+    const int u = x.v[0] - 1;
+    if (code_last) {
+        const int slot = x.v[1] - 1;
+        run_max = slot + 1;
+        if (slot < A.S2) {
+            uint32_t* dst = A.st_code + ((size_t)u * A.S2 + slot) * L;
+            for (int i = 0; i < L; ++i) dst[i] = me[1 + i];
+            A.st_ev[(size_t)u * A.S2 + slot] = x.v[2];
+        }
+    }
+    if (bkt_new) {
+        A.tid[u] = (int)me[0];
+        A.carry[u] = x.v[3] - ev;
+    }
+}
+
+// the aggregation of one grid's sorted tile in shared memory by its CTA
+// (``rec`` in place, sorted record x at order[x]), in chunks of blockDim
+// with one block-wide scan each
+__device__ void aggregate_tile(const StageArgs& A, const uint32_t* rec, const uint16_t* order) {
     __shared__ Scan4 warp_tot[32];
     __shared__ Scan4 carry;
     const int L = A.L, RW = L + 2;
     if (threadIdx.x == 0) carry = Scan4{{0, 0, 0, 0}, {0, 0, 0, 0}};
     __syncthreads();
-    for (int p = 0; p < A.P; ++p) {
-        const uint32_t* part_rec = rec + p * part_words;
-        const int n_rec = n_valid[p];
-        // sorted record x: in place, or at order[x] (the index sort)
-        auto at = [&](int x) { return part_rec + (size_t)(order ? order[x] : x) * RW; };
-        for (int c0 = 0; c0 < n_rec; c0 += blockDim.x) {
-            const int r = c0 + threadIdx.x;
-            const bool valid = r < n_rec;
-            const uint32_t* me = at(valid ? r : 0);
-            bool bkt_new = false, code_new = false, bkt_last = false, code_last = false;
-            int ev = 0;
-            if (valid) {
-                const int bkt = (int)me[0];
-                ev = (int)me[L + 1];
-                if (r > 0) {
-                    const uint32_t* pv = at(r - 1);
-                    bkt_new = (int)pv[0] != bkt;
-                    code_new = bkt_new || lex_cmp(pv + 1, me + 1, L) != 0;
-                } else {
-                    bkt_new = code_new = true;
-                }
-                if (r < n_rec - 1) {
-                    const uint32_t* nx = at(r + 1);
-                    bkt_last = (int)nx[0] != bkt;
-                    code_last = bkt_last || lex_cmp(nx + 1, me + 1, L) != 0;
-                } else {
-                    bkt_last = code_last = true;
-                }
+    const int n_rec = A.n_valid[0];
+    auto at = [&](int x) { return rec + (size_t)order[x] * RW; };
+    for (int c0 = 0; c0 < n_rec; c0 += blockDim.x) {
+        const int r = c0 + threadIdx.x;
+        const bool valid = r < n_rec;
+        const uint32_t* me = at(valid ? r : 0);
+        bool bkt_new = false, code_new = false, bkt_last = false, code_last = false;
+        int ev = 0;
+        if (valid) {
+            const int bkt = (int)me[0];
+            ev = (int)me[L + 1];
+            if (r > 0) {
+                const uint32_t* pv = at(r - 1);
+                bkt_new = (int)pv[0] != bkt;
+                code_new = bkt_new || lex_cmp(pv + 1, me + 1, L) != 0;
+            } else {
+                bkt_new = code_new = true;
             }
-            // 0: touched-bucket count; 1: distinct codes in the bucket;
-            // 2: events of the equal-code run; 3: event prefix
-            Scan4 x = {{0, bkt_new, code_new, 0}, {bkt_new, code_new, ev, ev}};
-            block_scan4(x, warp_tot, &carry);
-            int run_max = 0;
-            if (valid) {
-                const int bkt = (int)me[0];
-                const int u = x.v[0] - 1;
-                if (code_last) {
-                    const int slot = x.v[1] - 1;
-                    run_max = slot + 1;
-                    if (slot < A.S2) {
-                        uint32_t* dst = A.st_code + ((size_t)u * A.S2 + slot) * L;
-                        for (int i = 0; i < L; ++i) dst[i] = me[1 + i];
-                        A.st_ev[(size_t)u * A.S2 + slot] = x.v[2];
+            if (r < n_rec - 1) {
+                const uint32_t* nx = at(r + 1);
+                bkt_last = (int)nx[0] != bkt;
+                code_last = bkt_last || lex_cmp(nx + 1, me + 1, L) != 0;
+            } else {
+                bkt_last = code_last = true;
+            }
+        }
+        // 0: touched-bucket count; 1: distinct codes in the bucket;
+        // 2: events of the equal-code run; 3: event prefix
+        Scan4 x = {{0, bkt_new, code_new, 0}, {bkt_new, code_new, ev, ev}};
+        block_scan4(x, warp_tot, &carry);
+        int run_max = 0;
+        if (valid) agg_write(A, x, me, ev, code_last, bkt_new, run_max);
+        // the max over run ends: one atomic per warp
+        const int m = __reduce_max_sync(0xffffffffu, run_max);
+        if ((threadIdx.x & 31) == 0 && m > 0) atomicMax(A.max_staged, m);
+    }
+}
+
+// record x of a partition's n sorted records ``rec`` as the aggregation's
+// scan element: 0 the touched-bucket count, 1 the distinct codes in its
+// bucket, 2 the events of its equal-code run, 3 the event prefix; and
+// whether it ends its code run or starts its bucket
+__device__ __forceinline__ Scan4 agg_elem(const uint32_t* rec, int n, int x, int L, bool& code_last,
+                                          bool& bkt_new, int& ev) {
+    const int RW = L + 2;
+    code_last = bkt_new = false;
+    ev = 0;
+    if (x >= n) return Scan4{{0, 0, 0, 0}, {0, 0, 0, 0}};
+    const uint32_t* me = rec + (size_t)x * RW;
+    const int bkt = (int)me[0];
+    ev = (int)me[L + 1];
+    bool code_new = true;
+    bkt_new = true;
+    if (x > 0) {
+        const uint32_t* pv = me - RW;
+        bkt_new = (int)pv[0] != bkt;
+        code_new = bkt_new || lex_cmp(pv + 1, me + 1, L) != 0;
+    }
+    code_last = x == n - 1 || (int)me[RW] != bkt || lex_cmp(me + RW + 1, me + 1, L) != 0;
+    return Scan4{{0, bkt_new, code_new, 0}, {bkt_new, code_new, ev, ev}};
+}
+
+// the aggregation of chunk q (records q·C .. q·C + C - 1 of partition p,
+// C = blockDim.x, of the sorted records ``rec`` [P, N2pad, L + 2]) by one
+// CTA, in two passes over every chunk of the batch with a grid-wide wait
+// between them. Pass 0 writes the chunk's scan total to agg[p · chunks + q];
+// pass 1 scans the chunk from the totals of every chunk before it
+// (partitions in order, so the touched-bucket index runs over the flat
+// view) and writes the staging planes. ``warp_tot`` (32) and ``carry`` are
+// the CTA's shared memory
+__device__ void aggregate_chunk(const StageArgs& A, Scan4* agg, const uint32_t* rec, int p, int q,
+                                int chunks, int pass, Scan4* warp_tot, Scan4* carry) {
+    const int L = A.L, lane = threadIdx.x & 31;
+    const uint32_t* part_rec = rec + (size_t)p * A.N2pad * (L + 2);
+    const int n = A.n_valid[p];
+    const int x = q * blockDim.x + threadIdx.x;
+    if (threadIdx.x < 32) {  // warp 0: the carry, identity or the totals before this chunk
+        Scan4 run = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+        if (pass == 1) {
+            const int k = p * chunks + q;
+            for (int b0 = 0; b0 < k; b0 += 32) {
+                Scan4 t = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+                if (b0 + lane < k) {  // written by pass 0 on other SMs: through L2
+                    const int* src = reinterpret_cast<const int*>(agg + b0 + lane);
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) {
+                        t.f[c] = __ldcg(src + c);
+                        t.v[c] = __ldcg(src + 4 + c);
                     }
                 }
-                if (bkt_new) {
-                    A.tid[u] = bkt;
-                    A.carry[u] = x.v[3] - ev;
+                warp_scan4(t);
+                scan_combine(t, run);
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    run.f[c] = __shfl_sync(FULL, t.f[c], 31);
+                    run.v[c] = __shfl_sync(FULL, t.v[c], 31);
                 }
             }
-            // the partition's max over run ends: one atomic per warp
-            const int m = __reduce_max_sync(0xffffffffu, run_max);
-            if ((threadIdx.x & 31) == 0 && m > 0) atomicMax(A.max_staged + p, m);
         }
+        if (lane == 0) *carry = run;
     }
+    __syncthreads();
+    bool code_last, bkt_new;
+    int ev;
+    Scan4 e = agg_elem(part_rec, n, x, L, code_last, bkt_new, ev);
+    block_scan4(e, warp_tot, carry);
+    if (pass == 0) {
+        if (threadIdx.x == 0) agg[p * chunks + q] = *carry;
+        return;
+    }
+    int run_max = 0;
+    if (x < n) agg_write(A, e, part_rec + (size_t)x * (L + 2), ev, code_last, bkt_new, run_max);
+    // the partition's max over run ends: one atomic per warp
+    const int m = __reduce_max_sync(FULL, run_max);
+    if (lane == 0 && m > 0) atomicMax(A.max_staged + p, m);
 }
 
 // (bucket, code, index) order of two sort keys: bucket kb of record x.
@@ -295,7 +378,7 @@ __device__ void sort_tile(const StageArgs& A, int tile, const uint32_t* in, uint
     __syncthreads();
     bitonic_sort(kb, ix, rec, n, A.L);
     if (fused) {
-        aggregate(A, rec, 0, A.n_valid, ix);
+        aggregate_tile(A, rec, ix);
         return;
     }
     uint32_t* dst = out + t0 * RW;
@@ -305,18 +388,23 @@ __device__ void sort_tile(const StageArgs& A, int tile, const uint32_t* in, uint
 
 // record e (< P·N2pad) of a merge pass over sorted runs of width w: its
 // place in the merged run of 2w is a binary search of the sibling run (a
-// stable merge)
+// stable merge). Over the valid records only: a partition's nv valid
+// records are the prefix of each of its runs (compacted to its front, and
+// every sort and merge keeps them ahead of the padding), so the records
+// past nv are neither moved nor searched (nor read by the aggregation)
 __device__ __forceinline__ void merge_pass_at(const uint32_t* src, uint32_t* dst, int N2pad, int w, int L,
-                                              size_t e) {
+                                              size_t e, int nv) {
     const int RW = L + 2;
     const int p = (int)(e / N2pad), i = (int)(e % N2pad);
+    if (i >= nv) return;
     const int base = i / (2 * w) * (2 * w), off = i - base;
     const bool left = off < w;
+    const int o_base = left ? base + w : base;
     const uint32_t* part = src + (size_t)p * N2pad * RW;
     const uint32_t* me = part + (size_t)i * RW;
-    const uint32_t* other = part + (size_t)(left ? base + w : base) * RW;
+    const uint32_t* other = part + (size_t)o_base * RW;
     // left rows count the sibling rows < them, right rows those <= them
-    int lo = 0, hi = w;
+    int lo = 0, hi = min(max(nv - o_base, 0), w);
     while (lo < hi) {
         int mid = (lo + hi) >> 1;
         int c = rec_cmp(other + (size_t)mid * RW, me, L);

@@ -55,7 +55,11 @@ def _note_device(h, snap: dict) -> None:
     resolver's conflict backend in its ``kernel`` section (``device``:
     ``cuda``, ``cpu``, or ``host`` for a backend without one, such as
     ``native`` after a failover), a storage server's range index as
-    ``indexDevice`` (None while it has no index); and this process's
+    ``indexDevice`` (None while it has no index) and whether that index
+    has caught up with its engine's keys (``indexCurrent``: the test by
+    which ``StorageServer._multi_get_at`` answers from the index rather
+    than the engine, false while it has none or mid-rebuild, as after a
+    restart until its first durability advance); and this process's
     kernel launches since it started (``launches`` of the resolver's
     section, the K5 ``indexLaunches`` of a storage server), which count
     only on the card; and, where the role is on the card, the card memory
@@ -75,6 +79,8 @@ def _note_device(h, snap: dict) -> None:
     elif h.kind == "storage":
         index = getattr(h.obj, "_range_index", None)
         snap["indexDevice"] = None if index is None else index._codes.device.type
+        engine = getattr(h.obj, "engine", None)
+        snap["indexCurrent"] = index is not None and engine is not None and index.n == len(engine._keys)
         snap["indexLaunches"] = launch_counts()["search"]
         snap["cardMemory"] = _card_memory([] if index is None else [index._codes.device])
 

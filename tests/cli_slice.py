@@ -21,8 +21,9 @@ What the normalization takes out, each field listed:
   document's kernel sections;
 - the device the port's roles name in the status pull (``DEVICE_KEYS``):
   a resolver kernel section's ``device``, ``launches`` and
-  ``cardMemory`` and a storage server's ``indexDevice``, ``indexLaunches``
-  and ``cardMemory``, which the reference does not report;
+  ``cardMemory`` and a storage server's ``indexDevice``,
+  ``indexCurrent``, ``indexLaunches`` and ``cardMemory``, which the
+  reference does not report;
 - the reshard counts' split (``reshards``): the port's single grid
   reshards on the device where the reference's replay ladder reshards on
   the host (ROADMAP §C), so ``reshardsDevice`` and ``reshardsHost`` of a
@@ -60,7 +61,7 @@ HOST_TEXT = (
 )
 RESHARDS_TEXT = re.compile(r"(\d+)\+(\d+) reshards")
 # the device the port's worker names in each role's status snapshot
-DEVICE_KEYS = {"device", "launches", "indexDevice", "indexLaunches", "cardMemory"}
+DEVICE_KEYS = {"device", "launches", "indexDevice", "indexCurrent", "indexLaunches", "cardMemory"}
 # status-document keys read from the host: memory, the run-loop profiler's
 # wall-timed figures and ranking, its loop ids; every ``*Seconds`` sample
 HOST_KEYS = set(HOST_FIELDS) | {

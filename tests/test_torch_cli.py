@@ -104,7 +104,7 @@ def check_hot_range_surface(r):
     # the port names each storage server's index device in the status pull
     storage = [s for w in r["doc"]["cluster"]["workers"].values() for s in (w.get("metrics") or {}).values()
                if s["kind"] == "storage"]
-    assert [(s["indexDevice"], s["cardMemory"]) for s in storage] == [("cpu", None)]
+    assert [(s["indexDevice"], s["indexCurrent"], s["cardMemory"]) for s in storage] == [("cpu", True, None)]
 
 
 def check_prefilter_surface(r):

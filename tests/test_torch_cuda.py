@@ -370,13 +370,15 @@ K2_CASES = [
     ("random", 33, 3, 2, 3), ("random", 545, 3, 2, 3), ("random", 2560, 1, 1, 3),
     ("random", 300, 2, 2, 8), ("random", 64, 1, 1, 1), ("chain", 545, 1, 1, 3),
     ("hot", 545, 1, 1, 3), ("empty_read", 545, 3, 2, 3), ("random", 4096, 2, 8, 3),
+    # the commit path's and the soak's widest batches: overlap items of
+    # several readers, and of one reader with the write slots sliced
+    ("random", 64, 8, 1, 8), ("random", 8, 1, 16, 8), ("chain", 8, 1, 16, 8),
 ]
 
 
-# (KR, KW, L) at and past the most one block's shared memory holds: K2
-# stages them in chunks where they do not fit (kernels.intra_batch_plan;
-# (256, 1, 3) is the widest one-chunk plan at the bench's L), and at L = 512
-# reads them from global memory
+# (KR, KW, L) with many read and write slots, the shapes an older K2 staged
+# in chunks; codes of up to 16 lanes are held in registers, wider ones
+# (L = 32, 512) compared in memory
 K2_CHUNK_SHAPES = [(128, 1, 8), (64, 64, 8), (64, 32, 16), (256, 1, 3), (512, 2, 3), (16, 16, 32)]
 K2_CHUNK_CASES = [(name, 300, *shape) for shape in K2_CHUNK_SHAPES
                   for name in ("random", "chain", "hot", "sparse")]
@@ -1200,6 +1202,17 @@ SCAN_CASES = [
     ("bucket_overflow_mid", 3, 33, 1, 1, 3, 4, 64),
     ("too_old", 3, 2500, 1, 1, 8, 1, 4096),
     ("txn_limit", 1, kernels.MAX_TXNS, 1, 1, 3, 1, 4096),
+    # groups of one at the widest batch shapes of the commit path, the
+    # dynamic cluster and the soak, on a resolver's 2^14 / 32 buckets
+    ("commit_path_one", 1, 64, 8, 1, 8, 1, 512),
+    ("dynamic_cluster_one", 1, 64, 16, 1, 8, 1, 512),
+    ("soak_one", 1, 8, 1, 16, 8, 1, 512),
+    # K2's overlap items of 2 and 16 readers, and the key widths of the
+    # scan's 4- and 16-lane register codes with every lane in use
+    ("readers_2", 3, 600, 1, 1, 3, 1, 1024),
+    ("readers_16", 2, 1500, 1, 1, 3, 1, 4096),
+    ("keys_16_bytes", 3, 100, 2, 2, 4, 1, 256),
+    ("keys_64_bytes", 3, 100, 3, 2, 16, 4, 256),
 ]
 
 
@@ -1290,6 +1303,31 @@ def test_scan_matches_the_loop_of_kernels_and_the_plain_loop(cuda, case):
         assert int(p[1, :, 1].max()) > 32 and int(p[:2, :, 0].max()) <= S2
     if name == "too_old":
         assert (v == G.TOO_OLD).any() and (v == G.COMMITTED).any()
+
+
+@pytest.mark.parametrize("case", [c for c in SCAN_CASES if c[0] in ("bench_parts", "commit_path_one")],
+                         ids=lambda c: c[0])
+def test_scan_timer_stamps_every_phase_and_leaves_the_results(cuda, case):
+    """The per-phase timer: with ``phase_ns`` the launch writes a clock
+    stamp at every phase boundary of every batch, in order, and returns
+    what the launch without it returns; ``scan_phase_ms`` sums the phases
+    to the first stamp's distance from the last."""
+    _name, G_, T, KR, KW, L, P, B = case
+    state, bounds, batch, cols = _scan_inputs(case, cuda)
+    vers = G.version_rows(*cols, cuda)
+    S2 = G.staging_slots(32)
+    want = G.clone_state(state)
+    w = kernels.resolve_many(*want, bounds, *batch, vers, S2)
+    got = G.clone_state(state)
+    stamps = torch.zeros((G_, len(kernels.SCAN_PHASES) + 1), dtype=torch.int64, device=cuda)
+    g = kernels.resolve_many(*got, bounds, *batch, vers, S2, phase_ns=stamps)
+    for a, b in zip((*g, *got), (*w, *want)):
+        _eq(a, b)
+    flat = stamps.cpu().flatten()
+    assert (flat > 0).all() and (flat[1:] >= flat[:-1]).all()
+    out = kernels.scan_phase_ms(stamps)
+    assert out["batches"] == G_
+    assert abs(out["total_ms"] - sum((s[-1] - s[0]).item() for s in stamps.cpu()) / 1e6) < 1e-6
 
 
 @pytest.mark.parametrize("backend", ["torch1", "torch_mesh"])

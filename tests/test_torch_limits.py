@@ -1,6 +1,6 @@
-"""The shapes the card path must take, checked on the CPU: K2's shared-memory
+"""The shapes the card path must take, checked on the CPU: K2's overlap
 plan for any read and write slot counts and key widths, the port against
-the JAX package on batches with many conflict ranges (K2 chunks, wide
+the JAX package on batches with many conflict ranges (K2's wide items, wide
 staging) and wide keys, and the batch size the card refuses before any
 state changes."""
 
@@ -23,35 +23,25 @@ torch.set_num_threads(2)  # the suite runs in several xdist workers: cap each on
 POW2 = [1 << i for i in range(11)]  # 1 .. 1024
 
 
-def _smem_bytes(L, WT, CR, CW):
-    return (32 * ((CR * 2 * L) | 1) + 32 * WT * CW * 2 * L) * 4
-
-
-def _one_chunk_wt(KR, KW, L):
-    """The writer words per CTA K2 took before it staged in chunks: the
-    largest of 8, 4, 2, 1 whose whole tile fits, 0 where none did."""
-    return next((wt for wt in (8, 4, 2, 1) if _smem_bytes(L, wt, KR, KW) <= kernels.SMEM_OPTIN), 0)
-
-
 @pytest.mark.parametrize("L", [2, 3, 8, 16, 32, 64, 512])
 def test_intra_batch_plan_fits_shared_memory(L):
-    """For every power-of-two KR, KW <= 1024 the plan fits one block's
-    shared memory; a shape whose whole tile fits keeps its one-chunk plan;
-    only where not even one slot of each fits does it read global memory."""
-    for KR in POW2:
-        for KW in POW2:
-            WT, CR, CW = kernels.intra_batch_plan(KR, KW, L)
-            assert WT in (1, 2, 4, 8)
-            wt = _one_chunk_wt(KR, KW, L)
-            if wt:
-                assert (WT, CR, CW) == (wt, KR, KW)
-            elif CR == 0:
-                assert CW == 0 and _smem_bytes(L, 1, 1, 1) > kernels.SMEM_OPTIN
-            else:
-                assert 1 <= CR < KR or 1 <= CW < KW
-                assert _smem_bytes(L, WT, CR, CW) <= kernels.SMEM_OPTIN
-    assert kernels.intra_batch_plan(1, 1, 3) == (8, 1, 1)  # the bench shape
-    assert (kernels.intra_batch_plan(1, 1, L)[1] == 0) == (L == 512)
+    """For every power-of-two KR, KW <= 1024 the standalone K2's plan is
+    the scan's overlap items on the same card (R readers a power of two up
+    to 32, the write slots sliced only for items of one reader), and a
+    block of the standalone K2 stages its readers within the default 48 KB
+    of shared memory at any key width (none past 16 lanes: those codes are
+    compared in memory)."""
+    for T in (1, 8, 64, 2500):
+        for KR in POW2:
+            for KW in POW2:
+                R, NS = kernels.intra_batch_plan(T, KR, KW, 132)
+                assert (R, NS) == kernels.overlap_items(T, KR, KW, 132 * kernels.SCAN_THREADS // 32)
+                assert R in (1, 2, 4, 8, 16, 32)
+                assert NS in POW2 and NS <= KW and (NS == 1 or R == 1)
+    assert kernels.overlap_smem(8, L) <= 48 * 1024
+    assert (kernels.overlap_smem(8, L) == 0) == (L > 16)
+    assert kernels.intra_batch_plan(2500, 1, 1, 132) == (32, 1)  # the bench shape
+    assert kernels.intra_batch_plan(8, 1, 16, 132) == (1, 16)  # the soak's widest
 
 
 def _jtxs(txs):

@@ -256,22 +256,69 @@ def _words(n: int) -> int:
 
 
 def test_scan_plan_at_the_bench_shape():
-    """40 × 2560 × (1, 1) at L = 3 on 32768 × 32: the tile sort's 8192 rows
-    set the shared memory; one CTA an SM on 132 SMs; K2's tiles 32 words
-    wide; the merge's rows in shared memory; one record buffer."""
+    """40 × 2560 × (1, 1) at L = 3 on 32768 × 32: 8192 staging rows in
+    sort tiles of 1024 (CTAs sort them side by side, then merge passes), a
+    tile's records set the shared memory; one CTA an SM on 132 SMs; K2's
+    overlap items of 32 readers; the merge's rows in shared memory; two
+    record buffers; the aggregation's 16 chunk totals."""
     plan = kernels.scan_plan(40, 2560, 1, 1, 3, 1, 32768, 32, 16, n_sms=132)
     assert plan.blocks == 132
-    assert plan.tile == plan.n2pad == 8192
-    assert plan.smem == 8192 * (5 * 4 + 6) == 212_992
-    assert plan.overlap == (32, 1, 1)
+    assert plan.n2pad == 8192 and plan.tile == kernels.SCAN_TILE_ROWS == 1024
+    assert plan.smem == 1024 * (5 * 4 + 6) == 26_624
+    assert plan.overlap == (32, 1)
     assert plan.rows_in_smem and plan.U == 5120
     sizes = {k: n for k, (_o, n) in plan.offsets.items()}
     assert sizes == {"bmax_sup": 256, "H": 640, "commit": 640, "pt": 32 * 80 * 80, "st_code": 5120 * 16 * 3,
-                     "st_ev": 5120 * 16, "tid": 5120, "carry": 5120, "rec_a": 8192 * 5, "rec_b": 0,
-                     "rows": 0, "counters": 3 * 40}
+                     "st_ev": 5120 * 16, "tid": 5120, "carry": 5120, "rec_a": 8192 * 5, "rec_b": 8192 * 5,
+                     "rows": 0, "agg": 8192 // kernels.SCAN_THREADS * 8, "counters": 3 * 40}
     assert plan.words == sum(_words(n) for n in sizes.values())
     offs = [o for o, _n in plan.offsets.values()]
     assert offs == sorted(offs) and all(o % 4 == 0 for o in offs)  # 16-byte aligned pieces
+
+
+def test_scan_plan_at_the_commit_paths_shape():
+    """A group of one at the commit path's widest batch (T = 64, KR = 8,
+    KW = 1, L = 8) on a resolver's 512 × 32 grid: 128 staging rows in one
+    tile, which its CTA sorts and aggregates (one record buffer); one
+    reader an overlap item, as the 96 (reader, word) pairs give the grid's
+    2112 warps fewer than one each; the merge's rows, payloads and order in
+    shared memory set it (16 warps × 64 × 10 words)."""
+    plan = kernels.scan_plan(1, 64, 8, 1, 8, 1, 512, 32, 16, n_sms=132)
+    assert plan.n2pad == plan.tile == 128 and plan.offsets["rec_b"][1] == 0
+    assert plan.overlap == (1, 1)
+    assert plan.rows_in_smem and plan.smem == 16 * 64 * 10 * 4
+    assert plan.U == 128 and plan.offsets["pt"][1] == 32 * 2 * 2
+
+
+def test_scan_plan_slices_the_soaks_write_slots():
+    """The soak's widest batch (T = 8, KR = 1, KW = 16): 8 (reader, word)
+    pairs, each lane's 16 slot pairs past SCAN_SLICE_WORK, so the write
+    slots are sliced 16 ways (an item a slot, ORed into the bitset); a
+    bulk load's 2048 write slots in 256 slices (the grid's 2112 warps over
+    its 8 pairs)."""
+    assert kernels.scan_plan(1, 8, 1, 16, 8, 1, 512, 32, 16, n_sms=132).overlap == (1, 16)
+    assert kernels.scan_plan(1, 8, 1, 2048, 8, 1, 512, 32, 16, n_sms=132).overlap == (1, 256)
+    assert kernels.scan_plan(1, 8, 1, 8, 8, 1, 512, 32, 16, n_sms=132).overlap == (1, 1)  # 8 pairs a lane
+
+
+def test_scan_phase_ms_sums_each_phase_over_the_group():
+    """The timer's host side on synthetic stamps: ms a group a phase (the
+    mean over stacked runs), from stamps near 2^61 ns as the card's clock
+    gives them, exact to the nanosecond."""
+    n = len(kernels.SCAN_PHASES)
+    t0 = 1_760_000_000_000_000_000  # ns since the epoch: above float64's 2^53
+    steps = torch.tensor([1000, 2000, 3000, 4000, 5000, 6000, 7000, 8000][:n], dtype=torch.int64)
+    one = torch.cat([torch.zeros(1, dtype=torch.int64), steps.cumsum(0)])
+    group = torch.stack([t0 + one, t0 + one[-1] + one + 7])  # two batches, back to back
+    out = kernels.scan_phase_ms(group)
+    assert out["batches"] == 2 and list(out["phases"]) == list(kernels.SCAN_PHASES)
+    assert [round(v, 9) for v in out["phases"].values()] == [2 * x / 1e6 for x in steps.tolist()]
+    assert out["total_ms"] == pytest.approx(2 * steps.sum().item() / 1e6, abs=1e-9)
+    twice = torch.stack([group, group + torch.cat([torch.zeros(1), steps]).to(torch.int64).cumsum(0)])
+    again = kernels.scan_phase_ms(twice)
+    assert [round(v, 9) for v in again["phases"].values()] == [3 * x / 1e6 for x in steps.tolist()]
+    with pytest.raises(ValueError):
+        kernels.scan_phase_ms(torch.zeros((2, n), dtype=torch.int64))
 
 
 def test_scan_plan_over_partitions_and_occupancy():
@@ -291,35 +338,37 @@ def test_scan_plan_takes_the_whole_sort_tile():
     assert plan.tile == 512 and plan.smem == kernels.SCAN_SMEM == 230_400
     assert plan.n2pad == 8192 and plan.offsets["rec_b"][1] == 8192 * 111
     assert not plan.rows_in_smem
-    assert plan.offsets["rows"][1] == min(plan.U, 132 * 32) * 64 * 110
-    assert plan.overlap == (4, 1, 1)  # 32 readers and 4 writer words of 1 slot fit
+    assert plan.offsets["rows"][1] == min(plan.U, 132 * 16) * 64 * 111
+    assert plan.overlap == (32, 1)  # 32 readers an item: the codes are compared in memory, any L
 
 
 def test_scan_plan_past_112_lanes_and_many_slots():
-    """L = 128 (keys of 512 bytes) with 100 reads and 130 writes: K2 stages
-    its slots in chunks, the merge's rows are in global scratch."""
+    """L = 128 (keys of 512 bytes) with 100 reads and 130 writes: K2's
+    overlap items slice the 130 write slots 16 ways (its codes are compared
+    in memory, so no slot count is refused), the merge's rows are in global
+    scratch."""
     plan = kernels.scan_plan(1, 64, 100, 130, 128, 4, 1024, 32, 16, n_sms=132)
-    WT, CR, CW = plan.overlap
-    assert 0 < CR < 100 and 0 < CW < 130
-    assert kernels.overlap_words(WT, CR, CW, 128) * 4 <= kernels.SCAN_SMEM
-    assert not plan.rows_in_smem and plan.offsets["rows"][1] == plan.U * 64 * 129
+    assert plan.overlap == (1, 16)
+    assert not plan.rows_in_smem and plan.offsets["rows"][1] == min(plan.U, 132 * 16) * 64 * 130
     assert plan.U == 4 * min(2 * 64 * 130, 1024)
 
 
 @pytest.mark.parametrize("T,KR,KW,L,want", [
-    (8, 1, 2048, 8, (1, 1, 64)),  # a bulk load's batch: one writer word, its 2048 slots in 32 chunks
-    (64, 8, 1, 8, (2, 8, 1)),  # the commit path's widest: two writer words
-    (100, 1, 1, 3, (4, 1, 1)),  # four words, a tile of four
-    (2560, 1, 1, 3, (32, 1, 1)),  # 80 words: the widest tile
+    (8, 1, 2048, 8, (1, 256)),  # a bulk load's batch: 8 (reader, word) pairs, its 2048 slots in 256 slices
+    (64, 8, 1, 8, (1, 1)),  # the commit path's widest: 96 pairs, a reader an item
+    (100, 1, 1, 3, (1, 1)),  # 208 pairs, a reader an item
+    (2560, 1, 1, 3, (32, 1)),  # 103,680 pairs: 32 readers an item still give every warp one
 ])
 def test_scan_plan_tiles_no_wider_than_the_batch(T, KR, KW, L, want):
+    """K2's overlap items (R readers, NS write-slot slices) no larger than
+    the batch leaves work for every warp of the grid."""
     assert kernels.scan_plan(1, T, KR, KW, L, 1, 1024, 32, 16, n_sms=132).overlap == want
 
 
 def test_scan_plan_at_the_transaction_limit():
     plan = kernels.scan_plan(1, kernels.MAX_TXNS, 1, 1, 3, 1, 1024, 32, 16, n_sms=132)
     assert plan.offsets["pt"][1] * 4 == 512 << 20  # K2's bitset: 512 MiB
-    assert plan.n2pad == 1 << 17 and plan.tile == 8192  # staging's merge passes
+    assert plan.n2pad == 1 << 17 and plan.tile == 1024  # staging's merge passes
     for bad in (dict(T=kernels.MAX_TXNS + 1), dict(S2=33), dict(B=1000)):
         args = dict(G=1, T=64, KR=1, KW=1, L=3, P=1, B=1024, S=32, S2=16, n_sms=132)
         args.update(bad)
