@@ -13,7 +13,8 @@ card). Phases, each of which raises on failure:
 2. build the CUDA kernels from ``foundationdb_tpu_torch/conflict/kernels/csrc``;
 3. run the first group on a warm-up instance (its state after that group is
    the kernel checks' input), and the whole workload through the plain
-   PyTorch path on the CPU and through the port's oracle;
+   PyTorch path on the CPU and through the port's oracle (each in a child
+   process started before the build, both done before phase 4);
 4. run the main path on the card with every kernel launch count set to 0
    just before it; versions start just below 2^30, so the run crosses the
    int32 rebase threshold as a long-running cluster does (K4b), and one
@@ -65,28 +66,40 @@ card). Phases, each of which raises on failure:
    ``[cuda:0] * 4`` (and, where there are more cards, one partition a
    card over all of them): every verdict the oracle's, the gathered final
    state equal to phase 7's array by array, live rows in every partition,
-   K6 history, K2, K6 staging and K6 merge launched entries x 200 times,
-   K7 reshard and rebase launched, card memory back after ``close()``;
-   txn/s beside phase 7's and the exchange's ms a batch are printed, and
-   the resolve kernels are held to their plain versions on the last
-   entry's state; (c) where more than one card is visible, K6 history and
-   K5 launched on the last card, not the current one, against their plain
-   versions. One ``{"spread": ...}`` line;
+   the spread's group scan (``kernels.resolve_many_spread``, csrc/scan.cu
+   over every entry of a card) launched once a card a dispatched group and
+   K6 history, K2, K6 staging and K6 merge never, K7 reshard and rebase
+   launched, every group the path resolved equal (verdicts, per-batch
+   pressures, every entry's state) to the loop of standalone kernels from
+   the state it started from, card memory back after ``close()``; the
+   last full group's launch equal to the plain loop on the card
+   (``plain_spread_group``) and timed beside it and the loop, its bound
+   the busiest card's share of the work (its kernel row), and one
+   ``{"spread_phases": ...}`` line from its
+   per-phase timer (the exchange of H its own phase), the profile line;
+   (c) where more than one card is visible, K6 history and K5 launched on
+   the last card, not the current one, against their plain versions; (d)
+   the exchange's bounded wait: a two-card plan with only card 0's launch
+   queued gives up at its bound, and the timeout is a kernel fault; the
+   card serves the next launch. One ``{"spread": ...}`` line;
 19. right after phase 18, the mesh's ``data`` axis (``Spread`` rows of
    replicas that split the read slots): (a) ``tools.multichip``'s
    ``dryrun_multichip(8)`` over 8 cards or ``[cuda:0] * 8`` (4 partitions
-   x 2 replicas), its figures equal to its CPU twin's, and
+   x 2 replicas), its figures equal to its CPU twin's (run in a child
+   process meanwhile), and
    ``dryrun_sweep(8, 6, 192)`` with every verdict the native's; (b)
    phase 7's workload, reshard and rebase through 4 partitions x 2
    replicas on ``[cuda:0] * 8`` (and in rows of two cards where there is
    an even number of them): every verdict the oracle's, every replica's
-   final state phase 7's, 8 x 200 launches of K6 history, K2, K6 staging
-   and K6 merge, KR = 1 padded to 2; (c) 40 batches of 8 reads a
-   transaction through 4 x 2 and 4 x 1: verdicts equal to each other and
-   to the oracle (computed in a child process meanwhile), states equal,
-   and the 4 x 2 run's resolve kernels on its last replica (K6 history on
-   its half of the read slots) held to their plain versions; card memory
-   back after ``close()``. One ``{"data_mesh": ...}`` line;
+   final state phase 7's, phase 18 (b)'s launch gates and loop
+   yardstick, KR = 1 padded to 2, its launch's device time and timer
+   line; (c) 40
+   batches of 8 reads a transaction through 4 x 2 and 4 x 1, both on the
+   spread's group scan: verdicts equal to each other and to the oracle
+   (computed in a child process meanwhile), states equal, every group
+   equal to the loop, and the 4 x 2 run's launch timed (its device time
+   and timer line); card memory back after ``close()``. One
+   ``{"data_mesh": ...}`` line;
 8. the storage range index at ``bench.py``'s shape: 1M random 12-byte
    keys at width 32 (2^20 × 8 lanes = 32 MiB of codes on the card), 50
    rounds of 4096 lookups (70 % hits) and 4096 range queries, every answer
@@ -182,8 +195,8 @@ card). Phases, each of which raises on failure:
    (unknown results count where their proxy logged them within their
    generation), every generation's guards HEALTHY on ``torch`` on the
    card with the scan launched, K5 launched on the rebooted and the filled
-   servers, no multiGet fallback, and a CPU twin at 50,000 keys with an
-   identical transcript. Then K1-K3 and the scan against their plain versions on the
+   servers, no multiGet fallback, and a CPU twin at 50,000 keys (run in a
+   child process beside the card's runs) with an identical transcript. Then K1-K3 and the scan against their plain versions on the
    newest generation's widest batch and K5 on the rebooted and the filled
    indexes. One ``{"dynamic_cluster": ...}`` JSON line: per step the
    times and mix figures, time to recover and to the new generation's
@@ -212,7 +225,7 @@ card). Phases, each of which raises on failure:
    (``tools/tcp_soak.py``), each server a real ``fdbserver --device cuda``
    process: 1 coordinator and workers of class storage x3, transaction x2
    and stateless x2; 2 proxies, 2 resolvers on ``torch``, 2 tlogs and 2
-   storage servers at 2 replicas, the storage index on. Its 1M keys
+   storage servers at 2 replicas, the storage index on. Its 500,000 keys
    ``b"rw/%08d"`` (16-byte values) come from 4 load client processes
    (this script with ``--tcp-loader``); once both storage servers are
    durable at the load's last version, ``perf``'s 90_10 preset runs for
@@ -284,6 +297,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import random
 import re
 import subprocess
@@ -1044,6 +1058,89 @@ def scan_bound(state, batches, cols, bounds=None) -> tuple[float, str]:
     return total, max(share, key=share.get)
 
 
+def plain_spread_group(spread, batches, cols, reads=None, work: dict | None = None):
+    """The plain version of the spread's group scan on the tensors' own
+    devices (the card too): ``sharded.resolve_many_spread_loop``'s loop of
+    ``resolve_one_spread`` with each step's plain version (K6 history on
+    each entry's read slice, H OR-ed over the entries by plain copies
+    (``sharded.exchange``), K2, the clipped staging and the merge of every
+    entry). Updates ``spread`` IN PLACE; returns (verdicts int8[G, T],
+    pressures int32[G, P, 2]) on entry 0's device. With ``work`` (a dict),
+    adds each card's least time for its share of the group there
+    (``spread_bound``)."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import sharded as SH
+
+    entries = spread.entries
+    reads = [(b.rb, b.re) for b in batches] if reads is None else reads
+    dev0 = entries[0].device
+    share = {}
+
+    def add(card, nbytes, ops):
+        ms, by = bound(nbytes, ops)
+        share.setdefault(card, {"bytes": 0.0, "operations": 0.0})[by] += ms
+
+    verdicts, pressures = [], []
+    for g in range(batches[0].rb.shape[0]):
+        views = [G.Batch(*(x[g] for x in b)) for b in batches]
+        slices = [(rb[g], re[g]) for rb, re in reads]
+        now, old_pre, old_post = (int(c[g]) for c in cols)
+        T, KR, L = views[0].rb.shape
+        KW, KRe = views[0].wb.shape[1], slices[0][0].shape[1]
+        if work is not None:  # history: the card's read slices and snapshots in, H out; K2 once a card
+            hist = {}  # card: [its read slices, bytes, ops]
+            for e, (rb, re) in zip(entries, slices):
+                h = hist.setdefault(e.device, [set(), 0, 0])
+                h[0].add(e.replica)
+                for p in range(e.states.grid.shape[0]):
+                    nb, no = history_work(SH.partition(e.states, p), *SH.clip(rb, re, e.plo[p], e.phi[p]))
+                    h[1], h[2] = h[1] + nb, h[2] + no
+            for card, (replicas, nb, no) in hist.items():
+                add(card, (2 * T * KRe * len(replicas) * L + T) * CELL + T + nb, no)
+                add(card, *intra_batch_work(T, KR, KW, L))
+        Hs = SH.exchange([SH.history_conflicts_sharded_plain(e.states, b._replace(rb=rb, re=re), e.plo, e.phi)
+                          for e, b, (rb, re) in zip(entries, views, slices)])
+        v, ps = None, []
+        for e, b, H in zip(entries, views, Hs):
+            too_old = b.t_has_reads & (b.t_snap < old_pre)
+            commit = G.intra_batch_commits_plain(*G._endpoint_ranks(b), H | too_old)
+            k, B = e.states.grid.shape[:2]
+            wb, we = SH.clip(b.wb, b.we, e.plo[:, None, None, :], e.phi[:, None, None, :])
+            st = SH._stage_clipped_plain(e.states, wb, we, commit)
+            flat = SH.flat_view(e.states)
+            before = G.clone_state(flat) if work is not None else None
+            max_kept = G.merge_staged_plain(flat, st, now, old_post, k)
+            if work is not None:
+                add(e.device, *stage_work(st, T, KW, L, B, k))
+                add(e.device, *merge_work(before, flat, st, k))
+            if e.replica == 0:
+                ps.append(torch.stack([st.max_staged, max_kept], dim=-1).to(dev0, non_blocking=True))
+            if v is None:
+                v = (~commit).to(torch.int8).masked_fill(too_old, G.TOO_OLD)
+        verdicts.append(v)
+        pressures.append(torch.cat(ps))
+    if work is not None:
+        work.update(share)
+    return torch.stack(verdicts), torch.stack(pressures)
+
+
+def spread_bound(spread, batches, cols, reads=None) -> tuple[float, str, dict]:
+    """The least time of a spread's group on its cards, from the plain
+    steps on a clone (``plain_spread_group``): each card's share bounded as
+    ``scan_bound`` bounds a stack's (each phase's bytes over the memory rate
+    or its operations over the peak rate, whichever is longer, summed over
+    the phases and batches), with the history of that card's entries on
+    their read slices (each slice read once a card), K2 once a card, and
+    the staging and merge of each of its entries; the cards run side by
+    side, so the group's bound is the busiest card's. Returns (ms, the
+    limit of the larger share of that card's sum, ms a card)."""
+    share = {}
+    plain_spread_group(spread.clone(), batches, cols, reads, work=share)
+    per_card = {str(c): v["bytes"] + v["operations"] for c, v in share.items()}
+    busiest = max(share, key=lambda c: per_card[str(c)])
+    return per_card[str(busiest)], max(share[busiest], key=share[busiest].get), per_card
+
+
 def check_scan(label: str, state, batches, cols, launches: dict, bounds=None, reps: int = 5,
                plain_time: bool = True) -> dict:
     """The group scan (``kernels.resolve_many``, one launch) on a clone of
@@ -1414,6 +1511,44 @@ def oracle_verdicts(batches, offset: int) -> list:
     return out
 
 
+def cpu_plain_verdicts(offset: int) -> list:
+    """Phase 3's CPU plain path (``TorchConflictSet(device="cpu")``) over
+    the main workload, as ints: run in a child process beside the oracle."""
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+
+    t0 = time.perf_counter()
+    cpu = TorchConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY, device="cpu")
+    got, _encode_s = drive(cpu, make_batches(N_BATCHES, N_TXNS, offset), offset)
+    log(f"CPU plain path: {time.perf_counter() - t0:.1f} s")
+    return [[int(v) for v in vg] for vg in got]
+
+
+def oracle_ints(offset: int) -> list:
+    """``oracle_verdicts`` over the main workload, as ints (a child process)."""
+    return [[int(v) for v in vg] for vg in oracle_verdicts(make_batches(N_BATCHES, N_TXNS, offset), offset)]
+
+
+def start_references(offset: int) -> tuple:
+    """Phase 3's references (the CPU plain path's verdicts and the
+    oracle's) started in two spawned child processes, each over the main
+    workload made anew from its seed: (the pool, the two futures)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(cpu_plain_verdicts, offset), pool.submit(oracle_ints, offset)
+
+
+def finish_references(references: tuple) -> tuple:
+    """``start_references``' verdict lists (CPU plain path, oracle), the
+    pool shut down."""
+    pool, plain_run, oracle_run = references
+    try:
+        return plain_run.result(), oracle_run.result()
+    finally:
+        pool.shutdown()
+
+
 def reshard_partition_1(cs) -> None:
     """A device rebalance of partition 1 between groups (phases 7 and 18)."""
     from foundationdb_tpu_torch.conflict import sharded as SH
@@ -1482,15 +1617,177 @@ def run_mesh(want_oracle, offset: int, card: str):
     return rows, batches, phase7
 
 
-def exchange_bound(flags: list) -> float:
-    """The least time of ``sharded.exchange`` over these flags (bool[T] an
-    entry), the larger of: the ORs on entry 0's card (each reads two flags
-    and writes one) over its memory rate, and the flags of entries on
-    other cards into entry 0's card over one NVLink direction (the copies
-    back go out the other way at the same time)."""
-    T = flags[0].numel()
-    remote = sum(f.device != flags[0].device for f in flags)
-    return max(3 * T * (len(flags) - 1) / HBM_BYTES_PER_S, remote * T / NVLINK_BYTES_PER_S) * 1e3
+def capture_groups(cs) -> list:
+    """Record every group the spread mesh ``cs`` resolves from now on (its
+    ``_resolve``, which ``del cs._resolve`` restores): (a clone of the
+    spread the launch starts from, the group's batches an entry, the read
+    slices, the version columns, the result (verdicts, pressures, status),
+    the spread it leaves), for the loop of standalone kernels to redo."""
+    groups, real = [], cs._resolve
+
+    def capturing(spread, uploaded, nows, olds_pre, olds_post):
+        before = spread.clone()
+        out = real(spread, uploaded, nows, olds_pre, olds_post)
+        groups.append((before, [uploaded["batch"][e.device] for e in spread.entries], uploaded["reads"],
+                       [list(nows), list(olds_pre), list(olds_post)], out, spread))
+        return out
+
+    cs._resolve = capturing
+    return groups
+
+
+def spread_states(spread) -> list:
+    return [x for e in spread.entries for x in e.states]
+
+
+def check_groups_against_loop(groups, label: str) -> int:
+    """The yardstick of phases 18-19: every group the spread's path
+    resolved (one launch a card), redone from the state it started from by
+    the loop of standalone kernels (``sharded.resolve_many_spread_loop``):
+    verdicts, per-batch pressures and every replica's state equal, array
+    by array, and no card's exchange ran out. Returns the groups checked."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict import sharded as SH
+
+    for i, (before, batches, reads, cols, (v, p, status), after) in enumerate(groups):
+        if status is not None:
+            kernels.check_spread_status(status.cpu())
+        loop = before.clone()
+        lv, lp = SH.resolve_many_spread_loop(loop, batches, *cols, reads)
+        err = max_abs_err((v, p, *spread_states(after)), (lv, lp, *spread_states(loop)))
+        if err:
+            raise AssertionError(f"spread ({label}): group {i} differs from the loop of standalone kernels "
+                                 f"(max abs err {err})")
+    return len(groups)
+
+
+def check_spread_scan(label: str, group, launches: dict, reps: int = 3, row: bool = True) -> dict | None:
+    """The spread's group scan (``sharded.resolve_many_spread``: one launch
+    a card) on ``group`` (``capture_groups``' record of one the path
+    resolved): against the plain loop on the card (``plain_spread_group``:
+    verdicts, per-batch pressures, every replica's state, exactly), timed
+    on fresh clones (CUDA events around the calls, and their device time
+    queued behind a sleeping kernel) beside the loop of standalone kernels
+    (the yardstick) and the plain loop, with the bound of its work
+    (``spread_bound``: the busiest card's share); then its per-phase timer
+    (``phase_ns``), one ``{"spread_phases": ...}`` line with the
+    exchange's µs a batch. Returns the kernel-table row; without ``row``
+    only the launch's device time and its timer line (None)."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict import sharded as SH
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+
+    before, batches, reads, cols, (v, p, _status), after = group
+    n_batches, T, KR, L = batches[0].rb.shape
+    KW = batches[0].wb.shape[2]
+    cards = before.devices()
+    exchange = kernels.SpreadExchange() if len(cards) > 1 else None
+
+    def launch(s, **kw):
+        return SH.resolve_many_spread(s, batches, *cols, reads, exchange=exchange,
+                                      timeout_s=Knobs.CONFLICT_DISPATCH_DEADLINE, **kw)
+
+    try:
+        it = iter([before.clone() for _ in range(4 * reps + 2)])  # as many as cuda_ms and queued_ms may call
+        ms = cuda_ms(lambda: launch(next(it)), reps)
+        device_ms = queued_ms(lambda: launch(next(it)), reps, ms)
+        if row:  # the loop's CUDA events once: queued behind a sleep it outlasts the sleep
+            loop = before.clone()
+            loop_ms = cuda_ms(lambda: SH.resolve_many_spread_loop(loop, batches, *cols, reads), 1, warmup=0)
+        stamps = torch.zeros((reps, n_batches, len(kernels.SPREAD_PHASES) + 1), dtype=torch.int64,
+                             device=before.entries[0].device)
+        for r in range(reps):
+            launch(before.clone(), phase_ns=stamps[r])
+        torch.cuda.synchronize()
+    finally:
+        if exchange is not None:
+            exchange.close()
+    timer = kernels.scan_phase_ms(stamps)
+    shape = [n_batches, T, KR, KW, L, len(before.entries), len(cards)]
+    log(json.dumps({"spread_phases": {"layout": label, "group": shape, **timer, "device_ms": device_ms,
+                                      "exchange_us_a_batch": timer["phases"]["exchange"] * 1e3 / n_batches,
+                                      "card": card_line()}}))
+    if not row:
+        return None
+    # the plain loop, on the card, once
+    plain, res = before.clone(), {}
+    plain_ms = cuda_ms(lambda: res.update(out=plain_spread_group(plain, batches, cols, reads)), 1, warmup=0)
+    err = max_abs_err((v, p, *spread_states(after)), (*res["out"], *spread_states(plain)))
+    if err:
+        raise AssertionError(f"the spread's group scan ({label}) differs from the plain loop (max abs err {err})")
+    b_ms, b_by, b_cards = spread_bound(before, batches, cols, reads)
+    out = {
+        "name": f"resolve_many_spread ({label})", "kernel": "resolve_many_spread", "route": "cuda",
+        "source": "foundationdb_tpu_torch/conflict/kernels/csrc/scan.cu",
+        "replaces": "foundationdb_tpu/conflict/sharded.py:220 (build_sharded_resolver_many; pmax :131-132)",
+        "launches": launches.get("resolve_many_spread", 0), "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "loop_ms": loop_ms,
+        "bound_ms_a_card": b_cards, "group": shape,
+    }
+    log(f"  resolve_many_spread, {label} (G={n_batches} T={T} KR={KR} KW={KW} L={L}, {len(before.entries)} entries "
+        f"on {len(cards)} card(s)): {ms:.4f} ms a group (CUDA events; on the device {fmt_ms(device_ms)}), "
+        f"{ms / n_batches:.4f} ms a batch; the loop of standalone kernels {loop_ms:.4f} ms; plain loop "
+        f"{plain_ms:.1f} ms; bound {b_ms:.5f} ms ({b_by}; the busiest of "
+        f"{', '.join(f'{c} {c_ms:.5f}' for c, c_ms in b_cards.items())}); the exchange "
+        f"{timer['phases']['exchange'] * 1e3 / n_batches:.3f} µs a batch; max_abs_err {err}")
+    return out
+
+
+def check_exchange_timeout(card: str) -> dict:
+    """Phase 18 (d), on one card: the spread's group scan planned over two
+    cards (entries 0-1 and 2-3 of a 4 x 1 spread, both "cards" this one)
+    with only card 0's launch queued. Its wait for card 1's H must give up
+    at the bound given, set the launch's status and leave;
+    ``check_spread_status`` must raise the exchange timeout, which
+    ``as_kernel_fault`` classifies as a kernel fault; and the card must
+    then serve the next launch, its result the loop's."""
+    from foundationdb_tpu_torch.conflict import grid as G
+    from foundationdb_tpu_torch.conflict import keys as K
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict import sharded as SH
+    from foundationdb_tpu_torch.conflict import torch_backend as TB
+    from foundationdb_tpu_torch.conflict.errors import as_kernel_fault
+
+    cuda0 = torch.device("cuda", 0)
+    bound_s = 0.25
+    lanes = K.lanes_for_width(KEY_WIDTH)
+    hbs = [TB.encode_transactions(txs, KEY_WIDTH, 0) for txs in make_batches(3, 256, 0, seed=3, key=spread_key)]
+    group = TB.upload(TB.stack_batches(hbs, lanes), cuda0)
+    cols = [[WINDOW + i for i in range(3)], [0] * 3, [0] * 3]
+    spread = SH.make_spread(4, 256, 32, lanes, [cuda0] * 4)
+    plan = kernels.spread_plan([0, 0, 1, 1], 1, 3, group.rb.shape[1])
+    entries = [(*e.states, e.plo, e.phi) for e in spread.entries]
+    exchange = kernels.SpreadExchange()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = kernels.spread_launch(plan, 0, entries, [(group.rb, group.re)] * 4, tuple(group),
+                                    G.version_rows(*cols, cuda0), G.staging_slots(32), exchange,
+                                    exchange.next_epoch(), timeout_s=bound_s)
+        torch.cuda.synchronize()
+        waited = time.perf_counter() - t0
+    finally:
+        exchange.close()
+    try:
+        kernels.check_spread_status(out.status)
+        raised = None
+    except kernels.ExchangeTimeoutError as e:
+        raised = e
+    if raised is None or as_kernel_fault(raised) is not raised or not bound_s <= waited < bound_s + 5.0:
+        raise AssertionError(f"the exchange's bounded wait: status {out.status.tolist()}, raised {raised!r}, "
+                             f"{waited:.3f} s for a bound of {bound_s} s")
+    # the card serves the next launch: a fresh spread's group, one card
+    fresh, loop = (SH.make_spread(4, 256, 32, lanes, [cuda0] * 4) for _ in range(2))
+    v, p, _status = SH.resolve_many_spread(fresh, [group] * 4, *cols)
+    lv, lp = SH.resolve_many_spread_loop(loop, [group] * 4, *cols)
+    err = max_abs_err((v, p, *spread_states(fresh)), (lv, lp, *spread_states(loop)))
+    if err:
+        raise AssertionError(f"after the timeout the spread's group scan differs from the loop ({err})")
+    out = {"bound_s": bound_s, "waited_s": waited, "raised": type(raised).__name__, "kernel_fault": True,
+           "next_launch_equal_to_loop": True}
+    log(f"spread exchange timeout: card 0 of a two-card plan alone gave up after {waited:.3f} s (bound "
+        f"{bound_s} s), {type(raised).__name__} is a kernel fault, the next launch equals the loop [{card}]")
+    return out
 
 
 def warm_cublas(n: int) -> None:
@@ -1532,13 +1829,16 @@ def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: 
                 maintenance: bool = True, profile: bool = True, checks: bool = True) -> dict:
     """Phase 18 (b), one layout, and phase 19 (b) and (c): the spread mesh
     over ``devices`` (a list, or rows of ``data`` replicas) on ``batches``,
-    its gates, its figures and, on the last entry's state, its resolve
-    kernels against their plain versions. With ``maintenance`` (phase 7's
-    200 batches), a partition reshard is forced before group 2 and the
-    versions cross the rebase, and both must have launched."""
+    its gates, its figures and, with ``checks``, the spread's group scan
+    timed beside its yardsticks on the path's last full group. Gates: every
+    verdict the oracle's, live rows in every partition, one launch of the
+    spread's group scan a card a group and no per-batch resolve kernel,
+    every group equal to the loop of standalone kernels from the state it
+    started from, the replicas equal. With ``maintenance`` (phase 7's 200
+    batches), a partition reshard is forced before group 2 and the versions
+    cross the rebase, and both must have launched."""
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict import sharded as SH
-    from foundationdb_tpu_torch.conflict import torch_backend as TB
     from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
 
     rows_of = SH.device_grid(devices)
@@ -1549,6 +1849,7 @@ def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: 
     cs.warm_compile()
     for dev in cs._targets:
         torch.cuda.synchronize(dev)
+    groups = capture_groups(cs)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     got, encode_s = drive(cs, batches, offset, force_at=2 if maintenance else None, force=reshard_partition_1)
@@ -1557,6 +1858,7 @@ def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: 
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     snap = cs.metrics.snapshot()
+    del cs._resolve  # the capture ends with the path
 
     n = len(batches)
     if len(got) != n or any(len(v) != len(b) for v, b in zip(got, batches)):
@@ -1567,50 +1869,41 @@ def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: 
     per_part = snap["occupancy"]["liveRowsPerPartition"]
     if not all(k > 0 for k in per_part):
         raise AssertionError(f"a partition of the spread ({label}) holds no live rows: {per_part}")
-    entries = len(cs._spread.entries)
-    want = {k: entries * n for k in SPREAD_PATH}
-    if {k: launches[k] for k in want} != want:
-        raise AssertionError(f"spread ({label}) launches {launches}, want {want}")
+    entries, n_cards = len(cs._spread.entries), len(cs._targets)
+    want = {**{k: 0 for k in SPREAD_LOOP}, "resolve_many_spread": n_cards * snap["deviceDispatches"]}
+    if {k: launches[k] for k in want} != want or len(groups) != snap["deviceDispatches"]:
+        raise AssertionError(f"spread ({label}) launches {launches}, want {want} ({len(groups)} groups)")
     missing = [k for k in ("maint_reshard_parts", "maint_rebase_parts") if launches[k] <= 0]
     if maintenance and (missing or snap["rebases"] < 1):
         raise AssertionError(f"spread ({label}): maintenance never launched: {missing}, {snap['rebases']} rebases")
     if not cs._spread.replicas_equal():
         raise AssertionError(f"spread ({label}): the data replicas of a row differ")
+    t1 = time.perf_counter()
+    checked = check_groups_against_loop(groups, label)
     txns = sum(len(b) for b in batches)
-    out = {"layout": label, "entries": entries, "part_rows": cs._spread.n_rows, "data": cs._spread.n_data,
-           "n_parts": n_parts, "batches": n, "wall_s": wall, "encode_s": encode_s,
+    out = {"layout": label, "entries": entries, "cards": n_cards, "part_rows": cs._spread.n_rows,
+           "data": cs._spread.n_data, "n_parts": n_parts, "batches": n, "wall_s": wall, "encode_s": encode_s,
            "txn_s": txns / wall, "txn_s_without_encode": txns / max(wall - encode_s, 1e-9),
            "live_rows": per_part, "launches": launches, "replicas_equal": True,
+           "groups_equal_to_loop": checked, "loop_check_s": time.perf_counter() - t1,
            "state": SH.gather_to_numpy(cs._spread), "verdicts": got}
     if cs._spread.n_data > 1:  # every replica's own state, for the phase's gates
         out["replica_states"] = [(cs._spread.per_entry * (i // cs._spread.n_data), SH.states_to_numpy(e.states))
                                  for i, e in enumerate(cs._spread.entries)]
+    log(f"spread ({label}): every one of its {checked} groups equal to the loop of standalone kernels "
+        f"({out['loop_check_s']:.1f} s) [{card}]")
 
-    # the exchange of one batch's H (bool[T] a entry), alone, on CUDA events
-    flags = [torch.zeros(len(batches[0]), dtype=torch.bool, device=e.device) for e in cs._spread.entries]
-    out["exchange_ms"] = cuda_ms(lambda: SH.exchange(flags), 200)
-    out["exchange_bound_ms"] = exchange_bound(flags)
-
-    # the resolve kernels on the last entry, at the path's shapes: its
-    # history on its own slice of the read slots
+    # the spread's group scan on the path's last full group, timed beside
+    # its yardsticks (``checks`` "timer": its device time and timer alone)
+    full = [g for g in groups if len(g[3][0]) == GROUP] or groups
     out["rows"] = []
-    last = cs._spread.entries[-1]
-    hbatch, _n, _epoch = cs.encode(batches[-1])
-    now = offset + n + WINDOW - cs._base
-    old = max(cs.oldest_version - cs._base, 0)
-    what = (f"entry {entries - 1}'s {cs._spread.per_entry} partition(s)"
-            + (f", read slice {last.replica} of {cs._spread.n_data}" if cs._spread.n_data > 1 else ""))
     if checks:
-        log(f"spread kernel checks on the final state of {what} ({last.device}) [{card}]:")
-    with torch.cuda.device(last.device):
-        batch = TB.upload(hbatch, last.device)
-        reads = SH.split_reads(batch.rb, batch.re, cs._spread.n_data)[last.replica]
-        if checks:
-            out["rows"] = check_parts_resolve(last.states, batch, (last.plo, last.phi), (now, old, old),
-                                              launches, k2=True, reads=reads)
-    for r in out["rows"]:
-        r["kernel"], r["name"] = r["name"], f"{r['name']} (spread, {label}; {what})"
-    out["shape"] = [*batch.rb.shape, batch.wb.shape[1], reads[0].shape[1]]  # T, KR, L, KW, the slice's KR
+        got_row = check_spread_scan(label, full[-1], launches, row=checks != "timer")
+        out["rows"] = [got_row] if got_row else []
+    _before, last, last_reads = full[-1][:3]
+    out["shape"] = [*last[0].rb.shape[1:], last[0].wb.shape[2],  # T, KR, L, KW, the slice's KR
+                    (last_reads[0][0] if last_reads else last[0].rb).shape[2]]
+    groups.clear()
     if profile:
         out["profile"] = profile_path(
             cs, make_batches(PROFILE_BATCHES, N_TXNS, offset + n, seed=1, key=spread_key),
@@ -1660,7 +1953,8 @@ def run_spread(batches, want_oracle, offset: int, phase7: dict, card: str) -> li
             f"({run['txn_s_without_encode']:.1f} txn/s without {run['encode_s']:.3f} s of host encode); "
             f"phase 7's one stack {N_BATCHES * N_TXNS / phase7['wall_s']:.1f} "
             f"({N_BATCHES * N_TXNS / max(phase7['wall_s'] - phase7['encode_s'], 1e-9):.1f} without encode); "
-            f"the exchange {run['exchange_ms']:.4f} ms a batch (CUDA events) [{card}]")
+            f"cards: {run['cards']} [{card}]")
+    timeout = check_exchange_timeout(card)  # (d) a missing card is a kernel fault, not a hang
     if n > 1:  # (c) the repair of the wrappers, seen: launches on the last card
         last = torch.device("cuda", n - 1)
         log(f"kernel checks on the last card ({last}) [{card}]:")
@@ -1671,7 +1965,7 @@ def run_spread(batches, want_oracle, offset: int, phase7: dict, card: str) -> li
     m1 = cards_allocated()
     if m1 != m0:
         raise AssertionError(f"card memory {m1} B after the spread phase, {m0} B before it")
-    out = {"upgrade": built, "runs": lines, "memory": {"before": m0, "after": m1},
+    out = {"upgrade": built, "runs": lines, "exchange_timeout": timeout, "memory": {"before": m0, "after": m1},
            "phase_s": time.perf_counter() - t_phase, "card": card}
     log(json.dumps({"spread": out}))
     return rows
@@ -1708,6 +2002,7 @@ def check_card_kernels(dev, batches, offset: int, launches: dict) -> list[dict]:
 DATA_ROWS, DATA_REPLICAS = 4, 2  # part x data of (b) and (c): dryrun_multichip(8)'s mesh
 DRY_DEVICES = 8
 SWEEP = (8, 6, 192)  # dryrun_sweep's defaults (__graft_entry__.py:188): parts, batches, txns
+DRY_FIGURES = ("n_part", "n_data", "committed", "txns", "pressure", "parity", "moves", "gained")
 WIDE_BATCHES = 40
 WIDE_READS = 8
 WIDE_SEED = 2
@@ -1744,11 +2039,22 @@ def wide_oracle(n_batches: int, n_txns: int, offset: int, window: int) -> list:
             for i, txs in enumerate(make_wide_batches(n_batches, n_txns, offset))]
 
 
-def run_dry_runs(card: str) -> dict:
+def dryrun_twin() -> dict:
+    """Phase 19 (a)'s CPU twin (a spawned child process):
+    ``dryrun_multichip(DRY_DEVICES)`` on the CPU; its figures and seconds."""
+    from foundationdb_tpu_torch.tools import multichip as MC
+
+    t0 = time.perf_counter()
+    twin = MC.dryrun_multichip(DRY_DEVICES, device="cpu", log=log)
+    return {**{k: twin[k] for k in DRY_FIGURES}, "s": time.perf_counter() - t0}
+
+
+def run_dry_runs(card: str, cpu_twin) -> dict:
     """Phase 19 (a): ``tools.multichip.dryrun_multichip(8)`` over the host's
-    8 cards or ``[cuda:0] * 8``, its figures equal to its CPU twin's in this
-    process and K6 history, K2, K6 staging and K6 merge launched; then
-    ``dryrun_sweep(8, 6, 192)`` on the card, every verdict the native's."""
+    8 cards or ``[cuda:0] * 8``, its figures equal to its CPU twin's (the
+    future ``cpu_twin`` of ``dryrun_twin``) and K6 history, K2, K6 staging
+    and K6 merge launched; then ``dryrun_sweep(8, 6, 192)`` on the card,
+    every verdict the native's."""
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.runtime.loop import set_loop
     from foundationdb_tpu_torch.tools import multichip as MC
@@ -1763,20 +2069,18 @@ def run_dry_runs(card: str) -> dict:
         torch.cuda.synchronize(dev)
     card_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    t0 = time.perf_counter()
-    twin = MC.dryrun_multichip(DRY_DEVICES, device="cpu", log=log)
-    cpu_s = time.perf_counter() - t0
     set_loop(None)  # the drills' simulated clusters
-    figures = ("n_part", "n_data", "committed", "txns", "pressure", "parity", "moves", "gained")
-    differ = {k: (on_card[k], twin[k]) for k in figures if on_card[k] != twin[k]}
+    twin = cpu_twin.result()
+    cpu_s = twin["s"]
+    differ = {k: (on_card[k], twin[k]) for k in DRY_FIGURES if on_card[k] != twin[k]}
     if differ:
         raise AssertionError(f"dryrun_multichip on the card differs from its CPU twin: {differ}")
-    missing = [k for k in SPREAD_PATH if launches[k] <= 0]
+    missing = [k for k in SPREAD_LOOP + SPREAD_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"dryrun_multichip: kernels never launched: {missing} ({launches})")
     t0 = time.perf_counter()
     sweep = MC.dryrun_sweep(*SWEEP, log=log)
-    out = {"dryrun": {**{k: on_card[k] for k in figures}, "devices": on_card["devices"], "card_s": card_s,
+    out = {"dryrun": {**{k: on_card[k] for k in DRY_FIGURES}, "devices": on_card["devices"], "card_s": card_s,
                       "cpu_twin_s": cpu_s, "equal_to_cpu_twin": True,
                       "launches": {k: v for k, v in launches.items() if v}},
            "sweep": {**sweep, "s": time.perf_counter() - t0}}
@@ -1802,14 +2106,15 @@ def run_data(batches, want_oracle, offset: int, phase7: dict, card: str) -> list
     """Phase 19: the mesh's data axis. (a) ``run_dry_runs``; (b) phase 7's
     workload, reshard and rebase through 4 partitions x 2 replicas on
     ``[cuda:0] * 8`` (and in rows of two cards where there is an even
-    number of them): every verdict the oracle's, the final state in every
-    replica equal to phase 7's, the replicas equal, entries x 200 launches
-    of K6 history, K2, K6 staging and K6 merge, KR = 1 padded to 2; (c)
-    WIDE_BATCHES groups of WIDE_READS reads through 4 x 2 and phase 18's
-    4 x 1: verdicts equal to each other and to the oracle, states equal,
-    and the resolve kernels of the 4 x 2 run on its last replica held to
-    their plain versions. Card memory back after ``close()``. Returns the
-    kernel rows (those of (c))."""
+    number of them), with ``spread_path``'s gates (one launch of the
+    spread's group scan a card a group, every group equal to the loop of
+    standalone kernels): every verdict the oracle's, the final state in
+    every replica equal to phase 7's, the replicas equal, KR = 1 padded to
+    2; (c) WIDE_BATCHES groups of WIDE_READS reads through 4 x 2 and phase
+    18's 4 x 1, both through the spread's launch: verdicts equal to each
+    other and to the oracle, states equal. (b) and (c) print the launch's
+    timer line; its kernel-table row is phase 18's. Card memory back after
+    ``close()``. Returns no kernel rows."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1817,9 +2122,10 @@ def run_data(batches, want_oracle, offset: int, phase7: dict, card: str) -> list
     n = torch.cuda.device_count()
     cuda0 = torch.device("cuda", 0)
     grid_of = [[cuda0] * DATA_REPLICAS for _ in range(DATA_ROWS)]
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_twin = pool.submit(dryrun_twin)
         oracle_wide = pool.submit(wide_oracle, WIDE_BATCHES, N_TXNS, offset, WINDOW)
-        out = run_dry_runs(card)
+        out = run_dry_runs(card, cpu_twin)
 
         warm_cublas(n)
         gc.collect()
@@ -1833,7 +2139,7 @@ def run_data(batches, want_oracle, offset: int, phase7: dict, card: str) -> list
         out["runs"] = []
         for devices in layouts:
             n_parts = 4 if 4 % len(devices) == 0 else len(devices)
-            run = spread_path(devices, n_parts, batches, want_oracle, offset, card, checks=False)
+            run = spread_path(devices, n_parts, batches, want_oracle, offset, card, checks="timer")
             del run["verdicts"], run["rows"]
             state = run.pop("state")
             replicas = run.pop("replica_states")
@@ -1845,7 +2151,7 @@ def run_data(batches, want_oracle, offset: int, phase7: dict, card: str) -> list
             log(f"data path ({run['layout']}): {run['wall_s']:.3f} s, {run['txn_s']:.1f} txn/s end to end "
                 f"({run['txn_s_without_encode']:.1f} txn/s without {run['encode_s']:.3f} s of host encode); "
                 f"phase 7's one stack {N_BATCHES * N_TXNS / phase7['wall_s']:.1f}; every replica's state phase 7's; "
-                f"the exchange {run['exchange_ms']:.4f} ms a batch (CUDA events) [{card}]")
+                f"cards: {run['cards']} [{card}]")
 
         # (c) a group of wide reads, split over data, beside phase 18's 4 x 1
         wide = make_wide_batches(WIDE_BATCHES, N_TXNS, offset)
@@ -1855,26 +2161,22 @@ def run_data(batches, want_oracle, offset: int, phase7: dict, card: str) -> list
     wide_runs = {}
     for name, devices in (("4 x 2", grid_of), ("4 x 1", [cuda0] * DATA_ROWS)):
         wide_runs[name] = spread_path(devices, 4, wide, want_wide, offset, card, maintenance=False, profile=False,
-                                      checks=name == "4 x 2")
+                                      checks="timer" if name == "4 x 2" else False)
     a, b = wide_runs["4 x 2"], wide_runs["4 x 1"]
     if a["verdicts"] != b["verdicts"]:
         raise AssertionError("wide group: the 4 x 2 and 4 x 1 verdicts differ")
     same_state("wide group, 4 x 2 against 4 x 1", b["state"], a["state"])
     for i, (lo, st) in enumerate(a["replica_states"]):
         same_state(f"wide group, 4 x 2 entry {i}", b["state"], st, lo)
-    rows = a["rows"]
-    T, KR, _L, KW, KRd = a["shape"]
-    for r in rows:
-        r["name"] = f"{r['kernel']} (data, 4 x 2 on cuda:0; wide group T={T} KR={KR} KW={KW}, " \
-                    f"entry 7's read slice of KR={KRd})"
+    KR = a["shape"][1]
     out["wide"] = {name: {k: r[k] for k in ("layout", "entries", "batches", "wall_s", "encode_s", "txn_s",
-                                           "txn_s_without_encode", "exchange_ms", "live_rows", "shape")}
+                                           "txn_s_without_encode", "groups_equal_to_loop", "live_rows", "shape")}
                    for name, r in wide_runs.items()}
     out["wide"]["oracle_wait_s"] = oracle_wait_s
     for name, r in wide_runs.items():
         log(f"wide group ({r['layout']}, {WIDE_BATCHES} x {N_TXNS}, KR={KR}): {r['wall_s']:.3f} s, "
             f"{r['txn_s']:.1f} txn/s end to end ({r['txn_s_without_encode']:.1f} txn/s without "
-            f"{r['encode_s']:.3f} s of host encode); the exchange {r['exchange_ms']:.4f} ms a batch [{card}]")
+            f"{r['encode_s']:.3f} s of host encode) [{card}]")
     del wide_runs, a, b
     gc.collect()
     for i in range(n):
@@ -1885,7 +2187,7 @@ def run_data(batches, want_oracle, offset: int, phase7: dict, card: str) -> list
     out.update(memory={"before": m0, "after": m1}, phase_s=time.perf_counter() - t_phase, card=card)
     log(json.dumps({"data_mesh": out}))
     log(f"data phase: {out['phase_s']:.1f} s [{card}]")
-    return rows
+    return []
 
 
 def run_range_index(card: str) -> tuple[list[dict], float]:
@@ -3382,7 +3684,10 @@ DYN_REBOOT_S = 1.0  # the storage worker's reboot delay
 # a group's kernels: one launch of the scan on one grid and on one stack of
 # partitions; a batch at a time on each entry of a spread of several
 RESOLVE_PATH = ("resolve_many",)
-SPREAD_PATH = ("history_parts", "intra_batch", "stage_parts", "merge_parts")
+SPREAD_PATH = ("resolve_many_spread",)
+# the spread's per-batch loop of standalone kernels: the yardstick of its
+# group scan, and what tools.multichip's dry run steps through
+SPREAD_LOOP = ("history_parts", "intra_batch", "stage_parts", "merge_parts")
 
 
 LOOP_KERNELS = ("history", "history_parts", "intra_batch", "stage", "stage_parts", "merge", "merge_parts")
@@ -4153,23 +4458,41 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
     return out
 
 
+def dynamic_twin_cpu(card: str, n_keys: int) -> dict:
+    """Phase 14's CPU twin (a spawned child process): ``dynamic_cluster_run``
+    at ``n_keys`` keys with ``device="cpu"``; its transcript and seconds."""
+    run = dynamic_cluster_run(card, "cpu", n_keys, measure=False)
+    return {"transcript": run["transcript"], "run_s": run["run_s"]}
+
+
 def run_dynamic_cluster(card: str) -> tuple[dict, list[dict]]:
-    """Phase 14: the dynamic cluster on the card. The CPU twin first (the
-    same run at DYN_TWIN_KEYS keys with ``device="cpu"``, then on the card:
-    identical transcripts), then the DYN_KEYS run on the card with its gates
-    and measurements; after it, K1-K3 against their plain versions on the
-    newest generation's widest batch, and K5 on the rebooted server's and
-    a filled server's index. Returns the phase's JSON object and the rows."""
+    """Phase 14: the dynamic cluster on the card. The twin (the same run at
+    DYN_TWIN_KEYS keys with ``device="cpu"`` in a child process, and on the
+    card: identical transcripts) and the DYN_KEYS run on the card with its
+    gates and measurements; after it, K1-K3 against their plain versions on
+    the newest generation's widest batch, and K5 on the rebooted server's
+    and a filled server's index. Returns the phase's JSON object and the
+    rows."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     from foundationdb_tpu_torch.device import lanes_to_torch
     from foundationdb_tpu_torch.runtime.loop import set_loop
 
     t_phase = time.perf_counter()
-    twin = {}
-    for label, device in (("cpu", "cpu"), ("card", None)):
-        twin[label] = dynamic_cluster_run(card, device, DYN_TWIN_KEYS, measure=False)
+    # the CPU twin in a spawned child process, beside the card's two runs
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_twin = pool.submit(dynamic_twin_cpu, card, DYN_TWIN_KEYS)
+        card_twin = dynamic_cluster_run(card, None, DYN_TWIN_KEYS, measure=False)
+        twin = {"card": {k: card_twin[k] for k in ("transcript", "run_s", "recoveries", "unknown_results")}}
+        del card_twin
         set_loop(None)
         gc.unfreeze()  # the run froze its objects before its mixes
         gc.collect()
+        run = dynamic_cluster_run(card, None, DYN_KEYS, measure=True)
+        t0 = time.perf_counter()
+        twin["cpu"] = cpu_twin.result()
+        twin_wait_s = time.perf_counter() - t0
     a, b = twin["cpu"]["transcript"], twin["card"]["transcript"]
     if a != b:
         i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
@@ -4177,14 +4500,14 @@ def run_dynamic_cluster(card: str) -> tuple[dict, list[dict]]:
                              f"{len(a)} / {len(b)}: {str(a[i] if i < len(a) else None)[:400]} != "
                              f"{str(b[i] if i < len(b) else None)[:400]}")
     twin_out = {"keys": DYN_TWIN_KEYS, "records": len(a), "cpu_run_s": twin["cpu"]["run_s"],
-                "card_run_s": twin["card"]["run_s"], "recoveries": twin["card"]["recoveries"],
-                "unknown_results": twin["card"]["unknown_results"]}
-    log(f"dynamic cluster twin: {len(a)} records identical on the CPU and on the card "
-        f"({twin_out['cpu_run_s']:.1f} s and {twin_out['card_run_s']:.1f} s) [{card}]")
+                "card_run_s": twin["card"]["run_s"], "cpu_wait_s": twin_wait_s,
+                "recoveries": twin["card"]["recoveries"], "unknown_results": twin["card"]["unknown_results"]}
+    log(f"dynamic cluster twin: {len(a)} records identical on the CPU (a child process) and on the card "
+        f"({twin_out['cpu_run_s']:.1f} s and {twin_out['card_run_s']:.1f} s; waited {twin_wait_s:.1f} s for "
+        f"the CPU's after the card's runs) [{card}]")
     del twin, a, b
     gc.collect()
 
-    run = dynamic_cluster_run(card, None, DYN_KEYS, measure=True)
     cluster, capture = run.pop("cluster"), run.pop("capture")
     run.pop("transcript")
     launches = run["launches"]
@@ -4564,8 +4887,8 @@ def run_soak(card: str) -> tuple[dict, list[dict]]:
 # 16. the real-process cluster: the port's fdbserver processes over TCP,
 # the same layout as RealWorlds in this process, and the bindingtester
 # phase 13's b"rw/%08d" keys, cut to half of BASELINE.json's YCSB "uniform
-# 1M keys" as phase 14's are: the script's time limit
-TCP_KEYS = COMMIT_KEYS // 2
+# 1M keys": the script's time limit
+TCP_KEYS = 500_000
 TCP_VALUE = b"v" * 16  # workloads/readwrite.py's value, which the mix writes too
 TCP_CLASSES = ("storage",) * 3 + ("transaction",) * 2 + ("stateless",) * 2
 # FoundationDB's "double" redundancy, cell 9's shape on two storage servers
@@ -4851,6 +5174,47 @@ async def wait_durable(db, coord: str) -> dict:
         await delay(0.5)
 
 
+# the servers' trace events that tell why a generation ended (C10): what
+# the master saw fail, the cluster controller's master pings, each
+# recovery's start, the resolvers' deadline misses (the window's split) and
+# failovers, and the proxies' failed batches
+TCP_TRACE_EVENTS = ("MasterSawRoleFailure", "MasterFailed", "RecruitedMaster", "MasterFullyRecovered",
+                    "KernelDeadlineMissed", "KernelFailover", "ProxyMasterGone", "ProxyEpochEnded")
+
+
+def tcp_trace_summary(cluster) -> dict:
+    """Phase 16's servers' trace files (``TcpCluster(trace=True)``, rolled
+    files first), read back: the events of TCP_TRACE_EVENTS in time order
+    with the process that traced them, each recovery's start
+    (``MasterRecoveryState`` at ``reading_cstate_done``), the proxies'
+    failed batches counted by error, and every SevError event."""
+    import glob
+
+    events, failed, errors = [], {}, []
+    for name in cluster.procs:
+        path = cluster.trace_path(name)
+        rolled = sorted(glob.glob(path + ".*"), key=lambda f: -int(f.rsplit(".", 1)[1]))
+        for f in [*rolled, path] if os.path.exists(path) else rolled:
+            with open(f, errors="replace") as fh:
+                for line in fh:
+                    try:
+                        e = json.loads(line)
+                    except ValueError:
+                        continue
+                    kind = e.get("Type")
+                    if kind == "CommitBatchFailed":
+                        err = str(e.get("Err", "")).split("(", 1)[0]
+                        failed[err] = failed.get(err, 0) + 1
+                        continue
+                    if e.get("Severity") == "Error":
+                        errors.append({"process": name, **e})
+                    if kind in TCP_TRACE_EVENTS or (kind == "MasterRecoveryState"
+                                                    and e.get("State") == "reading_cstate_done"):
+                        events.append({"process": name, **{k: v for k, v in e.items() if k != "Machine"}})
+    events.sort(key=lambda e: (e.get("Time", 0.0), e["process"]))
+    return {"events": events, "commit_batches_failed": failed, "errors": errors[:20]}
+
+
 def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix_s: float = TCP_MIX_S) -> dict:
     """Phase 16 (a): the port's ``TcpCluster`` (``tools/tcp_soak.py``), each
     server a real ``fdbserver --device <device>`` process: one coordinator
@@ -4930,7 +5294,7 @@ def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix
     cluster = None
     try:
         cluster = tcp_soak.TcpCluster(datadir, config=TCP_CONFIG, classes=TCP_CLASSES, knobs=TCP_KNOBS,
-                                      device=device)
+                                      device=device, trace=True)
         names = {f"127.0.0.1:{n.rsplit('-', 1)[1]}": n for n in cluster.procs if n != "coord"}
         names[cluster.coord] = "coord"
         # formation: the first commit through the port's cli
@@ -5103,6 +5467,9 @@ def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix
                 p.wait(timeout=10)
         if cluster is not None:
             cluster.stop()
+            # why each generation ended, printed on a failed run too
+            out["trace"] = tcp_trace_summary(cluster)
+            log(json.dumps({"tcp_trace": out["trace"]}, default=str))
         shutil.rmtree(datadir, ignore_errors=True)
     out["processes"] = len(cluster.procs)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -5657,6 +6024,13 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    # versions start so that group 2 crosses now - base >= 2^30: the int32
+    # origin is rebased mid-run (K4b) as in a cluster up for ~20 minutes
+    offset = (1 << 30) - 1 - (2 * GROUP + WINDOW)
+    # phase 3's references, in two spawned child processes from here on, so
+    # that they run beside the build (a whole run only)
+    only = args.spread_only or args.data_only or args.scan_only or args.tcp_only or args.btree_only
+    references = None if only else start_references(offset)
 
     # 2. build every kernel from the checkout's sources
     kernels.build.load()
@@ -5665,9 +6039,6 @@ def main() -> int:
         for line in text.splitlines():
             if "Used" in line:
                 log(f"  ptxas {src}: {line.split('info    :')[-1].strip()}")
-    # versions start so that group 2 crosses now - base >= 2^30: the int32
-    # origin is rebased mid-run (K4b) as in a cluster up for ~20 minutes
-    offset = (1 << 30) - 1 - (2 * GROUP + WINDOW)
     if args.spread_only or args.data_only:
         want_oracle = oracle_verdicts(make_batches(N_BATCHES, N_TXNS, offset), offset)
         mesh_rows, spread_batches, phase7 = run_mesh(want_oracle, offset, card)
@@ -5689,7 +6060,8 @@ def main() -> int:
         log(card)
         return 0
 
-    # 3. workload, warm-up group, CPU plain path, oracle
+    # 3. workload, warm-up group; the CPU plain path and the oracle from
+    # their child processes, both done before the timed path starts
     t0 = time.perf_counter()
     batches = make_batches(N_BATCHES, N_TXNS, offset)
     log(f"workload {N_BATCHES}x{N_TXNS} made in {time.perf_counter() - t0:.1f} s")
@@ -5703,12 +6075,9 @@ def main() -> int:
     vers = (offset + nxt + WINDOW - warm._base,
             max(warm.oldest_version - warm._base, 0),
             max(max(warm.oldest_version, offset + nxt) - warm._base, 0))
-
-    t0 = time.perf_counter()
-    cpu = TorchConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY, device="cpu")
-    want, _ = drive(cpu, batches, offset)
-    log(f"CPU plain path: {time.perf_counter() - t0:.1f} s")
-    want_oracle = oracle_verdicts(batches, offset)
+    want, want_oracle = finish_references(references)
+    log(f"the CPU plain path and the oracle (child processes) ready {time.perf_counter() - t_script:.1f} s "
+        f"after the script started")
 
     # 4. the main path on the card; counts set to 0 just before it
     cs = new_conflict_set("torch1", key_width=KEY_WIDTH, capacity=CAPACITY)
@@ -5796,7 +6165,7 @@ def main() -> int:
 
     # 12. the storage role: tlog -> storage server on the port's Sim, its
     # reads through K5; the earlier phases' objects go first
-    del batches, spread_batches, want, want_oracle, cs, warm, cpu, state_g1, hbatch
+    del batches, spread_batches, want, want_oracle, cs, warm, state_g1, hbatch
     gc.collect()
     _storage, storage_rows = run_storage(card, index_lookups_s)
     # 13. the commit path: client -> proxy -> master -> resolver -> tlog ->

@@ -142,6 +142,7 @@ def _build_conflict_set(backend: str, device, **kwargs) -> ConflictSet:
     if backend in ("torch", "torch1"):
         from .torch_backend import TorchConflictSet
 
+        kwargs.pop("exchange_timeout", None)  # one grid: no other card's H to wait for
         return TorchConflictSet(device=device, **kwargs)
     if backend == "torch_mesh":
         from .mesh_backend import TorchMeshConflictSet

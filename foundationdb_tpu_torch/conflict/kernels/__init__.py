@@ -10,7 +10,10 @@ only (``ValueError`` for tensors on two devices): ``conflict/grid.py`` runs
 the plain PyTorch versions for tensors on the CPU. Lanes are int32 tensors
 read by the kernels as uint32. ``resolve_many`` is the group scan: a whole
 group of batches through K1/K6 history, K2 and K3 in one cooperative
-launch (``csrc/scan.cu``), planned by ``scan_plan``.
+launch (``csrc/scan.cu``), planned by ``scan_plan``; ``resolve_many_spread``
+is the same scan over every entry of a spread on a card, one launch a card
+(``spread_plan``), the cards' history verdicts exchanged inside the
+launches through a ``SpreadExchange``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..errors import cuda_fault_class
+from ..errors import KernelTimeoutError, cuda_fault_class
 from . import build
 
 _I32 = torch.int32
@@ -454,25 +457,32 @@ SCAN_SLICE_WORK = 8  # read x write slot pairs a lane of an overlap item tests b
 
 
 class ScanPlan(NamedTuple):
-    """How one group goes through the scan: the cooperative grid, a CTA's
-    dynamic shared memory (the largest phase's), each phase's tiling and
-    the scratch, one int32 buffer cut into 16-byte aligned pieces."""
+    """How one group goes through the scan on one card: the cooperative
+    grid, a CTA's dynamic shared memory (the largest phase's), each phase's
+    tiling and the scratch, one int32 buffer cut into 16-byte aligned
+    pieces: the card's own (SCAN_SHARED), then one block of SCAN_ENTRY
+    pieces for each of its ``entries`` (entry e's at + e · entry_words)."""
 
     blocks: int  # CTAs of the cooperative grid, all co-resident
     smem: int  # dynamic shared memory of a CTA, bytes
     overlap: tuple  # K2's overlap items (R, NS): readers an item, slices of the write slots
     S2: int  # staging slots a touched bucket
-    U: int  # staging planes: touched buckets a batch may have
+    U: int  # staging planes of an entry: touched buckets a batch may have
     n2pad: int  # a partition's staging rows, 2·T·KW padded to a power of two
     tile: int  # rows one sort tile holds
     rows_in_smem: bool  # the merge's 64 rows a warp in shared memory, else in scratch
-    offsets: dict  # scratch piece -> (offset, words)
+    offsets: dict  # scratch piece -> (offset, words); an entry's piece: entry 0's
     words: int  # the scratch in int32 words
+    entries: int = 1  # entries of a spread on the card
+    entry_words: int = 0  # int32 words of one entry's block of pieces
 
 
-# the scan's scratch pieces in order (their int32 words: ``scan_plan``)
+# the scan's scratch pieces in the order the C entry points take them
+# (their int32 words: ``scan_plan``): the card's own, and each entry's
 SCAN_PIECES = ("bmax_sup", "H", "commit", "pt", "st_code", "st_ev", "tid", "carry", "rec_a", "rec_b",
                "rows", "agg", "counters")
+SCAN_SHARED = ("H", "commit", "pt", "rows")
+SCAN_ENTRY = tuple(p for p in SCAN_PIECES if p not in SCAN_SHARED)
 
 
 def overlap_items(T: int, KR: int, KW: int, n_warps: int) -> tuple[int, int]:
@@ -497,12 +507,15 @@ def overlap_items(T: int, KR: int, KW: int, n_warps: int) -> tuple[int, int]:
 
 
 def scan_plan(G: int, T: int, KR: int, KW: int, L: int, P: int, B: int, S: int, S2: int,
-              n_sms: int, blocks_per_sm: int = 1) -> ScanPlan:
+              n_sms: int, blocks_per_sm: int = 1, entries: int = 1) -> ScanPlan:
     """The launch of one group of G batches (T transactions of KR reads
     and KW writes, L lanes) over P stacked partitions of B buckets × S
-    slots on ``n_sms`` SMs with ``blocks_per_sm`` scan CTAs co-resident on
-    each (the occupancy query's answer). Raises ValueError for a shape the
-    kernels refuse, as their standalone wrappers do."""
+    slots, for each of ``entries`` entries of a spread on the card, on
+    ``n_sms`` SMs with ``blocks_per_sm`` scan CTAs co-resident on each (the
+    occupancy query's answer). Raises ValueError for a shape the kernels
+    refuse, as their standalone wrappers do."""
+    if not 1 <= entries <= MAX_CARD_ENTRIES:
+        raise ValueError(f"{entries} entries on one card: the scan takes 1 to {MAX_CARD_ENTRIES}")
     if T > MAX_TXNS:
         raise ValueError(f"batch of {T} transactions exceeds the kernel's {MAX_TXNS}")
     if B < 1 or B & (B - 1):
@@ -533,52 +546,68 @@ def scan_plan(G: int, T: int, KR: int, KW: int, L: int, P: int, B: int, S: int, 
         "bmax_sup": P * B1, "H": -(-T // 4), "commit": -(-T // 4), "pt": 32 * W * W,
         "st_code": U * S2 * L, "st_ev": U * S2, "tid": U, "carry": U,
         "rec_a": rec, "rec_b": 0 if P == 1 and tile == n2pad else rec,
-        "rows": 0 if rows_in_smem else min(U, blocks * SCAN_THREADS // 32) * 64 * (L + 2),
+        "rows": 0 if rows_in_smem else min(entries * U, blocks * SCAN_THREADS // 32) * 64 * (L + 2),
         "agg": P * -(-n2pad // SCAN_THREADS) * 8,  # a chunk's scan total: four (head, value) pairs
         "counters": 3 * G * P,
     }
     offsets, at = {}, 0
-    for name in SCAN_PIECES:
-        offsets[name] = (at, sizes[name])
-        at += -(-sizes[name] // 4) * 4
-    return ScanPlan(blocks, smem, overlap, S2, U, n2pad, tile, rows_in_smem, offsets, at)
+    for names in (SCAN_SHARED, SCAN_ENTRY):
+        first = at
+        for name in names:
+            offsets[name] = (at, sizes[name])
+            at += -(-sizes[name] // 4) * 4
+    entry_words = at - first
+    at += (entries - 1) * entry_words
+    return ScanPlan(blocks, smem, overlap, S2, U, n2pad, tile, rows_in_smem, offsets, at, entries, entry_words)
 
 
 _scan_occupancy: dict = {}  # (device, L, smem) -> (CTAs an SM, SMs): the card's answer, asked once
 
 
-def _plan_on(dev: torch.device, G, T, KR, KW, L, P, B, S, S2) -> ScanPlan:
+def _plan_on(dev: torch.device, G, T, KR, KW, L, P, B, S, S2, entries: int = 1) -> ScanPlan:
     """``scan_plan`` on card ``dev``, its grid sized by the occupancy query
     there."""
-    smem = scan_plan(G, T, KR, KW, L, P, B, S, S2, n_sms=0).smem
+    smem = scan_plan(G, T, KR, KW, L, P, B, S, S2, n_sms=0, entries=entries).smem
     occ = _scan_occupancy.get((dev, L, smem))
     if occ is None:
         out = (ctypes.c_int * 2)()
         with torch.cuda.device(dev):
             _run("fdb_scan_occupancy", L, smem, ctypes.c_void_p(ctypes.addressof(out)))
         occ = _scan_occupancy[(dev, L, smem)] = (out[0], out[1])
-    return scan_plan(G, T, KR, KW, L, P, B, S, S2, n_sms=occ[1], blocks_per_sm=occ[0])
+    return scan_plan(G, T, KR, KW, L, P, B, S, S2, n_sms=occ[1], blocks_per_sm=occ[0], entries=entries)
+
+
+def _scratch_pieces(scratch: torch.Tensor, plan: ScanPlan) -> list:
+    """The pointers of the plan's pieces in ``scratch`` (entry 0's of an
+    entry's piece), in SCAN_PIECES order; None for an empty piece."""
+    base = scratch.data_ptr()
+    return [ctypes.c_void_p(base + 4 * off) if n else None
+            for off, n in (plan.offsets[name] for name in SCAN_PIECES)]
 
 
 SCAN_PHASES = ("superblock maxima", "history + K2 overlap", "K2 chain", "verdicts + staging records",
                "sort tiles", "merge passes", "aggregation", "K3 merge + floor raise")  # csrc/scan.cu kScanPhases
+# a spread's launch stamps the exchange of H across cards apart (zero time on one card)
+SPREAD_PHASES = SCAN_PHASES[:2] + ("exchange",) + SCAN_PHASES[2:]
 
 
 def scan_phase_ms(stamps: torch.Tensor) -> dict:
     """The per-phase timer's stamps (int64 [G, len(SCAN_PHASES) + 1] of
-    ``resolve_many(..., phase_ns=)``: the card's nanosecond clock at each
-    phase boundary of each batch, or several such runs stacked [R, G, ...])
-    as ms a group: each phase's time summed over the group's batches (the
-    mean over the runs), and their total."""
+    ``resolve_many(..., phase_ns=)``, or [G, len(SPREAD_PHASES) + 1] of
+    ``resolve_many_spread``: the card's nanosecond clock at each phase
+    boundary of each batch, or several such runs stacked [R, G, ...]) as ms
+    a group: each phase's time summed over the group's batches (the mean
+    over the runs), and their total."""
     s = stamps.detach().cpu()
     if s.dim() == 2:
         s = s[None]
-    if s.dim() != 3 or s.shape[-1] != len(SCAN_PHASES) + 1:
-        raise ValueError(f"stamps must be [G, {len(SCAN_PHASES) + 1}] or [R, G, {len(SCAN_PHASES) + 1}], "
-                         f"got {tuple(stamps.shape)}")
+    names = {len(SCAN_PHASES) + 1: SCAN_PHASES, len(SPREAD_PHASES) + 1: SPREAD_PHASES}.get(s.shape[-1])
+    if s.dim() != 3 or names is None:
+        raise ValueError(f"stamps must be [G, {len(SCAN_PHASES) + 1}] or [G, {len(SPREAD_PHASES) + 1}], or "
+                         f"runs of them stacked, got {tuple(stamps.shape)}")
     # differences in int64 first: a stamp (ns since the epoch) needs 61 bits
     ms = (s[..., 1:] - s[..., :-1]).sum(dim=1).to(torch.float64).mean(dim=0) / 1e6
-    phases = dict(zip(SCAN_PHASES, ms.tolist()))
+    phases = dict(zip(names, ms.tolist()))
     return {"phases": phases, "total_ms": float(ms.sum()), "batches": int(s.shape[1])}
 
 
@@ -626,9 +655,7 @@ def resolve_many(pivots, grid, count, bmax, floor, bounds, rb, re, wb, we, t_sna
         _check(phase_ns, "phase_ns", torch.int64, (G, len(SCAN_PHASES) + 1))
     plan = _plan_on(dev, G, T, KR, KW, L, P, B, S, S2)
     scratch = torch.empty(plan.words, dtype=_I32, device=dev)
-    base = scratch.data_ptr()
-    pieces = [ctypes.c_void_p(base + 4 * off) if n else None for off, n in
-              (plan.offsets[name] for name in SCAN_PIECES)]
+    pieces = _scratch_pieces(scratch, plan)
     verdicts = torch.empty((G, T), dtype=torch.int8, device=dev)
     pressures = torch.empty((G, P, 2), dtype=_I32, device=dev)
     gmax = torch.empty((P, 2), dtype=_I32, device=dev)
@@ -646,6 +673,234 @@ def resolve_many(pivots, grid, count, bmax, floor, bounds, rb, re, wb, we, t_sna
     return verdicts, pressures, gmax
 
 
+MAX_CARD_ENTRIES = 32  # entries of a spread on one card (csrc/scan.cu kMaxEntries)
+
+
+class ExchangeLayout(NamedTuple):
+    """The exchange buffer of a spread over ``cards`` cards (int32 words of
+    mapped host memory): for each launch parity, batch and card a flag (the
+    epoch of the launch that published the slot) and a slot of ``words``
+    words holding H's T bits."""
+
+    cards: int
+    slots: int  # batches a parity (a group's G at most)
+    words: int  # words of one slot: ceil(T / 32), padded to 16 bytes
+    flags: tuple  # (offset, words): [2, slots, cards] int32
+    data: tuple  # (offset, words): [2, slots, cards, words] uint32
+    total: int  # int32 words
+
+
+def exchange_layout(n_cards: int, G: int, T: int) -> ExchangeLayout:
+    """The exchange buffer for groups of up to G batches of T transactions
+    over ``n_cards`` cards."""
+    words = -(-(-(-T // 32)) // 4) * 4
+    n_flags = -(-2 * G * n_cards // 4) * 4
+    n_data = 2 * G * n_cards * words
+    return ExchangeLayout(n_cards, G, words, (0, n_flags), (n_flags, n_data), n_flags + n_data)
+
+
+class SpreadPlan(NamedTuple):
+    """How a spread's entries go through one group (``spread_plan``)."""
+
+    cards: tuple  # the distinct cards (or card ids) in entry order; card 0 holds entry 0
+    tables: tuple  # for each card, the spread's entries on it in order: its launch's entry table
+    rows: tuple  # for each card, (position in its table, row) of each replica-0 entry: the rows whose pressures it gives
+    exchange: ExchangeLayout | None  # None on one card
+
+
+def spread_plan(cards: list, n_data: int, G: int, T: int) -> SpreadPlan:
+    """The launches of a group over a spread whose entries lie on ``cards``
+    (one item an entry: a device, or any id of the card the entry's launch
+    runs on), ``n_data`` replicas a row (entry i is replica i % n_data of
+    row i // n_data): one launch a distinct card, its entry table, the rows
+    of the pressures [G, P, 2] its replica-0 entries give, and the exchange
+    buffer where there is more than one card. Runs without a card."""
+    if not cards or len(cards) % n_data:
+        raise ValueError(f"{len(cards)} entries do not make rows of {n_data} replicas")
+    order = list(dict.fromkeys(cards))
+    tables = [[i for i, c in enumerate(cards) if c == card] for card in order]
+    if max(map(len, tables)) > MAX_CARD_ENTRIES:
+        raise ValueError(f"{max(map(len, tables))} entries on one card: the scan takes {MAX_CARD_ENTRIES}")
+    rows = tuple(tuple((pos, i // n_data) for pos, i in enumerate(table) if i % n_data == 0) for table in tables)
+    layout = exchange_layout(len(order), G, T) if len(order) > 1 else None
+    return SpreadPlan(tuple(order), tuple(map(tuple, tables)), rows, layout)
+
+
+class SpreadExchange:
+    """The mapped, pinned host buffer through which the cards of one spread
+    exchange H inside their launches, and the spread's launch counter (the
+    epoch a launch marks its slots with, so an earlier launch's slot is
+    never read as this one's). A buffer too small for a group is replaced,
+    and kept until ``close``, since launches in flight may still use it."""
+
+    def __init__(self):
+        self.epoch = 0
+        self.layout: ExchangeLayout | None = None
+        self.ptr: int | None = None
+        self._buffers: list = []  # every buffer allocated, the current last
+        self._devices: set = set()
+
+    def reserve(self, layout: ExchangeLayout, devices) -> int:
+        """The buffer's address, large enough for ``layout`` (zeroed when
+        new), used by the cards ``devices``."""
+        cur = self.layout
+        if cur is None or cur.cards != layout.cards or cur.slots < layout.slots or cur.words < layout.words:
+            if cur is not None and cur.cards == layout.cards:  # grown, never shrunk
+                layout = exchange_layout(layout.cards, max(layout.slots, cur.slots), 32 * max(layout.words, cur.words))
+            out = ctypes.c_void_p()
+            _run("fdb_host_alloc", ctypes.c_longlong(4 * layout.total), ctypes.byref(out))
+            self.ptr, self.layout = out.value, layout
+            self._buffers.append(out.value)
+        self._devices.update(devices)
+        return self.ptr
+
+    def next_epoch(self) -> int:
+        self.epoch += 1
+        return self.epoch
+
+    def close(self) -> None:
+        """Wait for every launch of the spread's cards, then free the
+        buffers."""
+        if not self._buffers:
+            return
+        for dev in self._devices:
+            torch.cuda.synchronize(dev)
+        for ptr in self._buffers:
+            _run("fdb_host_free", ctypes.c_void_p(ptr))
+        self._buffers, self.ptr, self.layout = [], None, None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # interpreter shutdown: the process's memory goes with it
+            pass
+
+
+class SpreadLaunch(NamedTuple):
+    """One card's launch of ``resolve_many_spread``: its outputs, on the card."""
+
+    verdicts: torch.Tensor  # int8 [G, T]
+    pressures: torch.Tensor  # int32 [E, G, P, 2]: every entry of the card's table
+    status: torch.Tensor  # int32 [1]: 1 where another card's H did not come in time
+
+
+def spread_launch(plan: SpreadPlan, c: int, entries: list, reads: list, batch, vers, S2: int,
+                  exchange: SpreadExchange | None = None, epoch: int = 0,
+                  timeout_s: float | None = None, phase_ns: torch.Tensor | None = None) -> SpreadLaunch:
+    """Launch card ``c`` of ``plan`` (its entries' states and bounds
+    ``entries[i]`` = (pivots, grid, count, bmax, floor, plo, phi), each a
+    stack [P, B, ...], and read slots ``reads[i]`` = (rb, re) [G, T, KRe, L]
+    for each entry i of its table; ``batch`` = (rb, re, wb, we, t_snap,
+    t_has_reads) the whole group; ``vers`` int32 [3, G]) on its card's
+    current stream, on the card's co-resident grid. Where the plan has
+    more than one card, its H goes through ``exchange`` under ``epoch``
+    with the bounded wait ``timeout_s`` (seconds; the caller's dispatch
+    deadline); the launch's ``status`` says whether it ran out."""
+    table = plan.tables[c]
+    ents = [entries[i] for i in table]
+    rds = [reads[i] for i in table]
+    rb, re, wb, we, t_snap, t_has_reads = batch
+    G, T, KR, L = rb.shape
+    KW = wb.shape[2]
+    P, B, S, Lp1 = ents[0][1].shape
+    KRe = rds[0][0].shape[2]
+    timer = () if phase_ns is None else (phase_ns,)
+    dev = _device(*(x for e in ents for x in e), *(x for r in rds for x in r), *batch, vers, *timer)
+    if Lp1 - 1 != L:
+        raise ValueError(f"the state has {Lp1 - 1} lanes, the batch {L}")
+    for e, (rbe, ree) in zip(ents, rds):
+        pivots, grid, count, bmax, floor, plo, phi = e
+        _check(pivots, "pivots", _I32, (P, B, L))
+        _check(grid, "grid", _I32, (P, B, S, Lp1))
+        for name, t in (("count", count), ("bmax", bmax), ("floor", floor)):
+            _check(t, name, _I32, (P, B))
+        for name, t in (("plo", plo), ("phi", phi)):
+            _check(t, name, _I32, (P, L))
+        for name, t in (("read slice rb", rbe), ("read slice re", ree)):
+            _check(t, name, _I32, (G, T, KRe, L))
+    for name, t in (("rb", rb), ("re", re)):
+        _check(t, name, _I32, (G, T, KR, L))
+    for name, t in (("wb", wb), ("we", we)):
+        _check(t, name, _I32, (G, T, KW, L))
+    _check(t_snap, "t_snap", _I32, (G, T))
+    _check(t_has_reads, "t_has_reads", torch.bool, (G, T))
+    _check(vers, "vers", _I32, (3, G))
+    if phase_ns is not None:
+        _check(phase_ns, "phase_ns", torch.int64, (G, len(SPREAD_PHASES) + 1))
+    xwords = xflags = None
+    layout = plan.exchange
+    if layout is not None:
+        if exchange is None or epoch < 1 or timeout_s is None:
+            raise ValueError("a spread over several cards exchanges H through a SpreadExchange, epoch >= 1, "
+                             "with the bound of its wait, timeout_s")
+        base = exchange.reserve(layout, [dev])
+        layout = exchange.layout
+        xflags = ctypes.c_void_p(base + 4 * layout.flags[0])
+        xwords = ctypes.c_void_p(base + 4 * layout.data[0])
+        if layout.slots < G:
+            raise ValueError(f"the exchange holds {layout.slots} batches, the group {G}")
+    plan_c = _plan_on(dev, G, T, KR, KW, L, P, B, S, S2, entries=len(ents))
+    table_ptrs = (ctypes.c_void_p * (9 * len(ents)))(*(t.data_ptr() for e, r in zip(ents, rds) for t in (*e, *r)))
+    B1, B2 = split_factors(B)
+    R, NS = plan_c.overlap
+    st = torch.cuda.current_stream(dev)
+    # scratch and outputs allocated on the launch's stream, so the caching
+    # allocator hands the scratch to no other stream's work before the
+    # launch is done with it
+    with torch.cuda.device(dev), torch.cuda.stream(st):
+        scratch = torch.empty(plan_c.words, dtype=_I32, device=dev)
+        pieces = (ctypes.c_void_p * len(SCAN_PIECES))(*(p.value if p is not None else None
+                                                         for p in _scratch_pieces(scratch, plan_c)))
+        out = SpreadLaunch(torch.empty((G, T), dtype=torch.int8, device=dev),
+                           torch.empty((len(ents), G, P, 2), dtype=_I32, device=dev),
+                           torch.empty(1, dtype=_I32, device=dev))
+        _run("fdb_resolve_many_spread",
+             table_ptrs, len(ents), _ptr(rb), _ptr(re), _ptr(wb), _ptr(we), _ptr(t_snap), _ptr(t_has_reads),
+             _ptr(vers), _ptr(out.verdicts), _ptr(out.pressures), None, pieces,
+             ctypes.c_longlong(plan_c.entry_words), None if phase_ns is None else _ptr(phase_ns),
+             xwords, xflags, _ptr(out.status), ctypes.c_longlong(int((timeout_s or 0.0) * 1e9)), c, len(plan.cards),
+             int(epoch), 0 if layout is None else layout.slots, 0 if layout is None else layout.words,
+             G, P, B, S, L, T, KR, KRe, KW, B1, B2, R, NS, S2, plan_c.U, plan_c.n2pad, plan_c.tile,
+             plan_c.smem, plan_c.blocks, ctypes.c_void_p(st.cuda_stream))
+    resolve_many_spread.launches += 1
+    return out
+
+
+@_counted
+def resolve_many_spread(plan: SpreadPlan, entries: list, reads: list, batches: list, vers: list, S2: int,
+                        exchange: SpreadExchange | None = None, timeout_s: float | None = None,
+                        phase_ns: torch.Tensor | None = None) -> list:
+    """The group scan over every entry of a spread: ONE cooperative launch
+    on each card of ``plan`` (``spread_plan``; ``batches[c]`` and
+    ``vers[c]`` that card's copy of the group and its versions, as
+    ``spread_launch`` takes them), every launch queued before any is waited
+    for, each on its card's current stream, the cards' H exchanged inside
+    the launches (each waiting at most ``timeout_s`` for another card's).
+    Updates every entry's state IN PLACE. Returns each card's
+    ``SpreadLaunch``; a launch whose ``status`` is set gave no verdicts
+    (``check_spread_status`` raises). ``phase_ns`` times card 0's launch
+    (``scan_phase_ms``). Nothing falls back to the per-batch kernels."""
+    epoch = exchange.next_epoch() if plan.exchange is not None and exchange is not None else 0
+    return [spread_launch(plan, c, entries, reads, batches[c], vers[c], S2, exchange, epoch, timeout_s,
+                          phase_ns if c == 0 else None)
+            for c in range(len(plan.cards))]
+
+
+class ExchangeTimeoutError(KernelTimeoutError):
+    """A card of a spread waited past its bound for another card's H
+    inside ``resolve_many_spread``: a card is missing or stalled. A kernel
+    fault (the guard fails over), never a hang."""
+
+
+def check_spread_status(status) -> None:
+    """Raise ``ExchangeTimeoutError`` where a launch's status (``SpreadLaunch
+    .status`` of each card, read back once the launches are done) is set."""
+    late = [i for i, v in enumerate(torch.as_tensor(status).reshape(-1).tolist()) if v]
+    if late:
+        raise ExchangeTimeoutError(f"resolve_many_spread: cards {late} of the spread waited past "
+                                   f"their bound for another card's H")
+
+
 WRAPPERS = {
     "history": history,
     "intra_batch": intra_batch,
@@ -660,6 +915,7 @@ WRAPPERS = {
     "maint_reshard_parts": maint_reshard_parts,
     "maint_rebase_parts": maint_rebase_parts,
     "resolve_many": resolve_many,
+    "resolve_many_spread": resolve_many_spread,
 }
 
 

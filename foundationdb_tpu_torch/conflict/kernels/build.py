@@ -33,10 +33,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name → (library, argtypes); every one returns the
 # cudaError_t of cudaGetLastError() after its launches (the occupancy
-# query, that of its queries)
+# query and the exchange buffer's allocation, that of their calls)
 SIGNATURES = {
     "fdb_history": ("history", [_P] * 10 + [_I] * 7 + [_P]),
     "fdb_history_parts": ("history", [_P] * 12 + [_I] * 8 + [_P]),
@@ -47,7 +47,10 @@ SIGNATURES = {
     "fdb_rebase": ("maint", [_P] * 6 + [_I] * 4 + [_P]),
     "fdb_search": ("search", [_P] * 3 + [_I] * 3 + [_P]),
     "fdb_resolve_many": ("scan", [_P] * 31 + [_I] * 18 + [_P]),
+    "fdb_resolve_many_spread": ("scan", [_P, _I] + [_P] * 11 + [_L, _P] + [_P] * 3 + [_L] + [_I] * 24 + [_P]),
     "fdb_scan_occupancy": ("scan", [_I] * 2 + [_P]),
+    "fdb_host_alloc": ("scan", [_L, _P]),
+    "fdb_host_free": ("scan", [_P]),
 }
 
 _lock = threading.Lock()

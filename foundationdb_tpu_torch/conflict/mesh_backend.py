@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import lanes_to_numpy, lanes_to_torch, ordered, resolve_device
+from ..runtime.knobs import Knobs
 from . import grid as G
 from . import keys as K
 from . import kernels
@@ -86,6 +87,7 @@ class TorchMeshConflictSet(ConflictSet):
         grow_fill: float = DEFAULT_GROW_FILL,
         device=None,
         devices=None,
+        exchange_timeout: float = Knobs.CONFLICT_DISPATCH_DEADLINE,
     ):
         """``devices=None`` keeps all partitions (``n_parts``, default 4) in
         one stack on ``device``. A list of devices (it may name one device
@@ -96,7 +98,9 @@ class TorchMeshConflictSet(ConflictSet):
         mesh: each inner list is a row of ``data`` replicas that hold the
         same partitions and split the read slots (``sharded.Spread``);
         ``n_parts`` then defaults to the number of rows. A card that is not
-        visible raises ``DeviceUnavailableError``."""
+        visible raises ``DeviceUnavailableError``. ``exchange_timeout``
+        (seconds) bounds a card's wait for the other cards' H inside a
+        group's launch; the resolver passes its CONFLICT_DISPATCH_DEADLINE."""
         super().__init__()
         if devices is None:
             devices = [device]
@@ -122,6 +126,11 @@ class TorchMeshConflictSet(ConflictSet):
         self._spread = self._fresh_spread()
         # the entries' distinct devices, each of which gets a group's batches
         self._targets = self._spread.devices()
+        # the cards of a spread exchange H inside their launches through
+        # mapped host memory (kernels.SpreadExchange), one buffer a spread
+        self._exchange = (kernels.SpreadExchange()
+                          if len(self._targets) > 1 and self._targets[0].type == "cuda" else None)
+        self._exchange_timeout = exchange_timeout
         # (epoch, base) in one attribute, so the encode thread reads a pair
         # that belongs together: device versions are (version - base); 0 = never
         self._origin = (0, -1)
@@ -163,18 +172,20 @@ class TorchMeshConflictSet(ConflictSet):
         return out
 
     def _resolve(self, spread: SH.Spread, uploaded: dict, nows, olds_pre, olds_post):
-        """The group through ``spread``: one stack on one device is the
-        group scan (one launch on a card); several entries keep the loop,
-        which exchanges H between them inside every batch."""
+        """The group through ``spread``: the group scan, one launch a card
+        (one stack: ``resolve_many_sharded``; several entries:
+        ``resolve_many_spread``, the cards' H exchanged inside the
+        launches). Returns (verdicts, pressures, status): ``status`` the
+        launches' exchange status, None on one card."""
         if len(spread.entries) == 1:
             e = spread.entries[0]
             _states, verdicts, pressures = SH.resolve_many_sharded(
                 e.states, uploaded["batch"][e.device], nows, olds_pre, olds_post, (e.plo, e.phi)
             )
-            return verdicts, pressures
+            return verdicts, pressures, None
         return SH.resolve_many_spread(
             spread, [uploaded["batch"][e.device] for e in spread.entries], nows, olds_pre, olds_post,
-            uploaded["reads"],
+            uploaded["reads"], exchange=self._exchange, timeout_s=self._exchange_timeout,
         )
 
     def _sync(self) -> None:
@@ -219,6 +230,8 @@ class TorchMeshConflictSet(ConflictSet):
             group.clear()
         self._inflight = []
         self._spread = None
+        if self._exchange is not None:
+            self._exchange.close()  # waits for the spread's launches first
 
     def clear(self, version: int) -> None:
         self._flush()
@@ -321,21 +334,22 @@ class TorchMeshConflictSet(ConflictSet):
         # replay; the group updates a clone in place
         group["snapshot"] = self._spread
         spread = self._spread.clone()
-        verdicts, pressures = self._resolve(spread, group["stacked"], nows, olds_pre, olds_post)
+        verdicts, pressures, status = self._resolve(spread, group["stacked"], nows, olds_pre, olds_post)
         self._spread = spread
         if verdicts.is_cuda:
-            # verdicts and pressures are on the first card, behind every
-            # card's part of the group (the exchange and the pressures'
-            # copies order them): one event there covers the group
-            v_host = torch.empty(verdicts.shape, dtype=verdicts.dtype, pin_memory=True)
-            p_host = torch.empty(pressures.shape, dtype=pressures.dtype, pin_memory=True)
-            v_host.copy_(verdicts, non_blocking=True)
-            p_host.copy_(pressures, non_blocking=True)
+            # verdicts, pressures and the exchange status are on the first
+            # card, behind every card's launch (the pressures' and the
+            # status's copies order them): one event there covers the group
+            outs = [verdicts, pressures] + ([] if status is None else [status])
+            hosts = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in outs]
+            for h, x in zip(hosts, outs):
+                h.copy_(x, non_blocking=True)
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(verdicts.device))
-            group["verdicts"], group["pressures"], group["event"] = v_host, p_host, done
+            group["verdicts"], group["pressures"], group["event"] = hosts[0], hosts[1], done
+            group["status"] = hosts[2] if status is not None else None
         else:
-            group["verdicts"], group["pressures"], group["event"] = verdicts, pressures, None
+            group["verdicts"], group["pressures"], group["event"], group["status"] = verdicts, pressures, None, status
         self.metrics.dispatch_s.add(time.perf_counter() - t0)
 
     def _collect(self, group):
@@ -351,6 +365,8 @@ class TorchMeshConflictSet(ConflictSet):
         for attempt in range(9):
             if group["event"] is not None:
                 group["event"].synchronize()
+            if group["status"] is not None:  # a card missing from the exchange: a kernel fault
+                kernels.check_spread_status(group["status"])
             prs = group["pressures"].numpy()  # int32[G, P, 2]
             out = group["verdicts"].numpy()
             self.metrics.d2h_bytes.add(int(prs.nbytes) + int(out.nbytes))
@@ -407,7 +423,7 @@ class TorchMeshConflictSet(ConflictSet):
             for g in range(len(group["counts"]))
         ]
         self.metrics.collect_s.add(time.perf_counter() - t0)
-        for key in ("snapshot", "verdicts", "pressures", "event", "stacked", "metas"):
+        for key in ("snapshot", "verdicts", "pressures", "event", "status", "stacked", "metas"):
             group.pop(key, None)
         self._inflight.pop(0)
         return group["done"]

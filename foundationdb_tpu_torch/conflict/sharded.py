@@ -10,19 +10,28 @@ equal a single grid's bit for bit. Here a ``Spread`` holds one entry per
 device of a list (a device may appear more than once); each entry holds a
 contiguous run of the P partitions as the leading axis of ONE stacked
 ``GridState`` on its device (fields [k, B, ...], contiguous, so
-``grid.view(k * B, S, L + 1)`` is the flat view). A spread of one entry is
-the whole stack on one card, and it resolves a group in one launch of the
-group scan (``resolve_many_sharded``: the steps below, batch after batch,
-with every read and write clipped in the kernel). A spread of several
-entries takes one batch at a time (``resolve_one_spread``):
+``grid.view(k * B, S, L + 1)`` is the flat view). On the card a group is
+ONE launch of the group scan a card (``csrc/scan.cu``): a spread of one
+entry is the whole stack on one card (``resolve_many_sharded``), and a
+spread of several entries (``resolve_many_spread``) hands each card's
+launch every entry on that card (``kernels.spread_plan``), batch after
+batch:
 
-- every entry runs K6 history on its partitions; the entries' H are
-  exchanged with plain cross-device copies and OR-ed into one H on every
-  entry (the reference's ``pmax``; one process over several cards, as
-  ``shard_map`` is, so no collective library);
-- every entry runs K2 on the unclipped, replicated batch (below), then
-  stages and merges its clipped writes; the verdicts come from entry 0
-  and the per-partition pressures are gathered there in partition order.
+- every entry checks its reads against its partitions, each read clipped
+  in registers, and the entries' history verdicts OR into one H of the
+  card; across cards each launch publishes its H into a mapped host
+  buffer and ORs in the others' (the reference's ``pmax``; one process
+  over several cards, as ``shard_map`` is, so no collective library);
+- K2 runs once a card on the unclipped, replicated batch (below) with
+  that H, and every entry stages and merges its clipped writes; the
+  verdicts come from entry 0's card and the per-partition pressures from
+  replica 0 of every row, gathered on entry 0's device in partition order.
+
+The plain version of a group is the loop of ``resolve_one_spread`` a
+batch at a time (``resolve_many_spread_loop``: on CPU tensors the plain
+steps, with the H of the entries exchanged by ``exchange``, plain copies;
+on CUDA tensors the standalone kernels a batch an entry, kept as the
+group scan's yardstick).
 
 The entries form a grid of rows × ``n_data`` (the reference's ``("part",
 "data")`` mesh): row r holds partitions r·k … r·k + k − 1, and each of its
@@ -31,18 +40,20 @@ the read slots [d·KR'/D, (d+1)·KR'/D) of every batch (``split_reads``: KR
 padded with inactive sentinel rows to KR', a multiple of D; the reference
 refuses a KR that is not one), so its K6 history covers its partitions and
 its read slice, and the exchange ORs H over all rows × D entries (the
-reference's ``pmax(("part", "data"))``). K2 still runs on the whole
-unclipped batch on every entry. That equals the reference's ``pmax`` of the
+reference's ``pmax(("part", "data"))``). K2 runs on the whole unclipped
+batch (once a card in the scan, on every entry in the loop). That equals the reference's ``pmax`` of the
 per-slice overlap matrices over both axes because every read slot lies in
 exactly one data slice: the OR over the slices of their overlap matrices is
 the matrix of all the slots. Every replica merges the same clipped writes
 into its copy; the pressures come from replica 0 of each row, as the
 reference's ``P("part")`` output reads one replica.
 
-PyTorch orders a copy between two cards behind the current streams of
-both, so the spread adds no streams and no events of its own.
+The launches of the cards of a group are queued together, each on its
+card's current stream, and never wait on one another outside the kernel;
+PyTorch orders the pressures' copies between two cards behind the current
+streams of both, so the spread adds no streams and no events of its own.
 
-Within one entry:
+Within one entry, as the standalone kernels of the loop run it:
 
 - history (K6): one launch over all partitions, each read clipped to its
   partition in registers, H OR-ed over the partitions;
@@ -396,9 +407,9 @@ def resolve_one_spread(spread: Spread, batches: list, now: int, oldest_pre: int,
     """One batch through all P partitions of ``spread``; ``batches`` holds
     the whole batch on each entry's device and ``reads`` (where the spread
     has ``n_data`` > 1) each entry's slice of its read slots
-    (``split_reads``), as (rb, re) on its device. Updates the grids IN
-    PLACE; returns (verdicts int8[T], pressure int32[P, 2]), both on entry
-    0's device."""
+    (``split_reads``), as (rb, re) on its device. On CUDA tensors the
+    standalone kernels. Updates the grids IN PLACE; returns (verdicts
+    int8[T], pressure int32[P, 2]), both on entry 0's device."""
     if reads is None:
         if spread.n_data > 1:
             raise ValueError(f"a spread of {spread.n_data} replicas a row needs each entry's read slice")
@@ -420,16 +431,16 @@ def resolve_one_spread(spread: Spread, batches: list, now: int, oldest_pre: int,
     return verdicts, torch.cat([p.to(dev0, non_blocking=True) for p in pressures])
 
 
-def resolve_many_spread(spread: Spread, batches: list, nows, oldests_pre, oldests_post,
-                        reads: list | None = None):
-    """G batches in order (the reference's on-device scan; a host loop
-    here: the entries exchange H inside every batch, which one launch on
-    one card cannot do; a spread of one entry takes the group scan,
-    ``resolve_many_sharded``); ``batches`` holds the stacked group
-    on each entry's device and ``reads`` each entry's stacked read slice
-    (``resolve_one_spread``). Updates the grids IN PLACE. Returns (verdicts
-    int8[G, T], pressures int32[G, P, 2]) on entry 0's device — the
-    per-batch pressures, not a group max."""
+def resolve_many_spread_loop(spread: Spread, batches: list, nows, oldests_pre, oldests_post,
+                             reads: list | None = None):
+    """G batches in order, a batch at a time through ``resolve_one_spread``
+    (the reference's on-device scan as a host loop): on CPU tensors the
+    plain version of ``resolve_many_spread``, on the card its loop of
+    standalone kernels (K6 history, K2, K6 staging and merge an entry a
+    batch), kept as a yardstick; ``batches`` holds the stacked group on each entry's device and
+    ``reads`` each entry's stacked read slice. Updates the grids IN PLACE.
+    Returns (verdicts int8[G, T], pressures int32[G, P, 2]) on entry 0's
+    device — the per-batch pressures, not a group max."""
     verdicts, pressures = [], []
     for g in range(batches[0].rb.shape[0]):
         views = {id(b): G.Batch(*(x[g] for x in b)) for b in batches}
@@ -442,6 +453,81 @@ def resolve_many_spread(spread: Spread, batches: list, nows, oldests_pre, oldest
         verdicts.append(v)
         pressures.append(p)
     return torch.stack(verdicts), torch.stack(pressures)
+
+
+def resolve_many_spread(spread: Spread, batches: list, nows, oldests_pre, oldests_post,
+                        reads: list | None = None, exchange=None, timeout_s: float | None = None,
+                        phase_ns=None):
+    """A group through every entry of ``spread`` (``batches``: the stacked
+    group on each entry's device; ``reads``: each entry's stacked read
+    slice where the rows have several replicas, ``split_reads``). On the
+    card ONE launch a distinct card (``kernels.resolve_many_spread``, the
+    group scan over the card's entries: history of every entry into one H,
+    the H of the cards exchanged inside the launches through ``exchange``
+    (a ``kernels.SpreadExchange``, one a spread; a spread over several
+    cards needs one, and ``timeout_s``, the bound of a card's wait for the
+    others' H), K2 once a card, every entry's writes staged and
+    merged, clipped in the kernel), with no torch op between batches; on
+    the CPU the plain loop, ``resolve_many_spread_loop``. Updates the grids
+    IN PLACE. Returns (verdicts int8[G, T], pressures int32[G, P, 2] — the
+    per-batch pressures of replica 0 of each row —, status) on entry 0's
+    device: ``status`` int32 [cards], the launches' exchange status
+    (``kernels.check_spread_status`` once they are done), None where there
+    is nothing to exchange. ``phase_ns`` times entry 0's card's launch."""
+    if not spread.entries[0].states.grid.is_cuda:
+        return (*resolve_many_spread_loop(spread, batches, nows, oldests_pre, oldests_post, reads), None)
+    n_batches, T = batches[0].rb.shape[:2]
+    plan = kernels.spread_plan([e.device for e in spread.entries], spread.n_data, n_batches, T)
+    if reads is None:
+        if spread.n_data > 1:
+            raise ValueError(f"a spread of {spread.n_data} replicas a row needs each entry's read slice")
+        reads = [(b.rb, b.re) for b in batches]
+    if plan.exchange is not None and exchange is None:
+        raise ValueError("a spread over several cards exchanges H through a kernels.SpreadExchange")
+    S = spread.entries[0].states.grid.shape[2]
+    outs = kernels.resolve_many_spread(
+        plan, [(*e.states, e.plo, e.phi) for e in spread.entries], reads,
+        [tuple(batches[table[0]]) for table in plan.tables],
+        [G.version_rows(nows, oldests_pre, oldests_post, card) for card in plan.cards],
+        G.staging_slots(S), exchange, timeout_s, phase_ns=phase_ns,
+    )
+    dev0 = spread.entries[0].device
+    pressures = lead_pressures(plan, [out.pressures for out in outs], dev0)
+    status = None
+    if plan.exchange is not None:
+        status = torch.cat([out.status.to(dev0, non_blocking=True) for out in outs])
+    return outs[0].verdicts, pressures, status
+
+
+def lead_pressures(plan, pressures: list, device) -> torch.Tensor:
+    """The per-batch pressures [G, P, 2] of a spread's group from each
+    card's launch (``pressures[c]`` [E_c, G, k, 2], every entry of card
+    c's table): those of replica 0 of every row (``plan.rows``), one copy
+    a card that holds any to ``device``, put in row order."""
+    parts, order = [], []
+    for x, rows in zip(pressures, plan.rows):
+        if rows:
+            parts.append(_take(x, [p for p, _r in rows]).to(device, non_blocking=True))
+            order += [r for _p, r in rows]
+    stacked = torch.cat(parts) if len(parts) > 1 else parts[0]  # [rows, G, k, 2]
+    stacked = _take(stacked, sorted(range(len(order)), key=order.__getitem__))
+    return stacked.permute(1, 0, 2, 3).reshape(stacked.shape[1], -1, 2)
+
+
+def _take(t: torch.Tensor, idx: list) -> torch.Tensor:
+    """``t[idx]`` along the first axis without waiting for the card: a
+    view where ``idx`` is evenly spaced (every layout of one card, rows of
+    replicas), else an index copied from pinned memory (a Python list as an
+    index is a pageable copy, which waits for the stream)."""
+    if idx == list(range(t.shape[0])):
+        return t
+    step = idx[1] - idx[0] if len(idx) > 1 else 1
+    if step > 0 and idx == list(range(idx[0], idx[0] + step * len(idx), step)):
+        return t[idx[0] : idx[-1] + 1 : step]
+    index = torch.tensor(idx, dtype=torch.long)
+    if t.is_cuda:
+        index = index.pin_memory().to(t.device, non_blocking=True)
+    return t.index_select(0, index)
 
 
 def resolve_many_sharded(states, batches: G.Batch, nows, oldests_pre,

@@ -34,8 +34,9 @@ from __future__ import annotations
 
 from ..conflict.api import Verdict
 from ..conflict.failover import DEVICE_BACKENDS, GuardedConflictSet, KernelFailedError
-from ..conflict.errors import as_kernel_fault
+from ..conflict.errors import ConflictSetClosedError, as_kernel_fault
 from ..conflict.faults import KernelFaultError, KernelTimeoutError
+from ..net.sim import BrokenPromise
 from ..runtime.futures import Future, VersionGate, delay
 from ..runtime.knobs import Knobs
 from ..runtime.buggify import buggify
@@ -45,6 +46,16 @@ from ..runtime.trace import SevInfo, SevWarn, emit_span, span, trace
 from .interfaces import ResolveBatchReply, ResolveBatchRequest, Tokens, Version
 
 _TIMED_OUT = object()  # timeout() sentinel (None is a legal future value)
+
+
+class ResolverRetired(BrokenPromise, ConflictSetClosedError):
+    """A resolve that was in flight when its resolver was retired
+    (``Resolver.close``, at ``worker._destroy``): it ends as a request to a
+    destroyed role's endpoint does, in ``BrokenPromise``, which the proxy
+    passes on and a client maps to ``commit_unknown_result`` and retries.
+    The TCP transport carries it as ``broken_promise``. It is also the
+    closed guard's ``ConflictSetClosedError`` that it replaces. (The
+    reference's retired resolver still answers: it has no closed guard.)"""
 
 
 class _Fenced(Exception):
@@ -142,6 +153,8 @@ class Resolver:
                 "reshard_pressure", self.knobs.CONFLICT_RESHARD_PRESSURE
             )
             backend_kw.setdefault("grow_fill", self.knobs.CONFLICT_GROW_FILL)
+            # a spread's bounded wait for another card's H inside a launch
+            backend_kw.setdefault("exchange_timeout", self.knobs.CONFLICT_DISPATCH_DEADLINE)
         # device-fault injection (sim-only): seeded from the sim loop's RNG
         # under the CONFLICT_FAULT_INJECTION knob; chaos soaks arm the
         # named kernel-fault buggify sites through it (conflict/faults.py)
@@ -253,6 +266,10 @@ class Resolver:
         )
         try:
             return await self._resolve_traced(req, rsp, t_total)
+        except ConflictSetClosedError as e:
+            if isinstance(e, ResolverRetired):
+                raise
+            raise ResolverRetired(f"resolver {self.uid} was retired: {e}") from e
         finally:
             rsp.finish()
 
@@ -497,11 +514,15 @@ class Resolver:
 
         return KernelFaultInjector(loop.random.fork())
 
-    async def _deadline_wait(self, fut: Future, deadline: float):
+    async def _deadline_wait(self, fut: Future, deadline: float, stage: str = "", spent: dict | None = None):
         """Await ``fut`` under the batch's dispatch deadline; a miss
         abandons the (possibly wedged) device executor and raises
-        KernelTimeoutError into the recovery path."""
-        budget = deadline - now()
+        KernelTimeoutError into the recovery path. ``spent`` (when given)
+        adds this wait's seconds under ``stage`` (encode, dispatch,
+        collect, stall), and a miss traces ``KernelDeadlineMissed`` with
+        the window's split so far."""
+        t0 = now()
+        budget = deadline - t0
         timed_out = _TIMED_OUT
         if budget > 0:
             from ..runtime.futures import timeout
@@ -509,8 +530,18 @@ class Resolver:
             r = await timeout(fut, budget, default=timed_out)
         else:
             r = timed_out
+        if spent is not None:
+            spent[stage] = spent.get(stage, 0.0) + (now() - t0)
         if r is timed_out:
             self.cs.note_deadline()
+            if spent is not None:
+                n_txns, n_ranges = spent.get("batch", (0, 0))
+                trace(
+                    SevWarn, "KernelDeadlineMissed", self._proc_addr(),
+                    Resolver=self.uid, Stage=stage, Transactions=n_txns, Ranges=n_ranges,
+                    **{f"{k.title().replace('_', '')}Seconds": round(v, 6) for k, v in spent.items()
+                       if k != "batch"},
+                )
             # up before the abandoned thread can run another queued
             # dispatch: those jobs find it and leave the backend alone
             self._fence = True
@@ -520,6 +551,15 @@ class Resolver:
                 f"({self.knobs.CONFLICT_DISPATCH_DEADLINE}s) exceeded"
             )
         return r
+
+    @staticmethod
+    def _real_clock() -> bool:
+        from ..runtime.loop import RealLoop, current_loop
+
+        try:
+            return isinstance(current_loop(), RealLoop)
+        except RuntimeError:
+            return False
 
     def _abandon_executor(self) -> None:
         """A wedged device call may hold the serial executor's thread
@@ -556,6 +596,14 @@ class Resolver:
         knobs = self.knobs
         deadline = now() + knobs.CONFLICT_DISPATCH_DEADLINE
         async_encode = knobs.CONFLICT_ENCODE_THREADS > 0
+        # where the window goes on a real clock (KernelDeadlineMissed): the
+        # batch's size, the encode job's own seconds once it is done, and
+        # each wait. A simulation's misses are its injected stalls, which
+        # its fault trace names already
+        spent = None
+        if self._real_clock():
+            spent = {"batch": (len(txns), sum(len(t.read_conflict_ranges) + len(t.write_conflict_ranges)
+                                              for t in txns))}
 
         # all device-facing conflict-set work runs on one serial executor
         # (RealLoop) or inline (sim): dispatch jobs enqueue in gate order
@@ -575,7 +623,9 @@ class Resolver:
                             lambda: self.cs.encode(txns)
                         )
                     t_need = now()
-                    enc, enc_s = await self._deadline_wait(enc_fut, deadline)
+                    enc, enc_s = await self._deadline_wait(enc_fut, deadline, "encode", spent)
+                    if spent is not None:
+                        spent["encode_job"] = enc_s
                     # encode-overlap evidence: of enc_s seconds of host
                     # encode, only the wait just paid was on the critical
                     # path — the rest hid behind the device scan
@@ -587,7 +637,7 @@ class Resolver:
                         waiter = (
                             Future() if stall == float("inf") else delay(stall)
                         )
-                        await self._deadline_wait(waiter, deadline)
+                        await self._deadline_wait(waiter, deadline, "stall", spent)
 
                     def dispatch(enc=enc, version=req.version, oldest=oldest):
                         self._enter_dispatch(slot)
@@ -607,7 +657,7 @@ class Resolver:
                         )
 
                 handle = await self._deadline_wait(
-                    self._submit(dispatch), deadline
+                    self._submit(dispatch), deadline, "dispatch", spent
                 )
                 break
             except Cancelled:
@@ -642,7 +692,7 @@ class Resolver:
             # injected device stall (sim): the dispatch completes late —
             # or, for a hang, never — and the deadline decides which
             waiter = Future() if stall == float("inf") else delay(stall)
-            await self._deadline_wait(waiter, deadline)
+            await self._deadline_wait(waiter, deadline, "stall", spent)
         if rsp.sampled:
             # kernel phases as child spans: dispatch (encode +
             # device enqueue) vs collect (verdict readback) — the
@@ -653,7 +703,7 @@ class Resolver:
                 attempts=attempt + 1,
             )
         t_collect = now()
-        verdicts = (await self._deadline_wait(self._submit(handle), deadline))[0]
+        verdicts = (await self._deadline_wait(self._submit(handle), deadline, "collect", spent))[0]
         if rsp.sampled:
             emit_span(
                 "Resolver.kernelCollect", self._proc_addr(), rsp,

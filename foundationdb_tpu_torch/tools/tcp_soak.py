@@ -93,7 +93,9 @@ class TcpCluster:
 
     def __init__(self, datadir, config="n_storage=2,replication=1,n_tlogs=1",
                  classes=("storage", "storage", "transaction", "stateless"),
-                 knobs=(), device="cuda"):
+                 knobs=(), device="cuda", trace=False):
+        """``trace``: every server also writes its trace events to
+        ``trace_path(name)`` (fdbserver ``--tracefile``, JSON lines)."""
         self.datadir = datadir
         self.config = config
         self.device = device
@@ -101,12 +103,13 @@ class TcpCluster:
         # --knob flag path) — the bench A/B drivers pin e.g.
         # STORAGE_EPOCH_BATCHING per leg through here
         knob_args = [a for kv in knobs for a in ("--knob", kv)]
+        self.trace = trace
         cport, *wports = free_ports(1 + len(classes))
         self.coord = f"127.0.0.1:{cport}"
         self.procs: dict[str, subprocess.Popen] = {}
         self.spawn_args: dict[str, list] = {}
         args = ["--listen", self.coord, "--role", "coordinator",
-                "--datadir", os.path.join(datadir, "coord")] + knob_args
+                "--datadir", os.path.join(datadir, "coord")] + knob_args + self._trace_args("coord")
         self.spawn_args["coord"] = args
         self.procs["coord"] = spawn_server(args, self.log_path("coord"))
         for port, pclass in zip(wports, classes):
@@ -119,13 +122,20 @@ class TcpCluster:
                 "--config", config,
                 "--datadir", os.path.join(datadir, name),
                 "--device", device,
-            ] + knob_args
+            ] + knob_args + self._trace_args(name)
             self.spawn_args[name] = args
             self.procs[name] = spawn_server(args, self.log_path(name))
+
+    def _trace_args(self, name):
+        return ["--tracefile", self.trace_path(name)] if self.trace else []
 
     def log_path(self, name):
         """Where the server ``name`` writes its output."""
         return os.path.join(self.datadir, f"{name}.log")
+
+    def trace_path(self, name):
+        """Where the server ``name`` writes its trace events (``trace=True``)."""
+        return os.path.join(self.datadir, f"{name}.trace.jsonl")
 
     def output(self, name):
         with open(self.log_path(name), errors="replace") as f:

@@ -8,6 +8,7 @@ Imports no JAX, so it runs on a machine that has only PyTorch:
 """
 
 import random
+import time
 import zlib
 
 import numpy as np
@@ -209,7 +210,8 @@ def test_mesh_backend_on_card_matches_cpu_backend(cuda):
 def test_spread_over_one_card_equals_the_one_stack(cuda):
     """The spread mesh over ``[cuda:0] * 4`` (placement, exchange,
     maintenance, replay) gives the one stack's verdicts and, gathered, its
-    state tensor for tensor; K2 and K6 launch once an entry a batch."""
+    state tensor for tensor; every dispatched group is one launch of the
+    spread's group scan on the card, and no per-batch resolve kernel runs."""
     work = _work(11, batches=16, spread=True)
     kw = dict(key_width=12, capacity=1 << 10, n_parts=4)
     stack = TorchMeshConflictSet(**kw)
@@ -222,8 +224,9 @@ def test_spread_over_one_card_equals_the_one_stack(cuda):
     assert len(spread._spread.entries) == 4 and spread._targets == [torch.device("cuda", 0)]
     counts = kernels.launch_counts()
     dispatched = spread.metrics.snapshot()["deviceDispatches"]
+    assert counts["resolve_many_spread"] == dispatched > 0, counts
     for name in ("history_parts", "intra_batch", "stage_parts", "merge_parts"):
-        assert counts[name] == 4 * dispatched, (name, counts)
+        assert counts[name] == 0, (name, counts)
     assert spread.metrics.snapshot()["occupancy"] == stack.metrics.snapshot()["occupancy"]
 
 
@@ -231,8 +234,8 @@ def test_spread_over_one_card_equals_the_one_stack(cuda):
 def test_data_spread_over_one_card_equals_the_one_stack(cuda, rows, n_data):
     """The ``part`` × ``data`` spread over ``[[cuda:0] * data] * rows`` (the
     read slots split and padded, every replica merging) gives the one
-    stack's verdicts and state; every replica stays equal; K2 and K6 launch
-    once an entry a batch."""
+    stack's verdicts and state; every replica stays equal; a group is one
+    launch of the spread's group scan, with no per-batch resolve kernel."""
     work = _work(13, batches=16, spread=True)
     kw = dict(key_width=12, capacity=1 << 10, n_parts=4)
     stack = TorchMeshConflictSet(**kw)
@@ -245,8 +248,9 @@ def test_data_spread_over_one_card_equals_the_one_stack(cuda, rows, n_data):
     assert spread._spread.replicas_equal()
     counts = kernels.launch_counts()
     dispatched = spread.metrics.snapshot()["deviceDispatches"]
+    assert counts["resolve_many_spread"] == dispatched > 0, counts
     for name in ("history_parts", "intra_batch", "stage_parts", "merge_parts"):
-        assert counts[name] == rows * n_data * dispatched, (name, counts)
+        assert counts[name] == 0, (name, counts)
 
 
 def test_data_spread_over_every_card_equals_the_one_stack(cuda):
@@ -1346,3 +1350,160 @@ def test_backends_resolve_a_group_in_one_launch(cuda, backend):
     assert counts["resolve_many"] == on_card.metrics.snapshot()["deviceDispatches"] >= 4
     assert not any(counts[k] for k in ("history", "history_parts", "intra_batch", "stage", "stage_parts",
                                        "merge", "merge_parts")), counts
+
+
+# --- the spread's group scan: one launch a card ----------------------------
+
+SPREAD_LAYOUTS = [(4, 1), (4, 2)]  # part x data rows on one card: [cuda:0] * 4 and 4 x 2 over [cuda:0] * 8
+
+
+def _spread_groups(seed):
+    """Two groups of spread keys at (T, KR, KW) = (64, 2, 2), base 0: a
+    warm-up of 3 random batches, then 4 batches whose second writes 40
+    ranges into one bucket (first byte 0x90) of a 16-bucket partition,
+    past its staging slots. Each: (stacked host Batch, version columns)."""
+    rnd = random.Random(seed)
+
+    def key(i, prefix=None):
+        return bytes([i * 256 // 3000 % 256 if prefix is None else prefix]) + b"%06d" % i
+
+    def txns(n, snap):
+        out = []
+        for _ in range(n):
+            a, c = rnd.randrange(3000), rnd.randrange(3000)
+            reads = [(key(a), key(a + 1 + rnd.randrange(6)))][: rnd.randrange(0, 2)]
+            out.append(CommitTransaction(snap - rnd.randrange(16), reads, [(key(c), key(c + 1 + rnd.randrange(6)))]))
+        return out
+
+    run = [CommitTransaction(30, [], [(key(i, 0x90), key(i + 1, 0x90))]) for i in range(40)]
+    works = [[(txns(60, 10 + g), 20 + g, 0) for g in range(3)],
+             [(txns(60, 25), 40, 0), (run, 41, 0), (txns(60, 27), 42, 1), (txns(60, 30), 43, 2)]]
+    out, horizon = [], 0
+    for work in works:
+        batches, cols = [], [[], [], []]
+        for txs, now, old in work:
+            batches.append(TB.encode_transactions(txs, 12, 0))
+            post = max(horizon, old)
+            for c, x in zip(cols, (now, horizon, post)):
+                c.append(x)
+            horizon = post
+        stacked = TB.stack_batches(batches + [TB.sentinel_batch(64, 2, 2, 3)], 3)
+        out.append((G.Batch(*(x[:-1] for x in stacked)), [np.asarray(c, np.int32) for c in cols]))
+    return out
+
+
+def _spread_run(spread, stacked, cols, fn, **kw):
+    dev = spread.entries[0].device
+    batch = TB.upload(stacked, dev)
+    reads = None
+    if spread.n_data > 1:
+        slices = SH.split_reads(batch.rb, batch.re, spread.n_data)
+        reads = [slices[e.replica] for e in spread.entries]
+    return fn(spread, [batch] * len(spread.entries), *cols, reads, **kw)
+
+
+@pytest.mark.parametrize("rows,n_data", SPREAD_LAYOUTS, ids=["4x1", "4x2"])
+def test_spread_scan_matches_the_loop_of_kernels_and_the_plain_loop(cuda, rows, n_data):
+    """One launch of the spread's group scan on the card (every entry of
+    ``[cuda:0] * 4`` or of 4 x 2 over ``[cuda:0] * 8``): its verdicts,
+    per-batch pressures and every replica's state equal, array by array,
+    those of the loop of standalone kernels on the card and of the plain
+    loop on the CPU, through a group that overflows a partition's staging;
+    no standalone resolve kernel runs on its path."""
+    (warm, warm_cols), (group, cols) = _spread_groups(rows * 10 + n_data)
+    plain = SH.make_spread(rows, 16, 32, 3, [[CPU] * n_data for _ in range(rows)])
+    _spread_run(plain, warm, warm_cols, SH.resolve_many_spread)
+    start = SH.gather_to_numpy(plain)
+    devices = [[cuda] * n_data for _ in range(rows)]
+    got, loop = (SH.spread_from_numpy(*start, devices) for _ in range(2))
+    kernels.reset_launch_counts()
+    v, p, status = _spread_run(got, group, cols, SH.resolve_many_spread)
+    counts = kernels.launch_counts()
+    assert status is None and counts["resolve_many_spread"] == 1, counts
+    assert not any(counts[k] for k in ("history_parts", "intra_batch", "stage_parts", "merge_parts")), counts
+    lv, lp = _spread_run(loop, group, cols, SH.resolve_many_spread_loop)
+    pv, pp, _ = _spread_run(plain, group, cols, SH.resolve_many_spread)
+    for want_v, want_p, want in ((lv, lp, loop), (pv, pp, plain)):
+        _eq(v, want_v)
+        _eq(p, want_p)
+        for a, b in zip(got.entries, want.entries):
+            for x, y in zip(a.states, b.states):
+                _eq(x, y)
+    assert got.replicas_equal()
+    assert int(p[1, :, 0].max()) > G.staging_slots(32)  # the run overflowed staging: the host replays
+
+
+def _two_logical_cards(cuda):
+    """A 4 x 1 spread on the card planned as two cards (entries 0-1 and
+    2-3: card ids 0 and 1, both this card), its group and inputs."""
+    (warm, warm_cols), (group, cols) = _spread_groups(7)
+    plain = SH.make_spread(4, 16, 32, 3, [CPU] * 4)
+    _spread_run(plain, warm, warm_cols, SH.resolve_many_spread)
+    spread = SH.spread_from_numpy(*SH.gather_to_numpy(plain), [cuda] * 4)
+    batch = TB.upload(group, cuda)
+    plan = kernels.spread_plan([0, 0, 1, 1], 1, len(cols[0]), batch.rb.shape[1])
+    entries = [(*e.states, e.plo, e.phi) for e in spread.entries]
+    reads = [(batch.rb, batch.re)] * 4
+    vers = G.version_rows(*cols, cuda)
+    return spread, plan, entries, reads, tuple(batch), vers, (group, cols)
+
+
+def test_spread_exchange_gives_up_on_a_missing_card_and_the_card_serves_on(cuda):
+    """A two-card plan with only card 0's launch queued: its wait for card
+    1's H ends at the bound given, the launch sets its status and leaves,
+    ``check_spread_status`` raises the exchange timeout (a kernel fault),
+    and the card then serves the next launch."""
+    spread, plan, entries, reads, batch, vers, (group, cols) = _two_logical_cards(cuda)
+    exchange = kernels.SpreadExchange()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = kernels.spread_launch(plan, 0, entries, reads, batch, vers, G.staging_slots(32), exchange,
+                                    exchange.next_epoch(), timeout_s=0.05)
+        torch.cuda.synchronize()
+        waited = time.perf_counter() - t0
+        assert int(out.status) == 1 and 0.05 <= waited < 5.0, waited
+        with pytest.raises(kernels.ExchangeTimeoutError):
+            kernels.check_spread_status(out.status)
+    finally:
+        exchange.close()
+    fresh = SH.spread_from_numpy(*SH.gather_to_numpy(spread), [cuda] * 4)
+    v, p, status = _spread_run(fresh, group, cols, SH.resolve_many_spread)
+    torch.cuda.synchronize()
+    assert status is None and v.shape == (len(cols[0]), 64)
+
+
+def test_spread_exchange_between_two_launches_on_one_card(cuda, monkeypatch):
+    """The exchange itself, on one card: the two halves of a 4 x 1 spread
+    as two cards, each launch on its own stream with half the SMs, so both
+    are resident together; they publish and read each other's H through
+    the mapped host buffer and give the one launch's verdicts, pressures
+    and states, status clear."""
+    spread, plan, entries, reads, batch, vers, _ = _two_logical_cards(cuda)
+    one = SH.spread_from_numpy(*SH.gather_to_numpy(spread), [cuda] * 4)
+    one_plan = kernels.spread_plan([cuda] * 4, 1, vers.shape[1], batch[0].shape[1])
+    want = kernels.resolve_many_spread(one_plan, [(*e.states, e.plo, e.phi) for e in one.entries], reads,
+                                       [batch], [vers], G.staging_slots(32))[0]
+    half = torch.cuda.get_device_properties(cuda).multi_processor_count // 2
+    plan_on = kernels._plan_on  # each launch on half the SMs, so both are resident together
+    monkeypatch.setattr(kernels, "_plan_on", lambda *a, **kw: plan_on(*a, **kw)._replace(blocks=half))
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    exchange = kernels.SpreadExchange()
+    try:
+        torch.cuda.synchronize()
+        epoch = exchange.next_epoch()
+        outs = []
+        for c in range(2):
+            with torch.cuda.stream(streams[c]):
+                outs.append(kernels.spread_launch(plan, c, entries, reads, batch, vers, G.staging_slots(32),
+                                                  exchange, epoch, timeout_s=2.0))
+        torch.cuda.synchronize()
+    finally:
+        exchange.close()
+    assert [int(o.status) for o in outs] == [0, 0]
+    for o in outs:
+        _eq(o.verdicts, want.verdicts)
+    _eq(torch.cat([o.pressures for o in outs]), want.pressures)
+    for a, b in zip(spread.entries, one.entries):
+        for x, y in zip(a.states, b.states):
+            _eq(x, y)
