@@ -71,17 +71,24 @@ card). Phases, each of which raises on failure:
    K6 history, K2, K6 staging and K6 merge never, K7 reshard and rebase
    launched, every group the path resolved equal (verdicts, per-batch
    pressures, every entry's state) to the loop of standalone kernels from
-   the state it started from, card memory back after ``close()``; the
-   last full group's launch equal to the plain loop on the card
-   (``plain_spread_group``) and timed beside it and the loop, its bound
-   the busiest card's share of the work (its kernel row), and one
-   ``{"spread_phases": ...}`` line from its
-   per-phase timer (the exchange of H its own phase), the profile line;
-   (c) where more than one card is visible, K6 history and K5 launched on
+   the state it started from, card memory back after ``close()``, and
+   over cards that reach each other's memory the exchange on its "peer"
+   transport (each card's inbox in its own memory); the last full group's
+   launch equal to the plain loop on the card (``plain_spread_group``) and
+   timed beside it and the loop, its bound the busiest card's share of the
+   work (its kernel row), one ``{"spread_phases": ...}`` line a card from
+   its per-phase timer (the exchange of H its own phase, split at three
+   points inside it: batch 0, the median and the largest of the rest) with
+   the transport and the group's host wall time; the path's last batch
+   through ``check_built_resolve``, the check phases 13-16 make of what
+   the resolver built (on a spread of several entries its launch, the
+   batch a group of one, against the plain loop on the card, its own
+   row); and the profile line; (c) where more than one card is visible, K6 history and K5 launched on
    the last card, not the current one, against their plain versions; (d)
-   the exchange's bounded wait: a two-card plan with only card 0's launch
-   queued gives up at its bound, and the timeout is a kernel fault; the
-   card serves the next launch. One ``{"spread": ...}`` line;
+   the exchange's bounded wait on the peer transport: a two-card plan with
+   only card 0's launch queued puts its words into card 1's inbox, gives
+   up at its bound, and the timeout is a kernel fault; the card serves
+   the next launch. One ``{"spread": ...}`` line;
 19. right after phase 18, the mesh's ``data`` axis (``Spread`` rows of
    replicas that split the read slots): (a) ``tools.multichip``'s
    ``dryrun_multichip(8)`` over 8 cards or ``[cuda:0] * 8`` (4 partitions
@@ -1661,7 +1668,13 @@ def check_groups_against_loop(groups, label: str) -> int:
     return len(groups)
 
 
-def check_spread_scan(label: str, group, launches: dict, reps: int = 3, row: bool = True) -> dict | None:
+def sync_cards(cards) -> None:
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+
+
+def check_spread_scan(label: str, group, launches: dict, reps: int = 3, row: bool = True,
+                      transport: str | None = None) -> dict | None:
     """The spread's group scan (``sharded.resolve_many_spread``: one launch
     a card) on ``group`` (``capture_groups``' record of one the path
     resolved): against the plain loop on the card (``plain_spread_group``:
@@ -1669,10 +1682,15 @@ def check_spread_scan(label: str, group, launches: dict, reps: int = 3, row: boo
     on fresh clones (CUDA events around the calls, and their device time
     queued behind a sleeping kernel) beside the loop of standalone kernels
     (the yardstick) and the plain loop, with the bound of its work
-    (``spread_bound``: the busiest card's share); then its per-phase timer
-    (``phase_ns``), one ``{"spread_phases": ...}`` line with the
-    exchange's µs a batch. Returns the kernel-table row; without ``row``
-    only the launch's device time and its timer line (None)."""
+    (``spread_bound``: the busiest card's share); then every card's
+    per-phase timer (``phase_ns``, a stamp buffer a card), one
+    ``{"spread_phases": ...}`` line a card: its phases, the exchange's µs a
+    batch split into its segments for batch 0, the median and the largest
+    of the other batches (``kernels.exchange_split``), the transport (the
+    exchange's own choice, or ``transport``), and the group's host wall
+    time (every card synchronised before the call and after it). Returns
+    the kernel-table row; without ``row`` only the launch's device time
+    and its timer lines (None)."""
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict import sharded as SH
     from foundationdb_tpu_torch.runtime.knobs import Knobs
@@ -1681,7 +1699,7 @@ def check_spread_scan(label: str, group, launches: dict, reps: int = 3, row: boo
     n_batches, T, KR, L = batches[0].rb.shape
     KW = batches[0].wb.shape[2]
     cards = before.devices()
-    exchange = kernels.SpreadExchange() if len(cards) > 1 else None
+    exchange = kernels.SpreadExchange(cards, transport) if len(cards) > 1 else None
 
     def launch(s, **kw):
         return SH.resolve_many_spread(s, batches, *cols, reads, exchange=exchange,
@@ -1694,19 +1712,30 @@ def check_spread_scan(label: str, group, launches: dict, reps: int = 3, row: boo
         if row:  # the loop's CUDA events once: queued behind a sleep it outlasts the sleep
             loop = before.clone()
             loop_ms = cuda_ms(lambda: SH.resolve_many_spread_loop(loop, batches, *cols, reads), 1, warmup=0)
-        stamps = torch.zeros((reps, n_batches, len(kernels.SPREAD_PHASES) + 1), dtype=torch.int64,
-                             device=before.entries[0].device)
+        stamps = [torch.zeros((reps, n_batches, kernels.SPREAD_STAMPS), dtype=torch.int64, device=d)
+                  for d in cards]
+        walls = []
         for r in range(reps):
-            launch(before.clone(), phase_ns=stamps[r])
-        torch.cuda.synchronize()
+            s = before.clone()
+            sync_cards(cards)
+            t0 = time.perf_counter()
+            launch(s, phase_ns=[x[r] for x in stamps])
+            sync_cards(cards)
+            walls.append((time.perf_counter() - t0) * 1e3)
     finally:
         if exchange is not None:
             exchange.close()
-    timer = kernels.scan_phase_ms(stamps)
+    transport = None if exchange is None else exchange.transport
     shape = [n_batches, T, KR, KW, L, len(before.entries), len(cards)]
-    log(json.dumps({"spread_phases": {"layout": label, "group": shape, **timer, "device_ms": device_ms,
-                                      "exchange_us_a_batch": timer["phases"]["exchange"] * 1e3 / n_batches,
-                                      "card": card_line()}}))
+    line_card = card_line()
+    timer = kernels.scan_phase_ms(stamps[0])
+    for c, (dev, st) in enumerate(zip(cards, stamps)):
+        t = timer if c == 0 else kernels.scan_phase_ms(st)
+        log(json.dumps({"spread_phases": {
+            "layout": label, "launch": c, "device": str(dev), "transport": transport, "group": shape, **t,
+            "exchange_us_a_batch": t["phases"]["exchange"] * 1e3 / n_batches,
+            "exchange_split_us": kernels.exchange_split(st) if len(cards) > 1 else None,
+            "host_wall_ms": walls, "device_ms": device_ms if c == 0 else None, "card": line_card}}))
     if not row:
         return None
     # the plain loop, on the card, once
@@ -1722,23 +1751,25 @@ def check_spread_scan(label: str, group, launches: dict, reps: int = 3, row: boo
         "replaces": "foundationdb_tpu/conflict/sharded.py:220 (build_sharded_resolver_many; pmax :131-132)",
         "launches": launches.get("resolve_many_spread", 0), "max_abs_err": err, "ms": ms, "device_ms": device_ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "loop_ms": loop_ms,
-        "bound_ms_a_card": b_cards, "group": shape,
+        "bound_ms_a_card": b_cards, "group": shape, "transport": transport, "host_wall_ms": min(walls),
     }
     log(f"  resolve_many_spread, {label} (G={n_batches} T={T} KR={KR} KW={KW} L={L}, {len(before.entries)} entries "
-        f"on {len(cards)} card(s)): {ms:.4f} ms a group (CUDA events; on the device {fmt_ms(device_ms)}), "
-        f"{ms / n_batches:.4f} ms a batch; the loop of standalone kernels {loop_ms:.4f} ms; plain loop "
-        f"{plain_ms:.1f} ms; bound {b_ms:.5f} ms ({b_by}; the busiest of "
-        f"{', '.join(f'{c} {c_ms:.5f}' for c, c_ms in b_cards.items())}); the exchange "
-        f"{timer['phases']['exchange'] * 1e3 / n_batches:.3f} µs a batch; max_abs_err {err}")
+        f"on {len(cards)} card(s), transport {transport}): {ms:.4f} ms a group (CUDA events; on the device "
+        f"{fmt_ms(device_ms)}; host wall {min(walls):.4f} ms), {ms / n_batches:.4f} ms a batch; the loop of "
+        f"standalone kernels {loop_ms:.4f} ms; plain loop {plain_ms:.1f} ms; bound {b_ms:.5f} ms ({b_by}; the "
+        f"busiest of {', '.join(f'{c} {c_ms:.5f}' for c, c_ms in b_cards.items())}); the exchange "
+        f"{timer['phases']['exchange'] * 1e3 / n_batches:.3f} µs a batch on card 0; max_abs_err {err}")
     return out
 
 
 def check_exchange_timeout(card: str) -> dict:
     """Phase 18 (d), on one card: the spread's group scan planned over two
-    cards (entries 0-1 and 2-3 of a 4 x 1 spread, both "cards" this one)
-    with only card 0's launch queued. Its wait for card 1's H must give up
-    at the bound given, set the launch's status and leave;
-    ``check_spread_status`` must raise the exchange timeout, which
+    cards (entries 0-1 and 2-3 of a 4 x 1 spread, both "cards" this one,
+    on the "peer" transport: each inbox on this card) with only card 0's
+    launch queued. Its wait for card 1's H must give up at the bound given,
+    set the launch's status and leave, after putting batch 0's words, with
+    the launch's epoch, into card 1's inbox (and none of card 1's in its
+    own); ``check_spread_status`` must raise the exchange timeout, which
     ``as_kernel_fault`` classifies as a kernel fault; and the card must
     then serve the next launch, its result the loop's."""
     from foundationdb_tpu_torch.conflict import grid as G
@@ -1757,15 +1788,22 @@ def check_exchange_timeout(card: str) -> dict:
     spread = SH.make_spread(4, 256, 32, lanes, [cuda0] * 4)
     plan = kernels.spread_plan([0, 0, 1, 1], 1, 3, group.rb.shape[1])
     entries = [(*e.states, e.plo, e.phi) for e in spread.entries]
-    exchange = kernels.SpreadExchange()
+    exchange = kernels.SpreadExchange([cuda0, cuda0])
     try:
         torch.cuda.synchronize()
+        epoch = exchange.next_epoch()
         t0 = time.perf_counter()
         out = kernels.spread_launch(plan, 0, entries, [(group.rb, group.re)] * 4, tuple(group),
                                     G.version_rows(*cols, cuda0), G.staging_slots(32), exchange,
-                                    exchange.next_epoch(), timeout_s=bound_s)
+                                    epoch, timeout_s=bound_s)
         torch.cuda.synchronize()
         waited = time.perf_counter() - t0
+        lay, T = exchange.layout, group.rb.shape[1]
+        sent = exchange.inbox(1).view(-1)[lay.slot(epoch & 1, 0, 0):][: lay.words]
+        got = exchange.inbox(0).view(-1)[lay.slot(epoch & 1, 0, 1):][: lay.words]
+        if exchange.transport != "peer" or kernels.exchange_bits(sent, epoch, T) is None or got.any():
+            raise AssertionError(f"the exchange ({exchange.transport}): card 0's words in card 1's inbox "
+                                 f"{sent.tolist()}, card 1's in card 0's {got.tolist()} (epoch {epoch})")
     finally:
         exchange.close()
     try:
@@ -1784,9 +1822,10 @@ def check_exchange_timeout(card: str) -> dict:
     if err:
         raise AssertionError(f"after the timeout the spread's group scan differs from the loop ({err})")
     out = {"bound_s": bound_s, "waited_s": waited, "raised": type(raised).__name__, "kernel_fault": True,
-           "next_launch_equal_to_loop": True}
-    log(f"spread exchange timeout: card 0 of a two-card plan alone gave up after {waited:.3f} s (bound "
-        f"{bound_s} s), {type(raised).__name__} is a kernel fault, the next launch equals the loop [{card}]")
+           "transport": "peer", "published": True, "next_launch_equal_to_loop": True}
+    log(f"spread exchange timeout: card 0 of a two-card plan alone (peer transport) published batch 0 into "
+        f"card 1's inbox and gave up after {waited:.3f} s (bound {bound_s} s), {type(raised).__name__} is a "
+        f"kernel fault, the next launch equals the loop [{card}]")
     return out
 
 
@@ -1825,6 +1864,54 @@ def check_upgrade(n_cards: int) -> str:
         cs.close()
 
 
+def layout_label(devices) -> str:
+    """A spread layout's name: its rows x replicas where rows have several,
+    its entries and its distinct cards."""
+    from foundationdb_tpu_torch.conflict import sharded as SH
+
+    rows_of = SH.device_grid(devices)
+    flat = [d for row in rows_of for d in row]
+    shape = f"{len(rows_of)} x {len(rows_of[0])} " if len(rows_of[0]) > 1 else ""
+    return f"{shape}{len(flat)} entries on {', '.join(str(d) for d in dict.fromkeys(flat))}"
+
+
+def exchange_only(card: str, reps: int = 5) -> None:
+    """The spread's launch alone, for an A/B of two checkouts of its
+    exchange (``--exchange-only``): the first two groups of phase 7's
+    workload (spread keys, 40 x 2500) through the spread mesh on
+    ``[cuda:0] * 4``, on 4 x 2 over ``[cuda:0] * 8`` and, where there are
+    more cards, one partition a card over all of them; every group equal to
+    the loop of standalone kernels, then the last group's launch timed
+    (``check_spread_scan`` without its row: its device time, every card's
+    timer line with the exchange's split, the host wall), over several
+    cards on the exchange's own transport and then on "host"."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
+
+    offset = (1 << 30) - 1 - (2 * GROUP + WINDOW)
+    batches = make_batches(2 * GROUP, N_TXNS, offset, key=spread_key)
+    n = torch.cuda.device_count()
+    cuda0 = torch.device("cuda", 0)
+    layouts = [([cuda0] * 4, 4), ([[cuda0] * 2 for _ in range(4)], 4)]
+    if n > 1:
+        layouts.append(([torch.device("cuda", i) for i in range(n)], n))
+    for devices, n_parts in layouts:
+        label = layout_label(devices)
+        cs = TorchMeshConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY, n_parts=n_parts, devices=devices)
+        cs.warm_compile()
+        groups = capture_groups(cs)
+        kernels.reset_launch_counts()
+        drive(cs, batches, offset)
+        sync_cards(cs._targets)
+        del cs._resolve
+        checked = check_groups_against_loop(groups, label)
+        log(f"spread ({label}): its {checked} groups equal to the loop of standalone kernels [{card}]")
+        for transport in (None, "host") if len(cs._targets) > 1 else (None,):
+            check_spread_scan(label, groups[-1], kernels.launch_counts(), reps=reps, row=False, transport=transport)
+        groups.clear()
+        cs.close()
+
+
 def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: str,
                 maintenance: bool = True, profile: bool = True, checks: bool = True) -> dict:
     """Phase 18 (b), one layout, and phase 19 (b) and (c): the spread mesh
@@ -1834,17 +1921,18 @@ def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: 
     verdict the oracle's, live rows in every partition, one launch of the
     spread's group scan a card a group and no per-batch resolve kernel,
     every group equal to the loop of standalone kernels from the state it
-    started from, the replicas equal. With ``maintenance`` (phase 7's 200
+    started from, the replicas equal, and over cards that reach each
+    other's memory the exchange on the "peer" transport. With ``checks``
+    True, the path's last batch also goes through ``check_built_resolve``
+    on the spread as the path left it. With ``maintenance`` (phase 7's 200
     batches), a partition reshard is forced before group 2 and the versions
     cross the rebase, and both must have launched."""
     from foundationdb_tpu_torch.conflict import kernels
     from foundationdb_tpu_torch.conflict import sharded as SH
+    from foundationdb_tpu_torch.conflict import torch_backend as TB
     from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
 
-    rows_of = SH.device_grid(devices)
-    flat = [d for row in rows_of for d in row]
-    shape = f"{len(rows_of)} x {len(rows_of[0])} " if len(rows_of[0]) > 1 else ""
-    label = f"{shape}{len(flat)} entries on {', '.join(str(d) for d in dict.fromkeys(flat))}"
+    label = layout_label(devices)
     cs = TorchMeshConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY, n_parts=n_parts, devices=devices)
     cs.warm_compile()
     for dev in cs._targets:
@@ -1878,11 +1966,15 @@ def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: 
         raise AssertionError(f"spread ({label}): maintenance never launched: {missing}, {snap['rebases']} rebases")
     if not cs._spread.replicas_equal():
         raise AssertionError(f"spread ({label}): the data replicas of a row differ")
+    transport = snap.get("exchangeTransport")  # only where the spread exchanges across cards
+    if n_cards > 1 and kernels.exchange_transport(kernels.peer_matrix(cs._targets)) == "peer" != transport:
+        raise AssertionError(f"spread ({label}): its cards have peer access, its exchange went through {transport}")
     t1 = time.perf_counter()
     checked = check_groups_against_loop(groups, label)
     txns = sum(len(b) for b in batches)
     out = {"layout": label, "entries": entries, "cards": n_cards, "part_rows": cs._spread.n_rows,
-           "data": cs._spread.n_data, "n_parts": n_parts, "batches": n, "wall_s": wall, "encode_s": encode_s,
+           "data": cs._spread.n_data, "n_parts": n_parts, "transport": transport, "batches": n, "wall_s": wall,
+           "encode_s": encode_s,
            "txn_s": txns / wall, "txn_s_without_encode": txns / max(wall - encode_s, 1e-9),
            "live_rows": per_part, "launches": launches, "replicas_equal": True,
            "groups_equal_to_loop": checked, "loop_check_s": time.perf_counter() - t1,
@@ -1900,6 +1992,12 @@ def spread_path(devices, n_parts: int, batches, want_oracle, offset: int, card: 
     if checks:
         got_row = check_spread_scan(label, full[-1], launches, row=checks != "timer")
         out["rows"] = [got_row] if got_row else []
+    if checks is True and entries > 1:  # what the resolver paths' kernel checks hold on this spread
+        base = cs._origin[1]
+        old = max(cs.oldest_version - base, 0)
+        hbatch = TB.encode_transactions(batches[-1], KEY_WIDTH, base)
+        out["rows"] += check_built_resolve(resolver_state(cs), hbatch, (old + WINDOW, old, old), launches,
+                                           f" ({label}, its last batch)")
     _before, last, last_reads = full[-1][:3]
     out["shape"] = [*last[0].rb.shape[1:], last[0].wb.shape[2],  # T, KR, L, KW, the slice's KR
                     (last_reads[0][0] if last_reads else last[0].rb).shape[2]]
@@ -3724,25 +3822,66 @@ def torch_built(backend: str = "torch") -> dict:
 
 def resolver_state(cs):
     """A snapshot of a device conflict set's state for the kernel rows: the
-    one grid's state, or the first entry's stacked partitions of a spread
-    with their bounds (cloned, so later batches leave it as it was)."""
+    one grid's state, the one stack's partitions with their bounds, or the
+    whole spread where it has several entries (cloned, so later batches
+    leave it as it was)."""
     from foundationdb_tpu_torch.conflict import grid as G
 
     spread = getattr(cs, "_spread", None)
     if spread is None:
         return {"state": G.clone_state(cs._state)}
+    if len(spread.entries) > 1:
+        return {"spread": spread.clone()}
     e = spread.entries[0]
     return {"state": G.clone_state(e.states), "bounds": (e.plo, e.phi)}
+
+
+def check_built_spread(spread, hbatch, vers, launches: dict, label: str) -> dict:
+    """What a spread of several entries launches for a batch: the batch as
+    a group of one through ``sharded.resolve_many_spread`` on the whole
+    spread (one launch a card, H exchanged across its cards), held exactly
+    to ``plain_spread_group`` and timed by ``check_spread_scan``."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict import sharded as SH
+    from foundationdb_tpu_torch.conflict import torch_backend as TB
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+
+    uploaded = {}
+    for dev in spread.devices():
+        b = TB.upload(hbatch, dev)
+        uploaded[dev] = type(b)(*(x[None].contiguous() for x in b))
+    batches = [uploaded[e.device] for e in spread.entries]
+    reads = None
+    if spread.n_data > 1:
+        reads = [SH.split_reads(b.rb, b.re, spread.n_data)[e.replica] for e, b in zip(spread.entries, batches)]
+    cols = [[v] for v in vers]
+    cards = spread.devices()
+    before, after = spread.clone(), spread.clone()
+    exchange = kernels.SpreadExchange(cards) if len(cards) > 1 else None
+    try:
+        out = SH.resolve_many_spread(after, batches, *cols, reads, exchange=exchange,
+                                     timeout_s=Knobs.CONFLICT_DISPATCH_DEADLINE)
+        sync_cards(cards)
+    finally:
+        if exchange is not None:
+            exchange.close()
+    if out[2] is not None:
+        kernels.check_spread_status(out[2].cpu())
+    return check_spread_scan(f"the batch as a group of one{label}", (before, batches, reads, cols, out, after),
+                             launches)
 
 
 def check_built_resolve(snap: dict, hbatch, vers, launches: dict, label: str = "") -> list[dict]:
     """The resolve kernels of one batch held to their plain versions on
     ``resolver_state``'s snapshot: on the one grid K1-K3 and the scan
     (the batch as a group of one, against the loop of those kernels and
-    the plain loop); K6 history, K2, the K6 staging and merge on a
-    spread's first entry."""
+    the plain loop); on one stack K6 history, K2, the K6 staging and
+    merge; on a spread of several entries its launch, the path's
+    (``check_built_spread``)."""
     from foundationdb_tpu_torch.conflict import torch_backend as TB
 
+    if "spread" in snap:
+        return [check_built_spread(snap["spread"], hbatch, vers, launches, label)]
     if "bounds" not in snap:
         rows, batch, _ck, _st = check_resolve_kernels(snap["state"], hbatch, vers, launches)
         group = type(batch)(*(x[None] for x in batch))
@@ -3752,6 +3891,8 @@ def check_built_resolve(snap: dict, hbatch, vers, launches: dict, label: str = "
     dev = snap["state"].grid.device
     with torch.cuda.device(dev):
         return check_parts_resolve(snap["state"], TB.upload(hbatch, dev), snap["bounds"], vers, launches, k2=True)
+
+
 # trace events of the transcript: the recovery's, the roles' and data
 # distribution's (none carries a host value)
 DYN_EVENTS = ("MasterRecoveryState", "MasterFullyRecovered", "RoleRecruited", "RoleDestroyed",
@@ -5977,6 +6118,9 @@ def main() -> int:
                     help="phases 1, 2 and phase 5's group scan cases alone, then groups of one at the "
                          "commit path's, the dynamic cluster's and the soak's widest shapes, each with "
                          "its per-phase timer line")
+    ap.add_argument("--exchange-only", action="store_true",
+                    help="phases 1, 2 and the spread's launch alone on two groups of phase 7's workload, "
+                         "each layout's last group timed card by card (an A/B of the cross-card exchange)")
     ap.add_argument("--tcp-only", action="store_true",
                     help="phases 1, 2 and 16 alone: the card, the kernels' build and the "
                          "real-process cluster")
@@ -6029,7 +6173,8 @@ def main() -> int:
     offset = (1 << 30) - 1 - (2 * GROUP + WINDOW)
     # phase 3's references, in two spawned child processes from here on, so
     # that they run beside the build (a whole run only)
-    only = args.spread_only or args.data_only or args.scan_only or args.tcp_only or args.btree_only
+    only = (args.spread_only or args.data_only or args.scan_only or args.tcp_only or args.btree_only
+            or args.exchange_only)
     references = None if only else start_references(offset)
 
     # 2. build every kernel from the checkout's sources
@@ -6047,6 +6192,10 @@ def main() -> int:
         log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
         log(json.dumps({"kernels": path_rows(rows)}))
         log(card)
+        return 0
+    if args.exchange_only:
+        exchange_only(card)
+        log(f"script: {time.perf_counter() - t_script:.1f} s [{card}]")
         return 0
     if args.scan_only:
         scan_only(card)

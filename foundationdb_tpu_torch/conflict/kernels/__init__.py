@@ -12,8 +12,10 @@ read by the kernels as uint32. ``resolve_many`` is the group scan: a whole
 group of batches through K1/K6 history, K2 and K3 in one cooperative
 launch (``csrc/scan.cu``), planned by ``scan_plan``; ``resolve_many_spread``
 is the same scan over every entry of a spread on a card, one launch a card
-(``spread_plan``), the cards' history verdicts exchanged inside the
-launches through a ``SpreadExchange``.
+(``spread_plan``), every card's launch prepared before any is issued, the
+cards' history verdicts exchanged inside the launches through a
+``SpreadExchange`` (each card's inbox in its own memory over NVLink, or in
+mapped host memory where the cards lack peer access).
 """
 
 from __future__ import annotations
@@ -589,26 +591,62 @@ SCAN_PHASES = ("superblock maxima", "history + K2 overlap", "K2 chain", "verdict
                "sort tiles", "merge passes", "aggregation", "K3 merge + floor raise")  # csrc/scan.cu kScanPhases
 # a spread's launch stamps the exchange of H across cards apart (zero time on one card)
 SPREAD_PHASES = SCAN_PHASES[:2] + ("exchange",) + SCAN_PHASES[2:]
+# and three points inside the exchange, after the phase boundaries (csrc/scan.cu kExchangePoints)
+EXCHANGE_POINTS = ("published", "peers seen", "H ORed")
+SPREAD_STAMPS = len(SPREAD_PHASES) + 1 + len(EXCHANGE_POINTS)  # a spread's stamps a batch
+# the exchange's segments: its start, the points, the grid barrier that ends it
+EXCHANGE_SEGMENTS = ("publish", "wait", "OR", "barrier")
+
+
+def _stamp_runs(stamps: torch.Tensor) -> torch.Tensor:
+    """The stamps as [runs, G, columns] int64 on the host."""
+    s = stamps.detach().cpu()
+    return s[None] if s.dim() == 2 else s
 
 
 def scan_phase_ms(stamps: torch.Tensor) -> dict:
     """The per-phase timer's stamps (int64 [G, len(SCAN_PHASES) + 1] of
-    ``resolve_many(..., phase_ns=)``, or [G, len(SPREAD_PHASES) + 1] of
-    ``resolve_many_spread``: the card's nanosecond clock at each phase
-    boundary of each batch, or several such runs stacked [R, G, ...]) as ms
-    a group: each phase's time summed over the group's batches (the mean
-    over the runs), and their total."""
-    s = stamps.detach().cpu()
-    if s.dim() == 2:
-        s = s[None]
-    names = {len(SCAN_PHASES) + 1: SCAN_PHASES, len(SPREAD_PHASES) + 1: SPREAD_PHASES}.get(s.shape[-1])
+    ``resolve_many(..., phase_ns=)``, or [G, SPREAD_STAMPS] of a card's
+    launch of ``resolve_many_spread``: the card's nanosecond clock at each
+    phase boundary of each batch, then a spread's points inside the
+    exchange, or several such runs stacked [R, G, ...]) as ms a group: each
+    phase's time summed over the group's batches (the mean over the runs),
+    and their total."""
+    s = _stamp_runs(stamps)
+    names = {len(SCAN_PHASES) + 1: SCAN_PHASES, SPREAD_STAMPS: SPREAD_PHASES}.get(s.shape[-1])
     if s.dim() != 3 or names is None:
-        raise ValueError(f"stamps must be [G, {len(SCAN_PHASES) + 1}] or [G, {len(SPREAD_PHASES) + 1}], or "
+        raise ValueError(f"stamps must be [G, {len(SCAN_PHASES) + 1}] or [G, {SPREAD_STAMPS}], or "
                          f"runs of them stacked, got {tuple(stamps.shape)}")
+    s = s[..., : len(names) + 1]
     # differences in int64 first: a stamp (ns since the epoch) needs 61 bits
     ms = (s[..., 1:] - s[..., :-1]).sum(dim=1).to(torch.float64).mean(dim=0) / 1e6
     phases = dict(zip(names, ms.tolist()))
     return {"phases": phases, "total_ms": float(ms.sum()), "batches": int(s.shape[1])}
+
+
+def exchange_split(stamps: torch.Tensor) -> dict:
+    """A card's exchange of H from its spread stamps ([G, SPREAD_STAMPS] or
+    runs of them stacked), in µs a batch: the whole phase and its segments
+    (``EXCHANGE_SEGMENTS``: the words published, the wait for the last
+    card's, the OR into H, the grid barrier after it), for batch 0 alone
+    (the mean over the runs; its wait holds the cards' start-up skew), and
+    the median and the largest over the other batches of every run (the
+    transport's own cost a batch). Only differences of one card's clock."""
+    s = _stamp_runs(stamps)
+    if s.dim() != 3 or s.shape[-1] != SPREAD_STAMPS:
+        raise ValueError(f"stamps must be [G, {SPREAD_STAMPS}] or runs of them stacked, got {tuple(stamps.shape)}")
+    n = len(SPREAD_PHASES) + 1
+    cols = [2, n, n + 1, n + 2, 3]  # the exchange's start, its three points, its end
+    at = s[..., cols]
+    seg = (at[..., 1:] - at[..., :-1]).to(torch.float64) / 1e3  # [R, G, 4] µs
+    seg = torch.cat([seg, seg.sum(dim=-1, keepdim=True)], dim=-1)
+    names = EXCHANGE_SEGMENTS + ("total",)
+    out = {"batch0": dict(zip(names, seg[:, 0].mean(dim=0).tolist()))}
+    rest = seg[:, 1:].reshape(-1, len(names))
+    if rest.shape[0]:
+        out["median_rest"] = dict(zip(names, rest.median(dim=0).values.tolist()))
+        out["max_rest"] = dict(zip(names, rest.max(dim=0).values.tolist()))
+    return out
 
 
 @_counted
@@ -674,29 +712,54 @@ def resolve_many(pivots, grid, count, bmax, floor, bounds, rb, re, wb, we, t_sna
 
 
 MAX_CARD_ENTRIES = 32  # entries of a spread on one card (csrc/scan.cu kMaxEntries)
+MAX_CARDS = 32  # cards of a spread's exchange (csrc/scan.cu kMaxCards)
 
 
 class ExchangeLayout(NamedTuple):
-    """The exchange buffer of a spread over ``cards`` cards (int32 words of
-    mapped host memory): for each launch parity, batch and card a flag (the
-    epoch of the launch that published the slot) and a slot of ``words``
-    words holding H's T bits."""
+    """Each card's inbox in the exchange of a spread over ``cards`` cards:
+    for each launch parity, batch and sending card a slot of ``words``
+    64-bit words, each (the sending launch's epoch << 32 | 32 bits of its
+    H), transaction 32 w + b at bit b of word w (``exchange_words``)."""
 
     cards: int
     slots: int  # batches a parity (a group's G at most)
-    words: int  # words of one slot: ceil(T / 32), padded to 16 bytes
-    flags: tuple  # (offset, words): [2, slots, cards] int32
-    data: tuple  # (offset, words): [2, slots, cards, words] uint32
-    total: int  # int32 words
+    words: int  # 64-bit words of one slot: ceil(T / 32), padded to 16 bytes
+    inbox: int  # 64-bit words of one card's inbox: [2, slots, cards, words]
+
+    def slot(self, parity: int, g: int, sender: int) -> int:
+        """The offset (64-bit words) in an inbox of the slot in which card
+        ``sender`` puts batch ``g``'s bits in a launch of ``parity``."""
+        return ((parity * self.slots + g) * self.cards + sender) * self.words
 
 
 def exchange_layout(n_cards: int, G: int, T: int) -> ExchangeLayout:
-    """The exchange buffer for groups of up to G batches of T transactions
-    over ``n_cards`` cards."""
-    words = -(-(-(-T // 32)) // 4) * 4
-    n_flags = -(-2 * G * n_cards // 4) * 4
-    n_data = 2 * G * n_cards * words
-    return ExchangeLayout(n_cards, G, words, (0, n_flags), (n_flags, n_data), n_flags + n_data)
+    """The inboxes for groups of up to G batches of T transactions over
+    ``n_cards`` cards."""
+    words = -(-(-(-T // 32)) // 2) * 2
+    return ExchangeLayout(n_cards, G, words, 2 * G * n_cards * words)
+
+
+def exchange_words(epoch: int, H: torch.Tensor) -> torch.Tensor:
+    """A card's slot as its launch publishes it (the plain version of the
+    kernel's pack): H's bits (bool [T]) 32 to a word, each word (epoch << 32
+    | bits) as int64 [ceil(T / 32)]."""
+    T = H.shape[0]
+    W = -(-T // 32)
+    bits = torch.zeros(32 * W, dtype=torch.int64)
+    bits[:T] = H.to(torch.int64)
+    word = (bits.view(W, 32) << torch.arange(32, dtype=torch.int64)).sum(dim=1)
+    return word | (int(epoch) << 32)
+
+
+def exchange_bits(words: torch.Tensor, epoch: int, T: int) -> torch.Tensor | None:
+    """A slot read back (the plain version of the kernel's poll and unpack):
+    the T bits (bool [T]) of its first ceil(T / 32) words, or None where a
+    word does not carry ``epoch`` (not published yet in that launch)."""
+    w = words[: -(-T // 32)].to(torch.int64)
+    if not bool(((w >> 32) == int(epoch)).all()):
+        return None
+    bits = ((w & 0xFFFFFFFF)[:, None] >> torch.arange(32, dtype=torch.int64)) & 1
+    return bits.reshape(-1)[:T].bool()
 
 
 class SpreadPlan(NamedTuple):
@@ -713,61 +776,149 @@ def spread_plan(cards: list, n_data: int, G: int, T: int) -> SpreadPlan:
     (one item an entry: a device, or any id of the card the entry's launch
     runs on), ``n_data`` replicas a row (entry i is replica i % n_data of
     row i // n_data): one launch a distinct card, its entry table, the rows
-    of the pressures [G, P, 2] its replica-0 entries give, and the exchange
-    buffer where there is more than one card. Runs without a card."""
+    of the pressures [G, P, 2] its replica-0 entries give, and the inboxes
+    of the exchange where there is more than one card. Runs without a
+    card."""
     if not cards or len(cards) % n_data:
         raise ValueError(f"{len(cards)} entries do not make rows of {n_data} replicas")
     order = list(dict.fromkeys(cards))
     tables = [[i for i, c in enumerate(cards) if c == card] for card in order]
     if max(map(len, tables)) > MAX_CARD_ENTRIES:
         raise ValueError(f"{max(map(len, tables))} entries on one card: the scan takes {MAX_CARD_ENTRIES}")
+    if len(order) > MAX_CARDS:
+        raise ValueError(f"{len(order)} cards: the exchange takes {MAX_CARDS}")
     rows = tuple(tuple((pos, i // n_data) for pos, i in enumerate(table) if i % n_data == 0) for table in tables)
     layout = exchange_layout(len(order), G, T) if len(order) > 1 else None
     return SpreadPlan(tuple(order), tuple(map(tuple, tables)), rows, layout)
 
 
-class SpreadExchange:
-    """The mapped, pinned host buffer through which the cards of one spread
-    exchange H inside their launches, and the spread's launch counter (the
-    epoch a launch marks its slots with, so an earlier launch's slot is
-    never read as this one's). A buffer too small for a group is replaced,
-    and kept until ``close``, since launches in flight may still use it."""
+TRANSPORTS = ("peer", "host")
 
-    def __init__(self):
+
+def exchange_transport(peer) -> str | None:
+    """The exchange's route for a spread whose cards reach each other as
+    ``peer`` says (``peer[i][j]``: card i can store into card j's memory;
+    the diagonal is not read): each card's inbox in its own memory, stored
+    into over NVLink, where every ordered pair of distinct cards can
+    ("peer"), else one buffer of mapped host memory ("host"); None for one
+    card, which exchanges nothing."""
+    n = len(peer)
+    if n < 2:
+        return None
+    return "peer" if all(peer[i][j] for i in range(n) for j in range(n) if i != j) else "host"
+
+
+def peer_matrix(devices: list) -> list:
+    """``exchange_transport``'s matrix for the cards ``devices`` (a list
+    that may name a card twice, as the one-card plans of the tests do: a
+    card reaches its own memory), from cudaDeviceCanAccessPeer."""
+    out = []
+    for a in devices:
+        row = []
+        for b in devices:
+            can = ctypes.c_int(1)
+            if a != b:
+                with torch.cuda.device(a):
+                    _run("fdb_peer_access", b.index, 0, ctypes.byref(can))
+            row.append(bool(can.value))
+        out.append(row)
+    return out
+
+
+def _card(d) -> torch.device:
+    """``d`` as a card with its index (``cuda`` alone: the current one)."""
+    d = torch.device(d)
+    return torch.device("cuda", torch.cuda.current_device()) if d.index is None else d
+
+
+class SpreadExchange:
+    """The inboxes through which the cards of one spread exchange H inside
+    their launches, and the spread's launch counter (the epoch a launch
+    marks its words with, so an earlier launch's word is never read as this
+    one's). ``devices`` is each card of the spread's plan, in its order (a
+    card may appear twice: two launches on one card). The transport is
+    chosen once, here, from the cards' peer matrix (``exchange_transport``)
+    unless ``transport`` names one: "peer" enables peer access between
+    every pair of distinct cards (already enabled counts) and puts each
+    inbox in its own card's memory; "host" puts them in one buffer of
+    mapped, pinned host memory. Asking for "peer" where a pair refuses it
+    raises. Inboxes too small for a group are replaced, and kept until
+    ``close``, since launches in flight may still use them."""
+
+    def __init__(self, devices: list, transport: str | None = None):
+        self.devices = [_card(d) for d in devices]
+        chosen = exchange_transport(peer_matrix(self.devices))
+        if transport is None:
+            transport = chosen
+        if transport not in TRANSPORTS or (transport == "peer" and chosen != "peer"):
+            raise ValueError(f"transport {transport!r} over {[str(d) for d in self.devices]} "
+                             f"(their peer access gives {chosen!r})")
+        if transport == "peer":
+            can = ctypes.c_int()
+            for a in dict.fromkeys(self.devices):
+                for b in dict.fromkeys(self.devices):
+                    if a != b:
+                        with torch.cuda.device(a):
+                            _run("fdb_peer_access", b.index, 1, ctypes.byref(can))
+        self.transport = transport
         self.epoch = 0
         self.layout: ExchangeLayout | None = None
-        self.ptr: int | None = None
-        self._buffers: list = []  # every buffer allocated, the current last
-        self._devices: set = set()
+        self.inboxes: list | None = None  # each card's inbox address
+        self._buffers: list = []  # (device or None for host memory, address), the current ones last
 
-    def reserve(self, layout: ExchangeLayout, devices) -> int:
-        """The buffer's address, large enough for ``layout`` (zeroed when
-        new), used by the cards ``devices``."""
+    def reserve(self, layout: ExchangeLayout) -> list:
+        """Each card's inbox address, large enough for ``layout`` (zeroed
+        when new)."""
+        if layout.cards != len(self.devices):
+            raise ValueError(f"the exchange holds {len(self.devices)} cards, the plan {layout.cards}")
         cur = self.layout
-        if cur is None or cur.cards != layout.cards or cur.slots < layout.slots or cur.words < layout.words:
-            if cur is not None and cur.cards == layout.cards:  # grown, never shrunk
+        if cur is None or cur.slots < layout.slots or cur.words < layout.words:
+            if cur is not None:  # grown, never shrunk
                 layout = exchange_layout(layout.cards, max(layout.slots, cur.slots), 32 * max(layout.words, cur.words))
+            nbytes = 8 * layout.inbox
             out = ctypes.c_void_p()
-            _run("fdb_host_alloc", ctypes.c_longlong(4 * layout.total), ctypes.byref(out))
-            self.ptr, self.layout = out.value, layout
-            self._buffers.append(out.value)
-        self._devices.update(devices)
-        return self.ptr
+            if self.transport == "host":
+                _run("fdb_host_alloc", ctypes.c_longlong(nbytes * layout.cards), ctypes.byref(out))
+                self._buffers.append((None, out.value))
+                self.inboxes = [out.value + c * nbytes for c in range(layout.cards)]
+            else:
+                self.inboxes = []
+                for dev in self.devices:
+                    with torch.cuda.device(dev):
+                        _run("fdb_dev_alloc", ctypes.c_longlong(nbytes), ctypes.byref(out))
+                    self._buffers.append((dev, out.value))
+                    self.inboxes.append(out.value)
+            self.layout = layout
+        return self.inboxes
 
     def next_epoch(self) -> int:
         self.epoch += 1
         return self.epoch
 
+    def inbox(self, c: int) -> torch.Tensor:
+        """A copy of card ``c``'s inbox (int64 [2, slots, cards, words] on the
+        CPU), once the launches that write it are done."""
+        lay = self.layout
+        out = torch.empty((2, lay.slots, lay.cards, lay.words), dtype=torch.int64)
+        with torch.cuda.device(self.devices[c]):
+            _run("fdb_copy", ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(self.inboxes[c]),
+                 ctypes.c_longlong(8 * lay.inbox))
+        return out
+
     def close(self) -> None:
         """Wait for every launch of the spread's cards, then free the
-        buffers."""
+        inboxes."""
         if not self._buffers:
             return
-        for dev in self._devices:
+        for dev in dict.fromkeys(self.devices):
             torch.cuda.synchronize(dev)
-        for ptr in self._buffers:
-            _run("fdb_host_free", ctypes.c_void_p(ptr))
-        self._buffers, self.ptr, self.layout = [], None, None
+        for dev, ptr in self._buffers:
+            if dev is None:
+                _run("fdb_host_free", ctypes.c_void_p(ptr))
+            else:
+                with torch.cuda.device(dev):
+                    _run("fdb_dev_free", ctypes.c_void_p(ptr))
+        self._buffers, self.inboxes, self.layout = [], None, None
 
     def __del__(self):
         try:
@@ -784,18 +935,19 @@ class SpreadLaunch(NamedTuple):
     status: torch.Tensor  # int32 [1]: 1 where another card's H did not come in time
 
 
-def spread_launch(plan: SpreadPlan, c: int, entries: list, reads: list, batch, vers, S2: int,
-                  exchange: SpreadExchange | None = None, epoch: int = 0,
-                  timeout_s: float | None = None, phase_ns: torch.Tensor | None = None) -> SpreadLaunch:
-    """Launch card ``c`` of ``plan`` (its entries' states and bounds
-    ``entries[i]`` = (pivots, grid, count, bmax, floor, plo, phi), each a
-    stack [P, B, ...], and read slots ``reads[i]`` = (rb, re) [G, T, KRe, L]
-    for each entry i of its table; ``batch`` = (rb, re, wb, we, t_snap,
-    t_has_reads) the whole group; ``vers`` int32 [3, G]) on its card's
-    current stream, on the card's co-resident grid. Where the plan has
-    more than one card, its H goes through ``exchange`` under ``epoch``
-    with the bounded wait ``timeout_s`` (seconds; the caller's dispatch
-    deadline); the launch's ``status`` says whether it ran out."""
+class _Checked(NamedTuple):
+    """One card's launch after its checks: its device, entries and dims."""
+
+    dev: torch.device
+    ents: list
+    rds: list
+    dims: tuple  # G, T, KR, KW, L, P, B, S, KRe
+
+
+def _spread_check(plan: SpreadPlan, c: int, entries: list, reads: list, batch, vers,
+                  exchange: SpreadExchange | None, epoch: int, timeout_s, phase_ns) -> _Checked:
+    """Every check of card ``c``'s launch (devices, dtypes, shapes, the
+    exchange's arguments), before anything of any card is allocated."""
     table = plan.tables[c]
     ents = [entries[i] for i in table]
     rds = [reads[i] for i in table]
@@ -826,23 +978,47 @@ def spread_launch(plan: SpreadPlan, c: int, entries: list, reads: list, batch, v
     _check(t_has_reads, "t_has_reads", torch.bool, (G, T))
     _check(vers, "vers", _I32, (3, G))
     if phase_ns is not None:
-        _check(phase_ns, "phase_ns", torch.int64, (G, len(SPREAD_PHASES) + 1))
-    xwords = xflags = None
-    layout = plan.exchange
-    if layout is not None:
+        _check(phase_ns, "phase_ns", torch.int64, (G, SPREAD_STAMPS))
+    if plan.exchange is not None:
         if exchange is None or epoch < 1 or timeout_s is None:
             raise ValueError("a spread over several cards exchanges H through a SpreadExchange, epoch >= 1, "
                              "with the bound of its wait, timeout_s")
-        base = exchange.reserve(layout, [dev])
-        layout = exchange.layout
-        xflags = ctypes.c_void_p(base + 4 * layout.flags[0])
-        xwords = ctypes.c_void_p(base + 4 * layout.data[0])
-        if layout.slots < G:
-            raise ValueError(f"the exchange holds {layout.slots} batches, the group {G}")
+        if len(exchange.devices) != len(plan.cards) or exchange.devices[c] != dev:
+            raise ValueError(f"card {c} of the plan runs on {dev}; the exchange was built for "
+                             f"{[str(d) for d in exchange.devices]}")
+    return _Checked(dev, ents, rds, (G, T, KR, KW, L, P, B, S, KRe))
+
+
+class _Prepared(NamedTuple):
+    """One card's launch, ready to issue: its outputs and its arguments."""
+
+    out: SpreadLaunch
+    args: object  # the launch's kernel arguments (fdb_spread_prepare's output)
+    device: int
+    smem: int
+    blocks: int
+    stream: int
+    scratch: torch.Tensor  # held until the launch is issued
+
+
+_args_bytes: list = []  # sizeof the kernel's arguments, asked once
+
+
+def _spread_prepare(plan: SpreadPlan, c: int, checked: _Checked, batch, vers, S2: int, inboxes,
+                    epoch: int, timeout_s, phase_ns) -> _Prepared:
+    """Card ``c``'s plan, scratch, outputs and kernel arguments (checked by
+    the C side too), on the card's current stream."""
+    dev, ents, rds = checked.dev, checked.ents, checked.rds
+    G, T, KR, KW, L, P, B, S, KRe = checked.dims
+    rb, re, wb, we, t_snap, t_has_reads = batch
     plan_c = _plan_on(dev, G, T, KR, KW, L, P, B, S, S2, entries=len(ents))
     table_ptrs = (ctypes.c_void_p * (9 * len(ents)))(*(t.data_ptr() for e, r in zip(ents, rds) for t in (*e, *r)))
     B1, B2 = split_factors(B)
     R, NS = plan_c.overlap
+    layout = plan.exchange
+    if not _args_bytes:
+        _args_bytes.append(build.load()["fdb_spread_args_bytes"]())
+    args = (ctypes.c_uint64 * -(-_args_bytes[0] // 8))()
     st = torch.cuda.current_stream(dev)
     # scratch and outputs allocated on the launch's stream, so the caching
     # allocator hands the scratch to no other stream's work before the
@@ -854,36 +1030,78 @@ def spread_launch(plan: SpreadPlan, c: int, entries: list, reads: list, batch, v
         out = SpreadLaunch(torch.empty((G, T), dtype=torch.int8, device=dev),
                            torch.empty((len(ents), G, P, 2), dtype=_I32, device=dev),
                            torch.empty(1, dtype=_I32, device=dev))
-        _run("fdb_resolve_many_spread",
+        _run("fdb_spread_prepare",
              table_ptrs, len(ents), _ptr(rb), _ptr(re), _ptr(wb), _ptr(we), _ptr(t_snap), _ptr(t_has_reads),
              _ptr(vers), _ptr(out.verdicts), _ptr(out.pressures), None, pieces,
              ctypes.c_longlong(plan_c.entry_words), None if phase_ns is None else _ptr(phase_ns),
-             xwords, xflags, _ptr(out.status), ctypes.c_longlong(int((timeout_s or 0.0) * 1e9)), c, len(plan.cards),
-             int(epoch), 0 if layout is None else layout.slots, 0 if layout is None else layout.words,
+             None if layout is None else (ctypes.c_void_p * len(inboxes))(*inboxes), _ptr(out.status),
+             ctypes.c_longlong(int((timeout_s or 0.0) * 1e9)), c, len(plan.cards), int(epoch),
+             0 if layout is None else layout.slots, 0 if layout is None else layout.words,
              G, P, B, S, L, T, KR, KRe, KW, B1, B2, R, NS, S2, plan_c.U, plan_c.n2pad, plan_c.tile,
-             plan_c.smem, plan_c.blocks, ctypes.c_void_p(st.cuda_stream))
-    resolve_many_spread.launches += 1
-    return out
+             plan_c.smem, plan_c.blocks, ctypes.byref(args))
+    return _Prepared(out, args, dev.index, plan_c.smem, plan_c.blocks, st.cuda_stream, scratch)
+
+
+def _spread_issue(prepared: list) -> None:
+    """The prepared launches issued back to back, in one C call."""
+    n = len(prepared)
+    _run("fdb_spread_launch", n, (ctypes.c_void_p * n)(*(ctypes.addressof(p.args) for p in prepared)),
+         (ctypes.c_int * n)(*(p.device for p in prepared)), (ctypes.c_int * n)(*(p.smem for p in prepared)),
+         (ctypes.c_int * n)(*(p.blocks for p in prepared)), (ctypes.c_void_p * n)(*(p.stream for p in prepared)))
+    resolve_many_spread.launches += n
+
+
+def _spread_launches(plan: SpreadPlan, cards: list, entries: list, reads: list, batches: list, vers: list,
+                     S2: int, exchange: SpreadExchange | None, epoch: int, timeout_s, timers: list) -> list:
+    """The launches of the plan's ``cards`` (card ``cards[i]`` takes
+    ``batches[i]``, ``vers[i]`` and ``timers[i]``): every card's checks,
+    then every card's preparation, then every launch issued together."""
+    checked = [_spread_check(plan, c, entries, reads, b, v, exchange, epoch, timeout_s, t)
+               for c, b, v, t in zip(cards, batches, vers, timers)]
+    inboxes = exchange.reserve(plan.exchange) if plan.exchange is not None else None
+    prepared = [_spread_prepare(plan, c, k, b, v, S2, inboxes, epoch, timeout_s, t)
+                for c, k, b, v, t in zip(cards, checked, batches, vers, timers)]
+    _spread_issue(prepared)
+    return [p.out for p in prepared]
+
+
+def spread_launch(plan: SpreadPlan, c: int, entries: list, reads: list, batch, vers, S2: int,
+                  exchange: SpreadExchange | None = None, epoch: int = 0,
+                  timeout_s: float | None = None, phase_ns: torch.Tensor | None = None) -> SpreadLaunch:
+    """Launch card ``c`` of ``plan`` alone (its entries' states and bounds
+    ``entries[i]`` = (pivots, grid, count, bmax, floor, plo, phi), each a
+    stack [P, B, ...], and read slots ``reads[i]`` = (rb, re) [G, T, KRe, L]
+    for each entry i of its table; ``batch`` = (rb, re, wb, we, t_snap,
+    t_has_reads) the whole group; ``vers`` int32 [3, G]) on its card's
+    current stream, on the card's co-resident grid. Where the plan has
+    more than one card, its H goes through ``exchange`` under ``epoch``
+    with the bounded wait ``timeout_s`` (seconds; the caller's dispatch
+    deadline); the launch's ``status`` says whether it ran out."""
+    return _spread_launches(plan, [c], entries, reads, [batch], [vers], S2, exchange, epoch, timeout_s,
+                            [phase_ns])[0]
 
 
 @_counted
 def resolve_many_spread(plan: SpreadPlan, entries: list, reads: list, batches: list, vers: list, S2: int,
                         exchange: SpreadExchange | None = None, timeout_s: float | None = None,
-                        phase_ns: torch.Tensor | None = None) -> list:
+                        phase_ns: list | None = None) -> list:
     """The group scan over every entry of a spread: ONE cooperative launch
     on each card of ``plan`` (``spread_plan``; ``batches[c]`` and
     ``vers[c]`` that card's copy of the group and its versions, as
-    ``spread_launch`` takes them), every launch queued before any is waited
-    for, each on its card's current stream, the cards' H exchanged inside
-    the launches (each waiting at most ``timeout_s`` for another card's).
+    ``spread_launch`` takes them), each on its card's current stream: every
+    card's launch checked and prepared before any is issued, then all
+    issued back to back in one C call, the cards' H exchanged inside the
+    launches (each waiting at most ``timeout_s`` for another card's).
     Updates every entry's state IN PLACE. Returns each card's
     ``SpreadLaunch``; a launch whose ``status`` is set gave no verdicts
-    (``check_spread_status`` raises). ``phase_ns`` times card 0's launch
-    (``scan_phase_ms``). Nothing falls back to the per-batch kernels."""
+    (``check_spread_status`` raises). ``phase_ns`` (one int64 [G,
+    SPREAD_STAMPS] tensor a card, on that card, or None) times each card's
+    launch (``scan_phase_ms``, ``exchange_split``). Nothing falls back to
+    the per-batch kernels."""
     epoch = exchange.next_epoch() if plan.exchange is not None and exchange is not None else 0
-    return [spread_launch(plan, c, entries, reads, batches[c], vers[c], S2, exchange, epoch, timeout_s,
-                          phase_ns if c == 0 else None)
-            for c in range(len(plan.cards))]
+    cards = range(len(plan.cards))
+    return _spread_launches(plan, list(cards), entries, reads, batches, vers, S2, exchange, epoch, timeout_s,
+                            phase_ns or [None] * len(cards))
 
 
 class ExchangeTimeoutError(KernelTimeoutError):

@@ -36,7 +36,8 @@ NVCC_FLAGS = [
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name → (library, argtypes); every one returns the
 # cudaError_t of cudaGetLastError() after its launches (the occupancy
-# query and the exchange buffer's allocation, that of their calls)
+# query, the launch's preparation, peer access, the inboxes' allocation
+# and copy, that of their calls; fdb_spread_args_bytes a size)
 SIGNATURES = {
     "fdb_history": ("history", [_P] * 10 + [_I] * 7 + [_P]),
     "fdb_history_parts": ("history", [_P] * 12 + [_I] * 8 + [_P]),
@@ -47,10 +48,16 @@ SIGNATURES = {
     "fdb_rebase": ("maint", [_P] * 6 + [_I] * 4 + [_P]),
     "fdb_search": ("search", [_P] * 3 + [_I] * 3 + [_P]),
     "fdb_resolve_many": ("scan", [_P] * 31 + [_I] * 18 + [_P]),
-    "fdb_resolve_many_spread": ("scan", [_P, _I] + [_P] * 11 + [_L, _P] + [_P] * 3 + [_L] + [_I] * 24 + [_P]),
+    "fdb_spread_prepare": ("scan", [_P, _I] + [_P] * 11 + [_L, _P] + [_P] * 2 + [_L] + [_I] * 24 + [_P]),
+    "fdb_spread_launch": ("scan", [_I] + [_P] * 5),
+    "fdb_spread_args_bytes": ("scan", []),
     "fdb_scan_occupancy": ("scan", [_I] * 2 + [_P]),
+    "fdb_peer_access": ("scan", [_I, _I, _P]),
+    "fdb_dev_alloc": ("scan", [_L, _P]),
+    "fdb_dev_free": ("scan", [_P]),
     "fdb_host_alloc": ("scan", [_L, _P]),
     "fdb_host_free": ("scan", [_P]),
+    "fdb_copy": ("scan", [_P, _P, _L]),
 }
 
 _lock = threading.Lock()

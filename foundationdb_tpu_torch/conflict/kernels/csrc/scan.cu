@@ -26,15 +26,21 @@
 // port computes combine_pji's pmax: every entry the same H, so one commit
 // mask); every entry stages and merges the committed writes, each clipped
 // to its partitions in registers, so data replicas stay equal with no copy.
-// Across cards, each card's launch publishes its H (T bits) into a slot of
-// an exchange buffer in mapped, pinned host memory (one slot a batch a card
-// a launch parity), bumps the slot's flag to the launch's epoch with a
-// system-scope release, and CTA 0 waits for every other card's flag with
-// system-scope acquires and ORs their words into H; a grid barrier releases
-// the rest. The wait is bounded (%globaltimer against the wrapper's bound):
-// a card that never publishes sets the launch's status word, every CTA
-// leaves, and the wrapper's caller raises a kernel fault. A launch only
-// needs the other cards' launches in flight together, never co-resident.
+// Across cards, CTA 0 of each card's launch pushes its H (T bits) into
+// every other card's inbox and polls its own: a card's inbox is a slot a
+// (launch parity, batch, sending card) of 64-bit words, each one store of
+// (the launch's epoch, 32 bits of H) — NCCL's "LL" idea: the flag travels
+// in the word, so there is no separate flag, no system fence and no second
+// read. Where every pair of the spread's cards has peer access, each inbox
+// lies in its own card's memory and the stores cross NVLink while the polls
+// stay in local memory ("peer"); else the inboxes lie in one buffer of
+// mapped, pinned host memory ("host", PCIe both ways) — the spread's
+// SpreadExchange chooses once, from the peer matrix. The wait is bounded
+// (%globaltimer against the wrapper's bound): a card that never publishes
+// sets the launch's status word, every CTA leaves, and the wrapper's
+// caller raises a kernel fault. A launch only needs the other cards'
+// launches in flight together, never co-resident; the wrapper prepares
+// every card's launch first and then issues them back to back.
 //
 // What bounds it on the H100: the chain of dependent phases. Each batch
 // needs the state its predecessor merged, and each phase of a batch needs
@@ -111,7 +117,9 @@ namespace {
 
 constexpr int kScanThreads = 512;  // threads of a CTA: 128 registers a thread at one CTA an SM
 constexpr int kScanPhases = 8;  // the phases a batch's stamps delimit (kernels.SCAN_PHASES)
+constexpr int kExchangePoints = 3;  // a spread's stamps inside the exchange (kernels.EXCHANGE_POINTS)
 constexpr int kMaxEntries = 32;  // entries of a spread on one card (kernels.MAX_CARD_ENTRIES)
+constexpr int kMaxCards = 32;  // cards of a spread's exchange
 
 // the card's nanosecond clock, which every SM reads alike
 __device__ __forceinline__ long long globaltimer() {
@@ -120,22 +128,15 @@ __device__ __forceinline__ long long globaltimer() {
     return t;
 }
 
-// system-scope accesses to the exchange buffer (mapped host memory, which
-// other cards write): the flag's release and acquire, the words relaxed
-__device__ __forceinline__ void st_release_sys(int* p, int v) {
-    asm volatile("st.release.sys.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+// system-scope accesses to the inboxes (another card's memory or mapped
+// host memory, which other cards write): one (epoch, bits) word each,
+// single-copy atomic at 8 bytes, so no fence orders the bits after a flag
+__device__ __forceinline__ void st_relaxed_sys(unsigned long long* p, unsigned long long v) {
+    asm volatile("st.relaxed.sys.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
-__device__ __forceinline__ int ld_acquire_sys(const int* p) {
-    int v;
-    asm volatile("ld.acquire.sys.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-    return v;
-}
-__device__ __forceinline__ void st_relaxed_sys(uint32_t* p, uint32_t v) {
-    asm volatile("st.relaxed.sys.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-__device__ __forceinline__ uint32_t ld_relaxed_sys(const uint32_t* p) {
-    uint32_t v;
-    asm volatile("ld.relaxed.sys.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+__device__ __forceinline__ unsigned long long ld_relaxed_sys(const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.sys.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
     return v;
 }
 
@@ -183,12 +184,14 @@ struct ScanArgs {
     uint32_t* rec_b;    // the same, or nullptr where one tile holds every row
     Scan4* agg;         // [P, N2pad / kScanThreads]: the aggregation's chunk totals
     int* counters;      // [3, G, P]: most staged rows, most kept rows, valid rows, per batch and partition
-    long long* stamps;  // [G, kScanPhases + 1, or + 2 for a spread]: the clock at each phase boundary; nullptr: none
+    long long* stamps;  // [G, kScanPhases + 1], a spread's [G, kScanPhases + 2 + kExchangePoints]: the clock at
+                        // each phase boundary (and a spread's points inside the exchange); nullptr: none
     int spread;         // the spread's launch (resolve_many_kernel<LM, true>), else the one-entry scan
-    // the exchange across cards (n_cards > 1)
-    uint32_t* xwords;  // [2, Gx, n_cards, Wx]: H's bits a (launch parity, batch, card)
-    int* xflags;       // [2, Gx, n_cards]: the epoch of the launch that published the slot
-    int* status;       // [1] on the card: 0, or 1 where a card's H did not come in time
+    // the exchange across cards (n_cards > 1): each card's inbox, [2, Gx,
+    // n_cards, Wx] (epoch << 32 | 32 bits of H) words a (launch parity,
+    // batch, sending card); this card polls inbox[card] and writes the others
+    unsigned long long* inbox[kMaxCards];
+    int* status;  // [1] on the card: 0, or 1 where a card's H did not come in time
     long long timeout_ns;
     int card, n_cards, epoch, Gx, Wx;
     int G, P, B, S, L, T, KR, KRe, KW, B1, B2, lgB2, vec;
@@ -236,49 +239,60 @@ __device__ __forceinline__ bool history_read(const HistArgs& A, int t, int r, in
     return any;
 }
 
-// the exchange of batch g's H across cards, by CTA 0: publish this card's
-// bits into its slot, raise the slot's flag to the launch's epoch, wait
-// (bounded) for every other card's flag and OR their bits into H. Returns
-// whether every card's bits came in time (block-uniform). Not inlined, as
-// the chain below: their registers stay out of the other phases
-__device__ __noinline__ bool exchange_h(const ScanArgs& A, int g) {
+// the exchange of batch g's H across cards, by CTA 0: pack H's bits into
+// ``bits`` (W words of shared memory), store (epoch, word) into this card's
+// slot of every other card's inbox, a thread a (peer, word), then poll this
+// card's inbox, a thread a (peer, word), until each word carries the
+// launch's epoch (bounded), OR the words into ``bits`` and the set bits
+// into H. The launch parity of the slot is kept because, with G = 1, a
+// card's next launch would otherwise overwrite a slot that a slower card
+// has not read yet; with it, a card writes parity p again only in the
+// launch after next, which cannot start before every card has published
+// (so read) in the launch between. Returns whether every card's bits came
+// in time (block-uniform). ``at`` (the batch's exchange points of the
+// timer, or nullptr) receives the clock when the words are published, when
+// the last card's are seen and when H is ORed. Not inlined, as the chain
+// below: their registers stay out of the other phases
+__device__ __noinline__ bool exchange_h(const ScanArgs& A, int g, uint32_t* bits, long long* at) {
     __shared__ int late;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-    const int T = A.T, W = (T + 31) / 32, C = A.n_cards;
-    const size_t slot0 = ((size_t)(A.epoch & 1) * A.Gx + g) * C;  // slot of (parity, g, card 0)
-    uint32_t* mine = A.xwords + (slot0 + A.card) * A.Wx;
+    const int T = A.T, W = (T + 31) / 32, C = A.n_cards, items = (C - 1) * W;
+    const uint32_t epoch = (uint32_t)A.epoch;
+    const size_t slots = ((size_t)(A.epoch & 1) * A.Gx + g) * C;  // slot (parity, g, card 0) of an inbox
     for (int w = warp; w < W; w += n_warps) {
         const int t = 32 * w + lane;
         const uint32_t word = __ballot_sync(FULL, t < T && __ldcg(A.H + t));
-        if (lane == 0) st_relaxed_sys(mine + w, word);
+        if (lane == 0) bits[w] = word;
     }
-    __threadfence_system();
     if (threadIdx.x == 0) late = 0;
     __syncthreads();
-    if (threadIdx.x == 0) st_release_sys(A.xflags + slot0 + A.card, A.epoch);
-    const int c = threadIdx.x;
-    if (c < C && c != A.card) {
-        const long long t0 = globaltimer();
-        while (ld_acquire_sys(A.xflags + slot0 + c) != A.epoch) {
-            if (globaltimer() - t0 > A.timeout_ns) {
-                late = 1;
-                break;
-            }
-            __nanosleep(256);
-        }
+    // item i: the (i / W)-th other card, word i % W
+    const auto card_of = [&](int i) { return i / W + (i / W >= A.card); };
+    for (int i = threadIdx.x; i < items; i += blockDim.x) {
+        const int w = i % W;
+        st_relaxed_sys(A.inbox[card_of(i)] + (slots + A.card) * A.Wx + w,
+                       (unsigned long long)epoch << 32 | bits[w]);
     }
     __syncthreads();
-    if (late) return false;
-    for (int w = warp; w < W; w += n_warps) {
-        uint32_t word = 0;
-        if (lane < C && lane != A.card) {
-            ld_acquire_sys(A.xflags + slot0 + lane);  // orders this lane's read of the words after the flag
-            word = ld_relaxed_sys(A.xwords + (slot0 + lane) * A.Wx + w);
+    if (at != nullptr && threadIdx.x == 0) at[0] = globaltimer();
+    const long long t0 = globaltimer();
+    for (int i = threadIdx.x; i < items; i += blockDim.x) {
+        const unsigned long long* p = A.inbox[A.card] + (slots + card_of(i)) * A.Wx + i % W;
+        unsigned long long v = ld_relaxed_sys(p);
+        while ((uint32_t)(v >> 32) != epoch && !*(volatile int*)&late) {
+            if (globaltimer() - t0 > A.timeout_ns) late = 1;
+            v = ld_relaxed_sys(p);
         }
-        word = __reduce_or_sync(FULL, word);
-        const int t = 32 * w + lane;
-        if (t < T && ((word >> lane) & 1u)) A.H[t] = 1;
+        if ((uint32_t)(v >> 32) != epoch) break;  // this card gives up: late is set
+        atomicOr(bits + i % W, (uint32_t)v);
     }
+    __syncthreads();
+    if (at != nullptr && threadIdx.x == 0) at[1] = globaltimer();
+    if (late) return false;
+    for (int t = threadIdx.x; t < T; t += blockDim.x)
+        if ((bits[t >> 5] >> (t & 31)) & 1u) A.H[t] = 1;
+    __syncthreads();
+    if (at != nullptr && threadIdx.x == 0) at[2] = globaltimer();
     return true;
 }
 
@@ -315,7 +329,8 @@ __global__ void __launch_bounds__(kScanThreads, 1) resolve_many_kernel(const __g
                                   : smem + (size_t)(threadIdx.x >> 5) * row_words;
     const int n_hist_e = T * A.KRe;  // an entry's history items
     const int n_hist = E * n_hist_e;
-    constexpr int n_stamps = kScanPhases + (MULTI ? 2 : 1);  // a spread stamps the exchange's phase apart
+    // a spread stamps the exchange's phase apart, and points inside it
+    constexpr int n_stamps = kScanPhases + (MULTI ? 2 + kExchangePoints : 1);
     // entry and item within it of a work item v of n items an entry
     const auto entry_of = [](size_t v, size_t n) { return MULTI ? (int)(v / n) : 0; };
     const auto item_of = [](size_t v, size_t n) { return MULTI ? v % n : v; };
@@ -395,9 +410,12 @@ __global__ void __launch_bounds__(kScanThreads, 1) resolve_many_kernel(const __g
         // the exchange of H across cards (the reference's pmax over the
         // mesh), by CTA 0; a card that never publishes ends the launch
         if (MULTI && A.n_cards > 1) {
-            if (blockIdx.x == 0 && !exchange_h(A, g) && threadIdx.x == 0) *A.status = 1;
+            long long* at = A.stamps ? A.stamps + (size_t)g * n_stamps + kScanPhases + 2 : nullptr;
+            if (blockIdx.x == 0 && !exchange_h(A, g, smem, at) && threadIdx.x == 0) *A.status = 1;
             grid.sync();
             if (__ldcg(A.status)) return;  // every CTA leaves; the caller raises
+        } else if (MULTI) {  // nothing to exchange: the exchange's points are the phase's start
+            for (int k = kScanPhases + 2; k < n_stamps; ++k) stamp(g, k);
         }
         stamp(g, 3);
 
@@ -523,6 +541,8 @@ ScanKernel scan_kernel(int L) {
     return resolve_many_kernel<0, MULTI>;
 }
 
+ScanKernel kernel_of(const ScanArgs& A) { return A.spread ? scan_kernel<true>(A.L) : scan_kernel<false>(A.L); }
+
 // CTAs of the L-lane kernel co-resident on one SM with ``smem`` bytes of
 // dynamic shared memory (the spread's kernel, which takes as many
 // registers and no more shared memory), and the SMs of the current device
@@ -538,30 +558,36 @@ int occupancy(int L, int smem, int* per_sm, int* sms) {
     return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-// the shared arguments' checks, then the cooperative launch of ``A`` on
-// ``blocks`` CTAs, which must all be co-resident: the launch itself
-// refuses a larger grid (cudaErrorCooperativeLaunchTooLarge)
-int launch(ScanArgs& A, int smem, int blocks, void* stream) {
+// the shared arguments' checks (and the kernel's shared memory opted
+// into, on the current device): cudaErrorInvalidValue where the kernel
+// does not take them
+int check(ScanArgs& A, int smem, int blocks) {
     const int W = (A.T + 31) / 32;
     if (A.E < 1 || A.E > kMaxEntries || (!A.spread && (A.E > 1 || A.n_cards > 1)) || A.G < 1 || A.P < 1
         || A.L < 1 || A.T < 1 || A.KR < 1 || A.KRe < 1 || A.KW < 1 || A.B < 1 || A.B1 * A.B2 != A.B
         || (A.B2 & (A.B2 - 1)) || A.S > 32 || A.S2 > 32 || W > kMaxWords || A.R < 1 || A.R > 32 || (32 % A.R) || A.NS < 1 || A.NS > A.KW || A.tile < 1
         || A.N2pad % A.tile || (A.rec_b == nullptr && (A.P > 1 || A.tile < A.N2pad)) || blocks < 1
-        || (A.n_cards > 1 && (A.n_cards > 32 || A.card < 0 || A.card >= A.n_cards || A.xwords == nullptr
-                              || A.xflags == nullptr || A.status == nullptr || A.Wx < W || A.Gx < A.G))) {
+        || (A.n_cards > 1 && (A.n_cards > kMaxCards || A.card < 0 || A.card >= A.n_cards || A.status == nullptr
+                              || A.epoch < 1 || A.Wx < W || A.Gx < A.G))) {
         return (int)cudaErrorInvalidValue;
     }
+    for (int c = 0; c < (A.n_cards > 1 ? A.n_cards : 0); ++c)
+        if (A.inbox[c] == nullptr) return (int)cudaErrorInvalidValue;
     for (int e = 0; e < A.E; ++e) {
         if (A.P > 1 && A.ent[e].plo == nullptr) return (int)cudaErrorInvalidValue;
         A.vec = A.vec && (uintptr_t)A.ent[e].grid % 16 == 0;
     }
     A.lgB2 = __builtin_ctz((unsigned)A.B2);
-    const ScanKernel kernel = A.spread ? scan_kernel<true>(A.L) : scan_kernel<false>(A.L);
-    int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    void* args[] = {&A};
-    err = (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kScanThreads), args,
-                                           (size_t)smem, (cudaStream_t)stream);
+    return (int)cudaFuncSetAttribute(kernel_of(A), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// the cooperative launch of ``A`` (checked) on ``blocks`` CTAs, which must
+// all be co-resident: the launch itself refuses a larger grid
+// (cudaErrorCooperativeLaunchTooLarge)
+int launch(const ScanArgs& A, int smem, int blocks, cudaStream_t stream) {
+    void* args[] = {const_cast<ScanArgs*>(&A)};
+    int err = (int)cudaLaunchCooperativeKernel((const void*)kernel_of(A), dim3(blocks), dim3(kScanThreads), args,
+                                               (size_t)smem, stream);
     if (err != cudaSuccess) return err;
     return (int)cudaGetLastError();
 }
@@ -621,28 +647,36 @@ extern "C" int fdb_resolve_many(
     A.G = G, A.P = P, A.B = B, A.S = S, A.L = L, A.T = T, A.KR = KR, A.KRe = KR, A.KW = KW, A.B1 = B1, A.B2 = B2;
     A.vec = (L + 1) % 4 == 0;
     A.R = R, A.NS = NS, A.S2 = S2, A.U = U, A.N2pad = N2pad, A.tile = tile;
-    return launch(A, smem, blocks, stream);
+    const int err = check(A, smem, blocks);
+    return err ? err : launch(A, smem, blocks, (cudaStream_t)stream);
 }
 
-// one group through the scan for the E entries of a spread on this card
-// (kernels.resolve_many_spread): ``entries`` a host array of E × 9
-// pointers (pivots, grid, count, bmax, floor, plo, phi, and the entry's
-// read slots rb, re [G, T, KRe, L]); rb/re [G, T, KR, L] every read slot,
-// for K2; ``scratch`` the 13 pieces of entry 0 in kernels.SCAN_PIECES
-// order, entry e's at + e·ew int32 words; pressures [E, G, P, 2], gmax
-// [E, P, 2] or nullptr. Across n_cards > 1 cards this launch is card ``card`` of the
-// exchange: ``xwords`` [2, Gx, n_cards, Wx] and ``xflags`` [2, Gx, n_cards]
-// in mapped host memory, ``epoch`` this group's launch counter (above 0),
-// ``status`` [1] on the card. phase_ns int64 [G, kScanPhases + 2] (the
-// exchange's phase after history) for the timer, nullptr on every path
-extern "C" int fdb_resolve_many_spread(
+// bytes of one card's prepared launch (fdb_spread_prepare's ``out``)
+extern "C" int fdb_spread_args_bytes() { return (int)sizeof(ScanArgs); }
+
+// one group through the scan for the E entries of a spread on the current
+// card (kernels.resolve_many_spread), checked and written into ``out``
+// (fdb_spread_args_bytes bytes on the host), the kernel's shared memory
+// opted into on this card; fdb_spread_launch issues it. ``entries`` a host
+// array of E × 9 pointers (pivots, grid, count, bmax, floor, plo, phi, and
+// the entry's read slots rb, re [G, T, KRe, L]); rb/re [G, T, KR, L] every
+// read slot, for K2; ``scratch`` the 13 pieces of entry 0 in
+// kernels.SCAN_PIECES order, entry e's at + e·ew int32 words; pressures
+// [E, G, P, 2], gmax [E, P, 2] or nullptr. Across n_cards > 1 cards this
+// launch is card ``card`` of the exchange: ``inboxes`` a host array of
+// n_cards pointers to each card's inbox [2, Gx, n_cards, Wx] of 64-bit
+// words, ``epoch`` this group's launch counter (above 0), ``status`` [1]
+// on the card. phase_ns int64 [G, kScanPhases + 2 + kExchangePoints] (the
+// exchange's phase after history, then the points inside it) for the
+// timer, nullptr on every path
+extern "C" int fdb_spread_prepare(
     const void* entries, int E, const void* rb, const void* re, const void* wb, const void* we,
     const void* t_snap, const void* t_has_reads, const void* vers, void* verdicts, void* pressures, void* gmax,
     const void* scratch, long long ew, void* phase_ns,
-    void* xwords, void* xflags, void* status, long long timeout_ns, int card, int n_cards, int epoch, int Gx,
+    const void* inboxes, void* status, long long timeout_ns, int card, int n_cards, int epoch, int Gx,
     int Wx, int G, int P, int B, int S, int L, int T, int KR, int KRe, int KW, int B1, int B2,
-    int R, int NS, int S2, int U, int N2pad, int tile, int smem, int blocks, void* stream) {
-    if (E < 1 || E > kMaxEntries || ew < 0) return (int)cudaErrorInvalidValue;
+    int R, int NS, int S2, int U, int N2pad, int tile, int smem, int blocks, void* out) {
+    if (E < 1 || E > kMaxEntries || ew < 0 || n_cards < 1 || n_cards > kMaxCards) return (int)cudaErrorInvalidValue;
     ScanArgs A = {};
     const void* const* ep = (const void* const*)entries;
     for (int e = 0; e < E; ++e) {
@@ -657,18 +691,72 @@ extern "C" int fdb_resolve_many_spread(
     A.verdicts = (int8_t*)verdicts, A.pressures = (int*)pressures, A.gmax = (int*)gmax;
     set_scratch(A, (void* const*)scratch);
     A.stamps = (long long*)phase_ns, A.spread = 1;
-    A.xwords = (uint32_t*)xwords, A.xflags = (int*)xflags, A.status = (int*)status;
+    for (int c = 0; n_cards > 1 && c < n_cards; ++c) A.inbox[c] = ((unsigned long long* const*)inboxes)[c];
+    A.status = (int*)status;
     A.timeout_ns = timeout_ns, A.card = card, A.n_cards = n_cards, A.epoch = epoch, A.Gx = Gx, A.Wx = Wx;
     A.G = G, A.P = P, A.B = B, A.S = S, A.L = L, A.T = T, A.KR = KR, A.KRe = KRe, A.KW = KW, A.B1 = B1, A.B2 = B2;
     A.vec = (L + 1) % 4 == 0;
     A.R = R, A.NS = NS, A.S2 = S2, A.U = U, A.N2pad = N2pad, A.tile = tile;
-    if (n_cards > 1 && epoch < 1) return (int)cudaErrorInvalidValue;
-    return launch(A, smem, blocks, stream);
+    const int err = check(A, smem, blocks);
+    if (err) return err;
+    memcpy(out, &A, sizeof(A));
+    return 0;
 }
 
-// the exchange buffer: ``bytes`` of pinned host memory, mapped into every
-// card's address space (portable), zeroed; *out its pointer, which the
-// cards use as it is (unified addressing)
+// the prepared launches of a spread's cards (``args[i]`` fdb_spread_prepare's
+// output for card ``devices[i]``, its grid ``blocks[i]`` CTAs of ``smem[i]``
+// bytes, on ``streams[i]``), issued back to back, each under its card; the
+// caller's current card is kept. Stops at the first launch refused (the ones
+// before it then wait out their bound for its H, and set their status)
+extern "C" int fdb_spread_launch(int n, const void* const* args, const int* devices, const int* smem,
+                                 const int* blocks, void* const* streams) {
+    int current = 0;
+    int err = (int)cudaGetDevice(&current);
+    for (int i = 0; err == cudaSuccess && i < n; ++i) {
+        err = (int)cudaSetDevice(devices[i]);
+        if (err == cudaSuccess) err = launch(*(const ScanArgs*)args[i], smem[i], blocks[i], (cudaStream_t)streams[i]);
+    }
+    const int back = (int)cudaSetDevice(current);
+    return err ? err : back;
+}
+
+// whether the current card can reach card ``peer``'s memory (*can = 1) and,
+// with ``enable``, its access to it enabled (already enabled counts as done)
+extern "C" int fdb_peer_access(int peer, int enable, void* can) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceCanAccessPeer((int*)can, dev, peer);
+    if (err != cudaSuccess || !enable || !*(int*)can) return (int)err;
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();  // clears the error the call recorded, which a launch's check would read
+        err = cudaSuccess;
+    }
+    return (int)err;
+}
+
+// an inbox: ``bytes`` of the current card's memory, zeroed (epoch 0, which
+// no launch uses); *out its pointer
+extern "C" int fdb_dev_alloc(long long bytes, void* out) {
+    void* p = nullptr;
+    cudaError_t err = cudaMalloc(&p, (size_t)bytes);
+    if (err == cudaSuccess) err = cudaMemset(p, 0, (size_t)bytes);
+    if (err != cudaSuccess) return (int)err;
+    *(void**)out = p;
+    return 0;
+}
+
+extern "C" int fdb_dev_free(void* p) { return (int)cudaFree(p); }
+
+// ``bytes`` from ``src`` (an inbox: card or mapped host memory) to ``dst``
+// (host memory), synchronously
+extern "C" int fdb_copy(void* dst, const void* src, long long bytes) {
+    return (int)cudaMemcpy(dst, src, (size_t)bytes, cudaMemcpyDefault);
+}
+
+// the host transport's inboxes: ``bytes`` of pinned host memory, mapped
+// into every card's address space (portable), zeroed; *out its pointer,
+// which the cards use as it is (unified addressing)
 extern "C" int fdb_host_alloc(long long bytes, void* out) {
     void* p = nullptr;
     cudaError_t err = cudaHostAlloc(&p, (size_t)bytes, cudaHostAllocMapped | cudaHostAllocPortable);

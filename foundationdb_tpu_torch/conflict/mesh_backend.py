@@ -127,8 +127,10 @@ class TorchMeshConflictSet(ConflictSet):
         # the entries' distinct devices, each of which gets a group's batches
         self._targets = self._spread.devices()
         # the cards of a spread exchange H inside their launches through
-        # mapped host memory (kernels.SpreadExchange), one buffer a spread
-        self._exchange = (kernels.SpreadExchange()
+        # their inboxes (kernels.SpreadExchange: in each card's memory over
+        # NVLink where every pair has peer access, else in mapped host
+        # memory), one set a spread
+        self._exchange = (kernels.SpreadExchange(self._targets)
                           if len(self._targets) > 1 and self._targets[0].type == "cuda" else None)
         self._exchange_timeout = exchange_timeout
         # (epoch, base) in one attribute, so the encode thread reads a pair
@@ -144,6 +146,8 @@ class TorchMeshConflictSet(ConflictSet):
         self.metrics.gauge("occupancy", lambda: SH.spread_occupancy_stats(self._spread))
         self.metrics.gauge("stagingSlots", lambda: G.staging_slots(self._S))
         self.metrics.gauge("inflightGroups", lambda: len(self._inflight))
+        if self._exchange is not None:  # the route of the cards' exchange of H: "peer" or "host"
+            self.metrics.gauge("exchangeTransport", lambda: self._exchange.transport)
 
     def _fresh_spread(self) -> SH.Spread:
         return SH.make_spread(self._n_parts, self._B, self._S, self._lanes, self._rows)

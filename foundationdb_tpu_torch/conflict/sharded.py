@@ -473,7 +473,8 @@ def resolve_many_spread(spread: Spread, batches: list, nows, oldests_pre, oldest
     per-batch pressures of replica 0 of each row —, status) on entry 0's
     device: ``status`` int32 [cards], the launches' exchange status
     (``kernels.check_spread_status`` once they are done), None where there
-    is nothing to exchange. ``phase_ns`` times entry 0's card's launch."""
+    is nothing to exchange. ``phase_ns`` (one stamp buffer a distinct card,
+    in ``kernels.spread_plan``'s card order) times each card's launch."""
     if not spread.entries[0].states.grid.is_cuda:
         return (*resolve_many_spread_loop(spread, batches, nows, oldests_pre, oldests_post, reads), None)
     n_batches, T = batches[0].rb.shape[:2]

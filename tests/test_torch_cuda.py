@@ -1354,7 +1354,7 @@ def test_backends_resolve_a_group_in_one_launch(cuda, backend):
 
 # --- the spread's group scan: one launch a card ----------------------------
 
-SPREAD_LAYOUTS = [(4, 1), (4, 2)]  # part x data rows on one card: [cuda:0] * 4 and 4 x 2 over [cuda:0] * 8
+SPREAD_LAYOUTS = [(4, 1, 1), (4, 2, 1), (4, 1, 4)]  # part x data rows over cards: [cuda:0] * 4, 4 x 2 over [cuda:0] * 8, cuda:0..3
 
 
 def _spread_groups(seed):
@@ -1393,33 +1393,52 @@ def _spread_groups(seed):
 
 
 def _spread_run(spread, stacked, cols, fn, **kw):
-    dev = spread.entries[0].device
-    batch = TB.upload(stacked, dev)
+    uploaded = {dev: TB.upload(stacked, dev) for dev in spread.devices()}
+    batches = [uploaded[e.device] for e in spread.entries]
     reads = None
     if spread.n_data > 1:
-        slices = SH.split_reads(batch.rb, batch.re, spread.n_data)
-        reads = [slices[e.replica] for e in spread.entries]
-    return fn(spread, [batch] * len(spread.entries), *cols, reads, **kw)
+        reads = [SH.split_reads(b.rb, b.re, spread.n_data)[e.replica] for e, b in zip(spread.entries, batches)]
+    return fn(spread, batches, *cols, reads, **kw)
 
 
-@pytest.mark.parametrize("rows,n_data", SPREAD_LAYOUTS, ids=["4x1", "4x2"])
-def test_spread_scan_matches_the_loop_of_kernels_and_the_plain_loop(cuda, rows, n_data):
-    """One launch of the spread's group scan on the card (every entry of
-    ``[cuda:0] * 4`` or of 4 x 2 over ``[cuda:0] * 8``): its verdicts,
-    per-batch pressures and every replica's state equal, array by array,
-    those of the loop of standalone kernels on the card and of the plain
-    loop on the CPU, through a group that overflows a partition's staging;
-    no standalone resolve kernel runs on its path."""
+@pytest.mark.parametrize("rows,n_data,n_cards", SPREAD_LAYOUTS, ids=["4x1", "4x2", "four-cards"])
+def test_spread_scan_matches_the_loop_of_kernels_and_the_plain_loop(cuda, rows, n_data, n_cards):
+    """One launch of the spread's group scan a card (every entry of
+    ``[cuda:0] * 4``, of 4 x 2 over ``[cuda:0] * 8``, or one partition a
+    card over ``cuda:0 .. cuda:3``, H exchanged across the cards on the
+    transport their peer access gives): its verdicts, per-batch pressures
+    and every replica's state equal, array by array, those of the loop of
+    standalone kernels on the card and of the plain loop on the CPU,
+    through a group that overflows a partition's staging; no standalone
+    resolve kernel runs on its path."""
+    if torch.cuda.device_count() < n_cards:
+        pytest.skip(f"needs {n_cards} cards, {torch.cuda.device_count()} visible")
     (warm, warm_cols), (group, cols) = _spread_groups(rows * 10 + n_data)
     plain = SH.make_spread(rows, 16, 32, 3, [[CPU] * n_data for _ in range(rows)])
     _spread_run(plain, warm, warm_cols, SH.resolve_many_spread)
     start = SH.gather_to_numpy(plain)
-    devices = [[cuda] * n_data for _ in range(rows)]
+    if n_cards > 1:
+        devices = [[torch.device("cuda", r)] for r in range(rows)]
+    else:
+        devices = [[cuda] * n_data for _ in range(rows)]
     got, loop = (SH.spread_from_numpy(*start, devices) for _ in range(2))
+    cards = got.devices()
+    exchange = kernels.SpreadExchange(cards) if n_cards > 1 else None
     kernels.reset_launch_counts()
-    v, p, status = _spread_run(got, group, cols, SH.resolve_many_spread)
+    try:
+        v, p, status = _spread_run(got, group, cols, SH.resolve_many_spread, exchange=exchange, timeout_s=10.0)
+        for dev in cards:
+            torch.cuda.synchronize(dev)
+    finally:
+        if exchange is not None:
+            exchange.close()
     counts = kernels.launch_counts()
-    assert status is None and counts["resolve_many_spread"] == 1, counts
+    assert counts["resolve_many_spread"] == n_cards, counts
+    if n_cards > 1:
+        assert status.tolist() == [0] * n_cards
+        assert exchange.transport == kernels.exchange_transport(kernels.peer_matrix(cards))
+    else:
+        assert status is None
     assert not any(counts[k] for k in ("history_parts", "intra_batch", "stage_parts", "merge_parts")), counts
     lv, lp = _spread_run(loop, group, cols, SH.resolve_many_spread_loop)
     pv, pp, _ = _spread_run(plain, group, cols, SH.resolve_many_spread)
@@ -1449,12 +1468,13 @@ def _two_logical_cards(cuda):
 
 
 def test_spread_exchange_gives_up_on_a_missing_card_and_the_card_serves_on(cuda):
-    """A two-card plan with only card 0's launch queued: its wait for card
-    1's H ends at the bound given, the launch sets its status and leaves,
-    ``check_spread_status`` raises the exchange timeout (a kernel fault),
-    and the card then serves the next launch."""
+    """A two-card plan on the peer transport with only card 0's launch
+    queued: its wait for card 1's H ends at the bound given, the launch
+    sets its status and leaves, ``check_spread_status`` raises the exchange
+    timeout (a kernel fault), and the card then serves the next launch."""
     spread, plan, entries, reads, batch, vers, (group, cols) = _two_logical_cards(cuda)
-    exchange = kernels.SpreadExchange()
+    exchange = kernels.SpreadExchange([cuda, cuda])
+    assert exchange.transport == "peer"  # both inboxes on this card
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1473,22 +1493,31 @@ def test_spread_exchange_gives_up_on_a_missing_card_and_the_card_serves_on(cuda)
     assert status is None and v.shape == (len(cols[0]), 64)
 
 
-def test_spread_exchange_between_two_launches_on_one_card(cuda, monkeypatch):
-    """The exchange itself, on one card: the two halves of a 4 x 1 spread
-    as two cards, each launch on its own stream with half the SMs, so both
-    are resident together; they publish and read each other's H through
-    the mapped host buffer and give the one launch's verdicts, pressures
-    and states, status clear."""
-    spread, plan, entries, reads, batch, vers, _ = _two_logical_cards(cuda)
-    one = SH.spread_from_numpy(*SH.gather_to_numpy(spread), [cuda] * 4)
+@pytest.mark.parametrize("transport", kernels.TRANSPORTS)
+def test_spread_exchange_between_two_launches_on_one_card(cuda, monkeypatch, transport):
+    """The exchange itself, on one card and each transport: the two halves
+    of a 4 x 1 spread as two cards, each launch on its own stream with half
+    the SMs, so both are resident together; they push their H into each
+    other's inbox (both on this card, or both in mapped host memory) and
+    read their own, give the one launch's verdicts, pressures and states,
+    the loop of standalone kernels' and the plain loop's, status clear, and
+    leave every batch's words, with the launch's epoch, in each inbox."""
+    spread, plan, entries, reads, batch, vers, (group, cols) = _two_logical_cards(cuda)
+    start = SH.gather_to_numpy(spread)
+    one = SH.spread_from_numpy(*start, [cuda] * 4)
     one_plan = kernels.spread_plan([cuda] * 4, 1, vers.shape[1], batch[0].shape[1])
     want = kernels.resolve_many_spread(one_plan, [(*e.states, e.plo, e.phi) for e in one.entries], reads,
                                        [batch], [vers], G.staging_slots(32))[0]
+    loop = SH.spread_from_numpy(*start, [cuda] * 4)
+    plain = SH.spread_from_numpy(*start, [CPU] * 4)
+    lv, lp = _spread_run(loop, group, cols, SH.resolve_many_spread_loop)
+    pv, pp, _ = _spread_run(plain, group, cols, SH.resolve_many_spread)
     half = torch.cuda.get_device_properties(cuda).multi_processor_count // 2
     plan_on = kernels._plan_on  # each launch on half the SMs, so both are resident together
     monkeypatch.setattr(kernels, "_plan_on", lambda *a, **kw: plan_on(*a, **kw)._replace(blocks=half))
     streams = [torch.cuda.Stream(cuda) for _ in range(2)]
-    exchange = kernels.SpreadExchange()
+    exchange = kernels.SpreadExchange([cuda, cuda], transport)
+    assert exchange.transport == transport
     try:
         torch.cuda.synchronize()
         epoch = exchange.next_epoch()
@@ -1498,12 +1527,24 @@ def test_spread_exchange_between_two_launches_on_one_card(cuda, monkeypatch):
                 outs.append(kernels.spread_launch(plan, c, entries, reads, batch, vers, G.staging_slots(32),
                                                   exchange, epoch, timeout_s=2.0))
         torch.cuda.synchronize()
+        lay, T_ = exchange.layout, batch[0].shape[1]
+        for c in range(2):
+            inbox = exchange.inbox(c).view(-1)
+            for g in range(vers.shape[1]):
+                at = lay.slot(epoch & 1, g, 1 - c)
+                assert kernels.exchange_bits(inbox[at : at + lay.words], epoch, T_) is not None
     finally:
         exchange.close()
     assert [int(o.status) for o in outs] == [0, 0]
     for o in outs:
         _eq(o.verdicts, want.verdicts)
+        _eq(o.verdicts, lv)
+        _eq(o.verdicts, pv)
     _eq(torch.cat([o.pressures for o in outs]), want.pressures)
-    for a, b in zip(spread.entries, one.entries):
-        for x, y in zip(a.states, b.states):
+    _eq(torch.cat([o.pressures for o in outs]).permute(1, 0, 2, 3).reshape(lp.shape), lp)
+    _eq(lp, pp)
+    for a, b, c_, d in zip(spread.entries, one.entries, loop.entries, plain.entries):
+        for x, y, z, w in zip(a.states, b.states, c_.states, d.states):
             _eq(x, y)
+            _eq(x, z)
+            _eq(x, w)

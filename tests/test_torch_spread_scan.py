@@ -7,7 +7,10 @@ conftest's 8 virtual CPU devices, over ``part`` × ``data`` meshes of
 and every replica's state, through groups of 3 to 5 batches, one of which
 overflows a partition's staging and one of which crosses the int32 rebase
 threshold's neighbourhood; then the launch planner ``kernels.spread_plan``
-(cards, entry tables, exchange buffer, pressure rows), the exchange
+(cards, entry tables, inboxes, pressure rows), the exchange's inbox
+layout and its (epoch, bits) words against ``sharded.exchange`` and the
+JAX mesh's ``pmax``, its transport from a peer matrix, the order in which
+a group's launches are checked, prepared and issued, the exchange
 timeout's fault class and its bound, the resolver's dispatch deadline,
 none of which needs a card."""
 
@@ -201,17 +204,16 @@ def test_spread_plan_of_four_by_two_on_one_card():
 
 def test_spread_plan_over_four_cards_and_its_exchange_buffer():
     """One partition a card over ``cuda:0 .. cuda:3``: four launches in
-    card order, each its entry and row; the exchange buffer holds, for
-    each launch parity, batch and card, an int32 flag (16-byte aligned as a
-    whole) and ceil(2500 / 32) = 79 words of H padded to 80."""
+    card order, each its entry and row; each card's inbox holds, for each
+    launch parity, batch and sending card, ceil(2500 / 32) = 79 words of
+    (epoch, 32 bits of H), 64 bits each, padded to 80 (16 bytes)."""
     plan = kernels.spread_plan([_cuda(i) for i in range(4)], 1, 40, 2500)
     assert plan.cards == tuple(_cuda(i) for i in range(4))
     assert plan.tables == ((0,), (1,), (2,), (3,))
     assert plan.rows == (((0, 0),), ((0, 1),), ((0, 2),), ((0, 3),))
     x = plan.exchange
     assert (x.cards, x.slots, x.words) == (4, 40, 80)
-    assert x.flags == (0, 2 * 40 * 4) and x.data == (320, 2 * 40 * 4 * 80)
-    assert x.total == 320 + 25_600 and x.data[0] % 4 == 0
+    assert x.inbox == 2 * 40 * 4 * 80 and 8 * x.words % 16 == 0
 
 
 def test_spread_plan_in_rows_of_two_cards():
@@ -232,7 +234,7 @@ def test_spread_plan_of_entries_interleaved_over_two_cards():
     assert plan.cards == (_cuda(1), _cuda(0))
     assert plan.tables == ((0, 2), (1, 3))
     assert plan.rows == (((0, 0), (1, 2)), ((0, 1), (1, 3)))
-    assert plan.exchange.words == 4 and plan.exchange.flags == (0, 12)
+    assert plan.exchange.words == 2 and plan.exchange.inbox == 2 * 3 * 2 * 2
 
 
 def test_spread_plan_refusals():
@@ -298,14 +300,209 @@ def test_scan_plan_sizes_global_merge_rows_by_every_entrys_buckets():
 
 
 def test_spread_phase_ms_reads_the_exchange_column():
-    """A spread's timer has the exchange's column after history; the host
-    side names the phases by the stamps' width."""
+    """A spread's timer has the exchange's column after history, then the
+    three points inside the exchange; the host side names the phases by the
+    stamps' width and reads only the phase boundaries."""
     n = len(kernels.SPREAD_PHASES)
     assert kernels.SPREAD_PHASES[2] == "exchange" and n == len(kernels.SCAN_PHASES) + 1
-    stamps = torch.arange(n + 1, dtype=torch.int64)[None] * 1000
+    assert kernels.SPREAD_STAMPS == n + 1 + len(kernels.EXCHANGE_POINTS)
+    bounds = torch.arange(n + 1, dtype=torch.int64) * 1000
+    stamps = torch.cat([bounds, torch.tensor([2100, 2500, 2900])])[None]
     out = kernels.scan_phase_ms(stamps)
     assert list(out["phases"]) == list(kernels.SPREAD_PHASES)
-    assert out["phases"]["exchange"] == 0.001
+    assert out["phases"]["exchange"] == 0.001 and out["total_ms"] == pytest.approx(n / 1000)
+
+
+def test_exchange_split_parts_batch_0_from_the_rest():
+    """``exchange_split`` on synthetic stamps near 2^61 ns: each batch's
+    exchange cut at its points into publish, wait, OR and barrier (µs),
+    batch 0 alone (the cards' start-up skew lands in its wait), then the
+    median and the largest of the other batches over every run."""
+    t0 = 1_760_000_000_000_000_000
+    n = len(kernels.SPREAD_PHASES) + 1
+
+    def batch(start, wait):  # every phase 1 µs, the exchange 1 µs + wait
+        b = [start + 1000 * k + (wait if k >= 3 else 0) for k in range(n)]
+        return b + [b[2] + 100, b[2] + 600 + wait, b[2] + 800 + wait]
+
+    waits = [9000, 0, 2000, 500]
+    rows, at = [], t0
+    for w in waits:
+        rows.append(batch(at, w))
+        at = rows[-1][n - 1] + 10
+    out = kernels.exchange_split(torch.tensor(rows, dtype=torch.int64))
+    assert out["batch0"] == pytest.approx({"publish": 0.1, "wait": 9.5, "OR": 0.2, "barrier": 0.2, "total": 10.0})
+    assert out["median_rest"]["wait"] == pytest.approx(1.0) and out["max_rest"]["wait"] == pytest.approx(2.5)
+    assert out["max_rest"]["total"] == pytest.approx(3.0)
+    one = kernels.exchange_split(torch.tensor(rows[:1], dtype=torch.int64))
+    assert set(one) == {"batch0"}
+    with pytest.raises(ValueError):
+        kernels.exchange_split(torch.zeros((2, n), dtype=torch.int64))
+
+
+# --- the exchange's inboxes and words (the kernel's, on the host) -----------
+
+@pytest.mark.parametrize("n_cards,G_,T_,words", [(2, 1, 1, 2), (4, 40, 2500, 80), (3, 5, 64, 2), (8, 2, 65, 4),
+                                                 (4, 1, 65536, 2048)])
+def test_inbox_layout_a_card(n_cards, G_, T_, words):
+    """A card's inbox: [2 parities, G, cards, words] of 64-bit words,
+    ceil(T / 32) words a slot padded to 16 bytes; slots in (parity, batch,
+    sender) order, so parity 1 starts half-way."""
+    x = kernels.exchange_layout(n_cards, G_, T_)
+    assert (x.cards, x.slots, x.words) == (n_cards, G_, words)
+    assert words >= -(-T_ // 32) and (8 * words) % 16 == 0 and words - -(-T_ // 32) < 2
+    assert x.inbox == 2 * G_ * n_cards * words
+    assert x.slot(0, 0, 0) == 0 and x.slot(0, 0, 1) == words
+    assert x.slot(0, 1, 0) == n_cards * words if G_ > 1 else True
+    assert x.slot(1, 0, 0) == x.inbox // 2
+    assert x.slot(1, G_ - 1, n_cards - 1) + words == x.inbox
+    offsets = sorted(x.slot(p, g, c) for p in range(2) for g in range(G_) for c in range(n_cards))
+    assert offsets == list(range(0, x.inbox, words))
+
+
+@pytest.mark.parametrize("T_", [1, 31, 32, 33, 2500])
+def test_exchange_words_pack_and_unpack(T_):
+    """A slot's words carry the epoch in their upper half and H's bits in
+    the lower (transaction 32 w + b at bit b of word w); read back under
+    the same epoch they give H, under another (a slot not yet written in
+    this launch, or zeroed) nothing."""
+    rnd = np.random.default_rng(T_)
+    H = torch.from_numpy(rnd.random(T_) < 0.3)
+    for epoch in (1, 2, 7, (1 << 31) - 1):
+        words = kernels.exchange_words(epoch, H)
+        assert words.dtype == torch.int64 and words.shape == (-(-T_ // 32),)
+        assert bool(((words >> 32) == epoch).all())
+        t = int(rnd.integers(T_))
+        assert bool((words[t // 32] >> (t % 32)) & 1) == bool(H[t])
+        padded = torch.cat([words, torch.zeros(1, dtype=torch.int64)])  # a slot's padding word
+        assert torch.equal(kernels.exchange_bits(padded, epoch, T_), H)
+        assert kernels.exchange_bits(words, epoch + 1, T_) is None
+        assert kernels.exchange_bits(torch.zeros_like(words), epoch, T_) is None
+    stale = kernels.exchange_words(3, H)
+    stale[-1] = kernels.exchange_words(1, H)[-1]  # one word of an earlier launch: not yet this launch's
+    assert kernels.exchange_bits(stale, 3, T_) is None
+
+
+@pytest.mark.parametrize("n_cards", [2, 4, 8])
+def test_the_or_of_the_cards_words_is_the_exchange_and_the_jax_pmax(n_cards):
+    """Every card's H packed into every other card's inbox at its slot
+    (parity of the epoch, batch, sender), each inbox read back and ORed
+    with the card's own H: every card holds ``sharded.exchange``'s H, which
+    is the JAX mesh's ``pmax`` of H over ``part`` on the CPU devices."""
+    T_, G_, g, epoch = 100, 3, 1, 5
+    rnd = np.random.default_rng(n_cards)
+    Hs = [torch.from_numpy(rnd.random(T_) < 0.05) for _ in range(n_cards)]
+    lay = kernels.exchange_layout(n_cards, G_, T_)
+    inboxes = [torch.zeros(lay.inbox, dtype=torch.int64) for _ in range(n_cards)]
+    for sender, H in enumerate(Hs):
+        words = kernels.exchange_words(epoch, H)
+        for c in range(n_cards):
+            if c != sender:
+                at = lay.slot(epoch & 1, g, sender)
+                inboxes[c][at : at + words.shape[0]] = words
+    got = []
+    for c in range(n_cards):
+        H = Hs[c].clone()
+        for sender in range(n_cards):
+            if sender != c:
+                at = lay.slot(epoch & 1, g, sender)
+                bits = kernels.exchange_bits(inboxes[c][at : at + lay.words], epoch, T_)
+                assert bits is not None
+                H |= bits
+        assert kernels.exchange_bits(inboxes[c][lay.slot((epoch + 1) & 1, g, 0):][: lay.words], epoch, T_) is None
+        got.append(H)
+    want = TS.exchange(Hs)
+    mesh = Mesh(np.array(jax.devices()[:n_cards]), ("part",))
+    pmax = JS._shard_map(lambda x: jax.lax.pmax(x, "part"), mesh, P("part"), P("part"))
+    jax_h = np.asarray(pmax(jnp.asarray(np.stack([h.numpy() for h in Hs]).astype(np.int32))))
+    for c in range(n_cards):
+        assert torch.equal(got[c], want[c])
+        np.testing.assert_array_equal(jax_h[c].astype(bool), got[c].numpy())
+    assert bool(got[0].any())
+
+
+@pytest.mark.parametrize("peer,want", [
+    ([[True]], None),  # one card exchanges nothing
+    ([[True, True], [True, True]], "peer"),
+    ([[False, True], [True, False]], "peer"),  # the diagonal is not read
+    ([[True, True], [False, True]], "host"),  # one direction refused
+    ([[True] * 4 for _ in range(4)], "peer"),
+    ([[True, True, True, True], [True, True, True, True], [True, True, True, False], [True, True, True, True]],
+     "host"),
+    ([[True] * 4, [True] * 4, [False] * 4, [True] * 4], "host"),
+], ids=["one-card", "two", "diagonal", "one-way", "four", "one-pair-of-four", "one-card-of-four"])
+def test_exchange_transport_from_the_peer_matrix(peer, want):
+    assert kernels.exchange_transport(peer) == want
+
+
+def _spread_inputs(n_cards, bad_card=None):
+    """A 4 x 1 spread on the CPU planned as ``n_cards`` cards, the group's
+    inputs a card (card ``bad_card``'s versions of the wrong shape)."""
+    spread = TS.make_spread(4, B, S, LANES, [CPU] * 4)
+    stacked, cols = _encoded(_groups()[0], 0)
+    batch = TB.upload(stacked, CPU)
+    ids = [i * n_cards // 4 for i in range(4)]
+    plan = kernels.spread_plan(ids, 1, len(cols[0]), T)
+    entries = [(*e.states, e.plo, e.phi) for e in spread.entries]
+    vers = [G.version_rows(*cols, CPU) for _ in plan.cards]
+    if bad_card is not None:
+        vers[bad_card] = vers[bad_card][:, :-1]
+    return plan, entries, [(batch.rb, batch.re)] * 4, [tuple(batch)] * len(plan.cards), vers
+
+
+def test_every_cards_launch_is_checked_and_prepared_before_any_is_issued(monkeypatch):
+    """``resolve_many_spread`` checks every card's launch, then prepares
+    every one (plan, scratch, outputs, arguments), then issues them all in
+    one call: a card's launch never waits on the host's work for the next
+    card. Shown with the three steps recorded in place of the card's."""
+    events = []
+    monkeypatch.setattr(kernels, "_spread_check", lambda plan, c, *a: events.append(("check", c)) or c)
+    monkeypatch.setattr(kernels, "_spread_prepare", lambda plan, c, *a: events.append(("prepare", c)) or
+                        kernels._Prepared(c, None, c, 0, 0, 0, None))
+    monkeypatch.setattr(kernels, "_spread_issue", lambda prepared: events.append(("issue", len(prepared))))
+
+    class Exchange:
+        def next_epoch(self):
+            return 1
+
+        def reserve(self, layout):
+            events.append(("reserve", layout.cards))
+            return [0] * layout.cards
+
+    plan, entries, reads, batches, vers = _spread_inputs(4)
+    outs = kernels.resolve_many_spread(plan, entries, reads, batches, vers, S2, Exchange(), timeout_s=1.0)
+    assert outs == [0, 1, 2, 3]
+    assert events == ([("check", c) for c in range(4)] + [("reserve", 4)] + [("prepare", c) for c in range(4)]
+                      + [("issue", 4)])
+
+
+@pytest.mark.parametrize("bad_card", [0, 3])
+def test_a_refused_card_stops_the_group_before_any_allocation(monkeypatch, bad_card):
+    """Wrong inputs on any card raise from the checks, before the exchange
+    reserves anything or any card's launch is prepared or issued (the
+    tensors here lie on the CPU, taken for one card each)."""
+    monkeypatch.setattr(kernels, "_device", lambda *t: torch.device("cuda", 0))
+    steps = []
+    monkeypatch.setattr(kernels, "_spread_prepare", lambda *a: steps.append("prepare"))
+    monkeypatch.setattr(kernels, "_spread_issue", lambda *a: steps.append("issue"))
+
+    class Exchange:
+        devices = [torch.device("cuda", 0)] * 4
+
+        def next_epoch(self):
+            return 1
+
+        def reserve(self, layout):
+            steps.append("reserve")
+
+    plan, entries, reads, batches, vers = _spread_inputs(4, bad_card)
+    with pytest.raises(ValueError, match="vers"):
+        kernels.resolve_many_spread(plan, entries, reads, batches, vers, S2, Exchange(), timeout_s=1.0)
+    assert steps == []
+    plan, entries, reads, batches, vers = _spread_inputs(4)
+    with pytest.raises(ValueError, match="SpreadExchange"):  # several cards and no exchange
+        kernels.resolve_many_spread(plan, entries, reads, batches, vers, S2, None, timeout_s=1.0)
+    assert steps == []
 
 
 def test_an_exchange_timeout_is_a_kernel_fault():
