@@ -281,10 +281,12 @@ Each path runs with every kernel launch count set to 0 just before it and
 read just after, and every kernel of the path must have launched.
 
 Exits non-zero, without a result line, when no CUDA card is visible.
-Usage: ``python3 chip_smoke.py``; ``--tcp-only`` runs phases 1, 2 and 16
-alone and prints phase 16's kernel rows but no result line, and
-``--btree-only`` likewise phases 1, 2 and 17; ``--spread-only`` and
-``--data-only`` run phases 1, 2, 7 (with phase 3's oracle) and 18 or 19;
+Usage: ``python3 chip_smoke.py``; ``--phases 11,13,16b`` runs phases 1 and
+2, then only the phases named (16a, 16b and 16c: phase 16's parts) with
+what they need (phase 3's workload and oracle, phase 7 for 10, 18 and 19,
+phase 4 for 5, phase 8 for 12) in a whole run's order, and prints their
+kernel rows but no result line; ``--tcp-only``, ``--btree-only``,
+``--spread-only`` and ``--data-only`` are ``--phases`` 16, 17, 18 and 19;
 ``python3 chip_smoke.py --profile-only``
 prints only the two resolver paths' profile lines (each path warmed by one
 group first) and no result line, and runs from any checkout of the port;
@@ -301,12 +303,14 @@ scan case with its timer line (no result line).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
 import os
 import random
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1829,6 +1833,229 @@ def check_exchange_timeout(card: str) -> dict:
     return out
 
 
+TWO_SPREAD_GROUPS = 20  # groups each of the two spreads resolves
+TWO_SPREAD_G = 4  # batches a group
+# transactions a batch of each spread (the bench's transactions, spread
+# keys): shapes whose launches take different shared memory (24,576 and
+# 30,720 bytes by ``kernels.scan_plan``), which each card's kernel
+# attribute must hold both of
+TWO_SPREAD_T = (256, 1024)
+TWO_SPREAD_CAPACITY = 1 << 16
+
+
+def time_spread(cs, stamps: list) -> None:
+    """Time every group the spread mesh ``cs`` (several entries) resolves
+    from now on: its ``_resolve`` (which ``del cs._resolve`` restores) runs
+    the same launch with each card's per-phase timer, and appends the
+    group's stamp buffers (one a card, in the spread's card order) to
+    ``stamps``."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict import sharded as SH
+
+    def timed(spread, uploaded, nows, olds_pre, olds_post):
+        st = [torch.zeros((len(nows), kernels.SPREAD_STAMPS), dtype=torch.int64, device=d)
+              for d in spread.devices()]
+        out = SH.resolve_many_spread(spread, [uploaded["batch"][e.device] for e in spread.entries], nows,
+                                     olds_pre, olds_post, uploaded["reads"], exchange=cs._exchange,
+                                     timeout_s=cs._exchange_timeout, phase_ns=st)
+        stamps.append(st)
+        return out
+
+    cs._resolve = timed
+
+
+def spread_worker(devices, n_parts: int, seed: int, T: int, go=None, capture: bool = True) -> dict:
+    """One spread mesh over ``devices`` (``n_parts`` partitions) through
+    TWO_SPREAD_GROUPS groups of its own workload (``T`` of the bench's
+    transactions a batch over spread keys, from ``seed``), a group encoded, dispatched and
+    collected at a time, every group's launch timed card by card. ``go``
+    (a callable) runs once the mesh is warm, just before the first group.
+    Returns each group's host wall (ms, dispatch to verdicts), the verdicts,
+    the exchange's split a card (``kernels.exchange_split`` over the
+    groups; several cards only), the current stream of each card on the
+    calling thread and, with ``capture``, every group the path resolved
+    (``capture_groups``) for ``check_spread_groups``."""
+    from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
+
+    offset = 1000
+    batches = make_batches(TWO_SPREAD_GROUPS * TWO_SPREAD_G, T, offset, seed=seed, key=spread_key)
+    cs = TorchMeshConflictSet(key_width=KEY_WIDTH, capacity=TWO_SPREAD_CAPACITY, n_parts=n_parts,
+                              devices=devices)
+    try:
+        cs.warm_compile()
+        cards = cs._targets
+        on_card = [d for d in cards if d.type == "cuda"]
+        streams = [torch.cuda.current_stream(d).cuda_stream for d in on_card]
+        stamps: list = []
+        time_spread(cs, stamps)
+        groups = capture_groups(cs) if capture else []
+        sync_cards(on_card)
+        if go is not None:
+            go()
+        walls, verdicts = [], []
+        for g in range(0, len(batches), TWO_SPREAD_G):
+            idx = range(g, g + TWO_SPREAD_G)
+            cs.prepare(offset + idx[-1] + WINDOW)
+            work = [(cs.encode(batches[i]), offset + i + WINDOW, offset + i) for i in idx]
+            t0 = time.perf_counter()
+            verdicts += [[int(v) for v in vs] for vs in cs.detect_many_encoded_async(work)()]
+            walls.append((time.perf_counter() - t0) * 1e3)
+        sync_cards(on_card)
+        del cs._resolve
+        split = None
+        if len(on_card) > 1:
+            split = {str(d): kernels.exchange_split(torch.stack([st[c] for st in stamps]))
+                     for c, d in enumerate(cards)}
+    finally:
+        cs.close()
+    return {"walls_ms": walls, "verdicts": verdicts, "exchange_us": split, "streams": streams, "groups": groups}
+
+
+def check_spread_groups(groups, label: str) -> int:
+    """Every group a spread resolved (``capture_groups``) held to
+    ``plain_spread_group`` from the state it started from: verdicts,
+    per-batch pressures and every entry's state, exactly, with no card's
+    exchange out of time. On the calling thread (K2's plain version is a
+    matmul, and cuBLAS keeps a workspace a thread). Returns the groups
+    checked."""
+    from foundationdb_tpu_torch.conflict import kernels
+
+    for i, (before, gb, reads, cols, (v, p, status), after) in enumerate(groups):
+        if status is not None:
+            kernels.check_spread_status(status.cpu())
+        plain = before.clone()
+        pv, pp = plain_spread_group(plain, gb, cols, reads)
+        err = max_abs_err((v, p, *spread_states(after)), (pv, pp, *spread_states(plain)))
+        if err:
+            raise AssertionError(f"two spreads ({label}): group {i} differs from plain_spread_group "
+                                 f"(max abs err {err})")
+    return len(groups)
+
+
+def _spread_child(devices, n_parts: int, seed: int, T: int, ready, go, out) -> None:
+    """``spread_worker`` in a spawned child process (``two_spreads``'s
+    second process): ready once warm, then waits for ``go``; its record,
+    or its error, on the queue ``out``."""
+    from foundationdb_tpu_torch.conflict import kernels
+
+    try:
+        kernels.build.load()
+        out.put(spread_worker(devices, n_parts, seed, T, go=lambda: (ready.set(), go.wait(300.0)), capture=False))
+    except BaseException as e:  # the parent raises it
+        ready.set()
+        out.put({"error": repr(e)})
+
+
+def two_spreads(devices, n_parts: int, mode: str) -> dict:
+    """Two spread meshes over the same ``devices``, each through its own
+    TWO_SPREAD_GROUPS groups (``spread_worker``, seeds 11 and 12, batches
+    of TWO_SPREAD_T[0] and TWO_SPREAD_T[1] transactions): "one
+    thread" resolves them one after the other; "two threads" side by side,
+    from two threads of this process that start together (both with each
+    card's same current stream; then, on this thread, every group equal
+    to ``plain_spread_group``); "two processes" side by side from this
+    process and a spawned child (their launches in no order between them:
+    each process orders only its own). Returns the wall of the case (the
+    groups resolved, not the checks), and each spread's record."""
+    import threading
+
+    seeds = (11, 12)
+    t0 = time.perf_counter()
+    if mode == "one thread":
+        recs = [spread_worker(devices, n_parts, s, T, capture=False) for s, T in zip(seeds, TWO_SPREAD_T)]
+    elif mode == "two threads":
+        start = threading.Barrier(2, timeout=300.0)
+        recs, errors = [None, None], []
+
+        def one(i):
+            try:
+                recs[i] = spread_worker(devices, n_parts, seeds[i], TWO_SPREAD_T[i], go=start.wait)
+            except BaseException as e:  # raised below, on this thread
+                errors.append(e)
+                start.abort()
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        if recs[0]["streams"] != recs[1]["streams"]:
+            raise AssertionError(f"two threads launch on different streams of the cards: {recs[0]['streams']}, "
+                                 f"{recs[1]['streams']}")
+        wall = time.perf_counter() - t0
+        for r in recs:
+            r["groups_checked"] = check_spread_groups(r.pop("groups"), layout_label(devices))
+    elif mode == "two processes":
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        ready, go, out = ctx.Event(), ctx.Event(), ctx.Queue()
+        child = ctx.Process(target=_spread_child, args=(devices, n_parts, seeds[1], TWO_SPREAD_T[1], ready, go, out))
+        child.start()
+        try:
+            mine = spread_worker(devices, n_parts, seeds[0], TWO_SPREAD_T[0],
+                                 go=lambda: (ready.wait(300.0), go.set()), capture=False)
+            theirs = out.get(timeout=600.0)
+        finally:
+            child.join(60.0)
+            if child.is_alive():
+                child.kill()
+        if "error" in theirs:
+            raise AssertionError(f"two spreads, the child process: {theirs['error']}")
+        recs = [mine, theirs]
+    else:
+        raise ValueError(mode)
+    if mode != "two threads":
+        wall = time.perf_counter() - t0
+    return {"mode": mode, "wall_s": wall, "spreads": recs}
+
+
+def check_two_spreads(devices, n_parts: int, card: str) -> dict:
+    """Phase 18 (e), one layout: two spreads over the same cards resolved
+    from one thread, then from two threads side by side (``two_spreads``):
+    every group of the two threads equal to its ``plain_spread_group``,
+    with no card's exchange out of time and every group done within a
+    quarter of the exchange's bound (CONFLICT_DISPATCH_DEADLINE), and their
+    verdicts the one thread's; over several cards also from two processes,
+    recorded beside them. The collector is off during each case. One
+    ``{"two_spreads": ...}`` line; returns its object."""
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+
+    label = layout_label(devices)
+    modes = ["one thread", "two threads"] + (["two processes"] if len(set(devices)) > 1 else [])
+    runs = {}
+    for mode in modes:
+        gc.collect()
+        gc.disable()
+        try:
+            runs[mode] = two_spreads(devices, n_parts, mode)
+        finally:
+            gc.enable()
+    one, two = runs["one thread"]["spreads"], runs["two threads"]["spreads"]
+    if [r["verdicts"] for r in two] != [r["verdicts"] for r in one]:
+        raise AssertionError(f"two spreads ({label}): the two threads' verdicts differ from the one thread's")
+    limit_ms = Knobs.CONFLICT_DISPATCH_DEADLINE * 1e3 / 4
+    slowest = max(w for r in two for w in r["walls_ms"])
+    if slowest > limit_ms:
+        raise AssertionError(f"two spreads ({label}): a group of the two threads took {slowest:.1f} ms "
+                             f"(more than {limit_ms:.0f} ms, a quarter of the exchange's bound)")
+    out = {"layout": label, "groups": TWO_SPREAD_GROUPS, "group": [TWO_SPREAD_G, list(TWO_SPREAD_T)],
+           "groups_equal_to_plain": sum(r["groups_checked"] for r in two), "card": card}
+    for mode, run in runs.items():
+        walls = [w for r in run["spreads"] for w in r["walls_ms"]]
+        out[mode] = {"wall_s": run["wall_s"], "group_ms_median": statistics.median(walls),
+                     "group_ms_max": max(walls),
+                     "exchange_us": [r["exchange_us"] for r in run["spreads"]]}
+    log(f"two spreads ({label}): {TWO_SPREAD_GROUPS} groups each, one thread {runs['one thread']['wall_s']:.3f} s, "
+        f"two threads {runs['two threads']['wall_s']:.3f} s (a group at most {slowest:.1f} ms), "
+        f"every group of the two threads equal to plain_spread_group [{card}]")
+    log(json.dumps({"two_spreads": out}))
+    return out
+
+
 def warm_cublas(n: int) -> None:
     """K2's plain version is a matmul: a card's first one allocates the
     cuBLAS workspace (32 MiB on the H100), held for the process's life, so
@@ -2018,7 +2245,9 @@ def run_spread(batches, want_oracle, offset: int, phase7: dict, card: str) -> li
     gathered final state of the 4-partition layouts equal to phase 7's,
     and card memory back after ``close()``; (c) where more than one card
     is visible, K6 history and K5 on the last card against their plain
-    versions. Returns the kernel rows."""
+    versions; (d) the exchange's bounded wait; (e) on each layout of (b),
+    two spreads over its cards resolved from two threads side by side
+    (``check_two_spreads``). Returns the kernel rows."""
     import numpy as np
 
     from foundationdb_tpu_torch.conflict import grid as G
@@ -2038,6 +2267,7 @@ def run_spread(batches, want_oracle, offset: int, phase7: dict, card: str) -> li
     rows, lines = [], []
     for devices, n_parts in layouts:
         run = spread_path(devices, n_parts, batches, want_oracle, offset, card)
+        run["two_spreads"] = check_two_spreads(devices, n_parts, card)  # (e)
         state = run.pop("state")
         del run["verdicts"]
         if n_parts == 4:
@@ -3293,6 +3523,7 @@ COMMIT_ACTORS = 100
 MIX_A = ("90_10", 50, 9, 1)  # tools/perf.py:39: (name, txns an actor, parallel gets, sets)
 MIX_B = ("write", 20, 0, 10)  # perf.py's "write" preset
 COMMIT_ATTEMPTS = 20  # ReadWriteWorkload._one_txn's retry budget
+COMMIT_LOAD_PROGRESS = 100_000  # keys between two lines of the load's progress
 
 
 def commit_key(n: int) -> bytes:
@@ -3416,7 +3647,7 @@ def commit_path_run(card: str, device, n_keys: int, measure: bool) -> dict:
     # a resolver encodes while ``capture`` is on
     mg_sizes, spans, capture = [], {"on": False, "pairs": []}, {"on": False, "best": None}
     # the class the cluster's resolvers build (a spread on a multi-card host)
-    Built = torch_built()["cls"] if on_card else torch_built("torch1")["cls"]
+    Built = torch_built("torch", device)["cls"]
     send, detect_async = ReadCoalescer._send, Built.detect_many_encoded_async
     encode, search_codes = Built.encode, TorchRangeIndex._search_codes
 
@@ -3484,6 +3715,9 @@ def commit_path_run(card: str, device, n_keys: int, measure: bool) -> dict:
                     await tr.on_error(e)
             else:
                 raise AssertionError(f"load transaction at {lo} failed {COMMIT_ATTEMPTS} times")
+            done = min(lo + COMMIT_LOAD_SETS, n_keys)
+            if done % COMMIT_LOAD_PROGRESS == 0 and done < n_keys:  # how far a load cut short got
+                log(f"commit path ({out['device']}): {done} keys loaded in {time.perf_counter() - t0:.1f} s")
         out["load_s"] = time.perf_counter() - t0
         out["load_sim_s"] = sim_now() - s0
         out["load_txns"] = math.ceil(n_keys / COMMIT_LOAD_SETS)
@@ -3801,23 +4035,50 @@ def one_launch_a_group(launches: dict, snap: dict, groups: int, label: str) -> N
                              f"{snap['deviceDispatches']} dispatched groups, per-batch kernels {loop}")
 
 
-def torch_built(backend: str = "torch") -> dict:
-    """What ``new_conflict_set(backend)`` with no device builds on this
-    host: ``torch1`` is always the one grid; ``torch`` is the one grid on a
-    host of one card and the spread over every card on a host of more
-    (``api.mesh_upgrade``); ``torch_mesh`` is one stack. Its class, the
-    class's name, the kernels of its resolve and its rebase kernel."""
+def torch_built(backend: str = "torch", device=None) -> dict:
+    """What ``new_conflict_set(backend, device=device)`` builds on this
+    host: ``torch1`` is always the one grid; ``torch`` with no device is
+    the one grid on a host of one card and the spread over every card on a
+    host of more (``api.mesh_upgrade``; inside ``twin_layout`` ``torch`` on
+    the CPU is that spread's layout too); ``torch_mesh`` is one stack. Its
+    class, the class's name, the kernels of its resolve and its rebase
+    kernel."""
     from foundationdb_tpu_torch.conflict.api import mesh_upgrade
     from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
 
-    if backend == "torch" and mesh_upgrade() is not None:
+    if backend == "torch" and mesh_upgrade(device) is not None:
         return {"cls": TorchMeshConflictSet, "name": "TorchMeshConflictSet", "path": SPREAD_PATH,
                 "rebase": "maint_rebase_parts"}
     if backend == "torch_mesh":
         return {"cls": TorchMeshConflictSet, "name": "TorchMeshConflictSet", "path": RESOLVE_PATH,
                 "rebase": "maint_rebase_parts"}
     return {"cls": TorchConflictSet, "name": "TorchConflictSet", "path": RESOLVE_PATH, "rebase": "maint_rebase"}
+
+
+@contextlib.contextmanager
+def twin_layout():
+    """Inside, a conflict set built for the CPU takes the layout ``torch``
+    has on this host's cards: on a host of n cards (``api.mesh_upgrade``)
+    ``torch`` with ``device="cpu"`` is the spread over n CPU entries, one
+    partition each, as the card run's is over the n cards. A CPU twin so
+    built grows, replays and reshards its grids as the card run does, and
+    its guards name the same backend; on one card nothing changes."""
+    from foundationdb_tpu_torch.conflict import api
+
+    real = api.mesh_upgrade
+    cards = real()
+
+    def upgrade(device=None):
+        if cards is not None and device is not None and torch.device(device).type == "cpu":
+            return {"devices": [torch.device("cpu")] * len(cards["devices"]), "n_parts": cards["n_parts"]}
+        return real(device)
+
+    api.mesh_upgrade = upgrade
+    try:
+        yield
+    finally:
+        api.mesh_upgrade = real
 
 
 def resolver_state(cs):
@@ -4026,7 +4287,7 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
     make_resolver, make_storage, destroy = Worker._make_resolver, Worker._make_storage, Worker._destroy
     # the class the resolvers build (a spread on a multi-card host) and its
     # resolve kernels
-    built = torch_built() if on_card else torch_built("torch1")
+    built = torch_built("torch", device)
     Built, path = built["cls"], built["path"]
     detect_async, encode = Built.detect_many_encoded_async, Built.encode
     search_codes = TorchRangeIndex._search_codes
@@ -4181,6 +4442,9 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
                 return cv
 
             target = await attempt_loop(f"load {lo}", body)
+            done = min(lo + COMMIT_LOAD_SETS, n_keys)
+            if done % COMMIT_LOAD_PROGRESS == 0 and done < n_keys:  # how far a load cut short got
+                log(f"dynamic cluster ({out['device']}): {done} keys loaded in {time.perf_counter() - t0:.1f} s")
         load_s, load_sim = time.perf_counter() - t0, sim_now() - s0
         # durable: every live server durable past the last load commit, its
         # index over its whole engine, no fetch in flight, and the data at
@@ -4284,13 +4548,15 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
 
     def resolver_grids():
         """uid -> (worker, grid bytes, weak references to the grid's
-        tensors) of every live resolver."""
+        tensors: every entry's where torch is the spread) of every live
+        resolver."""
         out = {}
         for addr, p in sim.processes.items():
             w = getattr(p, "worker", None)
             for uid, h in (w.roles.items() if w is not None and p.alive else ()):
                 if h.kind == "resolver":
-                    state = h.obj.cs.primary._state
+                    primary = h.obj.cs.primary
+                    state = spread_states(primary._spread) if hasattr(primary, "_spread") else primary._state
                     out[uid] = (addr, sum(x.numel() * x.element_size() for x in state),
                                 [weakref.ref(x) for x in state])
         return out
@@ -4601,8 +4867,10 @@ def dynamic_cluster_run(card: str, device, n_keys: int, measure: bool) -> dict:
 
 def dynamic_twin_cpu(card: str, n_keys: int) -> dict:
     """Phase 14's CPU twin (a spawned child process): ``dynamic_cluster_run``
-    at ``n_keys`` keys with ``device="cpu"``; its transcript and seconds."""
-    run = dynamic_cluster_run(card, "cpu", n_keys, measure=False)
+    at ``n_keys`` keys with ``device="cpu"`` in this host's layout
+    (``twin_layout``); its transcript and seconds."""
+    with twin_layout():
+        run = dynamic_cluster_run(card, "cpu", n_keys, measure=False)
     return {"transcript": run["transcript"], "run_s": run["run_s"]}
 
 
@@ -4721,6 +4989,23 @@ def collect_all() -> None:
             return
 
 
+def counting_log(counted: dict, events, by_error: bool = False):
+    """A trace log that also counts, into ``counted``, the events of the
+    types ``events`` (with ``by_error``, a ``KernelFault`` under its
+    error's class, "KernelFault ExchangeTimeoutError")."""
+    from foundationdb_tpu_torch.runtime import trace as T
+
+    class CountingLog(T.TraceLog):
+        def log(self, severity, event_type, time_, process, **fields):
+            super().log(severity, event_type, time_, process, **fields)
+            if event_type in events:
+                if by_error and event_type == "KernelFault":
+                    event_type += " " + str(fields.get("Err", "")).split("(")[0]
+                counted[event_type] = counted.get(event_type, 0) + 1
+
+    return CountingLog()
+
+
 def live_guards(sim) -> list:
     """(health, backend, device, last error) of every live resolver's
     guard."""
@@ -4759,13 +5044,6 @@ def soak_once(seed: int, device, kw: dict, capture: dict | None = None,
 
     on_card = device is None
     counted = {e: 0 for e in SOAK_EVENTS}
-
-    class CountingLog(T.TraceLog):
-        def log(self, severity, event_type, time_, process, **fields):
-            super().log(severity, event_type, time_, process, **fields)
-            if event_type in counted:
-                counted[event_type] += 1
-
     sims: list = []
     # torch is a spread on a multi-card host; the forced seed pins torch1
     encodes = {cls: cls.encode for cls in (TorchConflictSet, TorchMeshConflictSet)}
@@ -4817,7 +5095,7 @@ def soak_once(seed: int, device, kw: dict, capture: dict | None = None,
                 "transport_armed": bool(sim.knobs.TRANSPORT_FAULT_INJECTION), "guards": live_guards(sim)}
 
     saved_log = T.trace_log()
-    T.set_trace_log(CountingLog())
+    T.set_trace_log(counting_log(counted, SOAK_EVENTS))
     soak.Sim = recorded_sim
     if capture is not None:
         TorchConflictSet.encode = TorchMeshConflictSet.encode = captured_encode
@@ -4949,7 +5227,8 @@ def run_soak(card: str) -> tuple[dict, list[dict]]:
         collect_all()  # a failed seed's traceback held its Sim until here
         try:
             card_run = soak_once(seed, None, kw, capture if forced else None, reshards)
-            twin = soak_once(seed, "cpu", kw)
+            with twin_layout():  # the CPU twin of this host's layout
+                twin = soak_once(seed, "cpu", kw)
             s = card_run["summary"]
             backend = s["config"]["conflict_backend"]
             launches = card_run["launches"]
@@ -5234,10 +5513,11 @@ def wait_indexes_current(coord: str, device: str, names: dict, seconds: float = 
 
 def check_cluster_kernels(doc: dict, device: str, names: dict, want_batches: bool, after: int = 0) -> dict:
     """Every resolver of the status document on ``device``, HEALTHY, with 0
-    failovers; at least two of the newest generation (its recovery count,
-    above ``after``), and with ``want_batches`` at least two of them with
-    batches dispatched, and on the card each busy one's process with the scan
-    launched. A master attempt that a newer one fenced leaves its resolvers
+    failovers, its backend what ``torch`` builds there (``torch_built``);
+    at least two of the newest generation (its recovery count, above
+    ``after``), and with ``want_batches`` at least two of them with batches
+    dispatched, and on the card each busy one's process with the scan (the
+    spread's on a host of several cards) launched. A master attempt that a newer one fenced leaves its resolvers
     recruited, idle. (The storage half is ``check_storage_indexes``.)
     Returns the per-resolver figures and the generation."""
     resolvers = {}
@@ -5253,13 +5533,16 @@ def check_cluster_kernels(doc: dict, device: str, names: dict, want_batches: boo
                           "launches": {n: c for n, c in (k.get("launches") or {}).items() if c}}
     newest = max((r["generation"] for r in resolvers.values()), default=0)
     current = [r for r in resolvers.values() if r["generation"] == newest]
+    # a worker with --device cuda builds torch as this host does: the spread
+    # over every card where there are several
+    built = torch_built("torch", None if device == "cuda" else device)
     bad = [(u, r) for u, r in resolvers.items()
            if r["device"] != device or r["state"] != "HEALTHY" or r["failovers"] != 0
-           or r["backend"] != "TorchConflictSet"]
+           or r["backend"] != built["name"]]
     busy = [r for r in current if (r["batches"] or 0) > 0]
     # on the card, a busy resolver's process launched the scan (the counts are
     # the process's; off it nothing launches)
-    unlaunched = [r for r in busy if device == "cuda" and any(r["launches"].get(k, 0) <= 0 for k in RESOLVE_PATH)]
+    unlaunched = [r for r in busy if device == "cuda" and any(r["launches"].get(k, 0) <= 0 for k in built["path"])]
     if bad or unlaunched or newest <= after or len(current) < 2 or (want_batches and len(busy) < 2):
         raise AssertionError(f"resolvers (generation {newest}, after {after}): {resolvers}")
     return {"resolvers": resolvers, "generation": newest}
@@ -5620,25 +5903,34 @@ def run_tcp_cluster(card: str, device: str = "cuda", n_keys: int = TCP_KEYS, mix
     return out
 
 
+# the guards' trace events phase 16 (b) counts in each leg
+GUARD_EVENTS = ("KernelFault", "KernelDeadlineMissed", "KernelFailover", "KernelPromoted")
+
+
 def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
                    mix_s: float = INPROC_MIX_S, check=True) -> tuple[dict, list[dict]]:
     """Phase 16 (b): ``perf --mode tcp-inproc`` through ``perf.main``: the
     same layout as RealWorlds on one RealLoop in this process, ``n_keys``
     keys and the 90_10 mix for ``mix_s`` seconds, over loopback and then
     over sockets (``--no-loopback``). Launch counts are set to 0 before the
-    two runs and read after; the scan and K5 must have
-    launched, and every resolver's guard must be HEALTHY on ``device`` with
-    no failover. With ``check``, the widest resolver batch (on its
-    resolver's state after the runs) and the widest storage search are
-    held to their plain versions and timed. Returns the JSON object and
-    the kernel rows."""
+    two runs and read after; the scan (the spread's on a host of several
+    cards) and K5 must have launched, and every resolver's guard must be
+    HEALTHY on ``device`` with no failover (each guard's record, printed
+    before the gate: health, failovers, device, faults, deadline hits, last
+    error; and each leg's count of the guards' ``GUARD_EVENTS``, a fault by
+    its error's class, an exchange's timeout among them). With ``check``, the widest resolver batch (on its resolver's
+    state after the runs: ``check_built_resolve`` on what the resolver
+    built) and the widest storage search are held to their plain versions
+    and timed. Returns the JSON object and the kernel rows."""
     import contextlib
     import io
 
     from foundationdb_tpu_torch.conflict import kernels
+    from foundationdb_tpu_torch.conflict.mesh_backend import TorchMeshConflictSet
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
     from foundationdb_tpu_torch.device import lanes_to_torch
     from foundationdb_tpu_torch.ops.range_index import TorchRangeIndex
+    from foundationdb_tpu_torch.runtime import trace as T
     from foundationdb_tpu_torch.runtime.knobs import Knobs
     from foundationdb_tpu_torch.server.worker import Worker
     from foundationdb_tpu_torch.tools import perf
@@ -5646,10 +5938,14 @@ def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
     t_phase = time.perf_counter()
     capture: dict = {"best": None, "q": None}
     resolvers: list = []
-    encode, search_codes, make_resolver = TorchConflictSet.encode, TorchRangeIndex._search_codes, Worker._make_resolver
+    counted: dict = {}  # the guards' trace events of a leg, a fault by its error's class
+
+    # torch is the spread on a host of several cards
+    encodes = {cls: cls.encode for cls in (TorchConflictSet, TorchMeshConflictSet)}
+    search_codes, make_resolver = TorchRangeIndex._search_codes, Worker._make_resolver
 
     def captured_encode(self, transactions):
-        enc = encode(self, transactions)
+        enc = encodes[type(self)](self, transactions)
         size = (len(transactions), enc[0].rb.shape[1] * enc[0].wb.shape[1])
         if capture["best"] is None or size > capture["best"][0]:
             capture["best"] = (size, self, enc)
@@ -5665,8 +5961,11 @@ def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
         resolvers.append(h.obj)
 
     legs = {}
-    TorchConflictSet.encode, TorchRangeIndex._search_codes = captured_encode, captured_search
+    TorchConflictSet.encode = TorchMeshConflictSet.encode = captured_encode
+    TorchRangeIndex._search_codes = captured_search
     Worker._make_resolver = recorded_resolver
+    saved_log = T.trace_log()
+    T.set_trace_log(counting_log(counted, GUARD_EVENTS, by_error=True))
     Knobs.STORAGE_TPU_INDEX = True  # perf builds its own knobs; on a RealLoop the index is off unless asked for
     gc.collect()
     gc.freeze()  # this process's earlier objects out of the collector's scans (ROADMAP C3)
@@ -5679,6 +5978,7 @@ def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
                     str(INPROC_ACTORS), "--duration", str(mix_s), "--tcp-config", TCP_CONFIG,
                     "--tcp-classes", ",".join(TCP_CLASSES), "--device", device, *extra]
             w0 = time.perf_counter()
+            counted.clear()
             text = io.StringIO()
             with contextlib.redirect_stdout(text):
                 if perf.main(argv) != 0:
@@ -5689,7 +5989,7 @@ def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
             legs[leg] = {k: rep.get(k) for k in ("txn_per_s", "ops_per_s", "commits", "conflicts",
                                                    "commit_p50_ms", "commit_p95_ms", "read_p50_ms", "wall_s")}
             legs[leg].update(process_wall_s=time.perf_counter() - w0, transport=moved,
-                             transport_knobs=rep["transport_knobs"])
+                             transport_knobs=rep["transport_knobs"], guard_events=dict(counted))
             if (moved["loopbackMessages"] <= 0 if leg == "loopback"
                     else moved["loopbackMessages"] != 0 or moved["tcpMessages"] <= 0):
                 raise AssertionError(f"{leg}: transport {moved}")
@@ -5698,35 +5998,44 @@ def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
             legs[leg]["resolvers"] = list(resolvers)
             resolvers.clear()
             log(f"tcp-inproc over {leg}: {n_keys} keys, mix 90_10 {rep['txn_per_s']:.1f} txn/s, commit p50 "
-                f"{rep['commit_p50_ms']:.3f} ms / p95 {rep['commit_p95_ms']:.3f} ms, run {legs[leg]['process_wall_s']:.1f} s "
-                f"[{card}]")
+                f"{rep['commit_p50_ms']:.3f} ms / p95 {rep['commit_p95_ms']:.3f} ms, run {legs[leg]['process_wall_s']:.1f} s, "
+                f"the guards' events {json.dumps(counted)} [{card}]")
         if device == "cuda":
             torch.cuda.synchronize()
         launches = kernels.launch_counts()
     finally:
-        TorchConflictSet.encode, TorchRangeIndex._search_codes = encode, search_codes
+        for cls, fn in encodes.items():
+            cls.encode = fn
+        TorchRangeIndex._search_codes = search_codes
         Worker._make_resolver = make_resolver
+        T.set_trace_log(saved_log)
         Knobs.STORAGE_TPU_INDEX = None
         gc.unfreeze()
     bad, recruited = {}, []
     for name, leg in legs.items():
         mine = leg.pop("resolvers")
         recruited += mine
-        # (health, failovers, device or None once destroyed) of each guard
-        leg["guards"] = [(r.cs.health, r.cs.health_snapshot()["failovers"],
+        # (health, failovers, device or None once destroyed, faults,
+        # deadline hits, last error) of each guard
+        snaps = [r.cs.health_snapshot() for r in mine]
+        leg["guards"] = [(r.cs.health, h["failovers"],
                           None if getattr(r.cs, "_closed", False)
-                          else getattr(getattr(r.cs.primary, "_device", None), "type", None)) for r in mine]
+                          else getattr(getattr(r.cs.primary, "_device", None), "type", None),
+                          h["faults"], h["deadlineHits"], h["lastError"]) for r, h in zip(mine, snaps)]
         live = [g for g in leg["guards"] if g[2] is not None]
-        if len(live) < 2 or any(h != "HEALTHY" or f != 0 for h, f, _d in leg["guards"]) \
-                or any(d != device for _h, _f, d in live):
+        if len(live) < 2 or any(g[0] != "HEALTHY" or g[1] != 0 for g in leg["guards"]) \
+                or any(g[2] != device for g in live):
             bad[name] = leg["guards"]
     out = {"keys": n_keys, "device": device, "legs": legs, "launches": {k: v for k, v in launches.items() if v}}
+    if bad:  # the figures first, pass or fail
+        log(json.dumps({"tcp_inproc": dict(out, phase_s=time.perf_counter() - t_phase, card=card)}, default=str))
     rows: list = []
     try:
         if bad:
             raise AssertionError(f"tcp-inproc resolver guards: {bad}")
         if check:
-            missing = [k for k in RESOLVE_PATH + ("search",) if launches.get(k, 0) <= 0]
+            built = torch_built("torch", None if device == "cuda" else device)
+            missing = [k for k in built["path"] + ("search",) if launches.get(k, 0) <= 0]
             if missing:
                 raise AssertionError(f"kernels never launched in tcp-inproc: {missing} ({launches})")
             (_size, cs, (hbatch, n_real, _epoch)) = capture["best"]
@@ -5736,7 +6045,7 @@ def run_tcp_inproc(card: str, device: str = "cuda", n_keys: int = INPROC_KEYS,
             T_, KR, KW = hbatch.rb.shape[0], hbatch.rb.shape[1], hbatch.wb.shape[1]
             log(f"kernel checks on tcp-inproc's widest batch ({n_real} transactions, T={T_} KR={KR} KW={KW}) "
                 f"and its resolver's state after the runs [{card}]:")
-            rows = check_built_resolve({"state": cs._state}, hbatch, vers, launches, " (tcp_inproc)")
+            rows = check_built_resolve(resolver_state(cs), hbatch, vers, launches, " (tcp_inproc)")
             for r in rows:
                 r["name"] = f"{r['name']} (tcp_inproc, widest batch T={T_} KR={KR} KW={KW})"
             q_rows, idx, codes = capture["q"]
@@ -5858,14 +6167,19 @@ def run_bindings(card: str, device=None, seeds=BINDING_SEEDS, chaos=BINDING_CHAO
     return out
 
 
-def run_real_process(card: str) -> list[dict]:
+def run_real_process(card: str, parts: str = "abc") -> list[dict]:
     """Phase 16, the real-process cluster: (a) ``run_tcp_cluster``, (b)
-    ``run_tcp_inproc``, (c) ``run_bindings``. Returns (b)'s kernel rows."""
+    ``run_tcp_inproc``, (c) ``run_bindings``, those of ``parts``. Returns
+    (b)'s kernel rows."""
     t0 = time.perf_counter()
-    run_tcp_cluster(card)
-    _inproc, rows = run_tcp_inproc(card)
-    run_bindings(card)
-    log(f"real-process phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    rows: list = []
+    if "a" in parts:
+        run_tcp_cluster(card)
+    if "b" in parts:
+        _inproc, rows = run_tcp_inproc(card)
+    if "c" in parts:
+        run_bindings(card)
+    log(f"real-process phase ({parts}): {time.perf_counter() - t0:.1f} s [{card}]")
     return rows
 
 
@@ -6101,6 +6415,40 @@ def profile_only(card: str, history: bool = False, reshard: bool = False, rebase
         log(json.dumps({"rebase": rebases, "card": card}))
 
 
+# the phases after 1 (the card) and 2 (the build) in a whole run's order (6
+# is the results), and what each needs run before it
+PHASE_ORDER = (3, 4, 5, 7, 18, 19, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+PHASE_NEEDS = {4: (3,), 5: (4,), 10: (3, 7), 12: (8,), 18: (7,), 19: (7,)}
+TCP_PARTS = "abc"
+
+
+def phase_plan(spec: str | None) -> tuple[set, str]:
+    """The phases a run takes after 1 and 2, for ``--phases`` ``spec`` (a
+    comma list of phase numbers; 16a, 16b and 16c name phase 16's parts):
+    each named phase with what it needs (``PHASE_NEEDS``), and the parts of
+    phase 16. None: every phase, every part."""
+    if spec is None:
+        return set(PHASE_ORDER), TCP_PARTS
+    todo, parts = [], ""
+    for tok in filter(None, (t.strip() for t in spec.split(","))):
+        m = re.fullmatch(r"(\d+)([abc]*)", tok)
+        if not m or int(m[1]) not in PHASE_ORDER or (m[2] and m[1] != "16"):
+            raise ValueError(f"--phases: no phase {tok!r} (phases {', '.join(map(str, PHASE_ORDER))}; "
+                             f"16a, 16b, 16c)")
+        todo.append(int(m[1]))
+        if m[1] == "16":
+            parts += m[2] or TCP_PARTS
+    if not todo:
+        raise ValueError("--phases: no phase named")
+    run = set()
+    while todo:
+        p = todo.pop()
+        if p not in run:
+            run.add(p)
+            todo += PHASE_NEEDS.get(p, ())
+    return run, "".join(x for x in TCP_PARTS if x in parts)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-only", action="store_true",
@@ -6121,19 +6469,20 @@ def main() -> int:
     ap.add_argument("--exchange-only", action="store_true",
                     help="phases 1, 2 and the spread's launch alone on two groups of phase 7's workload, "
                          "each layout's last group timed card by card (an A/B of the cross-card exchange)")
-    ap.add_argument("--tcp-only", action="store_true",
-                    help="phases 1, 2 and 16 alone: the card, the kernels' build and the "
-                         "real-process cluster")
+    ap.add_argument("--phases", metavar="LIST",
+                    help="phases 1 and 2, then only the phases named (a comma list such as "
+                         "11,13,16b,19; 16a, 16b and 16c are phase 16's parts) with what they need "
+                         "(phase 3's workload and oracle, phase 7 for 10, 18 and 19, 4 for 5, 8 for 12), "
+                         "in a whole run's order; their kernel rows and no result line")
+    ap.add_argument("--tcp-only", action="store_true", help="--phases 16: the real-process cluster")
     ap.add_argument("--spread-only", action="store_true",
-                    help="phases 1, 2, 7 and 18 alone (with the oracle of phase 3): the card, the "
-                         "kernels' build, the partitioned resolver on one stack and spread")
+                    help="--phases 18: the partitioned resolver on one stack and spread")
     ap.add_argument("--data-only", action="store_true",
-                    help="phases 1, 2, 7 and 19 alone (with the oracle of phase 3): the card, the "
-                         "kernels' build, the partitioned resolver on one stack and over part x data, "
-                         "and the multi-card dry runs")
+                    help="--phases 19: the partitioned resolver on one stack and over part x data, and "
+                         "the multi-card dry runs")
     ap.add_argument("--btree-only", action="store_true",
-                    help="phases 1, 2 and 17 alone: the card, the kernels' build, the port's lint and "
-                         "its B-tree engine with K5's index rebuilt from it")
+                    help="--phases 17: the port's lint and its B-tree engine with K5's index rebuilt "
+                         "from it")
     ap.add_argument("--tcp-loader", nargs=4, metavar=("COORDINATOR", "LO", "HI", "ACTORS"),
                     help="(phase 16's load client processes) load keys [LO, HI) and print one JSON line")
     ap.add_argument("--tcp-mix", nargs=argparse.REMAINDER,
@@ -6143,6 +6492,10 @@ def main() -> int:
         log(json.dumps(tcp_mix(sys.argv[2:])))
         return 0
     args = ap.parse_args()
+    try:
+        phase_plan(args.phases)
+    except ValueError as e:
+        ap.error(str(e))
     if args.tcp_loader:
         coord, lo, hi, actors = args.tcp_loader
         log(json.dumps(tcp_loader(coord, int(lo), int(hi), int(actors))))
@@ -6171,11 +6524,13 @@ def main() -> int:
     # versions start so that group 2 crosses now - base >= 2^30: the int32
     # origin is rebased mid-run (K4b) as in a cluster up for ~20 minutes
     offset = (1 << 30) - 1 - (2 * GROUP + WINDOW)
+    aliases = {"16": args.tcp_only, "17": args.btree_only, "18": args.spread_only, "19": args.data_only}
+    spec = args.phases or next((k for k, on in aliases.items() if on), None)
+    run, tcp_parts = phase_plan(spec)
+    alone = args.scan_only or args.exchange_only
     # phase 3's references, in two spawned child processes from here on, so
-    # that they run beside the build (a whole run only)
-    only = (args.spread_only or args.data_only or args.scan_only or args.tcp_only or args.btree_only
-            or args.exchange_only)
-    references = None if only else start_references(offset)
+    # that they run beside the build (where phase 4 runs)
+    references = start_references(offset) if 4 in run and not alone else None
 
     # 2. build every kernel from the checkout's sources
     kernels.build.load()
@@ -6184,15 +6539,6 @@ def main() -> int:
         for line in text.splitlines():
             if "Used" in line:
                 log(f"  ptxas {src}: {line.split('info    :')[-1].strip()}")
-    if args.spread_only or args.data_only:
-        want_oracle = oracle_verdicts(make_batches(N_BATCHES, N_TXNS, offset), offset)
-        mesh_rows, spread_batches, phase7 = run_mesh(want_oracle, offset, card)
-        then = run_spread if args.spread_only else run_data
-        rows = mesh_rows + then(spread_batches, want_oracle, offset, phase7, card)
-        log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
-        log(json.dumps({"kernels": path_rows(rows)}))
-        log(card)
-        return 0
     if args.exchange_only:
         exchange_only(card)
         log(f"script: {time.perf_counter() - t_script:.1f} s [{card}]")
@@ -6201,147 +6547,165 @@ def main() -> int:
         scan_only(card)
         log(f"script: {time.perf_counter() - t_script:.1f} s [{card}]")
         return 0
-    if args.tcp_only or args.btree_only:
-        # 16 or 17 alone, after the build above
-        rows = run_real_process(card) if args.tcp_only else run_phase17(card)
-        log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
-        log(json.dumps({"kernels": path_rows(rows)}))
-        log(card)
-        return 0
+    if spec is not None:
+        log(f"phases 1, 2 and {', '.join(str(p) for p in PHASE_ORDER if p in run)} (16: {tcp_parts}) [{card}]")
 
+    rows, index_rows, mesh_rows, spread_rows, data_rows, storage_rows = [], [], [], [], [], []
+    commit_rows, dynamic_rows, soak_rows, tcp_rows, btree_rows = [], [], [], [], []
+    batches = spread_batches = want = want_oracle = phase7 = cs = warm = state_g1 = hbatch = None
     # 3. workload, warm-up group; the CPU plain path and the oracle from
     # their child processes, both done before the timed path starts
-    t0 = time.perf_counter()
-    batches = make_batches(N_BATCHES, N_TXNS, offset)
-    log(f"workload {N_BATCHES}x{N_TXNS} made in {time.perf_counter() - t0:.1f} s")
-
-    warm = TorchConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY)
-    warm.warm_compile()
-    drive(warm, batches[:GROUP], offset)
-    state_g1 = warm._state  # the state after the first group
-    nxt = GROUP
-    hbatch, _n, _epoch = warm.encode(batches[nxt])
-    vers = (offset + nxt + WINDOW - warm._base,
-            max(warm.oldest_version - warm._base, 0),
-            max(max(warm.oldest_version, offset + nxt) - warm._base, 0))
-    want, want_oracle = finish_references(references)
-    log(f"the CPU plain path and the oracle (child processes) ready {time.perf_counter() - t_script:.1f} s "
-        f"after the script started")
+    if 3 in run:
+        t0 = time.perf_counter()
+        batches = make_batches(N_BATCHES, N_TXNS, offset)
+        log(f"workload {N_BATCHES}x{N_TXNS} made in {time.perf_counter() - t0:.1f} s")
+    if 4 in run:
+        warm = TorchConflictSet(key_width=KEY_WIDTH, capacity=CAPACITY)
+        warm.warm_compile()
+        drive(warm, batches[:GROUP], offset)
+        state_g1 = warm._state  # the state after the first group
+        nxt = GROUP
+        hbatch, _n, _epoch = warm.encode(batches[nxt])
+        vers = (offset + nxt + WINDOW - warm._base,
+                max(warm.oldest_version - warm._base, 0),
+                max(max(warm.oldest_version, offset + nxt) - warm._base, 0))
+        want, want_oracle = finish_references(references)
+        log(f"the CPU plain path and the oracle (child processes) ready {time.perf_counter() - t_script:.1f} s "
+            f"after the script started")
+    elif 7 in run:  # the oracle alone, in this process
+        want_oracle = oracle_verdicts(batches or make_batches(N_BATCHES, N_TXNS, offset), offset)
 
     # 4. the main path on the card; counts set to 0 just before it
-    cs = new_conflict_set("torch1", key_width=KEY_WIDTH, capacity=CAPACITY)
-    cs.warm_compile()
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    got, encode_s = drive(cs, batches, offset, force_at=2, force=lambda c: c._reshard(c._state))
-    wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    snap = cs.metrics.snapshot()
+    if 4 in run:
+        cs = new_conflict_set("torch1", key_width=KEY_WIDTH, capacity=CAPACITY)
+        cs.warm_compile()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, encode_s = drive(cs, batches, offset, force_at=2, force=lambda c: c._reshard(c._state))
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        snap = cs.metrics.snapshot()
 
-    if len(got) != N_BATCHES or any(len(v) != N_TXNS for v in got):
-        raise AssertionError("main path returned verdicts of the wrong shape")
-    bad = sum(a != b for vg, vc in zip(got, want) for a, b in zip(vg, vc))
-    if bad:
-        raise AssertionError(f"{bad} verdicts differ from the CPU plain path")
-    bad = sum(a != b for vg, vo in zip(got, want_oracle) for a, b in zip(vg, vo))
-    if bad:
-        raise AssertionError(f"{bad} verdicts differ from the oracle")
-    if snap["rebases"] < 1 or snap["reshardsDevice"] < 1:
-        raise AssertionError(f"rebase/device reshard not exercised: {snap}")
-    path = RESOLVE_PATH + ("maint_reshard", "maint_rebase")
-    missing = [k for k in path if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    one_launch_a_group(launches, snap, N_BATCHES // GROUP, "the main path")
-    txns = N_BATCHES * N_TXNS
-    aborts = sum(v != 0 for vg in got for v in vg)
-    log(f"main path: {wall:.3f} s, {txns / wall:.1f} txn/s end to end "
-        f"({txns / max(wall - encode_s, 1e-9):.1f} txn/s without {encode_s:.3f} s "
-        f"of host encode), abort rate {aborts / txns:.4f} [{card}]")
-    log("verdicts: all equal to the CPU plain path and to the oracle")
-    log("launches on the main path: " + json.dumps(launches))
-    log("kernel metrics: " + json.dumps(snap, default=str))
-    profile_path(cs, make_batches(PROFILE_BATCHES, N_TXNS, offset + N_BATCHES, seed=1),
-                 offset + N_BATCHES, "one grid", card)
+        if len(got) != N_BATCHES or any(len(v) != N_TXNS for v in got):
+            raise AssertionError("main path returned verdicts of the wrong shape")
+        bad = sum(a != b for vg, vc in zip(got, want) for a, b in zip(vg, vc))
+        if bad:
+            raise AssertionError(f"{bad} verdicts differ from the CPU plain path")
+        bad = sum(a != b for vg, vo in zip(got, want_oracle) for a, b in zip(vg, vo))
+        if bad:
+            raise AssertionError(f"{bad} verdicts differ from the oracle")
+        if snap["rebases"] < 1 or snap["reshardsDevice"] < 1:
+            raise AssertionError(f"rebase/device reshard not exercised: {snap}")
+        path = RESOLVE_PATH + ("maint_reshard", "maint_rebase")
+        missing = [k for k in path if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the main path: {missing}")
+        one_launch_a_group(launches, snap, N_BATCHES // GROUP, "the main path")
+        txns = N_BATCHES * N_TXNS
+        aborts = sum(v != 0 for vg in got for v in vg)
+        log(f"main path: {wall:.3f} s, {txns / wall:.1f} txn/s end to end "
+            f"({txns / max(wall - encode_s, 1e-9):.1f} txn/s without {encode_s:.3f} s "
+            f"of host encode), abort rate {aborts / txns:.4f} [{card}]")
+        log("verdicts: all equal to the CPU plain path and to the oracle")
+        log("launches on the main path: " + json.dumps(launches))
+        log("kernel metrics: " + json.dumps(snap, default=str))
+        profile_path(cs, make_batches(PROFILE_BATCHES, N_TXNS, offset + N_BATCHES, seed=1),
+                     offset + N_BATCHES, "one grid", card)
 
     # 5. each kernel against its plain version, at the main path's shapes
-    log(f"kernel checks on the state after the first group [{card}]:")
-    rows = check_kernels(state_g1, hbatch, vers, launches)
-    log(f"the group scan against the loop of standalone kernels and the plain loop [{card}]:")
-    scan_rows = check_scans(state_g1, batches, offset, warm, launches, card)
-    rows += scan_rows[:1]
+    if 5 in run:
+        log(f"kernel checks on the state after the first group [{card}]:")
+        rows = check_kernels(state_g1, hbatch, vers, launches)
+        log(f"the group scan against the loop of standalone kernels and the plain loop [{card}]:")
+        scan_rows = check_scans(state_g1, batches, offset, warm, launches, card)
+        rows += scan_rows[:1]
 
     # 7. the partitioned resolver
-    mesh_rows, spread_batches, phase7 = run_mesh(want_oracle, offset, card)
-    scan_rows[1]["launches"] = phase7["launches"]["resolve_many"]
-    mesh_rows += scan_rows[1:]
+    if 7 in run:
+        mesh_rows, spread_batches, phase7 = run_mesh(want_oracle, offset, card)
+        if 5 in run:
+            scan_rows[1]["launches"] = phase7["launches"]["resolve_many"]
+            mesh_rows += scan_rows[1:]
     # 18. the partitioned resolver spread over the cards of the host, while
     # phase 7's workload, final state and the oracle's verdicts are alive
-    spread_rows = run_spread(spread_batches, want_oracle, offset, phase7, card)
+    if 18 in run:
+        spread_rows = run_spread(spread_batches, want_oracle, offset, phase7, card)
     # 19. the mesh's data axis: the multi-card dry runs, phase 7's workload
     # through part x data, and a group of wide reads split over data
-    data_rows = run_data(spread_batches, want_oracle, offset, phase7, card)
-    del phase7
+    if 19 in run:
+        data_rows = run_data(spread_batches, want_oracle, offset, phase7, card)
+    phase7 = None
     # 8. the range index
-    index_rows, index_lookups_s = run_range_index(card)
+    if 8 in run:
+        index_rows, index_lookups_s = run_range_index(card)
     # 9. the shapes past the bench's: many ranges a transaction, wide keys
-    run_limits(card)
+    if 9 in run:
+        run_limits(card)
     # 10. the resolver role over both device paths, then the port's native
-    t_phase = time.perf_counter()
-    reqs = resolver_requests(batches, offset)
-    # the smoke keeps millions of its own objects alive (the workloads, the
-    # oracle's verdicts, the requests): move them out of the collector's
-    # scans, or a full collection stalls every thread of a run for a second
-    # and more, inside the resolver's dispatch deadline
-    gc.collect()
-    gc.freeze()
-    device_kw = {"key_width": KEY_WIDTH, "capacity": CAPACITY}
-    # the one grid pinned (torch1), then what torch builds on this host
-    # (the spread over every card where there are more than one)
-    for backend, threads in (("torch1", 1), ("torch", 0)):
-        run_resolver(backend, reqs, want_oracle, card, threads, **device_kw)
-    run_resolver("native", reqs, want_oracle, card)
-    reqs = resolver_requests(spread_batches, offset)
-    for threads in (1, 0):
-        run_resolver("torch_mesh", reqs, want_oracle, card, threads, n_parts=4, **device_kw)
-    del reqs
-    log(f"resolver phase: {time.perf_counter() - t_phase:.1f} s")
+    if 10 in run:
+        t_phase = time.perf_counter()
+        reqs = resolver_requests(batches, offset)
+        # the smoke keeps millions of its own objects alive (the workloads, the
+        # oracle's verdicts, the requests): move them out of the collector's
+        # scans, or a full collection stalls every thread of a run for a second
+        # and more, inside the resolver's dispatch deadline
+        gc.collect()
+        gc.freeze()
+        device_kw = {"key_width": KEY_WIDTH, "capacity": CAPACITY}
+        # the one grid pinned (torch1), then what torch builds on this host
+        # (the spread over every card where there are more than one)
+        for backend, threads in (("torch1", 1), ("torch", 0)):
+            run_resolver(backend, reqs, want_oracle, card, threads, **device_kw)
+        run_resolver("native", reqs, want_oracle, card)
+        reqs = resolver_requests(spread_batches, offset)
+        for threads in (1, 0):
+            run_resolver("torch_mesh", reqs, want_oracle, card, threads, n_parts=4, **device_kw)
+        del reqs
+        log(f"resolver phase: {time.perf_counter() - t_phase:.1f} s")
     # 11. a device loss: failover to the port's native and back, one batch
     # at a time and with every batch in flight
-    run_failover(card, pipelined=False)
-    run_failover(card, pipelined=True)
+    if 11 in run:
+        run_failover(card, pipelined=False)
+        run_failover(card, pipelined=True)
 
     # 12. the storage role: tlog -> storage server on the port's Sim, its
     # reads through K5; the earlier phases' objects go first
-    del batches, spread_batches, want, want_oracle, cs, warm, state_g1, hbatch
+    batches = spread_batches = want = want_oracle = cs = warm = state_g1 = hbatch = None
     gc.collect()
-    _storage, storage_rows = run_storage(card, index_lookups_s)
+    if 12 in run:
+        _storage, storage_rows = run_storage(card, index_lookups_s)
     # 13. the commit path: client -> proxy -> master -> resolver -> tlog ->
     # storage in the port's static Cluster, its CPU twin first
-    _commit, commit_rows = run_commit_path(card)
+    if 13 in run:
+        _commit, commit_rows = run_commit_path(card)
     # 14. the dynamic cluster: coordinators -> cluster controller -> master
     # recovery -> recruited resolvers and storage, through a master kill, a
     # storage reboot and a storage death; its CPU twin first
-    _dynamic, dynamic_rows = run_dynamic_cluster(card)
+    if 14 in run:
+        _dynamic, dynamic_rows = run_dynamic_cluster(card)
     # 15. the chaos soak: tools.soak.run_one on the card, seed by seed, each
     # held to its CPU twin
-    _soak, soak_rows = run_soak(card)
+    if 15 in run:
+        _soak, soak_rows = run_soak(card)
     # 16. the real-process cluster: fdbserver processes over TCP with their
     # resolvers and storage on the card, the same layout in this process,
     # and the bindingtester streams
-    tcp_rows = run_real_process(card)
+    if 16 in run:
+        tcp_rows = run_real_process(card, tcp_parts)
     # 17. the port's lint over the checkout, and its B-tree engine: load,
     # commit, reopen, and K5's index rebuilt on the card from its rows
-    btree_rows = run_phase17(card)
+    if 17 in run:
+        btree_rows = run_phase17(card)
 
     # 6. results
     log(f"script: {time.perf_counter() - t_script:.1f} s to the results [{card}]")
     log(json.dumps({"kernels": path_rows(rows + index_rows + mesh_rows + spread_rows + data_rows + storage_rows
                                          + commit_rows + dynamic_rows + soak_rows + tcp_rows + btree_rows)}))
     log(card)
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                           "count": torch.cuda.device_count()}}))
+    if spec is None:
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                               "count": torch.cuda.device_count()}}))
     return 0
 
 

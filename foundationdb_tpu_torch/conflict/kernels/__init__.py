@@ -15,12 +15,15 @@ is the same scan over every entry of a spread on a card, one launch a card
 (``spread_plan``), every card's launch prepared before any is issued, the
 cards' history verdicts exchanged inside the launches through a
 ``SpreadExchange`` (each card's inbox in its own memory over NVLink, or in
-mapped host memory where the cards lack peer access).
+mapped host memory where the cards lack peer access). The spreads of one
+process reach every card they share in one order: their launches are
+issued under one lock (``_spread_issue``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -1042,13 +1045,28 @@ def _spread_prepare(plan: SpreadPlan, c: int, checked: _Checked, batch, vers, S2
     return _Prepared(out, args, dev.index, plan_c.smem, plan_c.blocks, st.cuda_stream, scratch)
 
 
+# Held while one spread's launches are issued: a launch waits inside the
+# card for the other cards' launches of its spread, so two spreads queued on
+# two shared cards in opposite orders (A, B on one; B, A on the other) would
+# each wait for a launch queued behind the other's until the bound. Under
+# the lock every spread's launches reach all its cards before the next
+# spread's. Each card takes them on one stream, the issuing thread's
+# current one (every thread's is the card's default stream unless it sets
+# another), so a card's queue order is the issue order.
+_SPREAD_LAUNCH_LOCK = threading.Lock()
+
+
 def _spread_issue(prepared: list) -> None:
-    """The prepared launches issued back to back, in one C call."""
+    """The prepared launches issued back to back, in one C call, under the
+    process's spread lock (held for the issue only: the launches run and
+    are collected without it)."""
     n = len(prepared)
-    _run("fdb_spread_launch", n, (ctypes.c_void_p * n)(*(ctypes.addressof(p.args) for p in prepared)),
-         (ctypes.c_int * n)(*(p.device for p in prepared)), (ctypes.c_int * n)(*(p.smem for p in prepared)),
-         (ctypes.c_int * n)(*(p.blocks for p in prepared)), (ctypes.c_void_p * n)(*(p.stream for p in prepared)))
-    resolve_many_spread.launches += n
+    args = ((ctypes.c_void_p * n)(*(ctypes.addressof(p.args) for p in prepared)),
+            (ctypes.c_int * n)(*(p.device for p in prepared)), (ctypes.c_int * n)(*(p.smem for p in prepared)),
+            (ctypes.c_int * n)(*(p.blocks for p in prepared)), (ctypes.c_void_p * n)(*(p.stream for p in prepared)))
+    with _SPREAD_LAUNCH_LOCK:
+        _run("fdb_spread_launch", n, *args)
+        resolve_many_spread.launches += n
 
 
 def _spread_launches(plan: SpreadPlan, cards: list, entries: list, reads: list, batches: list, vers: list,

@@ -543,14 +543,33 @@ ScanKernel scan_kernel(int L) {
 
 ScanKernel kernel_of(const ScanArgs& A) { return A.spread ? scan_kernel<true>(A.L) : scan_kernel<false>(A.L); }
 
+// ``kernel``'s dynamic shared memory opted into on the current card at the
+// most the card allows it, not at the ``smem`` (at most that) of this
+// launch: the attribute is the card's, shared by every thread of the
+// process, so every setter writes the same value, and no launch checked on
+// one thread finds its cap lowered to another launch's smaller ``smem`` by
+// the time it is issued (a spread prepares every card's launch before it
+// issues any). cudaErrorInvalidValue where ``smem`` does not fit
+int opt_in(ScanKernel kernel, int smem) {
+    int dev = 0, most = 0;
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return (int)err;
+    const int room = most - (int)fa.sharedSizeBytes;
+    if (smem < 0 || smem > room) return (int)cudaErrorInvalidValue;
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, room);
+}
+
 // CTAs of the L-lane kernel co-resident on one SM with ``smem`` bytes of
 // dynamic shared memory (the spread's kernel, which takes as many
 // registers and no more shared memory), and the SMs of the current device
 int occupancy(int L, int smem, int* per_sm, int* sms) {
     const ScanKernel kernel = scan_kernel<true>(L);
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kScanThreads, (size_t)smem);
+    int e = opt_in(kernel, smem);
+    if (e) return e;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kScanThreads, (size_t)smem);
     if (err != cudaSuccess) return (int)err;
     int dev = 0;
     err = cudaGetDevice(&dev);
@@ -559,8 +578,8 @@ int occupancy(int L, int smem, int* per_sm, int* sms) {
 }
 
 // the shared arguments' checks (and the kernel's shared memory opted
-// into, on the current device): cudaErrorInvalidValue where the kernel
-// does not take them
+// into, on the current device: ``opt_in``): cudaErrorInvalidValue where
+// the kernel does not take them
 int check(ScanArgs& A, int smem, int blocks) {
     const int W = (A.T + 31) / 32;
     if (A.E < 1 || A.E > kMaxEntries || (!A.spread && (A.E > 1 || A.n_cards > 1)) || A.G < 1 || A.P < 1
@@ -578,7 +597,7 @@ int check(ScanArgs& A, int smem, int blocks) {
         A.vec = A.vec && (uintptr_t)A.ent[e].grid % 16 == 0;
     }
     A.lgB2 = __builtin_ctz((unsigned)A.B2);
-    return (int)cudaFuncSetAttribute(kernel_of(A), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return opt_in(kernel_of(A), smem);
 }
 
 // the cooperative launch of ``A`` (checked) on ``blocks`` CTAs, which must

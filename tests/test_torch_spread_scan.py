@@ -10,9 +10,10 @@ threshold's neighbourhood; then the launch planner ``kernels.spread_plan``
 (cards, entry tables, inboxes, pressure rows), the exchange's inbox
 layout and its (epoch, bits) words against ``sharded.exchange`` and the
 JAX mesh's ``pmax``, its transport from a peer matrix, the order in which
-a group's launches are checked, prepared and issued, the exchange
-timeout's fault class and its bound, the resolver's dispatch deadline,
-none of which needs a card."""
+a group's launches are checked, prepared and issued, the one order two
+spreads issued from two threads take on every card they share, the
+exchange timeout's fault class and its bound, the resolver's dispatch
+deadline, none of which needs a card."""
 
 import os
 import random
@@ -474,6 +475,78 @@ def test_every_cards_launch_is_checked_and_prepared_before_any_is_issued(monkeyp
     assert outs == [0, 1, 2, 3]
     assert events == ([("check", c) for c in range(4)] + [("reserve", 4)] + [("prepare", c) for c in range(4)]
                       + [("issue", 4)])
+
+
+def test_two_spreads_on_the_same_cards_reach_every_card_in_one_order(monkeypatch):
+    """Two threads issue a spread each over the same four cards. The C call
+    that issues a spread's launches loops over its cards; here a stand-in
+    records (card, spread) per launch and, for the spread issued first,
+    parks after its first card until the other has issued two (a barrier
+    that gives up after a second). Without an order between the issues
+    card 0 queues A before B and card 1 B before A, each launch then waiting
+    for one queued behind the other's; every card must queue them in one
+    order."""
+    import ctypes
+    import threading
+
+    monkeypatch.setattr(kernels, "_spread_check", lambda plan, c, *a: c)
+    monkeypatch.setattr(kernels, "_spread_prepare", lambda plan, c, checked, batch, vers, S2, inboxes, epoch, *a:
+                        kernels._Prepared((epoch, c), ctypes.c_uint64(epoch), c, 0, 0, 0, None))
+    queued = {c: [] for c in range(4)}
+    first_in = threading.Event()
+    park = threading.Barrier(2, timeout=1.0)
+
+    def wait():
+        try:
+            park.wait()
+        except threading.BrokenBarrierError:
+            pass  # the other spread is not issuing beside this one
+
+    def run(name, n, args, devices, smem, blocks, streams):
+        assert name == "fdb_spread_launch"
+        spread = ctypes.c_uint64.from_address(args[0]).value
+        first = spread == 1
+        if first:
+            first_in.set()
+        else:
+            wait()
+        for i in range(n):
+            queued[devices[i]].append(spread)
+            if first and i == 0 or not first and i == 1:
+                wait()
+
+    monkeypatch.setattr(kernels, "_run", run)
+
+    class Exchange:
+        def __init__(self, epoch):
+            self.epoch = epoch
+
+        def next_epoch(self):
+            return self.epoch
+
+        def reserve(self, layout):
+            return [0] * layout.cards
+
+    plan, entries, reads, batches, vers = _spread_inputs(4)
+    errors = []
+
+    def issue(epoch):
+        try:
+            outs = kernels.resolve_many_spread(plan, entries, reads, batches, vers, S2, Exchange(epoch),
+                                               timeout_s=1.0)
+            assert outs == [(epoch, c) for c in range(4)]
+        except BaseException as e:  # surfaced below, on the test's thread
+            errors.append(e)
+
+    a = threading.Thread(target=issue, args=(1,))
+    a.start()
+    assert first_in.wait(10.0)
+    b = threading.Thread(target=issue, args=(2,))
+    b.start()
+    a.join(20.0)
+    b.join(20.0)
+    assert not errors, errors
+    assert queued == {c: [1, 2] for c in range(4)}
 
 
 @pytest.mark.parametrize("bad_card", [0, 3])
